@@ -38,6 +38,39 @@ Phases (any failure exits nonzero; nothing is caught):
    causal attention over unpaged K/V, whole prompt at once), within an
    absolute 0.1 (the logits have a standard deviation of about 1.3; bf16
    activations round at different points in the two paths).
+5. Megakernel vs plain: one step of the megakernel at Qwen3-8B widths cut
+   to 2 layers, batch 4, t_tile = page = 128, a shuffled block table and
+   per-row lengths 0 (parked, table row 0), 1025, 700 and 130, against
+   its plain interpreter on copies of the same arena and pools. Both
+   round every task's output to bf16 but sum in different orders, so a
+   value may land one bf16 unit of last place (2**-7 relative at most)
+   away, and each later norm and projection carries such flips on: over
+   the two layers' 30 task boundaries they add up like a random walk (the
+   phase prints the largest difference of every activation region: one
+   or two units at each, and 0.047 at most on the logits, whose standard
+   deviation is 1.28, on an H100 80GB HBM3 at 700 W). So: logits within 0.1 + 2**-6 |want|
+   (two units of the logit on top of twice that drift) and each row's
+   RMS error within 2e-2 of its logits' RMS (the drift reads 0.3-0.7 %);
+   written K/V rows within 3e-2 + 2**-6 |want| (two units at |K| < 4);
+   every other pool row unchanged bit for bit. Controls: the kernel is
+   run again with one fault planted in its inputs (a page of another
+   row, a length one off, layer 0's KV heads 0 and 1 swapped) and must
+   fail those limits against the sound plain logits. On the same card
+   they read max |dlogit| 2.0-6.5 and 38-104 % RMS error on the faulted
+   rows, so both limits sit between the sound run and the faults.
+6. Serve on the megakernel lane: full-width 36-layer Qwen3-8B, random
+   weights from seed 0, 4 slots, page 128; four prompts of 300, 200, 100
+   and 60 tokens streamed one token per tick through the prefill lane,
+   then 64 greedy tokens each. Every tick must be one megakernel launch
+   and the layer lane's kernels must not launch. Then torch.profiler over
+   five decode ticks, and the step's time at lengths 0/1025/700/130
+   against its bound and its plain interpreter.
+7. Megakernel end to end: the lane at 2 layers and full width; the
+   logits of the first two generated tokens against the plain forward of
+   phase 4, within an absolute 0.15: the layer lane's 0.1, plus the
+   megakernel's logits, which it stores in the bf16 arena (half a unit
+   of last place, up to 0.016 at |logit| < 8), and its bf16 rounding of
+   every norm and residual output.
 
 The last lines of output: one JSON object with every kernel's numbers,
 the card's name and power limit as nvidia-smi gives them, then
@@ -61,6 +94,11 @@ TOL_DECODE = (5e-3, 2.0 ** -7)       # (absolute, relative to |want|)
 TOL_DECODE_SLOT_RMS = 1e-2
 TOL_QBLOCK = (2e-2, 2.0 ** -6)
 TOL_LOGITS = 0.1
+TOL_MK_LOGITS = (1e-1, 2.0 ** -6)
+TOL_MK_ROW_RMS = 2e-2
+TOL_MK_KV = (3e-2, 2.0 ** -6)
+TOL_MK_SERVED = 0.15
+MK_LENS = (0, 1025, 700, 130)      # row 0 parked on the scratch page
 
 
 def fail(msg: str) -> None:
@@ -114,15 +152,22 @@ def check_close(label, got, want, tol) -> float:
 
 
 def build_kernels():
+    from triton_dist_tpu_torch.megakernel import builder as mkb
     from triton_dist_tpu_torch.utils import build
 
     t0 = time.perf_counter()
-    log = build.build("paged_attention.cu")
-    print(f"[build] nvcc {time.perf_counter() - t0:.1f} s -> {build.BUILD_DIR}")
-    for line in log.splitlines():
-        if ("registers" in line or "spill" in line or "smem" in line
-                or "Compiling entry" in line):
-            print(f"[ptxas] {line.strip()}")
+    logs = build.build_all(["paged_attention.cu", "megakernel.cu",
+                            "megakernel_scheduler.cc"])
+    print(f"[build] nvcc x2 + g++ in parallel {time.perf_counter() - t0:.1f} "
+          f"s -> {build.BUILD_DIR}")
+    for source in ("paged_attention.cu", "megakernel.cu"):
+        for line in logs[source].splitlines():
+            if ("registers" in line or "spill" in line or "smem" in line
+                    or "Compiling entry" in line):
+                print(f"[ptxas] {source}: {line.strip()}")
+    mk_smem = build.load("megakernel.cu").tdt_megakernel_smem_bytes()
+    print(f"[smem] megakernel_kernel {mk_smem} B/block (dynamic); "
+          f"{mkb.grid_blocks(0)} blocks per launch (resident on every SM)")
     # Both kernels take their shared memory dynamically (ptxas does not
     # report it): rows = 4 query heads per KV head for decode, 32 (query,
     # head) rows for the Q-block kernel.
@@ -245,8 +290,6 @@ def record_logits(srv, steps):
 
 def serve_phase():
     from triton_dist_tpu_torch import Engine, ModelConfig
-    from triton_dist_tpu_torch.ops import paged_flash_decode as pfd
-    from triton_dist_tpu_torch.ops import paged_flash_qblock as pfq
 
     cfg = ModelConfig.qwen3_8b()
     serve_kw = dict(num_slots=4, page=32, prefill_buckets=(128, 512))
@@ -267,13 +310,12 @@ def serve_phase():
                for n in lens]
     srv = eng.serving(**serve_kw)
     first = record_logits(srv, {0})
-    pfd.KERNEL.launches = 0
-    pfq.KERNEL.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     outs = srv.generate(prompts, max_new_tokens=64)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"decode": pfd.KERNEL.launches, "qblock": pfq.KERNEL.launches}
+    launches = read_counts()
     st = srv.stats()
     print(f"[serve] {st['completed']} requests in {wall:.2f} s; "
           f"decode dispatches {st['decode_dispatches']}, prefill chunks "
@@ -294,7 +336,8 @@ def serve_phase():
     L = cfg.num_hidden_layers
     if (launches["decode"] != L * st["decode_dispatches"]
             or launches["qblock"] != L * st["prefill_chunks"]
-            or min(launches.values()) == 0):
+            or launches["megakernel"] != 0
+            or min(launches["decode"], launches["qblock"]) == 0):
         fail(f"main path bypassed a kernel: launches {launches}, "
              f"{L} layers x {st['decode_dispatches']} decode steps / "
              f"{st['prefill_chunks']} chunks")
@@ -302,6 +345,25 @@ def serve_phase():
     del srv, eng
     torch.cuda.empty_cache()
     return launches, st
+
+
+def launch_counters() -> dict:
+    """Every kernel wrapper's launch counter, by the kernels line's key."""
+    from triton_dist_tpu_torch.megakernel import builder as mkb
+    from triton_dist_tpu_torch.ops import paged_flash_decode as pfd
+    from triton_dist_tpu_torch.ops import paged_flash_qblock as pfq
+
+    return {"decode": pfd.KERNEL, "qblock": pfq.KERNEL,
+            "megakernel": mkb.KERNEL}
+
+
+def zero_counts() -> None:
+    for kernel in launch_counters().values():
+        kernel.launches = 0
+
+
+def read_counts() -> dict:
+    return {key: k.launches for key, k in launch_counters().items()}
 
 
 def profile_serving(eng, prompts, serve_kw, ticks: int = 5):
@@ -319,7 +381,7 @@ def profile_serving(eng, prompts, serve_kw, ticks: int = 5):
     profile_window(srv, ticks, "decode ticks")
 
 
-def profile_window(srv, ticks: int, label: str) -> None:
+def profile_window(srv, ticks: int, label: str) -> dict:
     """Trace ``ticks`` serving ticks with torch.profiler and split device
     time by kernel family; idle share = 1 - device busy time / host wall
     time of the window (the profiler slows the host, so it overstates
@@ -335,13 +397,15 @@ def profile_window(srv, ticks: int, label: str) -> None:
             srv.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    fam = {"attention": 0.0, "gemm": 0.0, "other": 0.0}
+    fam = {"megakernel": 0.0, "attention": 0.0, "gemm": 0.0, "other": 0.0}
     kernels = [ev for ev in prof.key_averages()
                if ev.device_type == DeviceType.CUDA]
     for ev in kernels:
         t = ev.self_device_time_total / 1e3
         name = ev.key.lower()
-        if "paged_" in name:
+        if "megakernel" in name:
+            fam["megakernel"] += t
+        elif "paged_" in name:
             fam["attention"] += t
         elif any(k in name for k in ("gemm", "gemv", "xmma", "nvjet",
                                      "cutlass", "splitk")):
@@ -359,6 +423,10 @@ def profile_window(srv, ticks: int, label: str) -> None:
     for ev in top[:6]:
         print(f"[profile]   {ev.self_device_time_total / 1e3 / ticks:8.3f} "
               f"ms/tick  x{ev.count // ticks:<4d} {ev.key[:90]}")
+    return {"launches_per_tick": sum(e.count for e in kernels) / ticks,
+            "wall_ms": wall_ms / ticks, "busy_ms": busy / ticks,
+            "idle_share": 1 - busy / wall_ms,
+            "megakernel_ms": fam["megakernel"] / ticks}
 
 
 def plain_last_logits(params, cfg, toks):
@@ -416,6 +484,280 @@ def parity_phase():
     return worst
 
 
+def time_events(fn, reps: int, warmup: int = 1) -> float:
+    """Mean device time (ms) between CUDA events recorded just before and
+    just after each call of ``fn`` (each call is a whole decode step,
+    whose weights do not fit the 50 MB L2, so no flush is needed)."""
+    for _ in range(warmup):
+        fn()
+    spans = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        spans.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in spans) / reps
+
+
+def mk_inputs(mb, num_pages, dev, seed):
+    """Random bf16 pools (history for the rows to attend), a shuffled
+    block table whose row 0 (the parked row) is all scratch page, random
+    tokens, and the per-row lengths MK_LENS."""
+    cfg = mb.cfg
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shape = (cfg.num_hidden_layers, num_pages, mb.page,
+             cfg.num_key_value_heads, cfg.head_dim)
+    kc = torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16)
+    vc = torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16)
+    rng = np.random.RandomState(seed)
+    table = (rng.permutation(num_pages - 1)[:mb.batch * mb.p_max]
+             + 1).astype(np.int32)
+    table[:mb.p_max] = 0
+    toks = rng.randint(0, cfg.vocab_size, mb.batch).astype(np.int32)
+    return kc, vc, toks, np.array(MK_LENS, np.int32), table
+
+
+def mk_kernel_phase():
+    """The megakernel against its plain interpreter, one step at Qwen3-8B
+    widths cut to 2 layers."""
+    from triton_dist_tpu_torch import ModelConfig
+    from triton_dist_tpu_torch.megakernel import builder as mkb
+    from triton_dist_tpu_torch.models import dense
+
+    dev = torch.device("cuda", 0)
+    cfg = dataclasses.replace(ModelConfig.qwen3_8b(), num_hidden_layers=2)
+    mb = mkb.ModelBuilder(cfg, batch=4, max_len=2048, t_tile=128,
+                          paged=True, page=128)
+    params = dense.init_params(
+        cfg, generator=torch.Generator(device=dev).manual_seed(2),
+        device=dev, dtype=torch.bfloat16)
+    arena = mb.pack_arena(params, dtype=torch.bfloat16, device=dev)
+    del params
+    kc, vc, toks, lens, table = mk_inputs(mb, 1 + 4 * mb.p_max, dev, 3)
+    k0, v0 = kc.clone(), vc.clone()
+    a2, k2, v2 = arena.clone(), kc.clone(), vc.clone()
+    got = mb.step(arena, kc, vc, toks, lens, table)
+    want = mb.plain_step(a2, k2, v2, toks, lens, table)
+    torch.cuda.synchronize()
+    print(f"[mk-kernel] {len(mb.graph.tasks)} tasks at 2 layers, lengths "
+          f"{list(MK_LENS)}, logit std {want.std().item():.3f}")
+    # Where the two drift apart: every activation region, in task order.
+    drift = []
+    for r in mb.schema.regions():
+        if r.kind == "activation":
+            d = (arena[r.offset:r.offset + r.rows].float()
+                 - a2[r.offset:r.offset + r.rows].float()).abs().max()
+            drift.append(f"{r.name} {d.item():.3g}")
+    print("[mk-kernel] max |kernel - plain| by activation: "
+          + ", ".join(drift))
+    err = check_close("mk-kernel logits", got, want, TOL_MK_LOGITS)
+    rel = row_rms(got, want)
+    print(f"[mk-kernel] per-row RMS error / RMS logits "
+          f"{[f'{r:.2e}' for r in rel.tolist()]} (tol {TOL_MK_ROW_RMS})")
+    if not bool((rel <= TOL_MK_ROW_RMS).all()):
+        fail("megakernel: a row's logits stray from the plain version")
+    written = (k2 != k0) | (v2 != v0)
+    errs = [check_close(f"mk-kernel {name} rows", got_p[written],
+                        want_p[written], TOL_MK_KV)
+            for name, got_p, want_p in (("K", kc, k2), ("V", vc, v2))]
+    rows = int(written.any(-1).sum())
+    if not (torch.equal(kc[~written], k0[~written])
+            and torch.equal(vc[~written], v0[~written])
+            and rows <= 2 * 4 * cfg.num_key_value_heads):
+        fail(f"megakernel wrote pool rows the plain version did not ({rows})")
+    del a2, kc, vc, k2, v2
+    mk_fault_controls(mb, arena, k0, v0, toks, lens, table, want)
+    del arena, k0, v0
+    torch.cuda.empty_cache()
+    return dict(err=max([err] + errs))
+
+
+def row_rms(got, want):
+    """Each row's RMS error over the RMS of its plain logits."""
+    return ((got - want).pow(2).mean(1).sqrt()
+            / want.pow(2).mean(1).sqrt())
+
+
+def mk_fault_controls(mb, arena, k0, v0, toks, lens, table, want):
+    """The limits above must catch a wrong page, position or head: the
+    kernel runs on inputs with one such fault planted, and its logits are
+    held against the plain version's on the sound inputs (``want``).
+    Fails if a fault passes both the logit and the row-RMS limit."""
+    b, p_max = mb.batch, mb.p_max
+    bad_table = table.reshape(b, p_max).copy()
+    bad_table[1, 2] = bad_table[2, 2]     # row 1 reads one of row 2's pages
+    bad_lens = lens.copy()
+    bad_lens[3] += 1                      # row 3 one position off
+    swap = [1, 0] + list(range(2, mb.kv_loc))
+    faults = (
+        ("page", k0, v0, lens, bad_table.reshape(-1)),
+        ("position", k0, v0, bad_lens, table),
+        # Layer 0's KV heads 0 and 1 trade places: a wrong GQA head.
+        ("head", torch.cat([k0[:1, :, :, swap], k0[1:]]),
+         torch.cat([v0[:1, :, :, swap], v0[1:]]), lens, table))
+    for name, kc, vc, lens_f, table_f in faults:
+        got = mb.step(arena, kc.clone(), vc.clone(), toks, lens_f, table_f)
+        torch.cuda.synchronize()
+        diff = (got - want).abs()
+        err = diff.max().item()
+        atol, rtol = TOL_MK_LOGITS
+        logits_ok = bool((diff <= atol + rtol * want.abs()).all())
+        rel = row_rms(got, want)
+        rows_ok = bool((rel <= TOL_MK_ROW_RMS).all())
+        print(f"[mk-control] {name} fault: max |dlogit| {err:.3e} (limit "
+              f"{atol} + {rtol}|want|: {'passes' if logits_ok else 'caught'})"
+              f", per-row RMS error / RMS logits "
+              f"{[f'{r:.2e}' for r in rel.tolist()]} (limit {TOL_MK_ROW_RMS}"
+              f": {'passes' if rows_ok else 'caught'})")
+        if logits_ok and rows_ok:
+            fail(f"megakernel limits do not catch a planted {name} fault")
+
+
+def mk_step_bound(mb, lens):
+    """Least time of one step at per-row ``lens``: the weight rows (the
+    embedding only for the batch's rows), the K/V rows attended and
+    written, and the bf16 logits, over 3.35 TB/s; and its operations."""
+    cfg, b = mb.cfg, mb.batch
+    weight_rows = sum(r.rows for r in mb.schema.regions("weight")
+                      if r.name != "embed")
+    kv_row = cfg.num_hidden_layers * cfg.num_key_value_heads * cfg.head_dim
+    keys = sum(int(n) + 1 for n in lens)
+    nbytes = (weight_rows * mb.w * 2 + b * cfg.hidden_size * 2
+              + (keys + b) * kv_row * 2 * 2 + b * mb.vloc_tiles * mb.w * 2)
+    flops = (2 * b * weight_rows * mb.w
+             + 4 * keys * cfg.num_attention_heads * cfg.head_dim
+             * cfg.num_hidden_layers)
+    return bound(nbytes, flops)
+
+
+def mk_serve_phase(layer_st):
+    """Serve Qwen3-8B at full depth on the megakernel lane."""
+    from triton_dist_tpu_torch import ModelConfig, ServingEngine
+    from triton_dist_tpu_torch.megakernel import MegaKernelEngine
+
+    cfg = ModelConfig.qwen3_8b()
+    t0 = time.perf_counter()
+    eng = MegaKernelEngine(cfg, batch=4, max_len=2048, t_tile=128,
+                           paged=True, page=128, num_pages=1 + 4 * 16,
+                           device="cuda", dtype=torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    mb = eng.builder
+    print(f"[mk-serve] Qwen3-8B megakernel engine in "
+          f"{time.perf_counter() - t0:.1f} s: {len(mb.graph.tasks)} tasks, "
+          f"{len(mb.preds)} pruned edges, arena {mb.arena_rows} x {mb.w} "
+          f"bf16, {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    ServingEngine(eng).generate([[7] * 3], max_new_tokens=2)   # warm-up
+
+    rng = np.random.RandomState(0)
+    prompts = [[int(t) for t in rng.randint(0, cfg.vocab_size, n)]
+               for n in (300, 200, 100, 60)]
+    srv = ServingEngine(eng)
+    zero_counts()
+    t0 = time.perf_counter()
+    outs = srv.generate(prompts, max_new_tokens=64)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    st = srv.stats()
+    print(f"[mk-serve] {st['completed']} requests in {wall:.2f} s; "
+          f"decode dispatches {st['decode_dispatches']}, kernel launches "
+          f"{launches}")
+    print(f"[mk-serve] {torch.cuda.get_device_name(0)}: "
+          f"{st['tokens_per_s']:.1f} tokens/s (stats(): emitted tokens over "
+          f"dispatch time, {st['decode_time_s']:.2f} s for "
+          f"{st['decode_dispatches']} ticks, "
+          f"{1e3 * st['decode_time_s'] / st['decode_dispatches']:.2f} ms per "
+          f"tick with the prompts' lane ticks); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"[mk-serve] yardstick, NOT the same function: the layer lane's "
+          f"decode tick took "
+          f"{1e3 * layer_st['decode_time_s'] / layer_st['decode_dispatches']:.2f}"
+          f" ms on average in this call (36 layers x ~100 launches)")
+    if [len(o) for o in outs] != [64] * 4:
+        fail(f"requests did not finish with 64 tokens: {[len(o) for o in outs]}")
+    if not all(0 <= t < cfg.vocab_size for o in outs for t in o):
+        fail("token id out of range")
+    if (launches["megakernel"] != st["decode_dispatches"]
+            or launches["megakernel"] == 0
+            or launches["decode"] != 0 or launches["qblock"] != 0):
+        fail(f"megakernel lane bypassed its kernel: launches {launches}, "
+             f"{st['decode_dispatches']} decode dispatches")
+
+    # Five decode ticks with all four slots running, on a fresh server.
+    srv = ServingEngine(eng)
+    for p in prompts:
+        srv.submit(p, max_new_tokens=64)
+    while any(h.status != "running" for h in srv.sched.running()) or \
+            srv.sched.queue:
+        srv.step()
+    prof = profile_window(srv, 5, "megakernel decode ticks")
+
+    dev = torch.device("cuda", 0)
+    _, _, toks, lens, table = mk_inputs(mb, eng.num_pages, dev, 4)
+    host = mb._host_inputs(eng.k_cache, toks, lens, table)
+    k_ms = time_events(lambda: mb.launch(eng.arena, eng.k_cache, eng.v_cache,
+                                         *host), reps=10)
+    p_ms = time_events(lambda: mb.plain_step(eng.arena, eng.k_cache,
+                                             eng.v_cache, toks, lens, table),
+                       reps=2)
+    b_ms, b_by = mk_step_bound(mb, lens)
+    print(f"[mk-step] full-depth step at lengths {list(MK_LENS)}: kernel_ms "
+          f"{k_ms:.4f} plain_ms {p_ms:.4f} bound_ms {b_ms:.4f} ({b_by}); "
+          f"{mb.batch} rows x {len(mb.claim_list)} claims per launch")
+    # The same step with (almost) nothing to attend: what is not attention.
+    short = np.array([0, 1, 2, 3], np.int32)
+    host = mb._host_inputs(eng.k_cache, toks, short, table)
+    s_ms = time_events(lambda: mb.launch(eng.arena, eng.k_cache, eng.v_cache,
+                                         *host), reps=10)
+    print(f"[mk-step] full-depth step at lengths {short.tolist()}: kernel_ms "
+          f"{s_ms:.4f} bound_ms {mk_step_bound(mb, short)[0]:.4f}; so "
+          f"attention costs {(k_ms - s_ms) / (sum(MK_LENS) - 6):.4f} ms per "
+          "attended key per step")
+    del srv, eng
+    torch.cuda.empty_cache()
+    return dict(launches=launches, st=st, prof=prof, ms=k_ms, plain_ms=p_ms,
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def mk_parity_phase():
+    """Served megakernel logits against the plain forward, 2 layers."""
+    from triton_dist_tpu_torch import ModelConfig, ServingEngine
+    from triton_dist_tpu_torch.megakernel import MegaKernelEngine
+
+    cfg = dataclasses.replace(ModelConfig.qwen3_8b(), num_hidden_layers=2)
+    eng = MegaKernelEngine(cfg, batch=4, max_len=1024, t_tile=128,
+                           paged=True, page=128, num_pages=1 + 4 * 8,
+                           device="cuda", dtype=torch.bfloat16, seed=1,
+                           keep_params=True)
+    srv = ServingEngine(eng)
+    seen = record_logits(srv, {0, 1})
+    rng = np.random.RandomState(1)
+    prompts = [[int(t) for t in rng.randint(0, cfg.vocab_size, n)]
+               for n in (700, 60)]
+    handles = [srv.submit(p, max_new_tokens=2) for p in prompts]
+    srv.run()
+    worst = 0.0
+    for h, p in zip(handles, prompts):
+        for step, seq in ((0, p), (1, p + h.tokens[:1])):
+            served = seen[(h.request.request_id, step)]
+            plain = plain_last_logits(eng.params, cfg, seq).cpu().numpy()
+            err = float(np.abs(served - plain).max())
+            worst = max(worst, err)
+            print(f"[mk-parity] prompt {len(p)} step {step}: max |dlogit| "
+                  f"{err:.4f} (tol {TOL_MK_SERVED}), logit std "
+                  f"{plain.std():.3f}, argmax served {int(served.argmax())} "
+                  f"plain {int(plain.argmax())}")
+            if not (np.isfinite(served).all() and err <= TOL_MK_SERVED):
+                fail(f"megakernel logits disagree with the plain forward: "
+                     f"{err}")
+    del srv, eng
+    torch.cuda.empty_cache()
+    return worst
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs the card")
@@ -432,8 +774,11 @@ def main():
 
     build_kernels()
     numbers = kernel_phase()
-    launches, _ = serve_phase()
+    numbers["megakernel"] = mk_kernel_phase()
+    launches, layer_st = serve_phase()
     parity_phase()
+    mk = mk_serve_phase(layer_st)
+    mk_parity_phase()
 
     rows = []
     for key, name, replaces in (
@@ -449,6 +794,15 @@ def main():
             "max_abs_err": num["err"], "ms": num["ms"],
             "plain_ms": num["plain_ms"], "bound_ms": num["bound_ms"],
             "bound_by": num["bound_by"], "library_ms": None})
+    # No single PyTorch call computes a decode step: library_ms is null.
+    rows.append({
+        "name": "megakernel_kernel", "route": "cuda",
+        "source": "triton_dist_tpu_torch/csrc/megakernel.cu",
+        "replaces": "triton_dist_tpu/megakernel/builder.py:1157",
+        "launches": mk["launches"]["megakernel"],
+        "max_abs_err": numbers["megakernel"]["err"], "ms": mk["ms"],
+        "plain_ms": mk["plain_ms"], "bound_ms": mk["bound_ms"],
+        "bound_by": mk["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

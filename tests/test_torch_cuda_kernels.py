@@ -13,11 +13,39 @@ bf16 and the plain version rounds probabilities to bf16 before P·V where
 the kernels keep them in fp32, so decode must lie within
 5e-3 + 2**-7 |plain| (one bf16 unit of last place on top of 5e-3) and the
 Q-block kernel, whose early queries average few V rows and reach [2, 4),
-within 2e-2 + 2**-6 |plain| (two units)."""
+within 2e-2 + 2**-6 |plain| (two units).
 
+The megakernel (``csrc/megakernel.cu``) is held against its plain
+interpreter on the same arena and pools at tile width = head_dim = 128,
+2 layers, hidden 256, vocab 1024, an odd batch of 3 with a parked row and
+a shuffled block table, paged and dense, static and dynamic claim lists.
+Both round every task's output to bf16 but sum in different orders, so a
+value may land one bf16 unit of last place away and carry that into
+later tasks: the logits must lie within 2e-2 + 2**-6 |plain| and each
+row's RMS error within MK_ROW_RMS_TOL of its logits' RMS, the limit
+``chip_smoke.py`` holds Qwen3-8B widths to. The absolute limit is five
+times smaller than the smoke's 0.1 because the drift grows with the
+widths summed over: on an H100 it read at most 3.9e-3 (0.35 % row RMS)
+here against 0.047 (0.67 %) at Qwen3-8B widths, while the planted faults
+below read 0.41-1.5 (29-140 %). The written K/V rows must lie within
+3e-2 + 2**-6 |plain|; every pool row the step did not write must be
+unchanged, bit for bit. The same limits must fail the kernel when a
+wrong page, position or KV head is planted in its inputs. A wedged wait
+(a claim list missing a task) must raise naming the task, in a
+subprocess, since the kernel's trap costs the process its CUDA
+context."""
+
+import pathlib
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
 import pytest
 import torch
 
+from triton_dist_tpu_torch.megakernel import builder as mkb
+from triton_dist_tpu_torch.models import ModelConfig, dense
 from triton_dist_tpu_torch.ops import paged_flash_decode as pfd
 from triton_dist_tpu_torch.ops import paged_flash_qblock as pfq
 
@@ -110,3 +138,138 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="contiguous"):
         pfd.paged_flash_decode(q, kp.transpose(2, 3).contiguous()
                                .transpose(2, 3), vp, tbl, lens)
+
+
+MK_CFG = ModelConfig(vocab_size=1024, hidden_size=256, intermediate_size=384,
+                     num_hidden_layers=2, num_attention_heads=8,
+                     num_key_value_heads=2, head_dim=128)
+MK_LOGITS_TOL = (2e-2, 2.0 ** -6)
+MK_ROW_RMS_TOL = 2e-2
+MK_KV_TOL = (3e-2, 2.0 ** -6)
+
+
+def _mk_setup(dev, *, paged, schedule, seed=0):
+    b, max_len, page = 3, 256, 32
+    mb = mkb.ModelBuilder(MK_CFG, batch=b, max_len=max_len, t_tile=page,
+                          paged=paged, page=page if paged else None,
+                          schedule=schedule)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    params = dense.init_params(MK_CFG, generator=g, device=dev,
+                               dtype=torch.bfloat16)
+    arena = mb.pack_arena(params, dtype=torch.bfloat16, device=dev)
+    L, kv = MK_CFG.num_hidden_layers, MK_CFG.num_key_value_heads
+    shape = ((L, 1 + b * mb.p_max, page, kv, 128) if paged
+             else (L, b, max_len, kv, 128))
+    kc = torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16)
+    vc = torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16)
+    rng = np.random.RandomState(seed)
+    toks = rng.randint(0, MK_CFG.vocab_size, b).astype(np.int32)
+    if paged:
+        lens = np.array([0, 37, 130], np.int32)     # row 0 parked
+        table = (rng.permutation(b * mb.p_max) + 1).astype(np.int32)
+        table[:mb.p_max] = 0                        # scratch page
+    else:
+        lens = np.array([5, 37, 130], np.int32)
+        table = None
+    return mb, arena, kc, vc, toks, lens, table
+
+
+def _row_rms(got, want):
+    return ((got - want).pow(2).mean(1).sqrt()
+            / want.pow(2).mean(1).sqrt())
+
+
+@pytest.mark.parametrize("paged,schedule", [
+    (True, "static"), (True, "dynamic"), (False, "static"),
+    (False, "dynamic")])
+def test_megakernel_matches_plain(dev, paged, schedule):
+    mb, arena, kc, vc, toks, lens, table = _mk_setup(
+        dev, paged=paged, schedule=schedule)
+    kc0, vc0 = kc.clone(), vc.clone()
+    a2, k2, v2 = arena.clone(), kc.clone(), vc.clone()
+    before = mkb.KERNEL.launches
+    got = mb.step(arena, kc, vc, toks, lens, table)
+    assert mkb.KERNEL.launches == before + 1
+    want = mb.plain_step(a2, k2, v2, toks, lens, table)
+    rel = _row_rms(got, want)
+    print(f"[mk-card] paged={paged} {schedule}: max |dlogit| "
+          f"{(got - want).abs().max().item():.3e}, row RMS error / RMS "
+          f"{[f'{r:.2e}' for r in rel.tolist()]}")
+    _assert_close(got, want, MK_LOGITS_TOL)
+    assert bool((rel <= MK_ROW_RMS_TOL).all()), rel.tolist()
+    _assert_close(kc, k2, MK_KV_TOL)
+    _assert_close(vc, v2, MK_KV_TOL)
+    written = (k2 != kc0) | (v2 != vc0)
+    assert torch.equal(kc[~written], kc0[~written])
+    assert torch.equal(vc[~written], vc0[~written])
+    # One position per (layer, row, KV head) at most: 2 x 3 x 2 rows.
+    assert int(written.any(-1).sum()) <= 2 * 3 * 2
+
+
+@pytest.mark.parametrize("fault", ["page", "position", "head"])
+def test_megakernel_limits_catch_a_planted_fault(dev, fault):
+    """The kernel on inputs with one fault planted, against the plain
+    version on the sound inputs: the limits of the test above fail it."""
+    mb, arena, kc, vc, toks, lens, table = _mk_setup(
+        dev, paged=True, schedule="static")
+    want = mb.plain_step(arena.clone(), kc.clone(), vc.clone(), toks, lens,
+                         table)
+    if fault == "page":                 # row 2 reads row 1's first page
+        table = table.reshape(3, mb.p_max).copy()
+        table[2, 0] = table[1, 0]
+        table = table.reshape(-1)
+    elif fault == "position":           # row 2 one position off
+        lens = lens.copy()
+        lens[2] += 1
+    else:                               # layer 0's two KV heads swapped
+        kc[0] = kc[0, :, :, [1, 0]].clone()
+        vc[0] = vc[0, :, :, [1, 0]].clone()
+    got = mb.step(arena, kc, vc, toks, lens, table)
+    diff = (got - want).abs()
+    rel = _row_rms(got, want)
+    print(f"[mk-card] {fault} fault: max |dlogit| {diff.max().item():.3e}, "
+          f"row RMS error / RMS {[f'{r:.2e}' for r in rel.tolist()]}")
+    atol, rtol = MK_LOGITS_TOL
+    logits_ok = bool((diff <= atol + rtol * want.abs()).all())
+    assert not (logits_ok and bool((rel <= MK_ROW_RMS_TOL).all()))
+
+
+def test_megakernel_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    mb, arena, kc, vc, toks, lens, table = _mk_setup(
+        dev, paged=True, schedule="static")
+    with pytest.raises(TypeError):
+        mb.step(arena.float(), kc, vc, toks, lens, table)
+    with pytest.raises(ValueError, match="max_len"):
+        mb.step(arena, kc, vc, toks, np.array([0, 1, 256]), table)
+    wide = mkb.ModelBuilder(MK_CFG, batch=9, max_len=256, t_tile=32)
+    with pytest.raises(ValueError, match="batch 9"):
+        wide.check_kernel_args(arena, kc, vc)
+
+
+def test_megakernel_wedged_wait_raises(dev):
+    """A claim list without the first task (the embedding GATHER) leaves
+    its successors waiting: the first bounded wait to run out traps and
+    the wrapper raises naming the waiting task and the task it waited on,
+    instead of hanging."""
+    here = pathlib.Path(__file__).resolve()
+    script = textwrap.dedent("""
+        import importlib.util, sys
+        sys.path.insert(0, %r)
+        spec = importlib.util.spec_from_file_location("cuda_tests", %r)
+        t = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(t)
+        from triton_dist_tpu_torch.megakernel import builder as mkb
+        import torch
+        dev = torch.device("cuda", 0)
+        mb, arena, kc, vc, toks, lens, table = t._mk_setup(
+            dev, paged=True, schedule="static")
+        mb.claim_list = mb.claim_list[1:]
+        try:
+            mb.step(arena, kc, vc, toks, lens, table, timeout_s=0.5)
+        except mkb.MegakernelTimeoutError as e:
+            print("RAISED", e)
+    """) % (str(here.parents[1]), str(here))
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                         text=True, timeout=300)
+    assert "RAISED megakernel wait timed out: task " in out.stdout, out.stderr
+    assert "layer" in out.stdout and ") waited on task " in out.stdout

@@ -1,0 +1,699 @@
+"""ModelBuilder: a whole Qwen3 decode step as one task graph, scheduled
+natively and run as ONE persistent kernel (counterpart of
+``triton_dist_tpu/megakernel/builder.py``).
+
+The graph, the arena layout (offsets, tile-major ``(w, w)`` weight
+blocks, ``(batch, w)`` activation tiles, the logits region, the
+``(vocab * d_tiles, w)`` embedding rows) and the static and dynamic
+schedule tables are the JAX package's, built the same way, so they can be
+compared exactly. :meth:`ModelBuilder.step` then runs the step:
+
+- on CUDA tensors it launches ``megakernel_kernel``
+  (``csrc/megakernel.cu``), which replaces the Pallas
+  ``ModelBuilder._kernel`` (``triton_dist_tpu/megakernel/builder.py:1157``):
+  a cooperative launch of as many blocks as fit on the card at once, each
+  claiming tasks off an atomic counter in claim-list order, waiting on
+  its predecessors' done flags and running the task's body;
+- on CPU tensors it runs the plain interpreter: the same claim list in
+  order through the PyTorch task bodies of :mod:`.kernels`.
+
+This slice builds the dense decode step (``seq=1``), paged or dense, at
+one rank; batched prefill, the Q-block and chunk pairs, quantized pools,
+MoE, hybrid GDN and profiling are later slices (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from triton_dist_tpu_torch.megakernel import kernels as K
+from triton_dist_tpu_torch.megakernel.graph import Graph, comm_priority
+from triton_dist_tpu_torch.megakernel.scheduler import (
+    prune_deps, schedule_dyn, schedule_mc)
+from triton_dist_tpu_torch.megakernel.task import ARGS_MAX, TaskType
+from triton_dist_tpu_torch.models.config import ModelConfig
+from triton_dist_tpu_torch.utils.build import CudaKernel, load
+
+# ``KERNEL.launches`` counts launches of the CUDA megakernel.
+KERNEL = CudaKernel("megakernel.cu", "tdt_megakernel_bf16",
+                    [ctypes.c_void_p] * 12 + [ctypes.c_int] * 10
+                    + [ctypes.c_float, ctypes.c_float, ctypes.c_longlong])
+# What csrc/megakernel.cu is compiled for.
+KERNEL_TILE_W = 128
+KERNEL_HEAD_DIM = 128
+KERNEL_MAX_BATCH = 8
+KERNEL_MAX_GQA = 8            # query heads per KV head
+# Task types the CUDA kernel runs (the decode set).
+KERNEL_TYPES = frozenset({
+    TaskType.RMSNORM, TaskType.LINEAR, TaskType.ADD, TaskType.SILU_MUL,
+    TaskType.ATTN_DECODE, TaskType.WRITE_KV, TaskType.ALLREDUCE,
+    TaskType.GATHER})
+DEFAULT_TIMEOUT_S = 5.0
+
+
+class MegakernelTimeoutError(RuntimeError):
+    """A task of the megakernel waited past the timeout on a predecessor.
+    The kernel traps, so the CUDA context of the process is lost."""
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+# In-arena region kinds; the rest are named device buffers (the pools).
+ARENA_KINDS = ("weight", "activation", "workspace", "counter", "io")
+
+
+@dataclasses.dataclass(frozen=True)
+class ArenaRegion:
+    """One named region: ``rows`` rows at ``offset`` of the (rows, w)
+    arena, or a device buffer of ``shape``/``dtype`` beside it."""
+
+    name: str
+    kind: str
+    offset: int = 0
+    rows: int = 0
+    shape: Tuple[int, ...] = ()
+    dtype: str = "float32"
+
+    @property
+    def in_arena(self) -> bool:
+        return self.kind in ARENA_KINDS
+
+
+class ArenaSchema:
+    """The described memory layout of a build: every region by name, with
+    offset and rows (in the arena) or shape and dtype (device buffers)."""
+
+    def __init__(self, w: int):
+        self.w = int(w)
+        self._regions: Dict[str, ArenaRegion] = {}
+        self._cursor = 0
+
+    def alloc(self, name: str, rows: int, kind: str = "activation") -> int:
+        if kind not in ARENA_KINDS:
+            raise ValueError(f"kind {kind!r} is not an in-arena kind "
+                             f"{ARENA_KINDS}")
+        if name in self._regions:
+            raise ValueError(f"arena region {name!r} already allocated")
+        off = self._cursor
+        self._regions[name] = ArenaRegion(name=name, kind=kind, offset=off,
+                                          rows=int(rows))
+        self._cursor += int(rows)
+        return off
+
+    def add_buffer(self, name: str, shape, dtype, kind: str) -> None:
+        if kind in ARENA_KINDS:
+            raise ValueError(f"kind {kind!r} is an in-arena kind — use "
+                             "alloc()")
+        if name in self._regions:
+            raise ValueError(f"arena region {name!r} already allocated")
+        self._regions[name] = ArenaRegion(
+            name=name, kind=kind, shape=tuple(int(s) for s in shape),
+            dtype=str(dtype))
+
+    @property
+    def rows(self) -> int:
+        return self._cursor
+
+    def region(self, name: str) -> ArenaRegion:
+        return self._regions[name]
+
+    def regions(self, kind: Optional[str] = None):
+        return [r for r in self._regions.values()
+                if kind is None or r.kind == kind]
+
+    def check_disjoint(self) -> None:
+        """In-arena regions tile [0, rows) with no overlap and no gap."""
+        spans = sorted((r.offset, r.offset + r.rows, r.name)
+                       for r in self._regions.values() if r.in_arena)
+        at = 0
+        for start, end, name in spans:
+            if start != at:
+                kind = ("overlaps the previous region" if start < at
+                        else "leaves an unclaimed gap")
+                raise ValueError(f"arena region {name!r} at [{start}, "
+                                 f"{end}) {kind} (cursor was at {at})")
+            at = end
+        if at != self._cursor:
+            raise ValueError(f"arena regions cover {at} rows but the cursor "
+                             f"claims {self._cursor}")
+
+    def describe(self):
+        out = []
+        for r in self._regions.values():
+            if r.in_arena:
+                out.append({"name": r.name, "kind": r.kind,
+                            "offset": r.offset, "rows": r.rows})
+            else:
+                out.append({"name": r.name, "kind": r.kind,
+                            "shape": list(r.shape), "dtype": r.dtype})
+        return out
+
+
+class ModelBuilder:
+    """Builds the dense Qwen3 decode step as a megakernel.
+
+    ``schedule``: ``"static"`` (per-core slot lists packed by ``strategy``
+    onto ``num_cores`` queues, read in merged order) or ``"dynamic"`` (one
+    comm-priority-ordered claim list). Both are topological orders; the
+    CUDA kernel's blocks claim tasks in that order."""
+
+    def __init__(self, cfg: ModelConfig, *, batch: int, max_len: int,
+                 tile_w: Optional[int] = None, t_tile: Optional[int] = None,
+                 num_cores: int = 1, strategy: str = "round_robin",
+                 schedule: str = "static", paged: bool = False,
+                 page: Optional[int] = None):
+        if schedule not in ("static", "dynamic"):
+            raise ValueError(f"schedule must be 'static' or 'dynamic', "
+                             f"got {schedule!r}")
+        self.cfg = cfg
+        self.n = 1                       # tensor-parallel ranks
+        self.batch = batch
+        self.max_len = max_len
+        self.num_cores = num_cores
+        self.strategy = strategy
+        self.schedule = schedule
+        hd = cfg.head_dim
+        self.w = tile_w or max(128, hd)
+        if self.w % hd:
+            raise ValueError(f"tile width {self.w} must be a multiple of "
+                             f"head_dim {hd}")
+        self.t_tile = t_tile or min(128, max_len)
+        if max_len % self.t_tile:
+            raise ValueError(f"t_tile={self.t_tile} must divide "
+                             f"max_len={max_len}")
+        self.paged = paged
+        self.page = 0
+        self.p_max = 0
+        if paged:
+            self.page = page or self.t_tile
+            if self.page % self.t_tile or max_len % self.page:
+                raise ValueError(
+                    f"page={self.page} needs t_tile|page and page|max_len "
+                    f"(t_tile={self.t_tile}, max_len={max_len})")
+            self.p_max = max_len // self.page
+        if cfg.num_attention_heads % cfg.num_key_value_heads:
+            raise ValueError("num_attention_heads must be a multiple of "
+                             "num_key_value_heads")
+        self.h_loc = cfg.num_attention_heads
+        self.kv_loc = cfg.num_key_value_heads
+        self.d_tiles = _cdiv(cfg.hidden_size, self.w)
+        self.hq_tiles = _cdiv(self.h_loc * hd, self.w)
+        self.kv_tiles = _cdiv(self.kv_loc * hd, self.w)
+        self.ff_tiles = _cdiv(cfg.intermediate_size, self.w)
+        self._offsets: Dict[str, int] = {}
+        self.schema = ArenaSchema(self.w)
+        self.graph = Graph()
+        self._device_tables = {}
+        self._build()
+
+    # ---------------- arena layout -------------------------------------
+    def _alloc(self, name: str, rows: int, kind: str = "activation") -> int:
+        off = self.schema.alloc(name, rows, kind)
+        self._offsets[name] = off
+        return off
+
+    def _alloc_act(self, name: str, tiles: int) -> int:
+        return self._alloc(name, tiles * self.batch)
+
+    def _linear(self, in_off, w_off, out_off, k_tiles, n_tiles, *, layer,
+                in_rows, w_rows):
+        b = self.batch
+        for j in range(n_tiles):
+            self.graph.add(TaskType.LINEAR,
+                           (in_off, w_off, out_off, k_tiles, n_tiles, j),
+                           reads=[(in_off, in_rows), (w_off, w_rows)],
+                           writes=[(out_off + j * b, b)], layer=layer)
+
+    def _build(self):
+        cfg, b, w = self.cfg, self.batch, self.w
+        d_t, hq_t, kv_t, ff_t = (self.d_tiles, self.hq_tiles, self.kv_tiles,
+                                 self.ff_tiles)
+
+        def walloc(name, k_tiles, n_tiles):
+            return self._alloc(name, k_tiles * n_tiles * w, kind="weight")
+
+        def vecalloc(name, tiles):
+            return self._alloc(name, tiles, kind="weight")
+
+        self.vocab_loc = cfg.vocab_size
+        self.vloc_tiles = _cdiv(self.vocab_loc, w)
+        L = cfg.num_hidden_layers
+        for li in range(L):
+            walloc(f"l{li}.wq", d_t, hq_t)
+            walloc(f"l{li}.wk", d_t, kv_t)
+            walloc(f"l{li}.wv", d_t, kv_t)
+            walloc(f"l{li}.wo", hq_t, d_t)
+            walloc(f"l{li}.w_gate", d_t, ff_t)
+            walloc(f"l{li}.w_up", d_t, ff_t)
+            walloc(f"l{li}.w_down", ff_t, d_t)
+            vecalloc(f"l{li}.ln_attn", d_t)
+            vecalloc(f"l{li}.ln_mlp", d_t)
+            vecalloc(f"l{li}.q_norm", 1)
+            vecalloc(f"l{li}.k_norm", 1)
+        vecalloc("ln_f", d_t)
+        vecalloc("embed", self.vocab_loc * d_t)
+        walloc("lm_head_T", d_t, self.vloc_tiles)
+
+        # The allreduce workspace: unused at one rank, kept so the layout
+        # (and every offset after it) is the JAX package's.
+        ar_ws = (self._alloc("ar_ws", self.n * max(d_t, 1) * b,
+                             kind="workspace"), self.n * max(d_t, 1) * b)
+        x_off = self._alloc_act("x", d_t)
+        g, o = self.graph, self._offsets
+
+        g.add(TaskType.GATHER, (o["embed"], x_off, d_t, self.vocab_loc),
+              reads=[(o["embed"], self.vocab_loc * d_t)],
+              writes=[(x_off, d_t * b)])
+        g.add(TaskType.ALLREDUCE, (x_off, d_t), reads=[(x_off, d_t * b)],
+              writes=[(x_off, d_t * b), ar_ws])
+
+        for li in range(L):
+            t0 = self._alloc_act(f"l{li}.t0", d_t)
+            q = self._alloc_act(f"l{li}.q", hq_t)
+            kx = self._alloc_act(f"l{li}.k", kv_t)
+            vx = self._alloc_act(f"l{li}.v", kv_t)
+            attn = self._alloc_act(f"l{li}.attn", hq_t)
+            opart = self._alloc_act(f"l{li}.opart", d_t)
+            x1 = self._alloc_act(f"l{li}.x1", d_t)
+            t1 = self._alloc_act(f"l{li}.t1", d_t)
+            gx = self._alloc_act(f"l{li}.g", ff_t)
+            ux = self._alloc_act(f"l{li}.u", ff_t)
+            hx = self._alloc_act(f"l{li}.h", ff_t)
+            mpart = self._alloc_act(f"l{li}.mpart", d_t)
+            x2 = self._alloc_act(f"l{li}.x2", d_t)
+
+            g.add(TaskType.RMSNORM, (x_off, o[f"l{li}.ln_attn"], t0, d_t),
+                  reads=[(x_off, d_t * b), (o[f"l{li}.ln_attn"], d_t)],
+                  writes=[(t0, d_t * b)], layer=li)
+            self._linear(t0, o[f"l{li}.wq"], q, d_t, hq_t, layer=li,
+                         in_rows=d_t * b, w_rows=d_t * hq_t * w)
+            self._linear(t0, o[f"l{li}.wk"], kx, d_t, kv_t, layer=li,
+                         in_rows=d_t * b, w_rows=d_t * kv_t * w)
+            self._linear(t0, o[f"l{li}.wv"], vx, d_t, kv_t, layer=li,
+                         in_rows=d_t * b, w_rows=d_t * kv_t * w)
+            g.add(TaskType.WRITE_KV, (kx, vx, li, o[f"l{li}.k_norm"]),
+                  reads=[(kx, kv_t * b), (vx, kv_t * b),
+                         (o[f"l{li}.k_norm"], 1)],
+                  writes=[], layer=li)
+            # ATTN reads the cache WRITE_KV wrote: an explicit edge, as
+            # in the JAX builder (the pools are not arena regions).
+            attn_task = g.add(TaskType.ATTN_DECODE,
+                              (q, attn, li, o[f"l{li}.q_norm"]),
+                              reads=[(q, hq_t * b), (o[f"l{li}.q_norm"], 1)],
+                              writes=[(attn, hq_t * b)], layer=li)
+            attn_task.deps.append(g.tasks[-2].task_id)
+            self._linear(attn, o[f"l{li}.wo"], opart, hq_t, d_t, layer=li,
+                         in_rows=hq_t * b, w_rows=hq_t * d_t * w)
+            g.add(TaskType.ALLREDUCE, (opart, d_t),
+                  reads=[(opart, d_t * b)],
+                  writes=[(opart, d_t * b), ar_ws], layer=li)
+            g.add(TaskType.ADD, (x_off, opart, x1, d_t),
+                  reads=[(x_off, d_t * b), (opart, d_t * b)],
+                  writes=[(x1, d_t * b)], layer=li)
+            g.add(TaskType.RMSNORM, (x1, o[f"l{li}.ln_mlp"], t1, d_t),
+                  reads=[(x1, d_t * b), (o[f"l{li}.ln_mlp"], d_t)],
+                  writes=[(t1, d_t * b)], layer=li)
+            self._linear(t1, o[f"l{li}.w_gate"], gx, d_t, ff_t, layer=li,
+                         in_rows=d_t * b, w_rows=d_t * ff_t * w)
+            self._linear(t1, o[f"l{li}.w_up"], ux, d_t, ff_t, layer=li,
+                         in_rows=d_t * b, w_rows=d_t * ff_t * w)
+            g.add(TaskType.SILU_MUL, (gx, ux, hx, ff_t),
+                  reads=[(gx, ff_t * b), (ux, ff_t * b)],
+                  writes=[(hx, ff_t * b)], layer=li)
+            self._linear(hx, o[f"l{li}.w_down"], mpart, ff_t, d_t, layer=li,
+                         in_rows=ff_t * b, w_rows=ff_t * d_t * w)
+            g.add(TaskType.ALLREDUCE, (mpart, d_t),
+                  reads=[(mpart, d_t * b)],
+                  writes=[(mpart, d_t * b), ar_ws], layer=li)
+            g.add(TaskType.ADD, (x1, mpart, x2, d_t),
+                  reads=[(x1, d_t * b), (mpart, d_t * b)],
+                  writes=[(x2, d_t * b)], layer=li)
+            x_off = x2
+
+        out_off = self._alloc_act("x_final", d_t)
+        g.add(TaskType.RMSNORM, (x_off, o["ln_f"], out_off, d_t),
+              reads=[(x_off, d_t * b), (o["ln_f"], d_t)],
+              writes=[(out_off, d_t * b)])
+        logits_off = self._alloc("logits", self.vloc_tiles * b, kind="io")
+        self._linear(out_off, o["lm_head_T"], logits_off, d_t,
+                     self.vloc_tiles, layer=-1, in_rows=d_t * b,
+                     w_rows=d_t * self.vloc_tiles * w)
+        self.logits_off = logits_off
+        self.arena_rows = self.schema.rows
+        self.schema.check_disjoint()
+
+        src, dst = g.edges()
+        pin = np.array([0 if t.task_type == TaskType.ALLREDUCE else -1
+                        for t in g.tasks], np.int32)
+        cost = np.array([self._task_units(t) for t in g.tasks], np.int32)
+        if len(src):
+            psrc, pdst = prune_deps(len(g.tasks), src, dst)
+        else:
+            psrc = pdst = np.zeros(0, np.int32)
+        self._pruned_edges = (psrc, pdst)
+        self._pin, self._cost = pin, cost
+        if self.schedule == "dynamic":
+            self._schedule_dynamic(psrc, pdst, pin, cost)
+        else:
+            self._schedule_static(psrc, pdst, pin, cost)
+        self._emit_device_tables()
+
+    def _schedule_static(self, src, dst, pin, cost):
+        """Per-core slot lists packed by ``strategy``, NOOP-padded so the
+        merged (q-major) order respects every dependency."""
+        self.sched = schedule_mc(len(self.graph.tasks), src, dst,
+                                 num_cores=self.num_cores,
+                                 strategy=self.strategy, task_cost=cost,
+                                 pin_core=pin, dep_opt=False)
+        queue = self.sched["queue"]
+        self.qlen = queue.shape[0]
+        self._emit_slot_tables(queue.reshape(-1), queue.shape)
+
+    def _schedule_dynamic(self, src, dst, pin, cost):
+        """One comm-priority-ordered claim list (holes are -1)."""
+        prio, bkt, _ = comm_priority(self.graph.tasks, n_ranks=self.n,
+                                     task_cost=cost)
+        dyn = schedule_dyn(len(self.graph.tasks), src, dst,
+                           num_cores=self.num_cores, priority=prio,
+                           bucket=bkt, task_cost=cost, pin_core=pin,
+                           dep_opt=False)
+        self.sched = dyn
+        C = self.num_cores
+        self.qlen = _cdiv(max(dyn["n_claims"], 1), C)
+        claims = np.full(self.qlen * C, -1, np.int32)
+        claims[:dyn["n_claims"]] = dyn["claim_order"]
+        self.claims = claims.reshape(self.qlen, C)
+        self._emit_slot_tables(claims, self.claims.shape)
+
+    def _emit_slot_tables(self, qc, shape):
+        """Flat slot list (static merged queue or dynamic claim order) ->
+        the JAX kernel's per-slot type and arg tables, and the claim list
+        both step forms here run: the slot list without its NOOP holes, a
+        topological order of every task."""
+        g = self.graph
+        noop_args = [0] * ARGS_MAX
+        self.task_types = np.array(
+            [g.tasks[t].task_type if t >= 0 else int(TaskType.NOOP)
+             for t in qc], np.int32).reshape(shape)
+        self.task_args = np.array(
+            [g.tasks[t].encoded_args() if t >= 0 else noop_args
+             for t in qc], np.int32).reshape(*shape, ARGS_MAX)
+        self.claim_list = np.asarray(
+            [int(t) for t in np.asarray(qc).reshape(-1) if t >= 0], np.int32)
+
+    def _task_units(self, t) -> int:
+        """Static work-unit estimate per task (the JAX cost model)."""
+        if t.task_type == TaskType.LINEAR:
+            return int(t.args[3])
+        if t.task_type == TaskType.ATTN_DECODE:
+            return 4 * self.d_tiles
+        if t.task_type == TaskType.ALLREDUCE:
+            return 2 * int(t.args[1])
+        return 1
+
+    # ---------------- device contract ----------------------------------
+    def _emit_device_tables(self):
+        """Per task its type, its 8 args and its pruned predecessors as a
+        CSR list; with :attr:`claim_list`, all the kernel reads."""
+        tasks = self.graph.tasks
+        n = len(tasks)
+        self.type_of = np.array([int(t.task_type) for t in tasks], np.int32)
+        self.args_of = np.array([t.encoded_args() for t in tasks], np.int32)
+        psrc, pdst = self._pruned_edges
+        order = np.argsort(pdst, kind="stable")
+        self.preds = np.ascontiguousarray(psrc[order], np.int32)
+        self.pred_start = np.zeros(n + 1, np.int32)
+        np.cumsum(np.bincount(pdst, minlength=n), out=self.pred_start[1:])
+
+    def describe_task(self, t: int) -> str:
+        task = self.graph.tasks[t]
+        return (f"task {t} ({TaskType(task.task_type).name}, layer "
+                f"{task.layer}, args {list(task.args)})")
+
+    # ---------------- arena packing ------------------------------------
+    def pack_arena(self, params, *, dtype: torch.dtype = torch.float32,
+                   device=None) -> torch.Tensor:
+        """The (arena_rows, w) arena from a
+        :class:`~triton_dist_tpu_torch.models.dense.DenseLM`: the weight
+        region in the JAX package's layout and order, the activation
+        region zeroed. Port weights are ``(out, in)``; weight block
+        ``(kt, j)`` holds ``W.T[kt*w:(kt+1)*w, j*w:(j+1)*w]``."""
+        w = self.w
+        device = params.embed.device if device is None else device
+        arena = torch.zeros(self.arena_rows, w, dtype=dtype, device=device)
+
+        def tile(name, wt, k_tiles, n_tiles):
+            n_out, n_in = wt.shape
+            if (n_out, n_in) != (n_tiles * w, k_tiles * w):
+                padded = torch.zeros(n_tiles * w, k_tiles * w,
+                                     dtype=wt.dtype, device=wt.device)
+                padded[:n_out, :n_in] = wt
+                wt = padded
+            r = self.schema.region(name)
+            arena[r.offset:r.offset + r.rows].view(
+                k_tiles, n_tiles, w, w).copy_(
+                    wt.view(n_tiles, w, k_tiles, w).permute(2, 0, 3, 1))
+
+        def vec(name, v):
+            r = self.schema.region(name)
+            flat = arena[r.offset:r.offset + r.rows].view(-1)
+            flat[:v.shape[0]] = v
+
+        d_t, hq_t, kv_t, ff_t = (self.d_tiles, self.hq_tiles, self.kv_tiles,
+                                 self.ff_tiles)
+        with torch.no_grad():
+            for li, layer in enumerate(params.layers):
+                a, m = layer.attn, layer.mlp
+                tile(f"l{li}.wq", a.wq, d_t, hq_t)
+                tile(f"l{li}.wk", a.wk, d_t, kv_t)
+                tile(f"l{li}.wv", a.wv, d_t, kv_t)
+                tile(f"l{li}.wo", a.wo, hq_t, d_t)
+                tile(f"l{li}.w_gate", m.w_gate, d_t, ff_t)
+                tile(f"l{li}.w_up", m.w_up, d_t, ff_t)
+                tile(f"l{li}.w_down", m.w_down, ff_t, d_t)
+                vec(f"l{li}.ln_attn", layer.ln_attn)
+                vec(f"l{li}.ln_mlp", layer.ln_mlp)
+                vec(f"l{li}.q_norm", a.q_norm)
+                vec(f"l{li}.k_norm", a.k_norm)
+            vec("ln_f", params.ln_f)
+            r = self.schema.region("embed")
+            arena[r.offset:r.offset + r.rows].view(
+                self.vocab_loc, d_t * w)[:, :self.cfg.hidden_size] = \
+                params.embed
+            tile("lm_head_T", params.lm_head, d_t, self.vloc_tiles)
+        return arena
+
+    # ---------------- the step -----------------------------------------
+    def kernel_config(self) -> K.KernelConfig:
+        return K.KernelConfig(
+            w=self.w, batch=self.batch, h_loc=self.h_loc, kv_loc=self.kv_loc,
+            hd=self.cfg.head_dim, rope_theta=self.cfg.rope_theta,
+            rms_eps=self.cfg.rms_norm_eps, paged=self.paged, page=self.page,
+            p_max=self.p_max)
+
+    def logits(self, arena: torch.Tensor) -> torch.Tensor:
+        """The fp32 (batch, vocab) logits of the last step, read out of
+        the arena's logits region."""
+        b, w, lt = self.batch, self.w, self.vloc_tiles
+        rows = arena[self.logits_off:self.logits_off + lt * b]
+        return rows.view(lt, b, w).permute(1, 0, 2).reshape(
+            b, lt * w)[:, :self.vocab_loc].float()
+
+    def _host_inputs(self, k_cache, token_ids, cache_len, block_table):
+        b = self.batch
+        toks = np.asarray(torch.as_tensor(token_ids).cpu(),
+                          np.int64).reshape(-1)
+        lens = np.broadcast_to(np.asarray(
+            torch.as_tensor(cache_len).cpu(), np.int64).reshape(-1), (b,))
+        if toks.shape != (b,):
+            raise ValueError(f"token_ids {toks.shape} != ({b},)")
+        if lens.min() < 0 or lens.max() >= self.max_len:
+            raise ValueError(f"cache_len {lens.tolist()} outside "
+                             f"[0, max_len={self.max_len})")
+        if self.paged:
+            if block_table is None:
+                raise ValueError("a paged step needs its block table")
+            table = np.asarray(torch.as_tensor(block_table).cpu(),
+                               np.int64).reshape(-1)
+            if table.shape != (b * self.p_max,):
+                raise ValueError(f"block table {table.shape} != "
+                                 f"({b * self.p_max},)")
+            if table.min() < 0 or table.max() >= k_cache.shape[1]:
+                raise ValueError(f"block table ids outside the pool of "
+                                 f"{k_cache.shape[1]} pages")
+        else:
+            table = np.arange(b, dtype=np.int64)
+        return toks, np.array(lens), table
+
+    def step(self, arena, k_cache, v_cache, token_ids, cache_len,
+             block_table=None, *,
+             timeout_s: float = DEFAULT_TIMEOUT_S) -> torch.Tensor:
+        """One decode step, IN PLACE on ``arena`` and the pools.
+
+        arena: (arena_rows, w); k_cache/v_cache: (layers, num_pages, page,
+        kv, hd) paged or (layers, batch, max_len, kv, hd) dense; token_ids
+        (batch,); cache_len: a scalar or (batch,) per-row positions (each
+        row writes its K/V there and attends ``cache_len + 1`` keys);
+        block_table: the flat (batch * p_max,) page ids when paged. Returns
+        fp32 logits (batch, vocab).
+
+        CUDA tensors launch the megakernel on every block that fits on the
+        card and wait for it (``timeout_s`` bounds each wait in the
+        kernel, and one that runs out raises
+        :class:`MegakernelTimeoutError`); CPU tensors run the plain
+        interpreter."""
+        if arena.device.type == "cpu":
+            return self.plain_step(arena, k_cache, v_cache, token_ids,
+                                   cache_len, block_table)
+        toks, lens, table = self._host_inputs(k_cache, token_ids, cache_len,
+                                              block_table)
+        self.launch(arena, k_cache, v_cache, toks, lens, table,
+                    timeout_s=timeout_s)
+        self.wait(arena.device)
+        return self.logits(arena)
+
+    def plain_step(self, arena, k_cache, v_cache, token_ids, cache_len,
+                   block_table=None) -> torch.Tensor:
+        """The plain version of :meth:`step`, on tensors of any device:
+        the claim list in order through the PyTorch task bodies."""
+        toks, lens, table = self._host_inputs(k_cache, token_ids, cache_len,
+                                              block_table)
+        self.interpret(arena, k_cache, v_cache, toks, lens, table)
+        return self.logits(arena)
+
+    def interpret(self, arena, k_cache, v_cache, toks, lens, table) -> None:
+        """The plain version: the claim list in order through the PyTorch
+        task bodies (:data:`kernels.BODIES`)."""
+        st = K.StepState(arena=arena, k_cache=k_cache, v_cache=v_cache,
+                         tokens=[int(t) for t in toks],
+                         lens=[int(x) for x in lens],
+                         table=torch.as_tensor(table, dtype=torch.int64,
+                                               device=arena.device))
+        cfg = self.kernel_config()
+        tasks = self.graph.tasks
+        for t in self.claim_list:
+            task = tasks[t]
+            K.BODIES[task.task_type](cfg, task.args, st)
+
+    def check_kernel_args(self, arena, k_cache, v_cache) -> None:
+        """What ``csrc/megakernel.cu`` takes; raises on anything else."""
+        dev = arena.device
+        if dev.type != "cuda":
+            raise RuntimeError(f"the megakernel runs on CUDA tensors (got "
+                               f"{dev}); only CPU tensors take the plain "
+                               "version")
+        for t in (arena, k_cache, v_cache):
+            if t.device != dev or t.dtype != torch.bfloat16:
+                raise TypeError(f"expected bf16 tensors on {dev}, got "
+                                f"{t.dtype} on {t.device}")
+            if not t.is_contiguous() or t.data_ptr() % 16:
+                raise ValueError("the arena and the pools must be "
+                                 "contiguous and 16-byte aligned")
+        cfg = self.cfg
+        rep = self.h_loc // self.kv_loc
+        for ok, what in (
+                (self.w == KERNEL_TILE_W, f"tile width {self.w}"),
+                (cfg.head_dim == KERNEL_HEAD_DIM, f"head_dim {cfg.head_dim}"),
+                (self.batch <= KERNEL_MAX_BATCH, f"batch {self.batch}"),
+                (rep <= KERNEL_MAX_GQA, f"{rep} query heads per KV head")):
+            if not ok:
+                raise ValueError(
+                    f"{what}: csrc/megakernel.cu is compiled for tile width "
+                    f"{KERNEL_TILE_W} = head_dim {KERNEL_HEAD_DIM}, batch <= "
+                    f"{KERNEL_MAX_BATCH} and <= {KERNEL_MAX_GQA} query heads "
+                    "per KV head")
+        bad = set(TaskType(t) for t in np.unique(self.type_of)) - KERNEL_TYPES
+        if bad:
+            raise NotImplementedError(f"task types {sorted(bad)} have no "
+                                      "CUDA body (ROADMAP.md)")
+        if arena.shape != (self.arena_rows, self.w):
+            raise ValueError(f"arena {tuple(arena.shape)} != "
+                             f"({self.arena_rows}, {self.w})")
+        L, kv, hd = cfg.num_hidden_layers, self.kv_loc, cfg.head_dim
+        want = ((L, k_cache.shape[1], self.page, kv, hd) if self.paged
+                else (L, self.batch, self.max_len, kv, hd))
+        if tuple(k_cache.shape) != want or k_cache.shape != v_cache.shape:
+            raise ValueError(f"pools {tuple(k_cache.shape)} / "
+                             f"{tuple(v_cache.shape)} != {want}")
+
+    def _tables_on(self, device) -> dict:
+        tabs = self._device_tables.get(device)
+        if tabs is None:
+            def up(a):
+                return torch.as_tensor(np.ascontiguousarray(a, np.int32),
+                                       device=device)
+            tabs = {"claims": up(self.claim_list), "types": up(self.type_of),
+                    "args": up(self.args_of),
+                    "pred_start": up(self.pred_start),
+                    "preds": up(self.preds if len(self.preds) else [0]),
+                    "sync": torch.zeros(2 + len(self.graph.tasks),
+                                        dtype=torch.int32, device=device)}
+            self._device_tables[device] = tabs
+        return tabs
+
+    def launch(self, arena, k_cache, v_cache, toks, lens, table, *,
+               timeout_s: float = DEFAULT_TIMEOUT_S) -> None:
+        """One launch of the CUDA megakernel on the current stream."""
+        self.check_kernel_args(arena, k_cache, v_cache)
+        dev = arena.device
+        tabs = self._tables_on(dev)
+
+        def up(a):
+            return torch.as_tensor(np.asarray(a, np.int32), device=dev)
+
+        tok_d, len_d, tbl_d = up(toks), up(lens), up(table)
+        if self.paged:
+            num_pages, page, p_max = k_cache.shape[1], self.page, self.p_max
+        else:
+            num_pages, page, p_max = self.batch, self.max_len, 1
+        cfg = self.cfg
+        KERNEL.launch(
+            arena.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            tok_d.data_ptr(), len_d.data_ptr(), tbl_d.data_ptr(),
+            tabs["claims"].data_ptr(), tabs["types"].data_ptr(),
+            tabs["args"].data_ptr(), tabs["pred_start"].data_ptr(),
+            tabs["preds"].data_ptr(), tabs["sync"].data_ptr(),
+            len(self.claim_list), len(self.graph.tasks), self.batch, self.w,
+            cfg.head_dim, self.h_loc, self.kv_loc, num_pages, page, p_max,
+            cfg.rms_norm_eps, cfg.rope_theta,
+            int(timeout_s * 1e9), device=dev)
+
+    def wait(self, device) -> None:
+        """Wait for the launched step; a wait that timed out in the kernel
+        raises :class:`MegakernelTimeoutError` naming the task."""
+        try:
+            torch.cuda.current_stream(device).synchronize()
+        except RuntimeError as e:
+            rec = (ctypes.c_int * 4)()
+            read = load(KERNEL.source).tdt_megakernel_error
+            read.argtypes = [ctypes.POINTER(ctypes.c_int)]
+            read.restype = ctypes.c_int
+            if read(rec):
+                task, pred, claim = rec[1], rec[2], rec[3]
+                if pred < 0:
+                    raise MegakernelTimeoutError(
+                        f"megakernel: {self.describe_task(task)} has no CUDA "
+                        "body") from e
+                raise MegakernelTimeoutError(
+                    f"megakernel wait timed out: {self.describe_task(task)} "
+                    f"(claim {claim}) waited on "
+                    f"{self.describe_task(pred)}") from e
+            raise
+
+
+def grid_blocks(device) -> int:
+    """Blocks in one megakernel launch on ``device``: resident blocks per
+    SM (the occupancy API) times the SMs."""
+    fn = load(KERNEL.source).tdt_megakernel_grid
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    n = fn(torch.device(device).index or 0)
+    if n <= 0:
+        raise RuntimeError(f"occupancy query failed: CUDA error {-n}")
+    return n

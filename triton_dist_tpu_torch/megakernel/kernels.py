@@ -1,0 +1,257 @@
+"""Plain PyTorch task bodies of the megakernel (counterpart of
+``triton_dist_tpu/megakernel/kernels.py``).
+
+Each body computes what the JAX task body of the same name computes, on
+the same arena layout: activations as consecutive ``(batch, w)`` tiles,
+weights as tile-major ``(w, w)`` blocks, one ``(rows, w)`` arena. Math is
+fp32 inside a task; every output is rounded to the arena's (or the
+pool's) dtype when it is stored, as the CUDA kernel
+(``csrc/megakernel.cu``) rounds it. :meth:`ModelBuilder.step
+<triton_dist_tpu_torch.megakernel.builder.ModelBuilder.step>` runs these
+bodies over the claim list for CPU tensors; the CUDA kernel replaces them
+for CUDA tensors.
+
+This slice carries the dense decode set (``RMSNORM``, ``LINEAR``,
+``ADD``, ``SILU_MUL``, ``WRITE_KV``, ``ATTN_DECODE``, ``GATHER``,
+``ALLREDUCE`` at one rank, ``NOOP``); every other type raises
+``NotImplementedError`` naming its ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import List
+
+import torch
+
+from triton_dist_tpu_torch.megakernel.task import TaskType
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelConfig:
+    w: int                  # arena lane width (tile size)
+    batch: int              # decode batch B
+    h_loc: int              # attention heads
+    kv_loc: int             # KV heads
+    hd: int                 # head dim (divides w)
+    rope_theta: float
+    rms_eps: float
+    # KV addressing: paged pools (layers, num_pages, page, kv, hd) read
+    # through a flat (batch * p_max,) block table, or dense caches
+    # (layers, batch, max_len, kv, hd) indexed by batch row.
+    paged: bool = False
+    page: int = 0
+    p_max: int = 0
+
+
+@dataclasses.dataclass
+class StepState:
+    """What one decode step reads and writes: the arena, the K/V pools,
+    and the step's per-row scalars as host lists (tokens, per-row cache
+    lengths, the flat block table)."""
+    arena: torch.Tensor
+    k_cache: torch.Tensor
+    v_cache: torch.Tensor
+    tokens: List[int]
+    lens: List[int]
+    table: torch.Tensor      # flat int64 block table (paged) or unused
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _load(st: StepState, off: int, rows: int) -> torch.Tensor:
+    return st.arena[off:off + rows].float()
+
+
+def _store(st: StepState, off: int, x: torch.Tensor) -> None:
+    st.arena[off:off + x.shape[0]] = x.to(st.arena.dtype)
+
+
+def _heads(tiles: torch.Tensor, b: int, hd: int) -> torch.Tensor:
+    """(n_tiles * b, w) activation tiles -> (b, n_tiles * w // hd, hd)."""
+    n = tiles.shape[0] // b
+    return tiles.view(n, b, -1).permute(1, 0, 2).reshape(b, -1, hd)
+
+
+def _tiles(heads: torch.Tensor, w: int) -> torch.Tensor:
+    """(b, heads, hd) -> (n_tiles * b, w), the inverse of :func:`_heads`."""
+    b = heads.shape[0]
+    return heads.reshape(b, -1, w).permute(1, 0, 2).reshape(-1, w)
+
+
+def _kv_rows(cfg: KernelConfig, st: StepState, bb: int, positions):
+    """(pool slot, in-page offset) of row ``bb``'s cache ``positions``: a
+    block-table lookup when paged, the row itself when dense (the JAX
+    ``_kv_slice``)."""
+    if not cfg.paged:
+        return torch.full_like(positions, bb), positions
+    pids = st.table[bb * cfg.p_max + torch.div(positions, cfg.page,
+                                               rounding_mode="floor")]
+    return pids, positions % cfg.page
+
+
+def _rms_rows(x: torch.Tensor, w_row: torch.Tensor, eps: float):
+    """RMSNorm over the last dim of fp32 ``x`` with weight ``w_row``."""
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    return x * torch.rsqrt(var + eps) * w_row
+
+
+def _rope_rows(x: torch.Tensor, pos: torch.Tensor, hd: int, theta: float):
+    """Half-rotation rope of fp32 ``x`` (b, heads, hd) at per-row
+    positions ``pos`` (b,), frequencies computed in fp32 as the JAX body
+    computes them."""
+    half = hd // 2
+    idx = torch.arange(half, dtype=torch.float32, device=x.device) * 2.0
+    inv = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                       device=x.device), idx / hd)
+    ang = pos.to(torch.float32)[:, None] * inv            # (b, half)
+    cos, sin = torch.cos(ang)[:, None], torch.sin(ang)[:, None]
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def rmsnorm_body(cfg: KernelConfig, args, st: StepState) -> None:
+    """RMSNorm of (b, d_tiles * w) rows; the mean divides by
+    ``d_tiles * w``, the padded width, as the JAX body does."""
+    in_off, w_off, out_off, d_tiles = args[:4]
+    b, w = cfg.batch, cfg.w
+    x = _load(st, in_off, d_tiles * b).view(d_tiles, b, w)
+    ssq = (x * x).sum(dim=(0, 2))
+    inv = torch.rsqrt(ssq / float(d_tiles * w) + cfg.rms_eps)
+    wt = _load(st, w_off, d_tiles)
+    _store(st, out_off, (x * inv[None, :, None]
+                         * wt[:, None, :]).reshape(-1, w))
+
+
+def linear_body(cfg: KernelConfig, args, st: StepState) -> None:
+    """Output tile ``j``: x (b, k_tiles * w) times weight blocks
+    ``(kt, j)`` for every kt."""
+    in_off, w_off, out_off, k_tiles, n_tiles, j = args[:6]
+    b, w = cfg.batch, cfg.w
+    x = _load(st, in_off, k_tiles * b).view(k_tiles, b, w)
+    wt = st.arena[w_off:w_off + k_tiles * n_tiles * w].view(
+        k_tiles, n_tiles, w, w)[:, j].float()
+    out = x.permute(1, 0, 2).reshape(b, k_tiles * w) @ wt.reshape(-1, w)
+    _store(st, out_off + j * b, out)
+
+
+def add_body(cfg: KernelConfig, args, st: StepState) -> None:
+    a_off, b_off, out_off, tiles = args[:4]
+    n = tiles * cfg.batch
+    _store(st, out_off, _load(st, a_off, n) + _load(st, b_off, n))
+
+
+def silu_mul_body(cfg: KernelConfig, args, st: StepState) -> None:
+    g_off, u_off, out_off, tiles = args[:4]
+    n = tiles * cfg.batch
+    g = _load(st, g_off, n)
+    _store(st, out_off, torch.nn.functional.silu(g) * _load(st, u_off, n))
+
+
+def gather_body(cfg: KernelConfig, args, st: StepState) -> None:
+    """Embedding rows of each row's token; a token outside the table
+    (this rank's vocab shard, which is all of it at one rank) gives
+    zeros."""
+    table_off, out_off, d_tiles, vocab_loc = args[:4]
+    b, w = cfg.batch, cfg.w
+    out = torch.zeros(d_tiles, b, w, dtype=torch.float32,
+                      device=st.arena.device)
+    for bb, tok in enumerate(st.tokens):
+        if 0 <= tok < vocab_loc:
+            out[:, bb] = _load(st, table_off + tok * d_tiles, d_tiles)
+    _store(st, out_off, out.view(-1, w))
+
+
+def allreduce_body(cfg: KernelConfig, args, st: StepState) -> None:
+    """A no-op at one rank, as the JAX body is (``n == 1``); the port
+    builds one-rank graphs only."""
+
+
+def write_kv_body(cfg: KernelConfig, args, st: StepState) -> None:
+    """Append each row's new K (k-norm, then rope at the row's position)
+    and V at that row's own position ``lens[bb]``."""
+    k_off, v_off, layer, knorm_off = args[:4]
+    b, hd, kv_loc = cfg.batch, cfg.hd, cfg.kv_loc
+    kv_tiles = _cdiv(kv_loc * hd, cfg.w)
+    wrow = st.arena[knorm_off, :hd].float()
+    pos = torch.tensor(st.lens, dtype=torch.int64, device=st.arena.device)
+    k = _heads(_load(st, k_off, kv_tiles * b), b, hd)[:, :kv_loc]
+    v = _heads(_load(st, v_off, kv_tiles * b), b, hd)[:, :kv_loc]
+    k = _rope_rows(_rms_rows(k, wrow, cfg.rms_eps), pos, hd, cfg.rope_theta)
+    for bb in range(b):           # in row order: a later row wins a clash
+        pid, off = _kv_rows(cfg, st, bb, pos[bb:bb + 1])
+        st.k_cache[layer, pid, off] = k[bb:bb + 1].to(st.k_cache.dtype)
+        st.v_cache[layer, pid, off] = v[bb:bb + 1].to(st.v_cache.dtype)
+
+
+def attn_decode_body(cfg: KernelConfig, args, st: StepState) -> None:
+    """GQA decode attention of each row's query heads (q-norm, rope at the
+    row's position, then ``1/sqrt(hd)``) over that row's ``lens[bb] + 1``
+    keys, this launch's WRITE_KV included. Query head ``h`` reads KV head
+    ``h // (h_loc // kv_loc)``; padding heads of the last tile are zero."""
+    q_off, out_off, layer, qnorm_off = args[:4]
+    b, hd, h_loc, kv_loc = cfg.batch, cfg.hd, cfg.h_loc, cfg.kv_loc
+    q_tiles = _cdiv(h_loc * hd, cfg.w)
+    dev = st.arena.device
+    qn = st.arena[qnorm_off, :hd].float()
+    pos = torch.tensor(st.lens, dtype=torch.int64, device=dev)
+    q = _heads(_load(st, q_off, q_tiles * b), b, hd)
+    q = _rope_rows(_rms_rows(q, qn, cfg.rms_eps), pos, hd, cfg.rope_theta)
+    q = q / math.sqrt(hd)
+    kv_of = torch.arange(h_loc, device=dev) // (h_loc // kv_loc)
+    out = torch.zeros_like(q)
+    for bb in range(b):
+        keys = torch.arange(st.lens[bb] + 1, device=dev)
+        pid, off = _kv_rows(cfg, st, bb, keys)
+        kk = st.k_cache[layer, pid, off].float()[:, kv_of]  # (n, h_loc, hd)
+        vv = st.v_cache[layer, pid, off].float()[:, kv_of]
+        s = torch.einsum("hd,nhd->hn", q[bb, :h_loc], kk)
+        m = s.max(dim=-1, keepdim=True).values
+        m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+        p = torch.where(torch.isfinite(s), torch.exp(s - m),
+                        torch.zeros_like(s))
+        l = p.sum(dim=-1, keepdim=True)
+        out[bb, :h_loc] = (torch.einsum("hn,nhd->hd", p, vv)
+                           / torch.clamp(l, min=1e-30))
+    _store(st, out_off, _tiles(out, cfg.w))
+
+
+def _not_ported(item: str):
+    def body(cfg, args, st):
+        raise NotImplementedError(
+            f"this megakernel task set is not ported yet: {item} "
+            "(ROADMAP.md, queue A)")
+    return body
+
+
+def _noop(cfg, args, st) -> None:
+    return None
+
+
+# Task type -> plain body; the CUDA kernel implements the same set.
+BODIES = {
+    TaskType.RMSNORM: rmsnorm_body,
+    TaskType.LINEAR: linear_body,
+    TaskType.ADD: add_body,
+    TaskType.SILU_MUL: silu_mul_body,
+    TaskType.ATTN_DECODE: attn_decode_body,
+    TaskType.WRITE_KV: write_kv_body,
+    TaskType.ALLREDUCE: allreduce_body,
+    TaskType.GATHER: gather_body,
+    TaskType.NOOP: _noop,
+    TaskType.WRITE_KV_PREFILL: _not_ported("batched prefill (prefill_seq)"),
+    TaskType.ATTN_PREFILL: _not_ported("batched prefill (prefill_seq)"),
+    TaskType.MOE_WEIGHTS: _not_ported("the MoE task set"),
+    TaskType.WEIGHTED_ADD: _not_ported("the MoE task set"),
+    TaskType.GDN_DECODE: _not_ported("the hybrid GDN task set"),
+    TaskType.ATTN_QBLOCK: _not_ported("the Q-block verify pair (spec_k)"),
+    TaskType.WRITE_KV_QBLOCK: _not_ported(
+        "the Q-block verify pair (spec_k)"),
+    TaskType.ATTN_CHUNK: _not_ported("the prefill-chunk pair "
+                                     "(prefill_buckets)"),
+    TaskType.WRITE_KV_CHUNK: _not_ported("the prefill-chunk pair "
+                                         "(prefill_buckets)"),
+}

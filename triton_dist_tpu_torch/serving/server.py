@@ -10,12 +10,22 @@ its pages are freed and it re-enters at the queue head, re-prefilling
 prompt + generated tokens through the same chunk plan, so greedy output
 is unchanged.
 
-Prefill always streams through the bucketed chunk path (the Q-block
-kernel); decode through the paged decode kernel. On a CUDA engine both
-are the hand-written kernels, on a CPU engine their plain versions.
-Monolithic prefill, speculative decoding, quantized pools, KV tiers,
-SLO scheduling, telemetry and the resilience hooks are not ported yet
-(ROADMAP.md).
+Two lanes, chosen by the engine:
+
+- the layer lane (:class:`~triton_dist_tpu_torch.models.engine.Engine`):
+  prefill streams through the bucketed chunk path (the Q-block kernel),
+  decode through the paged decode kernel;
+- the megakernel lane
+  (:class:`~triton_dist_tpu_torch.megakernel.engine.MegaKernelEngine`):
+  every tick is ONE launch of the persistent megakernel. Prompts stream
+  one token per tick through that same decode launch (the prefill lane)
+  while running slots decode beside them; the paged pool lives in the
+  engine, page 0 is the scratch page of parked rows.
+
+On a CUDA engine the kernels are the hand-written ones, on a CPU engine
+their plain versions. Monolithic prefill, the megakernel's chunked
+prefill, speculative decoding, quantized pools, KV tiers, SLO scheduling,
+telemetry and the resilience hooks are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -27,6 +37,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from triton_dist_tpu_torch.megakernel.engine import MegaKernelEngine
 from triton_dist_tpu_torch.models import dense
 from triton_dist_tpu_torch.serving.blocks import (
     BlockManager, OutOfPagesError, PagedKVCache,
@@ -45,15 +56,22 @@ def _sample_seed(seed: int, step: int) -> int:
 
 class ServingEngine:
     """Continuous-batching server over an
-    :class:`~triton_dist_tpu_torch.models.engine.Engine`.
+    :class:`~triton_dist_tpu_torch.models.engine.Engine` (layer lane) or a
+    :class:`~triton_dist_tpu_torch.megakernel.engine.MegaKernelEngine`
+    (megakernel lane).
 
     ``num_slots``: decode-batch width. ``page``: tokens per KV page (must
     divide the engine's ``max_len``). ``num_pages``: pool size including
     the reserved scratch page (default: full residency for every slot;
     undersize it to exercise backpressure and preemption). ``policy``:
     ``"continuous"`` | ``"static"``. ``prefill_buckets``: the chunk
-    lengths prompts stream through — required here, since monolithic
-    prefill is not ported. ``clock`` is injectable for deadline tests.
+    lengths prompts stream through — required on the layer lane, since
+    monolithic prefill is not ported. ``clock`` is injectable for deadline
+    tests. On the megakernel lane the engine must be paged; its batch,
+    page and pool are the server's (``num_slots``, ``page`` and
+    ``num_pages`` are not read, as in the JAX server) and
+    ``prefill_buckets`` raises until the megakernel's chunk pair is
+    ported.
     """
 
     def __init__(self, engine, *, num_slots: Optional[int] = None,
@@ -62,21 +80,44 @@ class ServingEngine:
                  policy: str = "continuous", prefix_reuse: bool = False,
                  clock=time.monotonic,
                  prefill_buckets: Optional[Sequence[int]] = None):
-        if not prefill_buckets:
-            raise NotImplementedError(
-                "prefill_buckets=None selects monolithic prefill, which "
-                "needs the dense-cache Engine.prefill and a prefill "
-                "flash-attention kernel; neither is ported yet "
-                "(ROADMAP.md). Pass prefill_buckets=(...)")
         self.engine = engine
         self.cfg = cfg = engine.cfg
         self.max_len = engine.max_len
         self.device = engine.device
-        num_slots = num_slots or 4
-        page = page or math.gcd(self.max_len, 32)
-        if self.max_len % page:
-            raise ValueError(f"page={page} must divide max_len="
-                             f"{self.max_len}")
+        self.mega = isinstance(engine, MegaKernelEngine)
+        if self.mega:
+            if prefill_buckets:
+                raise NotImplementedError(
+                    "prefill_buckets on the megakernel lane needs the "
+                    "megakernel's prefill-chunk task pair, which is not "
+                    "ported yet (ROADMAP.md); prompts stream one token per "
+                    "tick through the decode launch — pass "
+                    "prefill_buckets=None")
+            if not engine.paged:
+                raise NotImplementedError(
+                    "serving a dense-cache MegaKernelEngine is not ported "
+                    "(ROADMAP.md); construct it with paged=True")
+            num_slots = engine.batch
+            page = engine.builder.page
+            num_pages = engine.num_pages
+            need = num_slots * engine.builder.p_max + 1
+            if num_pages < need:
+                raise ValueError(
+                    "paged megakernel serving reserves page 0 as scratch: "
+                    "construct the engine with num_pages >= batch*p_max+1 "
+                    f"(= {need}, got {num_pages})")
+        else:
+            if not prefill_buckets:
+                raise NotImplementedError(
+                    "prefill_buckets=None selects monolithic prefill, which "
+                    "needs the dense-cache Engine.prefill and a prefill "
+                    "flash-attention kernel; neither is ported yet "
+                    "(ROADMAP.md). Pass prefill_buckets=(...)")
+            num_slots = num_slots or 4
+            page = page or math.gcd(self.max_len, 32)
+            if self.max_len % page:
+                raise ValueError(f"page={page} must divide max_len="
+                                 f"{self.max_len}")
         self.page = page
         self.p_max = self.max_len // page
         self.plan = cfg.kv_cache_plan(
@@ -86,13 +127,15 @@ class ServingEngine:
         self.manager = BlockManager(
             num_pages, page, self.p_max, prefix_reuse=prefix_reuse,
             page_bytes=self.plan["page_bytes_per_rank"])
-        self.cache = PagedKVCache.empty(
-            cfg.num_hidden_layers, num_pages, page, cfg.num_key_value_heads,
-            cfg.head_dim, num_slots=num_slots, p_max=self.p_max,
-            device=self.device, dtype=engine.dtype)
-        self.prefill_buckets = tuple(sorted(set(int(b)
-                                                for b in prefill_buckets)))
-        self.chunker = ChunkedPrefill(engine, self.prefill_buckets)
+        self.cache = self.chunker = self.prefill_buckets = None
+        if not self.mega:
+            self.cache = PagedKVCache.empty(
+                cfg.num_hidden_layers, num_pages, page,
+                cfg.num_key_value_heads, cfg.head_dim, num_slots=num_slots,
+                p_max=self.p_max, device=self.device, dtype=engine.dtype)
+            self.prefill_buckets = tuple(sorted(set(
+                int(b) for b in prefill_buckets)))
+            self.chunker = ChunkedPrefill(engine, self.prefill_buckets)
         self.sched = Scheduler(num_slots, max_queue=max_queue,
                                policy=policy, clock=clock)
         self.num_slots = num_slots
@@ -184,8 +227,10 @@ class ServingEngine:
         out.update(self.sched.counters)
         out["queue_depth"] = len(self.sched.queue)
         out["live_slots"] = int(self._live.sum())
-        out["prefill_buckets"] = list(self.prefill_buckets)
-        out["prefill_cache_size"] = self.chunker.cache_size()
+        out["engine_kind"] = "mega" if self.mega else "layer"
+        out["prefill_buckets"] = list(self.prefill_buckets or ())
+        out["prefill_cache_size"] = (self.chunker.cache_size()
+                                     if self.chunker else 0)
         out["pool"] = self.manager.fragmentation()
         out["plan"] = self.plan
         out["device"] = str(self.device)
@@ -230,6 +275,16 @@ class ServingEngine:
         except OutOfPagesError as e:
             self._unadmit(h, e, stalled)
             return
+        if self.mega:
+            # Prefill lane: ``seq`` streams through the decode launch one
+            # token per tick, from position 0.
+            h.lane = seq
+            h.prompt_pos = 0
+            h.status = "prefill"
+            self._lens[slot] = 0
+            self._live[slot] = 1
+            self._toks[slot] = seq[0]
+            return
         h.resident = self.manager.prefix_hits(slot) * self.page
         h.lane = seq
         h.prompt_pos = min(h.resident, len(seq) - 1)
@@ -242,7 +297,10 @@ class ServingEngine:
         self._toks[slot] = 0
 
     def _advance_chunks(self):
-        """One bucketed chunk per prefilling slot per tick."""
+        """One bucketed chunk per prefilling slot per tick (layer lane;
+        the megakernel's prefill lane rides the decode launch)."""
+        if self.mega:
+            return
         for h in list(self.sched.running()):
             if h.status == "prefill":
                 self._advance_chunk(h)
@@ -287,13 +345,22 @@ class ServingEngine:
     # -- decode ------------------------------------------------------
 
     def _decode_tick(self) -> int:
-        active = [h for h in self.sched.running() if h.status == "running"]
+        # Megakernel prefill-lane slots ride the decode launch; layer-lane
+        # slots mid-chunk-stream stay parked until their prompt is
+        # resident.
+        active = [h for h in self.sched.running()
+                  if h.status == "running"
+                  or (self.mega and h.status == "prefill")]
         if not active:
             return 0
         preempted = []
         for h in active:
             slot = h.slot
-            self._toks[slot] = h.tokens[-1]
+            lane = self.mega and h.status == "prefill"
+            self._toks[slot] = h.lane[h.prompt_pos] if lane else h.tokens[-1]
+            if lane:
+                # Lane tokens land in pages alloc_prefill reserved.
+                continue
             try:
                 # Page-boundary growth for the token written this step.
                 # A row overflow is a caller bug (submit validates the
@@ -317,6 +384,17 @@ class ServingEngine:
         c["decode_dispatches"] += 1
         for h in active:
             self._lens[h.slot] += 1
+            if self.mega and h.status == "prefill":
+                h.prompt_pos += 1
+                if h.prompt_pos < len(h.lane):
+                    continue
+                # The lane's last token: its page is written, so the
+                # prompt's pages are shareable from here.
+                h.status = "running"
+                self.manager.commit_prefix(h.slot)
+                if h.tokens:
+                    # A resumed lane already knows its next token.
+                    continue
             h.decode_steps += 1
             c["decode_tokens"] += 1
             self._emit(h, self._pick(logits[h.slot], h.request,
@@ -326,6 +404,12 @@ class ServingEngine:
     def _dispatch(self, tbl: np.ndarray) -> np.ndarray:
         """The joint decode step over every slot; returns host logits
         (num_slots, vocab)."""
+        if self.mega:
+            # This tick's allocator table (flat, the builder's layout);
+            # parked rows point at the scratch page.
+            self.engine.block_table = tbl.reshape(-1)
+            return self.engine.decode_step(self._toks,
+                                           self._lens).cpu().numpy()
         cache = self.cache
         cache.block_table.copy_(torch.from_numpy(tbl))
         cache.lens.copy_(torch.from_numpy(self._lens))

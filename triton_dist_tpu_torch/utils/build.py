@@ -1,17 +1,22 @@
-"""Build and bind the port's CUDA kernels: ``nvcc`` into a shared
-library with a plain C interface, loaded with ``ctypes``.
+"""Build and bind the port's native code: shared libraries with a plain C
+interface, loaded with ``ctypes``.
 
-Sources live in ``triton_dist_tpu_torch/csrc/*.cu``. Each is compiled on
-first use with
+Sources live in ``triton_dist_tpu_torch/csrc/``. A CUDA source (``*.cu``)
+is compiled on first use with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v
 
+and a host source (``*.cc``, the megakernel scheduler) with
+
+    g++ -O2 -fPIC -std=c++17 -shared
+
 into ``build/torch_kernels/`` at the root of the checkout (``.gitignore``
 lists ``build/``), under a name that carries a digest of the source and
 the flags, so an edited source is rebuilt and an unchanged one is not.
-Nothing here runs at import: the CPU tests import every module and this
-machine may have no ``nvcc``.
+:func:`build_all` starts one compiler per source at once. Nothing here
+runs at import: the CPU tests import every module, and a machine without
+a card may have no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ import os
 import pathlib
 import shutil
 import subprocess
-from typing import Dict, Sequence
+from typing import Dict, Iterable, Sequence
 
 import torch
 
@@ -30,6 +35,7 @@ CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+GXX_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-shared")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -48,33 +54,64 @@ def nvcc() -> str:
     return found
 
 
+def _flags(source: str) -> Sequence[str]:
+    return NVCC_FLAGS if source.endswith(".cu") else GXX_FLAGS
+
+
+def _compiler(source: str) -> str:
+    if source.endswith(".cu"):
+        return nvcc()
+    found = shutil.which("g++")
+    if found is None:
+        raise RuntimeError(f"g++ not found: {source} is host code built "
+                           "with g++")
+    return found
+
+
 def library_path(source: str) -> pathlib.Path:
     """Where ``csrc/<source>`` builds to (digest of source and flags)."""
     src = CSRC / source
     digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+                            + " ".join(_flags(source)).encode()).hexdigest()
     return BUILD_DIR / f"lib{src.stem}-{digest[:16]}.so"
 
 
+def build_all(sources: Iterable[str]) -> Dict[str, str]:
+    """Compile every source of ``sources`` that is not built already, one
+    compiler process per source, all started together. Returns each
+    source's compiler log (``-Xptxas -v`` for CUDA: registers, shared
+    memory and spills per kernel; empty when nothing was compiled).
+    Raises ``RuntimeError`` with the log of a compile that fails."""
+    procs = {}
+    for source in sources:
+        out = library_path(source)
+        if out.exists() or source in procs:
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        procs[source] = (tmp, subprocess.Popen(
+            [_compiler(source), *_flags(source), "-o", str(tmp),
+             str(CSRC / source)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = {source: "" for source in sources}
+    failed = []
+    for source, (tmp, proc) in procs.items():
+        logs[source] = proc.communicate()[0]
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"{source} (exit {proc.returncode}):\n"
+                          f"{logs[source]}")
+        else:
+            os.replace(tmp, library_path(source))   # atomic
+    if failed:
+        raise RuntimeError("compile failed for " + "\n".join(failed))
+    return logs
+
+
 def build(source: str) -> str:
-    """Compile ``csrc/<source>`` unless it is built already. Returns the
-    compiler log (``-Xptxas -v``: registers, shared memory and spills per
-    kernel), empty when nothing was compiled. Raises ``RuntimeError`` with
-    the log when the compile fails."""
-    out = library_path(source)
-    if out.exists():
-        return ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {source} (exit "
-                           f"{proc.returncode}):\n{proc.stdout}")
-    os.replace(tmp, out)         # atomic: a reader never sees half a file
-    return proc.stdout
+    """Compile ``csrc/<source>`` unless it is built already; returns the
+    compiler log (see :func:`build_all`)."""
+    return build_all([source])[source]
 
 
 def load(source: str) -> ctypes.CDLL:
@@ -83,8 +120,9 @@ def load(source: str) -> ctypes.CDLL:
     if lib is None:
         build(source)
         lib = ctypes.CDLL(str(library_path(source)))
-        lib.tdt_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.tdt_cuda_error_string.restype = ctypes.c_char_p
+        if source.endswith(".cu"):
+            lib.tdt_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.tdt_cuda_error_string.restype = ctypes.c_char_p
         _LIBS[source] = lib
     return lib
 
