@@ -71,10 +71,33 @@ Phases (any failure exits nonzero; nothing is caught):
    megakernel's logits, which it stores in the bf16 arena (half a unit
    of last place, up to 0.016 at |logit| < 8), and its bf16 rounding of
    every norm and residual output.
+8. Megakernel prompt modes vs plain, at Qwen3-8B widths cut to 2 layers,
+   page 128, a shuffled block table over random history: a 512-row chunk
+   from position 0 with 300 valid rows (212 dead), a 128-row chunk at
+   position 640 with positions below 700 attend-only, and a batched
+   prefill of 4 slots x 32 rows at start 0 and at 128, driven through
+   ``MegaKernelEngine.prefill``. Phase 5's limits (logits 0.1 + 2**-6
+   |want| on every row, row RMS 2 %, written K/V 3e-2 + 2**-6 |want|),
+   exactly the rows the mode writes written, every other pool row
+   unchanged bit for bit; and the 128-row chunk run on a table row holding
+   a page of another slot, or on codes shifted by one position, must fail
+   those limits.
+9. Serve on the chunked megakernel lane: full-width 36-layer Qwen3-8B,
+   random weights from seed 0, 4 slots, page 128, buckets (128, 512); the
+   layer lane's four prompts (1000/700/300/60 tokens) and 64 greedy tokens
+   each. Megakernel launches must be the 12 chunk launches plus the decode
+   ticks, and the layer lane's kernels must not launch. Then the chunk
+   launch at 512 rows from position 0 and at 128 rows from 512, and a
+   batched prefill of 4 x 32 rows, each timed against its bound and its
+   plain interpreter, with per-task times from the card's global timer
+   (the longest ATTN_CHUNK task must stay under the 5 s wait bound).
+10. The chunked lane end to end: phase 7 with buckets (128, 512); the
+   first token's logits come from the last chunk's last valid row, within
+   0.15 of the plain forward, as phase 7's.
 
-The last lines of output: one JSON object with every kernel's numbers,
-the card's name and power limit as nvidia-smi gives them, then
-``{"ok": true, "device": {...}}``.
+The last lines of output: one JSON object with every kernel's numbers
+(the megakernel once per row mode), the card's name and power limit as
+nvidia-smi gives them, then ``{"ok": true, "device": {...}}``.
 """
 
 import ctypes
@@ -167,7 +190,9 @@ def build_kernels():
                 print(f"[ptxas] {source}: {line.strip()}")
     mk_smem = build.load("megakernel.cu").tdt_megakernel_smem_bytes()
     print(f"[smem] megakernel_kernel {mk_smem} B/block (dynamic); "
-          f"{mkb.grid_blocks(0)} blocks per launch (resident on every SM)")
+          f"{mkb.grid_blocks(0)} blocks per decode launch, "
+          f"{mkb.grid_blocks(0, tensor_cores=True)} per tensor-core launch "
+          "(resident on every SM)")
     # Both kernels take their shared memory dynamically (ptxas does not
     # report it): rows = 4 query heads per KV head for decode, 32 (query,
     # head) rows for the Q-block kernel.
@@ -358,12 +383,22 @@ def launch_counters() -> dict:
 
 
 def zero_counts() -> None:
+    from triton_dist_tpu_torch.megakernel import builder as mkb
+
     for kernel in launch_counters().values():
         kernel.launches = 0
+    for mode in mkb.MODE_LAUNCHES:
+        mkb.MODE_LAUNCHES[mode] = 0
 
 
 def read_counts() -> dict:
-    return {key: k.launches for key, k in launch_counters().items()}
+    """Launches by kernel, and the megakernel's by row mode
+    (``mk_decode``, ``mk_prefill``, ``mk_chunk``)."""
+    from triton_dist_tpu_torch.megakernel import builder as mkb
+
+    out = {key: k.launches for key, k in launch_counters().items()}
+    out.update({f"mk_{m}": n for m, n in mkb.MODE_LAUNCHES.items()})
+    return out
 
 
 def profile_serving(eng, prompts, serve_kw, ticks: int = 5):
@@ -617,19 +652,27 @@ def mk_fault_controls(mb, arena, k0, v0, toks, lens, table, want):
 
 
 def mk_step_bound(mb, lens):
-    """Least time of one step at per-row ``lens``: the weight rows (the
-    embedding only for the batch's rows), the K/V rows attended and
-    written, and the bf16 logits, over 3.35 TB/s; and its operations."""
+    """Least time of one launch of ``mb`` at per-row ``lens`` (decode
+    lengths, a prefill's base, or a chunk's codes): the weight rows (the
+    embedding only for the launch's rows), each slot's attended K/V rows
+    once, the K/V rows written, and the bf16 logits, over 3.35 TB/s; the
+    projections' and attention's operations over 989 TFLOP/s."""
     cfg, b = mb.cfg, mb.batch
+    lens = np.asarray(lens, np.int64)
+    pos = mb._row_positions(lens)
+    writes = (lens >= 0) if mb.mode == "chunk" else np.ones(b, bool)
+    slots = {"decode": np.arange(b), "prefill": np.arange(b) // mb.seq,
+             "chunk": np.zeros(b, np.int64)}[mb.mode]
+    keys = sum(int(pos[slots == s].max()) + 1 for s in np.unique(slots))
     weight_rows = sum(r.rows for r in mb.schema.regions("weight")
                       if r.name != "embed")
     kv_row = cfg.num_hidden_layers * cfg.num_key_value_heads * cfg.head_dim
-    keys = sum(int(n) + 1 for n in lens)
     nbytes = (weight_rows * mb.w * 2 + b * cfg.hidden_size * 2
-              + (keys + b) * kv_row * 2 * 2 + b * mb.vloc_tiles * mb.w * 2)
+              + (keys + int(writes.sum())) * kv_row * 2 * 2
+              + b * mb.vloc_tiles * mb.w * 2)
     flops = (2 * b * weight_rows * mb.w
-             + 4 * keys * cfg.num_attention_heads * cfg.head_dim
-             * cfg.num_hidden_layers)
+             + 4 * int((pos + 1).sum()) * cfg.num_attention_heads
+             * cfg.head_dim * cfg.num_hidden_layers)
     return bound(nbytes, flops)
 
 
@@ -758,6 +801,347 @@ def mk_parity_phase():
     return worst
 
 
+def mk_pools(eng, seed):
+    """Random bf16 history in an engine's pools and a shuffled block table
+    over pages 1.. (page 0 stays the scratch page)."""
+    g = torch.Generator(device=eng.device).manual_seed(seed)
+    eng.k_cache.copy_(torch.randn(eng.k_cache.shape, generator=g,
+                                  device=eng.device, dtype=eng.dtype))
+    eng.v_cache.copy_(torch.randn(eng.v_cache.shape, generator=g,
+                                  device=eng.device, dtype=eng.dtype))
+    n = eng.batch * eng.builder.p_max
+    eng.block_table = (np.random.RandomState(seed).permutation(
+        eng.num_pages - 1)[:n] + 1).astype(np.int32)
+    return eng.block_table.reshape(eng.batch, -1)
+
+
+def check_mode(label, got, want, pools, plain_pools, before, expect):
+    """Phase 5's limits for one launch of a prompt mode: logits on every
+    row, written K/V rows; ``expect`` is the (layers, pages, page) mask of
+    the rows the mode writes, which must be exactly the rows written, all
+    other pool rows unchanged bit for bit. Returns the max error."""
+    err = check_close(f"{label} logits", got, want, TOL_MK_LOGITS)
+    rel = row_rms(got, want)
+    print(f"[{label}] rows {got.shape[0]}, logit std {want.std().item():.3f}, "
+          f"worst row RMS error / RMS {rel.max().item():.2e} "
+          f"(tol {TOL_MK_ROW_RMS})")
+    if not bool((rel <= TOL_MK_ROW_RMS).all()):
+        fail(f"{label}: a row's logits stray from the plain version")
+    written = torch.zeros_like(expect)
+    for name, kc, k2, k0 in zip("KV", pools, plain_pools, before):
+        err = max(err, check_close(f"{label} {name} rows",
+                                   kc[expect], k2[expect], TOL_MK_KV))
+        written |= (k2 != k0).any(-1).any(-1)
+        if not torch.equal(kc[~expect], k0[~expect]):
+            fail(f"{label}: the kernel wrote {name} pool rows it must not")
+    if not torch.equal(written, expect):
+        fail(f"{label}: the plain version wrote {int(written.sum())} pool "
+             f"rows, not the {int(expect.sum())} the mode writes")
+    return err
+
+
+def chunk_case(eng, c, start, valid, wfrom, table_row, seed):
+    """Tokens and codes of one chunk, and the (layers, pages, page) mask
+    of the pool rows it writes."""
+    from triton_dist_tpu_torch.ops.chunked_prefill import chunk_row_codes
+
+    rng = np.random.RandomState(seed)
+    toks = np.zeros(c, np.int32)
+    toks[:valid] = rng.randint(0, eng.cfg.vocab_size, valid)
+    codes = chunk_row_codes(start, c, valid, wfrom)
+    expect = torch.zeros(eng.k_cache.shape[:3], dtype=torch.bool,
+                         device=eng.device)
+    page = eng.builder.page
+    for p in codes[codes >= 0]:
+        expect[:, int(table_row[p // page]), int(p % page)] = True
+    return toks, codes, expect
+
+
+def mk_prompt_kernel_phase():
+    """Phase 8: the chunk and batched-prefill modes against their plain
+    interpreter at Qwen3-8B widths, 2 layers."""
+    from triton_dist_tpu_torch import ModelConfig
+    from triton_dist_tpu_torch.megakernel import MegaKernelEngine
+    from triton_dist_tpu_torch.models import dense
+
+    dev = torch.device("cuda", 0)
+    cfg = dataclasses.replace(ModelConfig.qwen3_8b(), num_hidden_layers=2)
+    params = dense.init_params(
+        cfg, generator=torch.Generator(device=dev).manual_seed(5),
+        device=dev, dtype=torch.bfloat16)
+    kw = dict(batch=4, max_len=2048, t_tile=128, paged=True, page=128,
+              num_pages=1 + 4 * 16, device=dev, dtype=torch.bfloat16,
+              params=params)
+    eng = MegaKernelEngine(cfg, prefill_buckets=(128, 512), **kw)
+    table = mk_pools(eng, 6)
+    out = {"chunk": 0.0}
+    # (bucket, start, valid, wfrom, slot): the first chunk of a prompt with
+    # 212 dead rows; a chunk past a 700-token resident prefix.
+    for c, start, valid, wfrom, slot in ((512, 0, 300, 0, 1),
+                                         (128, 640, 128, 700, 2)):
+        mb = eng.chunk_builders[c]
+        toks, codes, expect = chunk_case(eng, c, start, valid, wfrom,
+                                         table[slot], 7 + c)
+        label = f"mk-chunk C {c} start {start} valid {valid} wfrom {wfrom}"
+        before = eng.k_cache.clone(), eng.v_cache.clone()
+        a2, k2, v2 = eng.arena.clone(), *[t.clone() for t in before]
+        task_ns = torch.zeros(len(mb.graph.tasks), 2, dtype=torch.int64,
+                              device=dev)
+        host = mb._host_inputs(eng.k_cache, toks, codes, table[slot])
+        mb.launch(eng.arena, eng.k_cache, eng.v_cache, *host,
+                  task_ns=task_ns)
+        mb.wait(dev)
+        got = mb.logits(eng.arena)
+        want = mb.plain_step(a2, k2, v2, toks, codes, table[slot])
+        out["chunk"] = max(out["chunk"], check_mode(
+            label, got, want, (eng.k_cache, eng.v_cache), (k2, v2), before,
+            expect))
+        attn = mb.task_ms(task_ns)["ATTN_CHUNK"]
+        print(f"[{label}] ATTN_CHUNK tasks {attn[0]:.2f} ms in all, longest "
+              f"{attn[1]:.2f} ms")
+        del a2, k2, v2, got
+        # Restore the history for the next case and the controls.
+        eng.k_cache.copy_(before[0])
+        eng.v_cache.copy_(before[1])
+    mk_chunk_fault_controls(eng, table)
+    del eng
+    torch.cuda.empty_cache()
+
+    eng = MegaKernelEngine(cfg, prefill_seq=32, **kw)
+    mk_pools(eng, 8)
+    pb = eng.prefill_builder
+    rng = np.random.RandomState(9)
+    out["prefill"], launches = 0.0, 0
+    for start in (0, 128):
+        prompt = rng.randint(0, cfg.vocab_size, (4, 32)).astype(np.int32)
+        lens = np.full(4 * 32, start, np.int32)
+        before = eng.k_cache.clone(), eng.v_cache.clone()
+        a2, k2, v2 = eng.arena.clone(), *[t.clone() for t in before]
+        zero_counts()
+        last = eng.prefill(prompt, start_pos=start)
+        torch.cuda.synchronize()
+        launches += read_counts()["mk_prefill"]
+        got = pb.logits(eng.arena)
+        want = pb.plain_step(a2, k2, v2, prompt.reshape(-1), lens,
+                             eng.block_table)
+        if not torch.equal(last, got[31::32]):
+            fail("MegaKernelEngine.prefill returned other rows than each "
+                 "slot's last")
+        table = eng.block_table.reshape(4, -1)
+        expect = torch.zeros(eng.k_cache.shape[:3], dtype=torch.bool,
+                             device=dev)
+        for sl in range(4):
+            for p in range(start, start + 32):
+                expect[:, int(table[sl][p // 128]), p % 128] = True
+        out["prefill"] = max(out["prefill"], check_mode(
+            f"mk-prefill 4 x 32 from {start}", got, want,
+            (eng.k_cache, eng.v_cache), (k2, v2), before, expect))
+        del a2, k2, v2
+    out["prefill_launches"] = launches
+    del eng, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def mk_chunk_fault_controls(eng, table):
+    """The limits above must catch a wrong page or wrong positions in a
+    chunk: the 128-row chunk at 640 runs with a page of another slot in
+    its table row (the page of positions 256-383, which every row
+    attends), then with every code shifted by one position, each held
+    against the plain version on the sound inputs."""
+    mb = eng.chunk_builders[128]
+    toks, codes, _ = chunk_case(eng, 128, 640, 128, 700, table[2], 7 + 128)
+    k0, v0 = eng.k_cache.clone(), eng.v_cache.clone()
+    want = mb.plain_step(eng.arena.clone(), k0.clone(), v0.clone(), toks,
+                         codes, table[2])
+    bad_row = table[2].copy()
+    bad_row[2] = table[3][2]
+    shifted = np.where(codes >= 0, codes + 1,
+                       np.where(codes == -1, -1, codes - 1)).astype(np.int32)
+    for name, row, cds in (("page", bad_row, codes),
+                           ("codes", table[2], shifted)):
+        got = mb.step(eng.arena, k0.clone(), v0.clone(), toks, cds, row)
+        torch.cuda.synchronize()
+        diff = (got - want).abs()
+        atol, rtol = TOL_MK_LOGITS
+        logits_ok = bool((diff <= atol + rtol * want.abs()).all())
+        rel = row_rms(got, want)
+        rows_ok = bool((rel <= TOL_MK_ROW_RMS).all())
+        print(f"[mk-chunk-control] {name} fault: max |dlogit| "
+              f"{diff.max().item():.3e} ({'passes' if logits_ok else 'caught'}"
+              f"), worst row RMS error / RMS {rel.max().item():.2e} "
+              f"({'passes' if rows_ok else 'caught'})")
+        if logits_ok and rows_ok:
+            fail(f"megakernel chunk limits do not catch a planted {name} "
+                 "fault")
+
+
+def mk_chunk_serve_phase(layer_st):
+    """Phase 9: Qwen3-8B at full depth on the chunked megakernel lane."""
+    from triton_dist_tpu_torch import ModelConfig, ServingEngine
+    from triton_dist_tpu_torch.megakernel import MegaKernelEngine, ModelBuilder
+    from triton_dist_tpu_torch.megakernel.builder import DEFAULT_TIMEOUT_S
+
+    cfg = ModelConfig.qwen3_8b()
+    buckets = (128, 512)
+    t0 = time.perf_counter()
+    eng = MegaKernelEngine(cfg, batch=4, max_len=2048, t_tile=128,
+                           paged=True, page=128, num_pages=1 + 4 * 16,
+                           prefill_buckets=buckets, device="cuda",
+                           dtype=torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    print(f"[mk-chunk-serve] engine with chunk builds {list(buckets)} in "
+          f"{time.perf_counter() - t0:.1f} s: arena {eng.arena.shape[0]} x "
+          f"{eng.arena.shape[1]} bf16 (decode build {eng.builder.arena_rows} "
+          f"rows), {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    ServingEngine(eng, prefill_buckets=buckets).generate(
+        [[7] * 130], max_new_tokens=2)                     # warm-up
+
+    rng = np.random.RandomState(0)
+    prompts = [[int(t) for t in rng.randint(0, cfg.vocab_size, n)]
+               for n in (1000, 700, 300, 60)]
+    srv = ServingEngine(eng, prefill_buckets=buckets)
+    zero_counts()
+    t0 = time.perf_counter()
+    outs = srv.generate(prompts, max_new_tokens=64)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    st = srv.stats()
+    print(f"[mk-chunk-serve] {st['completed']} requests in {wall:.2f} s; "
+          f"{st['prefill_chunks']} chunks, {st['decode_dispatches']} decode "
+          f"ticks, kernel launches {launches}")
+    print(f"[mk-chunk-serve] {torch.cuda.get_device_name(0)}: prefill "
+          f"{st['prefill_tokens_per_s']:.1f} tokens/s over "
+          f"{st['prefill_time_s']:.2f} s (layer lane in this call: "
+          f"{layer_st['prefill_tokens_per_s']:.1f} tokens/s over "
+          f"{layer_st['prefill_time_s']:.2f} s); decode "
+          f"{st['tokens_per_s']:.1f} tokens/s, "
+          f"{1e3 * st['decode_time_s'] / st['decode_dispatches']:.2f} ms per "
+          f"tick; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          " GiB")
+    brief = {k: v for k, v in st.items() if k not in ("plan", "pool")}
+    print(f"[mk-chunk-serve] stats() {json.dumps(brief)}")
+    if [len(o) for o in outs] != [64] * 4:
+        fail(f"requests did not finish with 64 tokens: {[len(o) for o in outs]}")
+    if not all(0 <= t < cfg.vocab_size for o in outs for t in o):
+        fail("token id out of range")
+    if (st["prefill_chunks"] != 12
+            or launches["mk_chunk"] != st["prefill_chunks"]
+            or launches["mk_decode"] != st["decode_dispatches"]
+            or launches["megakernel"] != launches["mk_chunk"]
+            + launches["mk_decode"]
+            or launches["decode"] != 0 or launches["qblock"] != 0):
+        fail(f"chunked megakernel lane bypassed its kernel: launches "
+             f"{launches}, {st['prefill_chunks']} chunks, "
+             f"{st['decode_dispatches']} decode ticks")
+
+    dev = torch.device("cuda", 0)
+    table = mk_pools(eng, 10)
+    timed = {}
+    for c, start in ((512, 0), (128, 512)):
+        mb = eng.chunk_builders[c]
+        toks, codes, _ = chunk_case(eng, c, start, c, 0, table[1], 11)
+        host = mb._host_inputs(eng.k_cache, toks, codes, table[1])
+        task_ns = torch.zeros(len(mb.graph.tasks), 2, dtype=torch.int64,
+                              device=dev)
+        k_ms = time_events(lambda: mb.launch(eng.arena, eng.k_cache,
+                                             eng.v_cache, *host,
+                                             task_ns=task_ns), reps=3)
+        per = mb.task_ms(task_ns)
+        p_ms = time_events(lambda: mb.plain_step(
+            eng.arena, eng.k_cache, eng.v_cache, toks, codes, table[1]),
+            reps=1, warmup=0)
+        b_ms, b_by = mk_step_bound(mb, codes)
+        attn_sum, attn_max = per["ATTN_CHUNK"]
+        lin = per["LINEAR"][0] / grid_blocks()
+        print(f"[mk-chunk-step] {c} rows from {start}, "
+              f"{cfg.num_hidden_layers} layers: kernel_ms "
+              f"{k_ms:.4f} plain_ms {p_ms:.4f} bound_ms {b_ms:.4f} ({b_by}); "
+              f"ATTN_CHUNK {attn_sum:.2f} ms in all, longest task "
+              f"{attn_max:.2f} ms (wait bound {DEFAULT_TIMEOUT_S:.0f} s); "
+              f"LINEAR {lin:.2f} ms per block on {grid_blocks()} blocks")
+        print("[mk-chunk-step]   task ms by type (sum, longest): " + ", ".join(
+            f"{k} {v[0]:.2f}/{v[1]:.3f}" for k, v in sorted(
+                per.items(), key=lambda kv: -kv[1][0])))
+        if attn_max * 1e-3 >= DEFAULT_TIMEOUT_S:
+            fail(f"an ATTN_CHUNK task took {attn_max:.0f} ms, past the "
+                 "wait bound")
+        timed[c] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                        attn_max_ms=attn_max)
+
+    # The batched prefill at full depth: a 4 x 32 build on the same arena
+    # (the same weight region, a smaller activation tail).
+    pb = ModelBuilder(cfg, batch=4 * 32, seq=32, max_len=2048, t_tile=128,
+                      paged=True, page=128)
+    if ([(r.name, r.offset) for r in pb.schema.regions("weight")]
+            != [(r.name, r.offset) for r in
+                eng.builder.schema.regions("weight")]):
+        fail("the batched-prefill build lays out another weight region")
+    toks = np.random.RandomState(12).randint(0, cfg.vocab_size, 128)
+    lens = np.zeros(128, np.int32)
+    host = pb._host_inputs(eng.k_cache, toks, lens, eng.block_table)
+    k_ms = time_events(lambda: pb.launch(eng.arena, eng.k_cache, eng.v_cache,
+                                         *host), reps=3)
+    p_ms = time_events(lambda: pb.plain_step(eng.arena, eng.k_cache,
+                                             eng.v_cache, toks, lens,
+                                             eng.block_table),
+                       reps=1, warmup=0)
+    b_ms, b_by = mk_step_bound(pb, lens)
+    print(f"[mk-prefill-step] 4 x 32 rows from 0, {cfg.num_hidden_layers} "
+          "layers: kernel_ms "
+          f"{k_ms:.4f} plain_ms {p_ms:.4f} bound_ms {b_ms:.4f} ({b_by})")
+    timed["prefill"] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                            bound_by=b_by)
+    del srv, eng
+    torch.cuda.empty_cache()
+    return dict(launches=launches, st=st, timed=timed)
+
+
+def mk_chunk_parity_phase():
+    """Phase 10: the chunked lane's served logits against the plain
+    forward, 2 layers."""
+    from triton_dist_tpu_torch import ModelConfig, ServingEngine
+    from triton_dist_tpu_torch.megakernel import MegaKernelEngine
+
+    cfg = dataclasses.replace(ModelConfig.qwen3_8b(), num_hidden_layers=2)
+    eng = MegaKernelEngine(cfg, batch=4, max_len=1024, t_tile=128,
+                           paged=True, page=128, num_pages=1 + 4 * 8,
+                           prefill_buckets=(128, 512), device="cuda",
+                           dtype=torch.bfloat16, seed=1, keep_params=True)
+    srv = ServingEngine(eng, prefill_buckets=(128, 512))
+    seen = record_logits(srv, {0, 1})
+    rng = np.random.RandomState(1)
+    prompts = [[int(t) for t in rng.randint(0, cfg.vocab_size, n)]
+               for n in (700, 60)]
+    handles = [srv.submit(p, max_new_tokens=2) for p in prompts]
+    srv.run()
+    worst = 0.0
+    for h, p in zip(handles, prompts):
+        for step, seq in ((0, p), (1, p + h.tokens[:1])):
+            served = seen[(h.request.request_id, step)]
+            plain = plain_last_logits(eng.params, cfg, seq).cpu().numpy()
+            err = float(np.abs(served - plain).max())
+            worst = max(worst, err)
+            print(f"[mk-chunk-parity] prompt {len(p)} step {step}: max "
+                  f"|dlogit| {err:.4f} (tol {TOL_MK_SERVED}), argmax served "
+                  f"{int(served.argmax())} plain {int(plain.argmax())}")
+            if not (np.isfinite(served).all() and err <= TOL_MK_SERVED):
+                fail(f"chunked megakernel logits disagree with the plain "
+                     f"forward: {err}")
+    if srv.stats()["prefill_chunks"] != 4:
+        fail("the 700- and 60-token prompts did not take 3 + 1 chunks")
+    del srv, eng
+    torch.cuda.empty_cache()
+    return worst
+
+
+def grid_blocks() -> int:
+    from triton_dist_tpu_torch.megakernel import builder as mkb
+
+    return mkb.grid_blocks(0, tensor_cores=True)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs the card")
@@ -779,6 +1163,9 @@ def main():
     parity_phase()
     mk = mk_serve_phase(layer_st)
     mk_parity_phase()
+    prompt = mk_prompt_kernel_phase()
+    chunk = mk_chunk_serve_phase(layer_st)
+    mk_chunk_parity_phase()
 
     rows = []
     for key, name, replaces in (
@@ -794,15 +1181,23 @@ def main():
             "max_abs_err": num["err"], "ms": num["ms"],
             "plain_ms": num["plain_ms"], "bound_ms": num["bound_ms"],
             "bound_by": num["bound_by"], "library_ms": None})
-    # No single PyTorch call computes a decode step: library_ms is null.
-    rows.append({
-        "name": "megakernel_kernel", "route": "cuda",
-        "source": "triton_dist_tpu_torch/csrc/megakernel.cu",
-        "replaces": "triton_dist_tpu/megakernel/builder.py:1157",
-        "launches": mk["launches"]["megakernel"],
-        "max_abs_err": numbers["megakernel"]["err"], "ms": mk["ms"],
-        "plain_ms": mk["plain_ms"], "bound_ms": mk["bound_ms"],
-        "bound_by": mk["bound_by"], "library_ms": None})
+    # No single PyTorch call computes a megakernel step: library_ms is
+    # null. One row per row mode of the one kernel; the chunk row's times
+    # are the 512-row chunk from position 0 (the 128-row one is printed).
+    for mode, launches_, err, t in (
+            ("decode", mk["launches"]["megakernel"],
+             numbers["megakernel"]["err"], mk),
+            ("chunk", chunk["launches"]["mk_chunk"], prompt["chunk"],
+             chunk["timed"][512]),
+            ("prefill", prompt["prefill_launches"], prompt["prefill"],
+             chunk["timed"]["prefill"])):
+        rows.append({
+            "name": f"megakernel_kernel[{mode}]", "route": "cuda",
+            "source": "triton_dist_tpu_torch/csrc/megakernel.cu",
+            "replaces": "triton_dist_tpu/megakernel/builder.py:1157",
+            "launches": launches_, "max_abs_err": err, "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

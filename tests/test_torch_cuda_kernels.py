@@ -33,7 +33,17 @@ unchanged, bit for bit. The same limits must fail the kernel when a
 wrong page, position or KV head is planted in its inputs. A wedged wait
 (a claim list missing a task) must raise naming the task, in a
 subprocess, since the kernel's trap costs the process its CUDA
-context."""
+context.
+
+The prompt row modes are held to the same limits: a prefill chunk of 12,
+16 and 64 rows (its LINEAR runs on tensor cores past 8 rows, zero-padding
+the rows past the chunk in shared memory) starting mid-page at 40 over
+random history, with an attend-only span (positions 40-43 below
+``wfrom``) and a dead last row; and batched prefill of 3 slots x 4 rows
+(paged, from 32) and 2 x 16 (dense, from 0); a decode batch of 12 rows
+(the tensor-core instantiation in decode mode). A chunk writes exactly its
+rows with a code >= 0. A page of another slot planted in the chunk's
+table row, or every code shifted by one position, must fail the limits."""
 
 import pathlib
 import subprocess
@@ -148,8 +158,8 @@ MK_ROW_RMS_TOL = 2e-2
 MK_KV_TOL = (3e-2, 2.0 ** -6)
 
 
-def _mk_setup(dev, *, paged, schedule, seed=0):
-    b, max_len, page = 3, 256, 32
+def _mk_setup(dev, *, paged, schedule, seed=0, b=3):
+    max_len, page = 256, 32
     mb = mkb.ModelBuilder(MK_CFG, batch=b, max_len=max_len, t_tile=page,
                           paged=paged, page=page if paged else None,
                           schedule=schedule)
@@ -166,6 +176,9 @@ def _mk_setup(dev, *, paged, schedule, seed=0):
     toks = rng.randint(0, MK_CFG.vocab_size, b).astype(np.int32)
     if paged:
         lens = np.array([0, 37, 130], np.int32)     # row 0 parked
+        if b > 3:
+            lens = np.concatenate([lens, rng.randint(1, 200, b - 3)]).astype(
+                np.int32)
         table = (rng.permutation(b * mb.p_max) + 1).astype(np.int32)
         table[:mb.p_max] = 0                        # scratch page
     else:
@@ -206,6 +219,19 @@ def test_megakernel_matches_plain(dev, paged, schedule):
     assert int(written.any(-1).sum()) <= 2 * 3 * 2
 
 
+def test_megakernel_wide_decode_matches_plain(dev):
+    """A decode batch of 12 rows runs the tensor-core instantiation."""
+    mb, arena, kc, vc, toks, lens, table = _mk_setup(
+        dev, paged=True, schedule="static", b=12)
+    assert mb.uses_tensor_cores
+    kc0, vc0 = kc.clone(), vc.clone()
+    a2, k2, v2 = arena.clone(), kc.clone(), vc.clone()
+    got = mb.step(arena, kc, vc, toks, lens, table)
+    want = mb.plain_step(a2, k2, v2, toks, lens, table)
+    written = _check_mk(got, want, kc, vc, k2, v2, kc0, vc0)
+    assert int(written.any(-1).sum()) <= 2 * 12
+
+
 @pytest.mark.parametrize("fault", ["page", "position", "head"])
 def test_megakernel_limits_catch_a_planted_fault(dev, fault):
     """The kernel on inputs with one fault planted, against the plain
@@ -241,8 +267,9 @@ def test_megakernel_wrapper_rejects_what_the_kernel_does_not_take(dev):
         mb.step(arena.float(), kc, vc, toks, lens, table)
     with pytest.raises(ValueError, match="max_len"):
         mb.step(arena, kc, vc, toks, np.array([0, 1, 256]), table)
-    wide = mkb.ModelBuilder(MK_CFG, batch=9, max_len=256, t_tile=32)
-    with pytest.raises(ValueError, match="batch 9"):
+    wide = mkb.ModelBuilder(MK_CFG, batch=3, max_len=256, t_tile=32,
+                            tile_w=256)
+    with pytest.raises(ValueError, match="tile width 256"):
         wide.check_kernel_args(arena, kc, vc)
 
 
@@ -273,3 +300,122 @@ def test_megakernel_wedged_wait_raises(dev):
                          text=True, timeout=300)
     assert "RAISED megakernel wait timed out: task " in out.stdout, out.stderr
     assert "layer" in out.stdout and ") waited on task " in out.stdout
+
+
+CHUNK_START, CHUNK_WFROM = 40, 44
+
+
+def _mk_chunk_setup(dev, rows, *, seed=0):
+    """A chunk build of ``rows`` rows of slot 1 (a shuffled table row of a
+    3-slot pool), random weights and history, codes from position 40 with
+    positions 40-43 attend-only and the last row dead."""
+    from triton_dist_tpu_torch.ops.chunked_prefill import chunk_row_codes
+
+    max_len, page = 256, 32
+    mb = mkb.ModelBuilder(MK_CFG, batch=rows, seq=rows, chunk=True,
+                          max_len=max_len, t_tile=page, paged=True, page=page)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    params = dense.init_params(MK_CFG, generator=g, device=dev,
+                               dtype=torch.bfloat16)
+    arena = mb.pack_arena(params, dtype=torch.bfloat16, device=dev)
+    L, kv = MK_CFG.num_hidden_layers, MK_CFG.num_key_value_heads
+    shape = (L, 1 + 3 * mb.p_max, page, kv, 128)
+    kc = torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16)
+    vc = torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16)
+    rng = np.random.RandomState(seed)
+    table = (rng.permutation(3 * mb.p_max) + 1).astype(np.int32).reshape(
+        3, mb.p_max)
+    toks = rng.randint(0, MK_CFG.vocab_size, rows).astype(np.int32)
+    codes = chunk_row_codes(CHUNK_START, rows, rows - 1, CHUNK_WFROM)
+    return mb, arena, kc, vc, toks, codes, table
+
+
+def _check_mk(got, want, kc, vc, k2, v2, kc0, vc0):
+    """The megakernel limits of test_megakernel_matches_plain; returns
+    the mask of pool rows the plain version wrote."""
+    rel = _row_rms(got, want)
+    print(f"[mk-card] max |dlogit| {(got - want).abs().max().item():.3e}, "
+          f"worst row RMS error / RMS {rel.max().item():.2e}")
+    _assert_close(got, want, MK_LOGITS_TOL)
+    assert bool((rel <= MK_ROW_RMS_TOL).all()), rel.tolist()
+    _assert_close(kc, k2, MK_KV_TOL)
+    _assert_close(vc, v2, MK_KV_TOL)
+    written = (k2 != kc0) | (v2 != vc0)
+    assert torch.equal(kc[~written], kc0[~written])
+    assert torch.equal(vc[~written], vc0[~written])
+    return written.any(-1)
+
+
+@pytest.mark.parametrize("rows", [12, 16, 64])
+def test_megakernel_chunk_matches_plain(dev, rows):
+    mb, arena, kc, vc, toks, codes, table = _mk_chunk_setup(dev, rows)
+    kc0, vc0 = kc.clone(), vc.clone()
+    a2, k2, v2 = arena.clone(), kc.clone(), vc.clone()
+    before = dict(mkb.MODE_LAUNCHES)
+    got = mb.step(arena, kc, vc, toks, codes, table[1])
+    assert mkb.MODE_LAUNCHES["chunk"] == before["chunk"] + 1
+    want = mb.plain_step(a2, k2, v2, toks, codes, table[1])
+    written = _check_mk(got, want, kc, vc, k2, v2, kc0, vc0)
+    # Exactly the rows with a code >= 0, in every layer and KV head.
+    page = mb.page
+    expect = torch.zeros_like(written)
+    for p in codes[codes >= 0]:
+        expect[:, int(table[1][p // page]), int(p % page)] = True
+    assert torch.equal(written, expect)
+
+
+@pytest.mark.parametrize("fault", ["page", "codes"])
+def test_megakernel_chunk_limits_catch_a_planted_fault(dev, fault):
+    """The chunk kernel on a faulted input against the plain version on
+    the sound one: a page of another slot in the table row (the page of
+    positions 32-63, which every row attends), or every position shifted
+    by one."""
+    mb, arena, kc, vc, toks, codes, table = _mk_chunk_setup(dev, 16)
+    want = mb.plain_step(arena.clone(), kc.clone(), vc.clone(), toks, codes,
+                         table[1])
+    row = table[1].copy()
+    if fault == "page":
+        row[1] = table[2][1]
+    else:
+        codes = np.where(codes >= 0, codes + 1,
+                         np.where(codes == -1, -1, codes - 1)).astype(np.int32)
+    got = mb.step(arena, kc, vc, toks, codes, row)
+    diff = (got - want).abs()
+    rel = _row_rms(got, want)
+    print(f"[mk-card] chunk {fault} fault: max |dlogit| "
+          f"{diff.max().item():.3e}, worst row RMS error / RMS "
+          f"{rel.max().item():.2e}")
+    atol, rtol = MK_LOGITS_TOL
+    logits_ok = bool((diff <= atol + rtol * want.abs()).all())
+    assert not (logits_ok and bool((rel <= MK_ROW_RMS_TOL).all()))
+
+
+@pytest.mark.parametrize("paged,slots,seq,start", [
+    (True, 3, 4, 32), (False, 2, 16, 0)], ids=["paged", "dense"])
+def test_megakernel_prefill_matches_plain(dev, paged, slots, seq, start):
+    max_len, page = 256, 32
+    mb = mkb.ModelBuilder(MK_CFG, batch=slots * seq, seq=seq,
+                          max_len=max_len, t_tile=page, paged=paged,
+                          page=page if paged else None)
+    g = torch.Generator(device=dev).manual_seed(3)
+    params = dense.init_params(MK_CFG, generator=g, device=dev,
+                               dtype=torch.bfloat16)
+    arena = mb.pack_arena(params, dtype=torch.bfloat16, device=dev)
+    L, kv = MK_CFG.num_hidden_layers, MK_CFG.num_key_value_heads
+    shape = ((L, 1 + slots * mb.p_max, page, kv, 128) if paged
+             else (L, slots, max_len, kv, 128))
+    kc = torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16)
+    vc = torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16)
+    rng = np.random.RandomState(3)
+    table = ((rng.permutation(slots * mb.p_max) + 1).astype(np.int32)
+             if paged else None)
+    toks = rng.randint(0, MK_CFG.vocab_size, slots * seq).astype(np.int32)
+    lens = np.full(slots * seq, start, np.int32)
+    kc0, vc0 = kc.clone(), vc.clone()
+    a2, k2, v2 = arena.clone(), kc.clone(), vc.clone()
+    got = mb.step(arena, kc, vc, toks, lens, table)
+    want = mb.plain_step(a2, k2, v2, toks, lens, table)
+    written = _check_mk(got, want, kc, vc, k2, v2, kc0, vc0)
+    # Every (layer, row) position, all KV heads, and nothing else.
+    assert int(written.all(-1).sum()) == int(written.any(-1).sum()) \
+        == L * slots * seq

@@ -254,7 +254,7 @@ def test_dense_engine_matches_paged(engines):
 
 def test_unported_options_raise(engines):
     _, teng = engines
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="prefill_buckets mismatch"):
         ServingEngine(teng, prefill_buckets=(4, 8))
     small = MegaKernelEngine(CFG, params=teng.params, device="cpu",
                              dtype=torch.float32,
@@ -268,9 +268,9 @@ UNPORTED = sorted(set(TaskType) - mkb.KERNEL_TYPES - {TaskType.NOOP})
 
 @pytest.mark.parametrize("task_type", UNPORTED, ids=lambda t: t.name)
 def test_unported_task_set_raises(task_type):
-    """Every task type outside the decode set names its ROADMAP item,
+    """Every task type outside the ported sets names its ROADMAP item,
     in the plain interpreter and (by KERNEL_TYPES) on the card."""
-    assert len(UNPORTED) == 9
+    assert len(UNPORTED) == 5
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         mkk.BODIES[task_type](None, (), None)
 

@@ -1,9 +1,19 @@
-// The megakernel for Hopper (sm_90a): a whole Qwen3 decode step as ONE
+// The megakernel for Hopper (sm_90a): a whole Qwen3 step as ONE
 // persistent launch over a bf16 arena.
 //
 // megakernel_kernel replaces triton_dist_tpu/megakernel/builder.py
-// ModelBuilder._kernel (:1157) with its decode task bodies from
-// triton_dist_tpu/megakernel/kernels.py. The TPU kernel walks its task
+// ModelBuilder._kernel (:1157) with its decode, batched-prefill and
+// prefill-chunk task bodies from triton_dist_tpu/megakernel/kernels.py.
+// The three cache pairs differ only in their row rule (row_at below):
+//
+//   decode  (WRITE_KV / ATTN_DECODE)           row r: slot r, at lens[r]
+//   prefill (WRITE_KV_PREFILL / ATTN_PREFILL)  slot r / seq, at
+//                                               lens[r] + r % seq
+//   chunk   (WRITE_KV_CHUNK / ATTN_CHUNK)      slot 0 (the launch carries
+//            one (p_max,) table row), at max(code >= 0 ? code : -code-2, 0),
+//            writing iff code >= 0 (lens holds the sign-encoded codes)
+//
+// so one write body and one attention body serve all three. The TPU kernel walks its task
 // queue as a sequential grid on one core; here every block of a
 // cooperative launch (as many as fit on the card at once) loops:
 //
@@ -33,19 +43,29 @@
 // (the dense cache is the same with page = max_len and table = arange).
 // Math inside a task is fp32; every output is rounded to bf16 when stored.
 //
-// What bounds a step on the H100: bytes. At batch <= 8 every weight
+// What bounds a step on the H100: at decode batch <= 8, bytes. Every weight
 // element is used for <= 8 multiply-adds, far below the ~295 flops per
 // byte where the tensor cores become the limit; the step's floor is its
 // weights plus the K/V rows it attends plus the logits, over 3.35 TB/s.
-// This first design reads each weight once with 16-byte loads, up to
-// eight rows in flight per thread, and sums in fp32 on CUDA cores. Known slow points,
-// measured in PERF.md and left for the redesign: LINEAR uses CUDA cores,
-// not wgmma, and ATTN_DECODE is one task per layer run by one block — a
-// serial point 36 times a step.
+// That LINEAR body reads each weight once with 16-byte loads, up to eight
+// rows in flight per thread, and sums in fp32 on CUDA cores. A prompt
+// launch (chunk or batched prefill) has 9 and more rows: 512 rows use
+// each weight 512 times, so it is bound by operations, and its LINEAR runs
+// on tensor cores (nvcuda::wmma, bf16 16x16x16 with fp32 sums) in passes
+// of 64 rows, zero-padding rows past the batch in shared memory. The
+// kernel is instantiated twice (run_task<kMma>): the decode set with the
+// CUDA-core LINEAR, and every ported type with the tensor-core one, so
+// the decode kernel's registers are not shared with the prompt paths. Known
+// slow points, measured in PERF.md and left for the redesign: the
+// tensor-core LINEAR stages without pipelining and rereads its weight
+// panel once per 64-row pass (no wgmma, no TMA), and attention is one
+// task per layer run by one block, a serial point 36 times a launch whose
+// work grows with rows x attended keys.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <mma.h>
 #include <stdint.h>
 #include <string.h>
 
@@ -57,22 +77,35 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kW = 128;              // arena tile width (the only one built)
 constexpr int kHD = 128;             // head_dim (the only one built)
-constexpr int kMaxB = 8;             // batch rows
+constexpr int kMaxB = 8;             // rows of the CUDA-core LINEAR
 constexpr int kMaxRep = 8;           // query heads per KV head
 constexpr int kKC = 1024;            // LINEAR input columns staged per pass
 constexpr int kKG = kThreads / (kW / 8);   // LINEAR k-groups (16)
 constexpr int kSmemBytes = 32 * 1024;
 constexpr unsigned kFull = 0xffffffffu;
+// Tensor-core LINEAR (more than kMaxB rows): 64-row passes, 64-deep
+// k stages; shared-memory rows padded by 8 bf16 against bank conflicts.
+constexpr int kTM = 64;
+constexpr int kTK = 64;
+constexpr int kXLd = kTK + 8;
+constexpr int kWLd = kW + 8;
 
 static_assert(kMaxB * kKC * 4 <= kSmemBytes, "LINEAR input stage");
 static_assert(kWarps * kMaxB * kW * 4 <= kSmemBytes, "LINEAR reduction");
 static_assert(kWarps * kMaxRep * kHD * 4 <= kSmemBytes, "ATTN queries");
+static_assert((kTM * kXLd + kTK * kWLd) * 2 <= kSmemBytes, "MMA stages");
+static_assert(kWarps * 16 * 16 * 4 <= kTM * kXLd * 2, "MMA epilogue");
+static_assert(kWarps * 16 == kW, "one 16-column fragment per warp");
 
 // Task type codes of triton_dist_tpu_torch/megakernel/task.py.
 enum TaskType : int {
   kRmsNorm = 0, kLinear = 1, kAdd = 2, kSiluMul = 3, kAttnDecode = 4,
   kWriteKv = 5, kAllreduce = 6, kGather = 7, kNoop = 8,
+  kWriteKvPrefill = 9, kAttnPrefill = 10, kAttnChunk = 16, kWriteKvChunk = 17,
 };
+
+// How a cache task maps its rows to (slot, position, writes).
+enum RowMode : int { kDecodeRows = 0, kPrefillRows = 1, kChunkRows = 2 };
 
 struct Params {
   __nv_bfloat16* arena;
@@ -90,7 +123,8 @@ struct Params {
   int* gate;           // 0 until a wait times out: the first one reports
   int* flags;
   int* err;            // mapped host memory: [set, task, pred, claim]
-  int n_claims, batch, h_loc, kv_loc, num_pages, page, p_max;
+  long long* task_ns;  // optional [n_tasks][start, end] on %globaltimer
+  int n_claims, batch, seq, h_loc, kv_loc, num_pages, page, p_max;
   float eps, theta;
   unsigned long long timeout_ns;
 };
@@ -159,13 +193,38 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&f)[4]) {
   *reinterpret_cast<uint2*>(p) = make_uint2(pack2(f[0], f[1]), pack2(f[2], f[3]));
 }
 
-// Pool row (layer, KV position `pos` of batch row bb, KV head g).
-__device__ __forceinline__ size_t pool_off(const Params& P, int layer, int bb, int pos,
+// Pool row (layer, KV position `pos` of `slot`'s table row, KV head g).
+__device__ __forceinline__ size_t pool_off(const Params& P, int layer, int slot, int pos,
                                            int g) {
   const int pi = min(pos / P.page, P.p_max - 1);
-  const int pid = __ldg(P.table + (size_t)bb * P.p_max + pi);
+  const int pid = __ldg(P.table + (size_t)slot * P.p_max + pi);
   return ((((size_t)layer * P.num_pages + pid) * P.page + pos % P.page) * P.kv_loc + g) *
          kHD;
+}
+
+struct Row {
+  int slot, pos;
+  bool writes;
+};
+
+// Row r of a cache task under its row rule (the plain bodies' _*_rows).
+__device__ __forceinline__ Row row_at(const Params& P, RowMode mode, int r) {
+  const int v = P.lens[r];
+  Row x;
+  if (mode == kPrefillRows) {
+    x.slot = r / P.seq;
+    x.pos = v + r % P.seq;
+    x.writes = true;
+  } else if (mode == kChunkRows) {
+    x.slot = 0;
+    x.pos = max(v >= 0 ? v : -v - 2, 0);
+    x.writes = v >= 0;
+  } else {
+    x.slot = r;
+    x.pos = v;
+    x.writes = true;
+  }
+  return x;
 }
 
 // x (4 dims per lane, a 128-wide head) <- RMSNorm(x) * w, then rope at
@@ -258,32 +317,36 @@ __device__ void gather(const Params& P, const int* a) {
   }
 }
 
-// WRITE_KV (k_off, v_off, layer, k_norm_off): warp per (row, KV head);
+// WRITE_KV* (k_off, v_off, layer, k_norm_off): warp per (row, KV head);
 // k-norm and rope on K at the row's position, then both rows into the
-// page the block table names.
-__device__ void write_kv(const Params& P, const int* a) {
+// page its slot's table row names. A row that does not write (a chunk's
+// attend-only and dead rows) touches no pool byte.
+__device__ void write_kv(const Params& P, const int* a, RowMode mode) {
   const int k_off = a[0], v_off = a[1], layer = a[2], kn_off = a[3];
   const int b = P.batch, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int p = warp; p < b * P.kv_loc; p += kWarps) {
     const int bb = p / P.kv_loc, g = p % P.kv_loc;
-    const int pos = P.lens[bb];
+    const Row row = row_at(P, mode, bb);
+    if (!row.writes) continue;
+    const int pos = row.pos;
     float k[4];
     load4_cg(arow(P, k_off + (long long)g * b + bb) + lane * 4, k);
     norm_rope(P, k, arow(P, kn_off), pos);
-    const size_t off = pool_off(P, layer, bb, pos, g) + lane * 4;
+    const size_t off = pool_off(P, layer, row.slot, pos, g) + lane * 4;
     store4(P.kpool + off, k);
     *reinterpret_cast<uint2*>(P.vpool + off) = __ldcg(reinterpret_cast<const uint2*>(
         arow(P, v_off + (long long)g * b + bb) + lane * 4));
   }
 }
 
-// ATTN_DECODE (q_off, out_off, layer, q_norm_off): warp per (row, KV
-// head), carrying the rep query heads of that KV head (q-norm, rope,
-// 1/sqrt(hd)) in shared memory. Online softmax over the row's len + 1
-// keys in 32-key steps, lane t scoring key kbase + t; for P.V lane owns
-// output dims [4 * lane, 4 * lane + 4). Keeps the -inf guards and
+// ATTN_DECODE / ATTN_PREFILL / ATTN_CHUNK (q_off, out_off, layer,
+// q_norm_off): warp per (row, KV head), carrying the rep query heads of
+// that KV head (q-norm, rope at the row's position, 1/sqrt(hd)) in shared
+// memory. Online softmax over the row's position + 1 keys of its slot in
+// 32-key steps, lane t scoring key kbase + t; for P.V lane owns output
+// dims [4 * lane, 4 * lane + 4). Keeps the -inf guards and
 // max(l, 1e-30) of the JAX body.
-__device__ void attn_decode(const Params& P, const int* a, float* smem) {
+__device__ void attn_rows(const Params& P, const int* a, float* smem, RowMode mode) {
   const int q_off = a[0], out_off = a[1], layer = a[2], qn_off = a[3];
   const int b = P.batch, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int rep = P.h_loc / P.kv_loc;
@@ -291,7 +354,8 @@ __device__ void attn_decode(const Params& P, const int* a, float* smem) {
   const float qscale = 1.f / sqrtf((float)kHD);
   for (int p = warp; p < b * P.kv_loc; p += kWarps) {
     const int bb = p / P.kv_loc, g = p % P.kv_loc;
-    const int pos = P.lens[bb];
+    const Row row = row_at(P, mode, bb);
+    const int pos = row.pos, slot = row.slot;
     const int n_keys = min(pos + 1, P.p_max * P.page);
     for (int r = 0; r < rep; ++r) {
       float q[4];
@@ -315,7 +379,8 @@ __device__ void attn_decode(const Params& P, const int* a, float* smem) {
 #pragma unroll
       for (int r = 0; r < kMaxRep; ++r) s[r] = 0.f;
       if (key < n_keys) {
-        const uint4* kp = reinterpret_cast<const uint4*>(P.kpool + pool_off(P, layer, bb, key, g));
+        const uint4* kp =
+            reinterpret_cast<const uint4*>(P.kpool + pool_off(P, layer, slot, key, g));
 #pragma unroll 4
         for (int c = 0; c < kHD / 8; ++c) {
           float kf[8];
@@ -352,7 +417,7 @@ __device__ void attn_decode(const Params& P, const int* a, float* smem) {
         for (int u = 0; u < 8; ++u)
           vv[u] = t0 + u < t_end
                       ? __ldcg(reinterpret_cast<const uint2*>(
-                            P.vpool + pool_off(P, layer, bb, kbase + t0 + u, g) + lane * 4))
+                            P.vpool + pool_off(P, layer, slot, kbase + t0 + u, g) + lane * 4))
                       : make_uint2(0, 0);
 #pragma unroll
         for (int u = 0; u < 8; ++u) {
@@ -462,6 +527,79 @@ __device__ void linear(const Params& P, const int* a, float* smem) {
   }
 }
 
+// LINEAR for more than kMaxB rows, on tensor cores: output tile j (all
+// rows x 128 columns) in passes of kTM rows. Each k stage puts kTM input
+// rows x kTK columns (rows past the batch zero-filled) and the weight
+// block's kTK x 128 panel in shared memory; warp w owns the 16 output
+// columns [16w, 16w + 16) and the pass's four 16-row fragments, fp32
+// accumulators. The epilogue goes through a per-warp 16x16 fp32 scratch
+// (aliasing the input stage) and stores only rows < batch, in bf16.
+__device__ void linear_mma(const Params& P, const int* a, float* smem) {
+  using namespace nvcuda;
+  const int in_off = a[0], w_off = a[1], out_off = a[2];
+  const int k_tiles = a[3], n_tiles = a[4], j = a[5];
+  const int B = P.batch, tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);   // [kTM][kXLd]
+  __nv_bfloat16* ws = xs + kTM * kXLd;                            // [kTK][kWLd]
+  for (int r0 = 0; r0 < B; r0 += kTM) {
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kTM / 16];
+#pragma unroll
+    for (int i = 0; i < kTM / 16; ++i) wmma::fill_fragment(acc[i], 0.f);
+    for (int kt = 0; kt < k_tiles; ++kt) {
+      for (int k0 = 0; k0 < kW; k0 += kTK) {
+        __syncthreads();                                   // stage consumed
+        for (int e = tid; e < kTM * (kTK / 8); e += kThreads) {
+          const int r = e / (kTK / 8), c8 = e % (kTK / 8);
+          uint4 v = make_uint4(0, 0, 0, 0);
+          if (r0 + r < B)
+            v = __ldcg(reinterpret_cast<const uint4*>(
+                           arow(P, in_off + (long long)kt * B + r0 + r) + k0) +
+                       c8);
+          *reinterpret_cast<uint4*>(xs + r * kXLd + c8 * 8) = v;
+        }
+        for (int e = tid; e < kTK * (kW / 8); e += kThreads) {
+          const int r = e / (kW / 8), c8 = e % (kW / 8);
+          const long long wrow = w_off + ((long long)kt * n_tiles + j) * kW + k0 + r;
+          *reinterpret_cast<uint4*>(ws + r * kWLd + c8 * 8) =
+              __ldg(reinterpret_cast<const uint4*>(arow(P, wrow)) + c8);
+        }
+        __syncthreads();
+#pragma unroll
+        for (int kk = 0; kk < kTK; kk += 16) {
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bf;
+          wmma::load_matrix_sync(bf, ws + kk * kWLd + warp * 16, kWLd);
+#pragma unroll
+          for (int i = 0; i < kTM / 16; ++i) {
+            if (r0 + i * 16 < B) {                         // warp-uniform
+              wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> af;
+              wmma::load_matrix_sync(af, xs + i * 16 * kXLd + kk, kXLd);
+              wmma::mma_sync(acc[i], af, bf, acc[i]);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();                                       // stages read
+    float* cs = smem + warp * 256;
+#pragma unroll
+    for (int i = 0; i < kTM / 16; ++i) {
+      if (r0 + i * 16 < B) {
+        wmma::store_matrix_sync(cs, acc[i], 16, wmma::mem_row_major);
+        __syncwarp();
+        // Lane l: row l / 2 of the fragment, columns 8 (l % 2) .. + 8.
+        const int row = r0 + i * 16 + lane / 2, c = (lane % 2) * 8;
+        if (row < B) {
+          const float* f = cs + (lane / 2) * 16 + c;
+          *reinterpret_cast<uint4*>(arow(P, out_off + (long long)j * B + row) + warp * 16 + c) =
+              make_uint4(pack2(f[0], f[1]), pack2(f[2], f[3]), pack2(f[4], f[5]),
+                         pack2(f[6], f[7]));
+        }
+        __syncwarp();                                      // cs rewritten next
+      }
+    }
+  }
+}
+
 __device__ void fail(const Params& P, int task, int pred, int claim) {
   if (atomicCAS(P.gate, 0, 1) != 0) {
     for (;;) __nanosleep(1000);   // the first failure's trap ends the launch
@@ -476,32 +614,49 @@ __device__ void fail(const Params& P, int task, int pred, int claim) {
   __trap();
 }
 
+// The task bodies of one launch. Two instantiations: kMma = false is the
+// decode kernel (the decode task set, LINEAR on CUDA cores for <= kMaxB
+// rows); kMma = true runs every ported type, LINEAR on tensor cores for
+// any row count (the prompt modes, or decode past kMaxB rows). Keeping
+// the tensor-core body and the prompt row rules out of the decode kernel
+// keeps its register allocation that of the decode set alone.
+template <bool kMma>
 __device__ void run_task(const Params& P, int t, float* smem) {
   const int* a = P.args + (size_t)t * 8;
-  switch (P.types[t]) {
-    case kRmsNorm: rmsnorm(P, a); break;
-    case kLinear:
-      switch (P.batch) {
-        case 1: linear<1>(P, a, smem); break;
-        case 2: linear<2>(P, a, smem); break;
-        case 3: linear<3>(P, a, smem); break;
-        case 4: linear<4>(P, a, smem); break;
-        case 5: linear<5>(P, a, smem); break;
-        case 6: linear<6>(P, a, smem); break;
-        case 7: linear<7>(P, a, smem); break;
-        default: linear<8>(P, a, smem); break;
-      }
-      break;
-    case kAdd: elementwise(P, a, false); break;
-    case kSiluMul: elementwise(P, a, true); break;
-    case kAttnDecode: attn_decode(P, a, smem); break;
-    case kWriteKv: write_kv(P, a); break;
-    case kGather: gather(P, a); break;
+  const int type = P.types[t];
+  switch (type) {
+    case kRmsNorm: rmsnorm(P, a); return;
+    case kAdd: elementwise(P, a, false); return;
+    case kSiluMul: elementwise(P, a, true); return;
+    case kAttnDecode: attn_rows(P, a, smem, kDecodeRows); return;
+    case kWriteKv: write_kv(P, a, kDecodeRows); return;
+    case kGather: gather(P, a); return;
     case kAllreduce:     // one rank: nothing to reduce
-    case kNoop: break;
-    default:
-      if (threadIdx.x == 0) fail(P, t, -1, -1);
+    case kNoop: return;
+    default: break;
   }
+  if constexpr (kMma) {
+    switch (type) {
+      case kLinear: linear_mma(P, a, smem); return;
+      case kAttnPrefill: attn_rows(P, a, smem, kPrefillRows); return;
+      case kAttnChunk: attn_rows(P, a, smem, kChunkRows); return;
+      case kWriteKvPrefill: write_kv(P, a, kPrefillRows); return;
+      case kWriteKvChunk: write_kv(P, a, kChunkRows); return;
+      default: break;
+    }
+  } else if (type == kLinear) {
+    switch (P.batch) {
+      case 1: linear<1>(P, a, smem); return;
+      case 2: linear<2>(P, a, smem); return;
+      case 3: linear<3>(P, a, smem); return;
+      case 4: linear<4>(P, a, smem); return;
+      case 5: linear<5>(P, a, smem); return;
+      case 6: linear<6>(P, a, smem); return;
+      case 7: linear<7>(P, a, smem); return;
+      default: linear<8>(P, a, smem); return;
+    }
+  }
+  if (threadIdx.x == 0) fail(P, t, -1, -1);
 }
 
 // Wait (thread 0 only) until every predecessor of task t is done.
@@ -516,8 +671,9 @@ __device__ void wait_preds(const Params& P, int t, int claim) {
   }
 }
 
+template <bool kMma>
 __global__ void __launch_bounds__(kThreads, 2) megakernel_kernel(const Params P) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+  extern __shared__ __align__(128) unsigned char smem_raw[];
   float* smem = reinterpret_cast<float*>(smem_raw);
   __shared__ int s_task;
   for (;;) {
@@ -533,9 +689,11 @@ __global__ void __launch_bounds__(kThreads, 2) megakernel_kernel(const Params P)
     __syncthreads();
     const int t = s_task;
     if (t < 0) return;
-    run_task(P, t, smem);
+    if (P.task_ns != nullptr && threadIdx.x == 0) P.task_ns[2 * t] = (long long)globaltimer();
+    run_task<kMma>(P, t, smem);
     __syncthreads();
     if (threadIdx.x == 0) {
+      if (P.task_ns != nullptr) P.task_ns[2 * t + 1] = (long long)globaltimer();
       __threadfence();
       st_release(P.flags + t, 1);
     }
@@ -554,11 +712,16 @@ cudaError_t ensure_error_record() {
   return cudaHostGetDevicePointer(reinterpret_cast<void**>(&g_err_dev), g_err_host, 0);
 }
 
-cudaError_t resident_blocks(int device, int* out) {
+const void* kernel_for(bool mma) {
+  return mma ? reinterpret_cast<const void*>(megakernel_kernel<true>)
+             : reinterpret_cast<const void*>(megakernel_kernel<false>);
+}
+
+cudaError_t resident_blocks(int device, bool mma, int* out) {
   int sms = 0, per_sm = 0;
   cudaError_t e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (e != cudaSuccess) return e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, megakernel_kernel, kThreads,
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel_for(mma), kThreads,
                                                     kSmemBytes);
   if (e != cudaSuccess) return e;
   *out = sms * per_sm;
@@ -569,17 +732,23 @@ cudaError_t resident_blocks(int device, int* out) {
 
 // Plain C interface for ctypes. Pointers are device pointers on `device`
 // (int32 tables; `sync` holds 2 + n_tasks ints: the claim counter, the
-// failure gate, then the done flags); `stream` is a cudaStream_t. Returns a cudaError_t code
-// (0 = launched). The grid is every block that can be resident at once.
+// failure gate, then the done flags; `task_ns`, null or 2 * n_tasks
+// int64, receives each task's start and end); `stream` is a cudaStream_t.
+// `batch` counts rows, `seq` the rows per slot of a batched prefill;
+// `mma` = 1 launches the tensor-core instantiation (required for the
+// prompt row modes and for more than kMaxB rows). Returns a cudaError_t
+// code (0 = launched). The grid is every block that can be resident at
+// once.
 extern "C" int tdt_megakernel_bf16(void* arena, void* kpool, void* vpool, const void* tokens,
                                    const void* lens, const void* table, const void* claims,
                                    const void* types, const void* args, const void* pred_start,
-                                   const void* preds, void* sync, int n_claims, int n_tasks,
-                                   int batch, int w, int hd, int h_loc, int kv_loc,
-                                   int num_pages, int page, int p_max,
+                                   const void* preds, void* sync, void* task_ns, int n_claims,
+                                   int n_tasks, int batch, int seq, int w, int hd, int h_loc,
+                                   int kv_loc, int num_pages, int page, int p_max,
                                    float rms_eps, float rope_theta, long long timeout_ns,
-                                   int device, void* stream) {
-  if (w != kW || hd != kHD || batch < 1 || batch > kMaxB || kv_loc < 1 || h_loc % kv_loc ||
+                                   int mma, int device, void* stream) {
+  if (w != kW || hd != kHD || batch < 1 || seq < 1 || batch % seq || kv_loc < 1 ||
+      h_loc % kv_loc || (!mma && batch > kMaxB) ||
       h_loc / kv_loc > kMaxRep || page < 1 || p_max < 1 || num_pages < 1 || n_tasks < 1 ||
       n_claims < 1 || timeout_ns <= 0)
     return (int)cudaErrorInvalidValue;
@@ -588,7 +757,7 @@ extern "C" int tdt_megakernel_bf16(void* arena, void* kpool, void* vpool, const 
   e = ensure_error_record();
   if (e != cudaSuccess) return (int)e;
   int grid = 0;
-  e = resident_blocks(device, &grid);
+  e = resident_blocks(device, mma != 0, &grid);
   if (e != cudaSuccess) return (int)e;
   if (grid < 1) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -611,8 +780,10 @@ extern "C" int tdt_megakernel_bf16(void* arena, void* kpool, void* vpool, const 
   P.gate = static_cast<int*>(sync) + 1;
   P.flags = static_cast<int*>(sync) + 2;
   P.err = g_err_dev;
+  P.task_ns = static_cast<long long*>(task_ns);
   P.n_claims = n_claims;
   P.batch = batch;
+  P.seq = seq;
   P.h_loc = h_loc;
   P.kv_loc = kv_loc;
   P.num_pages = num_pages;
@@ -622,8 +793,8 @@ extern "C" int tdt_megakernel_bf16(void* arena, void* kpool, void* vpool, const 
   P.theta = rope_theta;
   P.timeout_ns = (unsigned long long)timeout_ns;
   void* kargs[] = {&P};
-  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(megakernel_kernel), dim3(grid),
-                                  dim3(kThreads), kargs, kSmemBytes, s);
+  e = cudaLaunchCooperativeKernel(kernel_for(mma != 0), dim3(grid), dim3(kThreads), kargs,
+                                  kSmemBytes, s);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -638,12 +809,13 @@ extern "C" int tdt_megakernel_error(int* out) {
   return out[0];
 }
 
-// Blocks in one launch on `device` (resident blocks per SM x SMs), or a
-// negative cudaError_t.
-extern "C" int tdt_megakernel_grid(int device) {
+// Blocks in one launch of the decode (mma = 0) or tensor-core (mma = 1)
+// instantiation on `device` (resident blocks per SM x SMs), or a negative
+// cudaError_t.
+extern "C" int tdt_megakernel_grid(int device, int mma) {
   int grid = 0;
   cudaError_t e = cudaSetDevice(device);
-  if (e == cudaSuccess) e = resident_blocks(device, &grid);
+  if (e == cudaSuccess) e = resident_blocks(device, mma != 0, &grid);
   return e == cudaSuccess ? grid : -(int)e;
 }
 

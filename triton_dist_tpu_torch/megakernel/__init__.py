@@ -1,5 +1,6 @@
-"""Megakernel runtime: a whole decode step as one persistent kernel
-(counterpart of ``triton_dist_tpu/megakernel``).
+"""Megakernel runtime: a whole model step (decode, a prompt chunk, or a
+batched prefill) as one persistent kernel (counterpart of
+``triton_dist_tpu/megakernel``).
 
 The task graph, its arena layout and its schedule are built on the host
 exactly as the JAX package builds them (:class:`ModelBuilder`, the native

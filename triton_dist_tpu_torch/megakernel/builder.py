@@ -17,9 +17,21 @@ compared exactly. :meth:`ModelBuilder.step` then runs the step:
 - on CPU tensors it runs the plain interpreter: the same claim list in
   order through the PyTorch task bodies of :mod:`.kernels`.
 
-This slice builds the dense decode step (``seq=1``), paged or dense, at
-one rank; batched prefill, the Q-block and chunk pairs, quantized pools,
-MoE, hybrid GDN and profiling are later slices (ROADMAP.md).
+It builds the dense step at one rank in three row modes, chosen by the
+cache task pair each layer records:
+
+- decode (``seq=1``: ``WRITE_KV``/``ATTN_DECODE``), paged or dense: row r
+  is slot r at its own length;
+- batched prefill (``seq=S > 1``: ``WRITE_KV_PREFILL``/``ATTN_PREFILL``),
+  paged or dense: ``batch`` counts rows, slot-major (slots * S), each at
+  the shared base plus its index in the slot;
+- prefill chunk (``chunk=True``, ``batch = seq = C``:
+  ``WRITE_KV_CHUNK``/``ATTN_CHUNK``), paged only: C rows of one slot whose
+  (p_max,) table row rides the launch, positions sign-encoded per row
+  (:func:`~triton_dist_tpu_torch.ops.chunked_prefill.chunk_row_codes`).
+
+The Q-block verify pair, quantized pools, MoE, hybrid GDN and profiling
+are later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -41,18 +53,32 @@ from triton_dist_tpu_torch.utils.build import CudaKernel, load
 
 # ``KERNEL.launches`` counts launches of the CUDA megakernel.
 KERNEL = CudaKernel("megakernel.cu", "tdt_megakernel_bf16",
-                    [ctypes.c_void_p] * 12 + [ctypes.c_int] * 10
-                    + [ctypes.c_float, ctypes.c_float, ctypes.c_longlong])
+                    [ctypes.c_void_p] * 13 + [ctypes.c_int] * 11
+                    + [ctypes.c_float, ctypes.c_float, ctypes.c_longlong,
+                       ctypes.c_int])
+# Launches of the CUDA megakernel by row mode (each also counts in
+# ``KERNEL.launches``).
+MODE_LAUNCHES = {"decode": 0, "prefill": 0, "chunk": 0}
 # What csrc/megakernel.cu is compiled for.
 KERNEL_TILE_W = 128
 KERNEL_HEAD_DIM = 128
-KERNEL_MAX_BATCH = 8
 KERNEL_MAX_GQA = 8            # query heads per KV head
-# Task types the CUDA kernel runs (the decode set).
+# Rows the decode instantiation's CUDA-core LINEAR takes; prompt modes and
+# wider decode launches run the tensor-core instantiation.
+KERNEL_CUDA_CORE_ROWS = 8
+# Task types the CUDA kernel runs: the decode set and the batched-prefill
+# and prefill-chunk cache pairs.
 KERNEL_TYPES = frozenset({
     TaskType.RMSNORM, TaskType.LINEAR, TaskType.ADD, TaskType.SILU_MUL,
     TaskType.ATTN_DECODE, TaskType.WRITE_KV, TaskType.ALLREDUCE,
-    TaskType.GATHER})
+    TaskType.GATHER, TaskType.WRITE_KV_PREFILL, TaskType.ATTN_PREFILL,
+    TaskType.WRITE_KV_CHUNK, TaskType.ATTN_CHUNK})
+# The cache task pair (write, attend) each layer records, by row mode.
+CACHE_PAIRS = {
+    "decode": (TaskType.WRITE_KV, TaskType.ATTN_DECODE),
+    "prefill": (TaskType.WRITE_KV_PREFILL, TaskType.ATTN_PREFILL),
+    "chunk": (TaskType.WRITE_KV_CHUNK, TaskType.ATTN_CHUNK),
+}
 DEFAULT_TIMEOUT_S = 5.0
 
 
@@ -157,21 +183,44 @@ class ArenaSchema:
 
 
 class ModelBuilder:
-    """Builds the dense Qwen3 decode step as a megakernel.
+    """Builds the dense Qwen3 step as a megakernel.
 
     ``schedule``: ``"static"`` (per-core slot lists packed by ``strategy``
     onto ``num_cores`` queues, read in merged order) or ``"dynamic"`` (one
     comm-priority-ordered claim list). Both are topological orders; the
-    CUDA kernel's blocks claim tasks in that order."""
+    CUDA kernel's blocks claim tasks in that order. ``seq`` > 1 builds a
+    batched prefill of ``batch // seq`` slots; ``chunk=True`` a prefill
+    chunk of ``batch == seq`` rows of one slot (module docstring)."""
 
     def __init__(self, cfg: ModelConfig, *, batch: int, max_len: int,
                  tile_w: Optional[int] = None, t_tile: Optional[int] = None,
                  num_cores: int = 1, strategy: str = "round_robin",
                  schedule: str = "static", paged: bool = False,
-                 page: Optional[int] = None):
+                 page: Optional[int] = None, seq: int = 1,
+                 chunk: bool = False):
         if schedule not in ("static", "dynamic"):
             raise ValueError(f"schedule must be 'static' or 'dynamic', "
                              f"got {schedule!r}")
+        if seq < 1 or batch % seq:
+            raise ValueError(f"batch rows {batch} not divisible by "
+                             f"seq {seq}")
+        if chunk:
+            if batch != seq:
+                raise ValueError(
+                    "chunk builds run ONE prompt chunk per launch: "
+                    f"batch ({batch}) must equal seq ({seq}), the chunk "
+                    "rows are the batch rows")
+            if not paged:
+                raise ValueError("the prefill-chunk task set addresses "
+                                 "the cache through block tables: build "
+                                 "with paged=True")
+        self.seq = seq
+        self.chunk = bool(chunk)
+        self.mode = ("chunk" if self.chunk else
+                     "prefill" if seq > 1 else "decode")
+        # Slots the rows belong to: the chunk's one table row, or
+        # batch // seq block-table rows (dense: cache rows).
+        self.n_slots = 1 if self.chunk else batch // seq
         self.cfg = cfg
         self.n = 1                       # tensor-parallel ranks
         self.batch = batch
@@ -192,11 +241,17 @@ class ModelBuilder:
         self.page = 0
         self.p_max = 0
         if paged:
-            self.page = page or self.t_tile
-            if self.page % self.t_tile or max_len % self.page:
+            self.page = page or max(self.t_tile, seq)
+            # A batched prefill's slot writes seq consecutive positions
+            # from a seq-aligned base, which the JAX body stores as one
+            # block inside one page; chunk rows write one position each.
+            seq_align = seq > 1 and not self.chunk
+            if (self.page % self.t_tile or (seq_align and self.page % seq)
+                    or max_len % self.page):
                 raise ValueError(
-                    f"page={self.page} needs t_tile|page and page|max_len "
-                    f"(t_tile={self.t_tile}, max_len={max_len})")
+                    f"page={self.page} needs t_tile|page, seq|page and "
+                    f"page|max_len (t_tile={self.t_tile}, seq={seq}, "
+                    f"max_len={max_len})")
             self.p_max = max_len // self.page
         if cfg.num_attention_heads % cfg.num_key_value_heads:
             raise ValueError("num_attention_heads must be a multiple of "
@@ -298,13 +353,14 @@ class ModelBuilder:
                          in_rows=d_t * b, w_rows=d_t * kv_t * w)
             self._linear(t0, o[f"l{li}.wv"], vx, d_t, kv_t, layer=li,
                          in_rows=d_t * b, w_rows=d_t * kv_t * w)
-            g.add(TaskType.WRITE_KV, (kx, vx, li, o[f"l{li}.k_norm"]),
+            wk_type, at_type = CACHE_PAIRS[self.mode]
+            g.add(wk_type, (kx, vx, li, o[f"l{li}.k_norm"]),
                   reads=[(kx, kv_t * b), (vx, kv_t * b),
                          (o[f"l{li}.k_norm"], 1)],
                   writes=[], layer=li)
             # ATTN reads the cache WRITE_KV wrote: an explicit edge, as
             # in the JAX builder (the pools are not arena regions).
-            attn_task = g.add(TaskType.ATTN_DECODE,
+            attn_task = g.add(at_type,
                               (q, attn, li, o[f"l{li}.q_norm"]),
                               reads=[(q, hq_t * b), (o[f"l{li}.q_norm"], 1)],
                               writes=[(attn, hq_t * b)], layer=li)
@@ -414,6 +470,14 @@ class ModelBuilder:
             return int(t.args[3])
         if t.task_type == TaskType.ATTN_DECODE:
             return 4 * self.d_tiles
+        if t.task_type == TaskType.ATTN_PREFILL:
+            return 8 * self.d_tiles * max(self.seq // 8, 1)
+        if t.task_type == TaskType.ATTN_CHUNK:
+            return 4 * self.d_tiles * self.seq
+        if t.task_type == TaskType.WRITE_KV_PREFILL:
+            return 2 * max(self.seq // 8, 1)
+        if t.task_type == TaskType.WRITE_KV_CHUNK:
+            return 2 * self.seq
         if t.task_type == TaskType.ALLREDUCE:
             return 2 * int(t.args[1])
         return 1
@@ -496,53 +560,79 @@ class ModelBuilder:
             w=self.w, batch=self.batch, h_loc=self.h_loc, kv_loc=self.kv_loc,
             hd=self.cfg.head_dim, rope_theta=self.cfg.rope_theta,
             rms_eps=self.cfg.rms_norm_eps, paged=self.paged, page=self.page,
-            p_max=self.p_max)
+            p_max=self.p_max, seq=self.seq)
 
-    def logits(self, arena: torch.Tensor) -> torch.Tensor:
-        """The fp32 (batch, vocab) logits of the last step, read out of
-        the arena's logits region."""
+    def logits(self, arena: torch.Tensor, rows=None) -> torch.Tensor:
+        """fp32 logits of the last step, read out of the arena's logits
+        region: (batch, vocab) for ``rows=None``, (len(rows), vocab) for a
+        sequence of row indices, (vocab,) for one int row. Only the rows
+        asked for are converted (a 512-row chunk holds 155 MB of bf16
+        logits at Qwen3's vocab; the server needs one row)."""
         b, w, lt = self.batch, self.w, self.vloc_tiles
-        rows = arena[self.logits_off:self.logits_off + lt * b]
-        return rows.view(lt, b, w).permute(1, 0, 2).reshape(
-            b, lt * w)[:, :self.vocab_loc].float()
+        region = arena[self.logits_off:self.logits_off + lt * b].view(lt, b, w)
+        if rows is None:
+            out = region.permute(1, 0, 2).reshape(b, lt * w)
+        elif isinstance(rows, (int, np.integer)):
+            return region[:, int(rows)].reshape(lt * w)[
+                :self.vocab_loc].float()
+        else:
+            idx = torch.as_tensor(np.asarray(rows, np.int64),
+                                  device=arena.device)
+            out = region[:, idx].permute(1, 0, 2).reshape(len(idx), lt * w)
+        return out[:, :self.vocab_loc].float()
+
+    def _row_positions(self, lens: np.ndarray) -> np.ndarray:
+        """Each row's cache position under this build's row rule (the
+        plain bodies' ``_*_rows``)."""
+        if self.mode == "chunk":
+            return np.maximum(np.where(lens >= 0, lens, -lens - 2), 0)
+        if self.mode == "prefill":
+            return lens + np.arange(self.batch) % self.seq
+        return lens
 
     def _host_inputs(self, k_cache, token_ids, cache_len, block_table):
         b = self.batch
         toks = np.asarray(torch.as_tensor(token_ids).cpu(),
                           np.int64).reshape(-1)
-        lens = np.broadcast_to(np.asarray(
-            torch.as_tensor(cache_len).cpu(), np.int64).reshape(-1), (b,))
+        lens = np.array(np.broadcast_to(np.asarray(
+            torch.as_tensor(cache_len).cpu(), np.int64).reshape(-1), (b,)))
         if toks.shape != (b,):
             raise ValueError(f"token_ids {toks.shape} != ({b},)")
-        if lens.min() < 0 or lens.max() >= self.max_len:
-            raise ValueError(f"cache_len {lens.tolist()} outside "
-                             f"[0, max_len={self.max_len})")
+        pos = self._row_positions(lens)
+        if (self.mode != "chunk" and lens.min() < 0) \
+                or pos.max() >= self.max_len:
+            raise ValueError(f"cache_len {lens.tolist()} puts a row "
+                             f"outside [0, max_len={self.max_len})")
         if self.paged:
             if block_table is None:
                 raise ValueError("a paged step needs its block table")
             table = np.asarray(torch.as_tensor(block_table).cpu(),
                                np.int64).reshape(-1)
-            if table.shape != (b * self.p_max,):
+            if table.shape != (self.n_slots * self.p_max,):
                 raise ValueError(f"block table {table.shape} != "
-                                 f"({b * self.p_max},)")
+                                 f"({self.n_slots * self.p_max},)")
             if table.min() < 0 or table.max() >= k_cache.shape[1]:
                 raise ValueError(f"block table ids outside the pool of "
                                  f"{k_cache.shape[1]} pages")
         else:
-            table = np.arange(b, dtype=np.int64)
-        return toks, np.array(lens), table
+            table = np.arange(self.n_slots, dtype=np.int64)
+        return toks, lens, table
 
     def step(self, arena, k_cache, v_cache, token_ids, cache_len,
-             block_table=None, *,
+             block_table=None, *, rows=None,
              timeout_s: float = DEFAULT_TIMEOUT_S) -> torch.Tensor:
-        """One decode step, IN PLACE on ``arena`` and the pools.
+        """One launch of this build, IN PLACE on ``arena`` and the pools.
 
-        arena: (arena_rows, w); k_cache/v_cache: (layers, num_pages, page,
-        kv, hd) paged or (layers, batch, max_len, kv, hd) dense; token_ids
-        (batch,); cache_len: a scalar or (batch,) per-row positions (each
-        row writes its K/V there and attends ``cache_len + 1`` keys);
-        block_table: the flat (batch * p_max,) page ids when paged. Returns
-        fp32 logits (batch, vocab).
+        arena: (rows >= arena_rows, w), shared by every build of one
+        engine; k_cache/v_cache: (layers, num_pages, page, kv, hd) paged
+        or (layers, slots, max_len, kv, hd) dense; token_ids (batch,);
+        cache_len: a scalar or (batch,) per-row values read by the row
+        rule (decode: each row's position, where it writes its K/V and
+        attends ``cache_len + 1`` keys; batched prefill: the shared base;
+        chunk: the sign-encoded codes); block_table: the flat
+        (n_slots * p_max,) page ids when paged (a chunk's: its slot's
+        (p_max,) row). Returns fp32 logits of ``rows`` (see
+        :meth:`logits`).
 
         CUDA tensors launch the megakernel on every block that fits on the
         card and wait for it (``timeout_s`` bounds each wait in the
@@ -551,22 +641,22 @@ class ModelBuilder:
         interpreter."""
         if arena.device.type == "cpu":
             return self.plain_step(arena, k_cache, v_cache, token_ids,
-                                   cache_len, block_table)
+                                   cache_len, block_table, rows=rows)
         toks, lens, table = self._host_inputs(k_cache, token_ids, cache_len,
                                               block_table)
         self.launch(arena, k_cache, v_cache, toks, lens, table,
                     timeout_s=timeout_s)
         self.wait(arena.device)
-        return self.logits(arena)
+        return self.logits(arena, rows)
 
     def plain_step(self, arena, k_cache, v_cache, token_ids, cache_len,
-                   block_table=None) -> torch.Tensor:
+                   block_table=None, *, rows=None) -> torch.Tensor:
         """The plain version of :meth:`step`, on tensors of any device:
         the claim list in order through the PyTorch task bodies."""
         toks, lens, table = self._host_inputs(k_cache, token_ids, cache_len,
                                               block_table)
         self.interpret(arena, k_cache, v_cache, toks, lens, table)
-        return self.logits(arena)
+        return self.logits(arena, rows)
 
     def interpret(self, arena, k_cache, v_cache, toks, lens, table) -> None:
         """The plain version: the claim list in order through the PyTorch
@@ -601,24 +691,22 @@ class ModelBuilder:
         for ok, what in (
                 (self.w == KERNEL_TILE_W, f"tile width {self.w}"),
                 (cfg.head_dim == KERNEL_HEAD_DIM, f"head_dim {cfg.head_dim}"),
-                (self.batch <= KERNEL_MAX_BATCH, f"batch {self.batch}"),
                 (rep <= KERNEL_MAX_GQA, f"{rep} query heads per KV head")):
             if not ok:
                 raise ValueError(
                     f"{what}: csrc/megakernel.cu is compiled for tile width "
-                    f"{KERNEL_TILE_W} = head_dim {KERNEL_HEAD_DIM}, batch <= "
-                    f"{KERNEL_MAX_BATCH} and <= {KERNEL_MAX_GQA} query heads "
-                    "per KV head")
+                    f"{KERNEL_TILE_W} = head_dim {KERNEL_HEAD_DIM} and <= "
+                    f"{KERNEL_MAX_GQA} query heads per KV head")
         bad = set(TaskType(t) for t in np.unique(self.type_of)) - KERNEL_TYPES
         if bad:
             raise NotImplementedError(f"task types {sorted(bad)} have no "
                                       "CUDA body (ROADMAP.md)")
-        if arena.shape != (self.arena_rows, self.w):
-            raise ValueError(f"arena {tuple(arena.shape)} != "
+        if arena.shape[0] < self.arena_rows or arena.shape[1] != self.w:
+            raise ValueError(f"arena {tuple(arena.shape)} smaller than "
                              f"({self.arena_rows}, {self.w})")
         L, kv, hd = cfg.num_hidden_layers, self.kv_loc, cfg.head_dim
         want = ((L, k_cache.shape[1], self.page, kv, hd) if self.paged
-                else (L, self.batch, self.max_len, kv, hd))
+                else (L, self.n_slots, self.max_len, kv, hd))
         if tuple(k_cache.shape) != want or k_cache.shape != v_cache.shape:
             raise ValueError(f"pools {tuple(k_cache.shape)} / "
                              f"{tuple(v_cache.shape)} != {want}")
@@ -639,8 +727,12 @@ class ModelBuilder:
         return tabs
 
     def launch(self, arena, k_cache, v_cache, toks, lens, table, *,
-               timeout_s: float = DEFAULT_TIMEOUT_S) -> None:
-        """One launch of the CUDA megakernel on the current stream."""
+               timeout_s: float = DEFAULT_TIMEOUT_S,
+               task_ns: Optional[torch.Tensor] = None) -> None:
+        """One launch of the CUDA megakernel on the current stream.
+        ``task_ns``: an optional int64 (n_tasks, 2) tensor on the card
+        that receives each task's start and end on the card's global
+        timer (ns), for :meth:`task_ms`."""
         self.check_kernel_args(arena, k_cache, v_cache)
         dev = arena.device
         tabs = self._tables_on(dev)
@@ -652,18 +744,47 @@ class ModelBuilder:
         if self.paged:
             num_pages, page, p_max = k_cache.shape[1], self.page, self.p_max
         else:
-            num_pages, page, p_max = self.batch, self.max_len, 1
+            num_pages, page, p_max = self.n_slots, self.max_len, 1
+        rec = 0
+        if task_ns is not None:
+            if (task_ns.device != dev or task_ns.dtype != torch.int64
+                    or tuple(task_ns.shape) != (len(self.graph.tasks), 2)
+                    or not task_ns.is_contiguous()):
+                raise ValueError("task_ns must be a contiguous int64 "
+                                 f"({len(self.graph.tasks)}, 2) tensor on "
+                                 f"{dev}")
+            rec = task_ns.data_ptr()
         cfg = self.cfg
         KERNEL.launch(
             arena.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             tok_d.data_ptr(), len_d.data_ptr(), tbl_d.data_ptr(),
             tabs["claims"].data_ptr(), tabs["types"].data_ptr(),
             tabs["args"].data_ptr(), tabs["pred_start"].data_ptr(),
-            tabs["preds"].data_ptr(), tabs["sync"].data_ptr(),
-            len(self.claim_list), len(self.graph.tasks), self.batch, self.w,
-            cfg.head_dim, self.h_loc, self.kv_loc, num_pages, page, p_max,
-            cfg.rms_norm_eps, cfg.rope_theta,
-            int(timeout_s * 1e9), device=dev)
+            tabs["preds"].data_ptr(), tabs["sync"].data_ptr(), rec,
+            len(self.claim_list), len(self.graph.tasks), self.batch,
+            self.seq, self.w, cfg.head_dim, self.h_loc, self.kv_loc,
+            num_pages, page, p_max, cfg.rms_norm_eps, cfg.rope_theta,
+            int(timeout_s * 1e9), int(self.uses_tensor_cores), device=dev)
+        MODE_LAUNCHES[self.mode] += 1
+
+    @property
+    def uses_tensor_cores(self) -> bool:
+        """Whether a launch runs the kernel's tensor-core instantiation
+        (prompt modes, or more than KERNEL_CUDA_CORE_ROWS rows)."""
+        return (self.mode != "decode"
+                or self.batch > KERNEL_CUDA_CORE_ROWS)
+
+    def task_ms(self, task_ns: torch.Tensor) -> Dict[str, Tuple[float, float]]:
+        """Per task type, the summed and the longest task time (ms) of a
+        launch recorded into ``task_ns`` (:meth:`launch`)."""
+        ns = task_ns.cpu().numpy()
+        dur = (ns[:, 1] - ns[:, 0]) / 1e6
+        out = {}
+        for t, d in zip(self.type_of, dur):
+            name = TaskType(int(t)).name
+            tot, top = out.get(name, (0.0, 0.0))
+            out[name] = (tot + float(d), max(top, float(d)))
+        return out
 
     def wait(self, device) -> None:
         """Wait for the launched step; a wait that timed out in the kernel
@@ -688,12 +809,13 @@ class ModelBuilder:
             raise
 
 
-def grid_blocks(device) -> int:
-    """Blocks in one megakernel launch on ``device``: resident blocks per
-    SM (the occupancy API) times the SMs."""
+def grid_blocks(device, tensor_cores: bool = False) -> int:
+    """Blocks in one megakernel launch on ``device`` (of the decode or
+    the tensor-core instantiation): resident blocks per SM (the
+    occupancy API) times the SMs."""
     fn = load(KERNEL.source).tdt_megakernel_grid
-    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
-    n = fn(torch.device(device).index or 0)
+    fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_int
+    n = fn(torch.device(device).index or 0, int(tensor_cores))
     if n <= 0:
         raise RuntimeError(f"occupancy query failed: CUDA error {-n}")
     return n

@@ -3,12 +3,17 @@ launch of the persistent kernel (counterpart of
 ``triton_dist_tpu/megakernel/engine.py``, without a mesh: one card).
 
 The whole step runs inside the kernel: the embedding gather, the norms,
-the projections, rope, decode attention over the KV cache, SwiGLU and the
-LM head — token ids in, logits out.
+the projections, rope, attention over the KV cache, SwiGLU and the LM
+head — token ids in, logits out. Besides the decode step, an engine may
+carry one prefill-chunk build per bucket (``prefill_buckets``: one launch
+per bucketed prompt chunk of one slot) or one batched-prefill build
+(``prefill_seq``: one launch per (batch, S) prompt); every build shares
+the one arena.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
@@ -32,7 +37,13 @@ class MegaKernelEngine:
     ``paged=True`` keeps the KV cache as page pools (layers, num_pages,
     page, kv, hd) read through :attr:`block_table` (a serving layer
     installs its allocator's table per step); ``paged=False`` keeps one
-    (max_len,) row per batch slot. ``device=None`` means the card."""
+    (max_len,) row per batch slot. ``device=None`` means the card.
+
+    ``prefill_buckets=(C1, C2, ...)`` (paged only) also builds one
+    prefill-chunk step per bucket (:meth:`prefill_chunk`: one launch takes
+    a C-token prompt chunk of one slot); ``prefill_seq=S`` instead builds
+    the batched prefill (:meth:`prefill`: one launch takes a (batch, S)
+    prompt). The two exclude each other, as in the JAX engine."""
 
     def __init__(self, cfg: ModelConfig, *, batch: int, max_len: int = 512,
                  tile_w: Optional[int] = None, t_tile: Optional[int] = None,
@@ -41,7 +52,21 @@ class MegaKernelEngine:
                  strategy: str = "round_robin",
                  params: Optional[dense.DenseLM] = None, seed: int = 0,
                  device=None, dtype: torch.dtype = torch.bfloat16,
-                 keep_params: bool = False):
+                 keep_params: bool = False, prefill_seq: int = 0,
+                 prefill_buckets=None):
+        self.prefill_buckets = (tuple(sorted(set(
+            int(c) for c in prefill_buckets))) if prefill_buckets else None)
+        if self.prefill_buckets:
+            if self.prefill_buckets[0] < 1:
+                raise ValueError(f"prefill buckets must be positive ints, "
+                                 f"got {prefill_buckets!r}")
+            if not paged:
+                raise ValueError("prefill_buckets needs paged=True "
+                                 "(block-table addressing)")
+            if prefill_seq > 1:
+                raise ValueError(
+                    "prefill_buckets is incompatible with prefill_seq: "
+                    "stream prompts through the chunk steps instead")
         self.cfg = cfg
         self.batch = batch
         self.max_len = max_len
@@ -50,16 +75,41 @@ class MegaKernelEngine:
         self.dtype = dtype
         self.steps_done = 0
         t_tile = t_tile or min(128, max_len)
-        self.builder = ModelBuilder(cfg, batch=batch, max_len=max_len,
-                                    tile_w=tile_w, t_tile=t_tile,
-                                    schedule=schedule, strategy=strategy,
-                                    paged=paged, page=page)
+        if paged and page is None:
+            # One page for every build (they address the same pools).
+            page = math.lcm(t_tile, prefill_seq if prefill_seq > 1 else 1)
+        kw = dict(max_len=max_len, tile_w=tile_w, t_tile=t_tile,
+                  schedule=schedule, strategy=strategy, page=page)
+        self.builder = ModelBuilder(cfg, batch=batch, paged=paged, **kw)
+        # One chunk build per bucket: C rows of one slot per launch.
+        self.chunk_builders = {
+            c: ModelBuilder(cfg, batch=c, seq=c, chunk=True, paged=True,
+                            **kw)
+            for c in (self.prefill_buckets or ())}
+        self.prefill_builder = None
+        self.prefill_seq = 0
+        if prefill_seq > 1:
+            self.prefill_builder = ModelBuilder(
+                cfg, batch=batch * prefill_seq, seq=prefill_seq, paged=paged,
+                **kw)
+            self.prefill_seq = prefill_seq
+        builders = [self.builder, *self.chunk_builders.values()]
+        if self.prefill_builder is not None:
+            builders.append(self.prefill_builder)
+        # One arena for every build: each lays out the same weight region
+        # first, and the activation tail is per-launch scratch, so the
+        # largest footprint sizes and packs it.
+        weights = [[(r.name, r.offset, r.rows)
+                    for r in b.schema.regions("weight")] for b in builders]
+        if any(w != weights[0] for w in weights[1:]):
+            raise ValueError("the engine's builds lay out different weight "
+                             "regions and cannot share one arena")
+        pack = max(builders, key=lambda b: b.arena_rows)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = dense.init_params(cfg, generator=gen,
                                        device=self.device, dtype=dtype)
-        self._arena = self.builder.pack_arena(params, dtype=dtype,
-                                              device=self.device)
+        self._arena = pack.pack_arena(params, dtype=dtype, device=self.device)
         self.params = params if keep_params else None
 
         kv, hd, L = cfg.num_key_value_heads, cfg.head_dim, \
@@ -101,6 +151,36 @@ class MegaKernelEngine:
         self.steps_done += 1
         return logits
 
+    def prefill_chunk(self, token_row, codes, table_row, *,
+                      row: Optional[int] = None) -> torch.Tensor:
+        """ONE prefill-chunk launch (``prefill_buckets`` builds).
+        ``token_row`` (C,): chunk tokens padded to a bucket length;
+        ``codes`` (C,): sign-encoded per-row positions
+        (:func:`~triton_dist_tpu_torch.ops.chunked_prefill.chunk_row_codes`:
+        ``>= 0`` write and attend there, ``<= -2`` attend only at
+        ``-code - 2``, ``-1`` dead padding); ``table_row`` (p_max,): the
+        slot's block-table row. Writes each writing row's K/V, attends
+        under the per-row causal horizon and returns fp32 logits (C,
+        vocab), or (vocab,) of row ``row`` alone."""
+        toks = np.asarray(torch.as_tensor(token_row).cpu(),
+                          np.int32).reshape(-1)
+        b = self.chunk_builders.get(int(toks.shape[0]))
+        if b is None:
+            raise ValueError(
+                f"no chunk step for bucket {toks.shape[0]}: engine built "
+                f"with prefill_buckets={self.prefill_buckets}; pad chunks "
+                "to a configured bucket (ops.chunked_prefill.plan_chunks)")
+        logits = b.step(self._arena, self.k_cache, self.v_cache, toks,
+                        codes, table_row, rows=row)
+        self.steps_done += 1
+        return logits
+
+    def chunk_cache_size(self) -> int:
+        """Chunk builds of this engine, one per bucket: the port runs
+        eagerly, so this stands where the JAX engine counts its chunk
+        steps' jit-cache entries, and never exceeds the bucket count."""
+        return len(self.chunk_builders)
+
     def prefill_chain(self, prompt_ids):
         """Feed a (B, S) prompt token by token; returns the last column
         to seed :meth:`generate` with ``start_pos=S-1``."""
@@ -108,6 +188,29 @@ class MegaKernelEngine:
         for pos in range(prompt.shape[1] - 1):
             self.decode_step(prompt[:, pos], pos)
         return prompt[:, -1]
+
+    def prefill(self, prompt_ids, *, start_pos: int = 0) -> torch.Tensor:
+        """Batched prefill (``prefill_seq=S`` builds): the whole (B, S)
+        prompt is ONE launch (rows are (b, s) pairs, causal attention,
+        cache writes at ``start_pos + s``). Returns the last position's
+        fp32 logits (B, vocab); the cache then holds ``start_pos + S``
+        tokens per slot."""
+        if self.prefill_builder is None:
+            raise ValueError("engine built without prefill_seq")
+        s = self.prefill_seq
+        if self.paged and int(start_pos) % s:
+            raise ValueError(f"paged prefill needs start_pos % prefill_seq "
+                             f"== 0 (got {start_pos} % {s})")
+        prompt = np.asarray(torch.as_tensor(prompt_ids).cpu(), np.int32)
+        if prompt.shape != (self.batch, s):
+            raise ValueError(f"prompt {prompt.shape} != ({self.batch}, {s})")
+        logits = self.prefill_builder.step(
+            self._arena, self.k_cache, self.v_cache, prompt.reshape(-1),
+            np.full(self.batch * s, int(start_pos), np.int32),
+            self.block_table,
+            rows=[bb * s + s - 1 for bb in range(self.batch)])
+        self.steps_done += 1
+        return logits
 
     def generate(self, first_tokens, steps: int, *,
                  start_pos: int = 0) -> torch.Tensor:

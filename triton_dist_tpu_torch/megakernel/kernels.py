@@ -11,9 +11,15 @@ pool's) dtype when it is stored, as the CUDA kernel
 bodies over the claim list for CPU tensors; the CUDA kernel replaces them
 for CUDA tensors.
 
-This slice carries the dense decode set (``RMSNORM``, ``LINEAR``,
+The port carries the dense decode set (``RMSNORM``, ``LINEAR``,
 ``ADD``, ``SILU_MUL``, ``WRITE_KV``, ``ATTN_DECODE``, ``GATHER``,
-``ALLREDUCE`` at one rank, ``NOOP``); every other type raises
+``ALLREDUCE`` at one rank, ``NOOP``), batched prefill
+(``WRITE_KV_PREFILL``/``ATTN_PREFILL``) and the prefill chunk
+(``WRITE_KV_CHUNK``/``ATTN_CHUNK``). The three cache pairs differ only in
+their row rule: which slot's block-table row a batch row reads, at which
+position, and whether it writes (:func:`_decode_rows`,
+:func:`_prefill_rows`, :func:`_chunk_rows`); one write core and one
+attention core serve all three. Every other type raises
 ``NotImplementedError`` naming its ROADMAP item.
 """
 
@@ -43,13 +49,17 @@ class KernelConfig:
     paged: bool = False
     page: int = 0
     p_max: int = 0
+    # Rows per slot of a batched-prefill build (batch = slots * seq,
+    # slot-major); a chunk build has batch = seq = C rows of one slot.
+    seq: int = 1
 
 
 @dataclasses.dataclass
 class StepState:
-    """What one decode step reads and writes: the arena, the K/V pools,
-    and the step's per-row scalars as host lists (tokens, per-row cache
-    lengths, the flat block table)."""
+    """What one step reads and writes: the arena, the K/V pools, and the
+    step's per-row scalars as host lists (tokens; per-row cache lengths,
+    the shared base of a batched prefill, or a chunk's sign-encoded
+    codes; the flat block table)."""
     arena: torch.Tensor
     k_cache: torch.Tensor
     v_cache: torch.Tensor
@@ -82,15 +92,57 @@ def _tiles(heads: torch.Tensor, w: int) -> torch.Tensor:
     return heads.reshape(b, -1, w).permute(1, 0, 2).reshape(-1, w)
 
 
-def _kv_rows(cfg: KernelConfig, st: StepState, bb: int, positions):
-    """(pool slot, in-page offset) of row ``bb``'s cache ``positions``: a
-    block-table lookup when paged, the row itself when dense (the JAX
+def _kv_rows(cfg: KernelConfig, st: StepState, slot: int, positions):
+    """(pool slot, in-page offset) of ``slot``'s cache ``positions``: a
+    block-table lookup when paged, the slot's own row when dense (the JAX
     ``_kv_slice``)."""
     if not cfg.paged:
-        return torch.full_like(positions, bb), positions
-    pids = st.table[bb * cfg.p_max + torch.div(positions, cfg.page,
-                                               rounding_mode="floor")]
+        return torch.full_like(positions, slot), positions
+    pids = st.table[slot * cfg.p_max + torch.div(positions, cfg.page,
+                                                 rounding_mode="floor")]
     return pids, positions % cfg.page
+
+
+# Row rules: (slot, position, writes) of every batch row, as tensors.
+
+def _decode_rows(cfg: KernelConfig, st: StepState):
+    """Decode: row r is slot r, at its own length, and always writes."""
+    dev = st.arena.device
+    pos = torch.tensor(st.lens, dtype=torch.int64, device=dev)
+    return (torch.arange(cfg.batch, device=dev), pos,
+            torch.ones(cfg.batch, dtype=torch.bool, device=dev))
+
+
+def _prefill_rows(cfg: KernelConfig, st: StepState):
+    """Batched prefill: rows are (slot, s) pairs, slot-major; row r is
+    slot ``r // seq`` at ``base + r % seq``, the base being the row's
+    length entry (the same for every row: the JAX engine passes
+    ``full((B*S,), start_pos)``)."""
+    dev = st.arena.device
+    r = torch.arange(cfg.batch, device=dev)
+    base = torch.tensor(st.lens, dtype=torch.int64, device=dev)
+    return (torch.div(r, cfg.seq, rounding_mode="floor"), base + r % cfg.seq,
+            torch.ones(cfg.batch, dtype=torch.bool, device=dev))
+
+
+def _chunk_apos(enc: torch.Tensor) -> torch.Tensor:
+    """A chunk row's sign-encoded position decoded to the position it
+    attends at, clamped to >= 0 (:func:`~triton_dist_tpu_torch.ops.
+    chunked_prefill.chunk_row_codes`): ``enc >= 0`` writes and attends at
+    ``enc``; ``enc <= -2`` attends only, at ``-enc - 2``; ``-1`` is a
+    dead padding row, decoded to position 0, whose output the host
+    discards and which writes nothing."""
+    return torch.clamp(torch.where(enc >= 0, enc, -enc - 2), min=0)
+
+
+def _chunk_rows(cfg: KernelConfig, st: StepState):
+    """Prefill chunk: every row is the one slot whose (p_max,) table row
+    the launch carries, at its decoded position; writes iff its code is
+    >= 0."""
+    dev = st.arena.device
+    enc = torch.tensor(st.lens, dtype=torch.int64, device=dev)
+    return (torch.zeros(cfg.batch, dtype=torch.int64, device=dev),
+            _chunk_apos(enc), enc >= 0)
 
 
 def _rms_rows(x: torch.Tensor, w_row: torch.Tensor, eps: float):
@@ -170,53 +222,103 @@ def allreduce_body(cfg: KernelConfig, args, st: StepState) -> None:
     builds one-rank graphs only."""
 
 
-def write_kv_body(cfg: KernelConfig, args, st: StepState) -> None:
-    """Append each row's new K (k-norm, then rope at the row's position)
-    and V at that row's own position ``lens[bb]``."""
+def _write_kv_rowpos(cfg: KernelConfig, args, st: StepState, slots, pos,
+                     writes) -> None:
+    """The write core of every cache pair: each writing row's new K
+    (k-norm, then rope at its position) and V go to its position through
+    its slot's table row. A row that does not write touches no pool row."""
     k_off, v_off, layer, knorm_off = args[:4]
     b, hd, kv_loc = cfg.batch, cfg.hd, cfg.kv_loc
     kv_tiles = _cdiv(kv_loc * hd, cfg.w)
     wrow = st.arena[knorm_off, :hd].float()
-    pos = torch.tensor(st.lens, dtype=torch.int64, device=st.arena.device)
     k = _heads(_load(st, k_off, kv_tiles * b), b, hd)[:, :kv_loc]
     v = _heads(_load(st, v_off, kv_tiles * b), b, hd)[:, :kv_loc]
     k = _rope_rows(_rms_rows(k, wrow, cfg.rms_eps), pos, hd, cfg.rope_theta)
-    for bb in range(b):           # in row order: a later row wins a clash
-        pid, off = _kv_rows(cfg, st, bb, pos[bb:bb + 1])
+    # In row order: a later row wins a clash (parked decode rows share
+    # the scratch page).
+    for bb in torch.nonzero(writes).flatten().tolist():
+        pid, off = _kv_rows(cfg, st, int(slots[bb]), pos[bb:bb + 1])
         st.k_cache[layer, pid, off] = k[bb:bb + 1].to(st.k_cache.dtype)
         st.v_cache[layer, pid, off] = v[bb:bb + 1].to(st.v_cache.dtype)
 
 
-def attn_decode_body(cfg: KernelConfig, args, st: StepState) -> None:
-    """GQA decode attention of each row's query heads (q-norm, rope at the
-    row's position, then ``1/sqrt(hd)``) over that row's ``lens[bb] + 1``
-    keys, this launch's WRITE_KV included. Query head ``h`` reads KV head
-    ``h // (h_loc // kv_loc)``; padding heads of the last tile are zero."""
+def _attn_rowpos_body(cfg: KernelConfig, args, st: StepState, slots,
+                      pos) -> None:
+    """The attention core of every cache pair: GQA attention of each
+    row's query heads (q-norm, rope at the row's position, then
+    ``1/sqrt(hd)``) over its slot's keys at positions ``<= pos``, this
+    launch's writes included. Query head ``h`` reads KV head
+    ``h // (h_loc // kv_loc)``; padding heads of the last tile are zero.
+    Rows of one slot are scored together under their per-row horizon."""
     q_off, out_off, layer, qnorm_off = args[:4]
     b, hd, h_loc, kv_loc = cfg.batch, cfg.hd, cfg.h_loc, cfg.kv_loc
     q_tiles = _cdiv(h_loc * hd, cfg.w)
     dev = st.arena.device
     qn = st.arena[qnorm_off, :hd].float()
-    pos = torch.tensor(st.lens, dtype=torch.int64, device=dev)
     q = _heads(_load(st, q_off, q_tiles * b), b, hd)
     q = _rope_rows(_rms_rows(q, qn, cfg.rms_eps), pos, hd, cfg.rope_theta)
     q = q / math.sqrt(hd)
     kv_of = torch.arange(h_loc, device=dev) // (h_loc // kv_loc)
     out = torch.zeros_like(q)
-    for bb in range(b):
-        keys = torch.arange(st.lens[bb] + 1, device=dev)
-        pid, off = _kv_rows(cfg, st, bb, keys)
+    for slot in torch.unique(slots).tolist():
+        rows = torch.nonzero(slots == slot).flatten()
+        keys = torch.arange(int(pos[rows].max()) + 1, device=dev)
+        pid, off = _kv_rows(cfg, st, slot, keys)
         kk = st.k_cache[layer, pid, off].float()[:, kv_of]  # (n, h_loc, hd)
         vv = st.v_cache[layer, pid, off].float()[:, kv_of]
-        s = torch.einsum("hd,nhd->hn", q[bb, :h_loc], kk)
+        s = torch.einsum("rhd,nhd->rhn", q[rows, :h_loc], kk)
+        s = s.masked_fill(keys[None, None, :] > pos[rows][:, None, None],
+                          float("-inf"))
         m = s.max(dim=-1, keepdim=True).values
         m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
         p = torch.where(torch.isfinite(s), torch.exp(s - m),
                         torch.zeros_like(s))
         l = p.sum(dim=-1, keepdim=True)
-        out[bb, :h_loc] = (torch.einsum("hn,nhd->hd", p, vv)
-                           / torch.clamp(l, min=1e-30))
+        out[rows, :h_loc] = (torch.einsum("rhn,nhd->rhd", p, vv)
+                             / torch.clamp(l, min=1e-30))
     _store(st, out_off, _tiles(out, cfg.w))
+
+
+def write_kv_body(cfg: KernelConfig, args, st: StepState) -> None:
+    """Decode: append each row's K/V at its own position ``lens[bb]``."""
+    _write_kv_rowpos(cfg, args, st, *_decode_rows(cfg, st))
+
+
+def attn_decode_body(cfg: KernelConfig, args, st: StepState) -> None:
+    """Decode: each row attends its ``lens[bb] + 1`` keys, this launch's
+    WRITE_KV included."""
+    slots, pos, _ = _decode_rows(cfg, st)
+    _attn_rowpos_body(cfg, args, st, slots, pos)
+
+
+def write_kv_prefill_body(cfg: KernelConfig, args, st: StepState) -> None:
+    """Batched prefill: row r writes position ``base + r % seq`` of slot
+    ``r // seq``."""
+    _write_kv_rowpos(cfg, args, st, *_prefill_rows(cfg, st))
+
+
+def attn_prefill_body(cfg: KernelConfig, args, st: StepState) -> None:
+    """Batched causal prefill attention: row s of a slot attends that
+    slot's positions ``<= base + s``."""
+    slots, pos, _ = _prefill_rows(cfg, st)
+    _attn_rowpos_body(cfg, args, st, slots, pos)
+
+
+def write_kv_chunk_body(cfg: KernelConfig, args, st: StepState) -> None:
+    """Prefill chunk: store row r's K/V iff its code is >= 0;
+    attend-only rows (prefix-resident positions) and dead padding rows
+    touch no page."""
+    _write_kv_rowpos(cfg, args, st, *_chunk_rows(cfg, st))
+
+
+def attn_chunk_body(cfg: KernelConfig, args, st: StepState) -> None:
+    """Prefill chunk: row r attends keys at positions ``<= apos[r]``,
+    earlier chunks, the shared prefix and this chunk's earlier rows alike
+    (the paired WRITE_KV_CHUNK wrote them first), so chunk boundaries
+    are invisible to the math. Dead rows compute garbage the host
+    discards."""
+    slots, pos, _ = _chunk_rows(cfg, st)
+    _attn_rowpos_body(cfg, args, st, slots, pos)
 
 
 def _not_ported(item: str):
@@ -242,16 +344,14 @@ BODIES = {
     TaskType.ALLREDUCE: allreduce_body,
     TaskType.GATHER: gather_body,
     TaskType.NOOP: _noop,
-    TaskType.WRITE_KV_PREFILL: _not_ported("batched prefill (prefill_seq)"),
-    TaskType.ATTN_PREFILL: _not_ported("batched prefill (prefill_seq)"),
+    TaskType.WRITE_KV_PREFILL: write_kv_prefill_body,
+    TaskType.ATTN_PREFILL: attn_prefill_body,
+    TaskType.WRITE_KV_CHUNK: write_kv_chunk_body,
+    TaskType.ATTN_CHUNK: attn_chunk_body,
     TaskType.MOE_WEIGHTS: _not_ported("the MoE task set"),
     TaskType.WEIGHTED_ADD: _not_ported("the MoE task set"),
     TaskType.GDN_DECODE: _not_ported("the hybrid GDN task set"),
     TaskType.ATTN_QBLOCK: _not_ported("the Q-block verify pair (spec_k)"),
     TaskType.WRITE_KV_QBLOCK: _not_ported(
         "the Q-block verify pair (spec_k)"),
-    TaskType.ATTN_CHUNK: _not_ported("the prefill-chunk pair "
-                                     "(prefill_buckets)"),
-    TaskType.WRITE_KV_CHUNK: _not_ported("the prefill-chunk pair "
-                                         "(prefill_buckets)"),
 }

@@ -1,8 +1,10 @@
 """Task descriptors (counterpart of ``triton_dist_tpu/megakernel/task.py``).
 
 All 18 type codes are kept, so a task's type number is the same in the
-port's tables as in the JAX package's; this slice runs the dense decode
-set (``RMSNORM`` .. ``NOOP``) and raises on the others.
+port's tables as in the JAX package's; the port runs the dense decode set
+(``RMSNORM`` .. ``NOOP``), batched prefill (``WRITE_KV_PREFILL``,
+``ATTN_PREFILL``) and the prefill chunk (``ATTN_CHUNK``,
+``WRITE_KV_CHUNK``), and raises on the others.
 """
 
 from __future__ import annotations
@@ -24,15 +26,15 @@ class TaskType(enum.IntEnum):
     ALLREDUCE = 6      # args: buf_off, tiles
     GATHER = 7         # args: table_off, out_off, d_tiles, vocab_loc
     NOOP = 8           # queue padding slot
-    WRITE_KV_PREFILL = 9
-    ATTN_PREFILL = 10
+    WRITE_KV_PREFILL = 9   # args as WRITE_KV; rows (slot, s), slot-major
+    ATTN_PREFILL = 10      # args as ATTN_DECODE
     MOE_WEIGHTS = 11
     WEIGHTED_ADD = 12
     GDN_DECODE = 13
     ATTN_QBLOCK = 14
     WRITE_KV_QBLOCK = 15
-    ATTN_CHUNK = 16
-    WRITE_KV_CHUNK = 17
+    ATTN_CHUNK = 16        # args as ATTN_DECODE; rows sign-encoded
+    WRITE_KV_CHUNK = 17    # args as WRITE_KV
 
 
 # Task types whose completion unblocks remote peers (the comm-aware

@@ -4,20 +4,24 @@
 - :func:`plan_chunks` — the deterministic bucket cover of a prompt;
 - :func:`chunk_write_ids` — which pool page / offset each chunk token
   writes (padding and prefix-resident positions go to the scratch page);
+- :func:`chunk_row_codes` — the same rule as the megakernel's per-row
+  sign-encoded positions;
 - :func:`chunk_attend` — causal attention of a chunk over a slot's
   gathered position-major KV view;
 - :func:`gather_pages_dense` — THE dense-row gather (pool pages →
   position-major view) every plain paged reader shares.
 
-``plan_chunks`` and ``chunk_write_ids`` are exact copies of the JAX
-logic: preemption replays re-prefill through the same chunk sequence,
-and the tests hold both against the JAX package for equality.
+``plan_chunks``, ``chunk_write_ids`` and ``chunk_row_codes`` are exact
+copies of the JAX logic: preemption replays re-prefill through the same
+chunk sequence, and the tests hold them against the JAX package for
+equality.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 
@@ -83,6 +87,26 @@ def chunk_write_ids(positions: torch.Tensor, table_row: torch.Tensor,
     pids = torch.where(writable, table_row[row.long()],
                        torch.full_like(row, SCRATCH_PAGE))
     return pids, positions % page
+
+
+def chunk_row_codes(start: int, bucket: int, valid, wfrom) -> np.ndarray:
+    """Sign-encoded per-row positions of ONE megakernel prefill chunk, a
+    (bucket,) int32 host vector. Row ``i`` sits at global position
+    ``start + i``:
+
+    - ``>= 0``: write and attend at that position;
+    - ``<= -2``: attend only, at ``-code - 2`` (a position below
+      ``wfrom``, already resident in a prefix-shared page, never
+      rewritten);
+    - ``-1``: a dead padding row (``i >= valid``).
+
+    The megakernel's chunk bodies decode it
+    (:func:`triton_dist_tpu_torch.megakernel.kernels._chunk_apos`)."""
+    i = np.arange(int(bucket), dtype=np.int64)
+    pos = int(start) + i
+    codes = np.where(pos >= int(wfrom), pos, -(pos + 2))
+    codes = np.where(i < int(valid), codes, -1)
+    return codes.astype(np.int32)
 
 
 def chunk_attend(q: torch.Tensor, k_dense: torch.Tensor,

@@ -8,6 +8,9 @@ chunk one call of
 runs eagerly, so there is no jit cache to bound; the JAX package's
 bucket-count gate becomes a count of the distinct chunk shapes
 dispatched, which must never exceed the bucket count.
+
+:class:`MegaChunkedPrefill` is the same driver over a megakernel engine's
+chunk builds: one megakernel launch per chunk.
 """
 
 from __future__ import annotations
@@ -18,9 +21,10 @@ import numpy as np
 import torch
 
 from triton_dist_tpu_torch.models import dense
-from triton_dist_tpu_torch.ops.chunked_prefill import plan_chunks
+from triton_dist_tpu_torch.ops.chunked_prefill import (
+    chunk_row_codes, plan_chunks)
 
-__all__ = ["ChunkedPrefill", "DEFAULT_BUCKETS"]
+__all__ = ["ChunkedPrefill", "MegaChunkedPrefill", "DEFAULT_BUCKETS"]
 
 DEFAULT_BUCKETS = (128, 512, 2048)
 
@@ -65,3 +69,41 @@ class ChunkedPrefill:
     def cache_size(self) -> int:
         """Distinct chunk shapes dispatched so far (<= bucket count)."""
         return len(self._shapes)
+
+
+class MegaChunkedPrefill:
+    """Chunk driver over a
+    :class:`~triton_dist_tpu_torch.megakernel.engine.MegaKernelEngine`
+    built with ``prefill_buckets``: the :class:`ChunkedPrefill` surface the
+    server drives (``buckets``, ``plan``, ``next_chunk``, ``step``,
+    ``cache_size``). The pool lives in the engine, so ``step`` ignores its
+    ``params`` and ``cache``; the chunk's cursors become the per-row codes
+    of :func:`~triton_dist_tpu_torch.ops.chunked_prefill.chunk_row_codes`."""
+
+    def __init__(self, engine):
+        if not getattr(engine, "prefill_buckets", None):
+            raise ValueError(
+                "MegaChunkedPrefill needs a MegaKernelEngine built with "
+                "prefill_buckets=(...): the chunk builds are made at "
+                "engine construction")
+        self.engine = engine
+        self.buckets = tuple(engine.prefill_buckets)
+
+    def plan(self, n_tokens: int) -> List[Tuple[int, int]]:
+        """The same ``[(bucket, valid), ...]`` cover as the layer lane."""
+        return plan_chunks(n_tokens, self.buckets)
+
+    def next_chunk(self, remaining: int) -> Tuple[int, int]:
+        return self.plan(remaining)[0]
+
+    def step(self, params, toks: np.ndarray, cache, table_row: np.ndarray,
+             start: int, wfrom: int, valid: int) -> torch.Tensor:
+        """One chunk launch; returns the fp32 logits (vocab,) of its last
+        valid row, the only row of the chunk's logits it reads out."""
+        codes = chunk_row_codes(start, len(toks), valid, wfrom)
+        return self.engine.prefill_chunk(toks, codes, table_row,
+                                         row=int(valid) - 1)
+
+    def cache_size(self) -> int:
+        """The engine's chunk builds (<= bucket count)."""
+        return self.engine.chunk_cache_size()

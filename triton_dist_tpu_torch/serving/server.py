@@ -17,15 +17,19 @@ Two lanes, chosen by the engine:
   decode through the paged decode kernel;
 - the megakernel lane
   (:class:`~triton_dist_tpu_torch.megakernel.engine.MegaKernelEngine`):
-  every tick is ONE launch of the persistent megakernel. Prompts stream
-  one token per tick through that same decode launch (the prefill lane)
-  while running slots decode beside them; the paged pool lives in the
-  engine, page 0 is the scratch page of parked rows.
+  every decode tick is ONE launch of the persistent megakernel; the paged
+  pool lives in the engine, page 0 is the scratch page of parked rows.
+  With ``prefill_buckets`` (the same on engine and server) prompts enter
+  through the same chunk stream as the layer lane, each chunk ONE
+  megakernel launch of the chunk task pair (:class:`~triton_dist_tpu_torch.
+  serving.chunked.MegaChunkedPrefill`); without, they stream one token
+  per tick through the decode launch (the prefill lane) while running
+  slots decode beside them.
 
 On a CUDA engine the kernels are the hand-written ones, on a CPU engine
-their plain versions. Monolithic prefill, the megakernel's chunked
-prefill, speculative decoding, quantized pools, KV tiers, SLO scheduling,
-telemetry and the resilience hooks are not ported yet (ROADMAP.md).
+their plain versions. Monolithic prefill, speculative decoding, quantized
+pools, KV tiers, SLO scheduling, telemetry and the resilience hooks are
+not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -42,7 +46,8 @@ from triton_dist_tpu_torch.models import dense
 from triton_dist_tpu_torch.serving.blocks import (
     BlockManager, OutOfPagesError, PagedKVCache,
 )
-from triton_dist_tpu_torch.serving.chunked import ChunkedPrefill
+from triton_dist_tpu_torch.serving.chunked import (
+    ChunkedPrefill, MegaChunkedPrefill)
 from triton_dist_tpu_torch.serving.scheduler import (
     Request, RequestHandle, Scheduler,
 )
@@ -69,9 +74,10 @@ class ServingEngine:
     monolithic prefill is not ported. ``clock`` is injectable for deadline
     tests. On the megakernel lane the engine must be paged; its batch,
     page and pool are the server's (``num_slots``, ``page`` and
-    ``num_pages`` are not read, as in the JAX server) and
-    ``prefill_buckets`` raises until the megakernel's chunk pair is
-    ported.
+    ``num_pages`` are not read, as in the JAX server), and
+    ``prefill_buckets`` must equal the engine's (its chunk builds are made
+    at engine construction): ``None`` on both keeps the one-token prefill
+    lane.
     """
 
     def __init__(self, engine, *, num_slots: Optional[int] = None,
@@ -85,14 +91,18 @@ class ServingEngine:
         self.max_len = engine.max_len
         self.device = engine.device
         self.mega = isinstance(engine, MegaKernelEngine)
+        if prefill_buckets:
+            prefill_buckets = tuple(sorted(set(
+                int(b) for b in prefill_buckets)))
         if self.mega:
-            if prefill_buckets:
-                raise NotImplementedError(
-                    "prefill_buckets on the megakernel lane needs the "
-                    "megakernel's prefill-chunk task pair, which is not "
-                    "ported yet (ROADMAP.md); prompts stream one token per "
-                    "tick through the decode launch — pass "
-                    "prefill_buckets=None")
+            eng_buckets = engine.prefill_buckets
+            if (prefill_buckets or None) != (eng_buckets or None):
+                raise ValueError(
+                    f"megakernel prefill_buckets mismatch: the engine was "
+                    f"built with prefill_buckets={eng_buckets} but the "
+                    f"serving layer was asked for {prefill_buckets}; "
+                    "construct MegaKernelEngine(prefill_buckets=..., "
+                    "paged=True) and pass the same buckets here")
             if not engine.paged:
                 raise NotImplementedError(
                     "serving a dense-cache MegaKernelEngine is not ported "
@@ -128,14 +138,20 @@ class ServingEngine:
             num_pages, page, self.p_max, prefix_reuse=prefix_reuse,
             page_bytes=self.plan["page_bytes_per_rank"])
         self.cache = self.chunker = self.prefill_buckets = None
-        if not self.mega:
+        if self.mega:
+            if prefill_buckets:
+                self.prefill_buckets = prefill_buckets
+                self.chunker = MegaChunkedPrefill(engine)
+        else:
             self.cache = PagedKVCache.empty(
                 cfg.num_hidden_layers, num_pages, page,
                 cfg.num_key_value_heads, cfg.head_dim, num_slots=num_slots,
                 p_max=self.p_max, device=self.device, dtype=engine.dtype)
-            self.prefill_buckets = tuple(sorted(set(
-                int(b) for b in prefill_buckets)))
+            self.prefill_buckets = prefill_buckets
             self.chunker = ChunkedPrefill(engine, self.prefill_buckets)
+        # The megakernel's one-token prefill lane: prompts ride the decode
+        # launch (no chunker).
+        self._lane = self.mega and self.chunker is None
         self.sched = Scheduler(num_slots, max_queue=max_queue,
                                policy=policy, clock=clock)
         self.num_slots = num_slots
@@ -275,7 +291,7 @@ class ServingEngine:
         except OutOfPagesError as e:
             self._unadmit(h, e, stalled)
             return
-        if self.mega:
+        if self._lane:
             # Prefill lane: ``seq`` streams through the decode launch one
             # token per tick, from position 0.
             h.lane = seq
@@ -297,9 +313,9 @@ class ServingEngine:
         self._toks[slot] = 0
 
     def _advance_chunks(self):
-        """One bucketed chunk per prefilling slot per tick (layer lane;
-        the megakernel's prefill lane rides the decode launch)."""
-        if self.mega:
+        """One bucketed chunk per prefilling slot per tick (the
+        megakernel's prefill lane rides the decode launch instead)."""
+        if self._lane:
             return
         for h in list(self.sched.running()):
             if h.status == "prefill":
@@ -345,18 +361,17 @@ class ServingEngine:
     # -- decode ------------------------------------------------------
 
     def _decode_tick(self) -> int:
-        # Megakernel prefill-lane slots ride the decode launch; layer-lane
-        # slots mid-chunk-stream stay parked until their prompt is
-        # resident.
+        # Megakernel prefill-lane slots ride the decode launch; slots
+        # mid-chunk-stream stay parked until their prompt is resident.
         active = [h for h in self.sched.running()
                   if h.status == "running"
-                  or (self.mega and h.status == "prefill")]
+                  or (self._lane and h.status == "prefill")]
         if not active:
             return 0
         preempted = []
         for h in active:
             slot = h.slot
-            lane = self.mega and h.status == "prefill"
+            lane = self._lane and h.status == "prefill"
             self._toks[slot] = h.lane[h.prompt_pos] if lane else h.tokens[-1]
             if lane:
                 # Lane tokens land in pages alloc_prefill reserved.
@@ -384,7 +399,7 @@ class ServingEngine:
         c["decode_dispatches"] += 1
         for h in active:
             self._lens[h.slot] += 1
-            if self.mega and h.status == "prefill":
+            if self._lane and h.status == "prefill":
                 h.prompt_pos += 1
                 if h.prompt_pos < len(h.lane):
                     continue
