@@ -43,7 +43,25 @@ random history, with an attend-only span (positions 40-43 below
 (paged, from 32) and 2 x 16 (dense, from 0); a decode batch of 12 rows
 (the tensor-core instantiation in decode mode). A chunk writes exactly its
 rows with a code >= 0. A page of another slot planted in the chunk's
-table row, or every code shifted by one position, must fail the limits."""
+table row, or every code shifted by one position, must fail the limits.
+
+The MoE pair (Qwen3-MoE builds: 16 query heads per 2 KV heads, GQA 8,
+100 experts < the 128-column router tile, top-8, expert ffn 128):
+``MOE_WEIGHTS`` run alone on an identical planted logit tile (exact
+ties, masked columns holding the largest logits, an all-equal row),
+with and without renormalisation, must select exactly the plain
+version's experts, give their weights within one bf16 unit, and count
+exactly, 300 launches deep (past the 256 at which a bf16 counter would
+stop adding 1). ``WEIGHTED_ADD`` alone, first writing then accumulating,
+at 4, 12 and 128 rows, within one bf16 unit. The whole MoE step (decode
+and a 16-row chunk) is held to the megakernel limits on every row
+against the plain interpreter run under the kernel's routing (its
+router-logit tiles: a logit one bf16 unit off moves an expert's whole
+combine weight by about 1 % and may swap a near-tied 8th and 9th
+expert, which is no fault), with counters equal; against the
+free-running plain run the (layer, row) pairs whose expert set differs
+are counted, at most 15 % of them (at least 2), as in
+``chip_smoke.py``."""
 
 import pathlib
 import subprocess
@@ -95,7 +113,8 @@ def _assert_close(got, want, tol):
 HD = 128
 
 
-@pytest.mark.parametrize("rep,page", [(1, 8), (4, 32), (16, 16), (2, 64)])
+@pytest.mark.parametrize("rep,page", [(1, 8), (4, 32), (16, 16), (2, 64),
+                                      (8, 32)])
 def test_decode_kernel_matches_plain(dev, rep, page):
     kvh, b, p_max = 2, 5, 6
     kp, vp, tbl, g = _pool(dev, rep, b, kvh, page, HD, p_max)
@@ -113,7 +132,7 @@ def test_decode_kernel_matches_plain(dev, rep, page):
 
 
 @pytest.mark.parametrize("rep,page,c", [(1, 8, 5), (4, 32, 37), (8, 16, 64),
-                                        (2, 64, 9)])
+                                        (2, 64, 9), (8, 32, 128)])
 def test_qblock_kernel_matches_plain(dev, rep, page, c):
     kvh, b, p_max = 2, 3, 5
     kp, vp, tbl, g = _pool(dev, rep + c, b, kvh, page, HD, p_max)
@@ -419,3 +438,154 @@ def test_megakernel_prefill_matches_plain(dev, paged, slots, seq, start):
     # Every (layer, row) position, all KV heads, and nothing else.
     assert int(written.all(-1).sum()) == int(written.any(-1).sum()) \
         == L * slots * seq
+
+
+def _moe_cfg(**kw):
+    base = dict(vocab_size=1024, hidden_size=256, intermediate_size=384,
+                num_hidden_layers=2, num_attention_heads=16,
+                num_key_value_heads=2, head_dim=128, num_experts=100,
+                num_experts_per_tok=8, moe_intermediate_size=128)
+    return ModelConfig(**dict(base, **kw))
+
+
+def _moe_builder(rows, **kw):
+    if rows > 8 and rows != 12:
+        kw = dict(kw, seq=rows, chunk=True)
+    return mkb.ModelBuilder(_moe_cfg(**kw.pop("cfg", {})), batch=rows,
+                            max_len=256, t_tile=32, paged=True, page=32,
+                            **kw)
+
+
+def _first(mb, task_type, expert=-1):
+    return next(t.task_id for t in mb.graph.tasks
+                if t.task_type == task_type and t.expert == expert)
+
+
+def _counts(mb, dev):
+    rows = mb.schema.region("moe_counts").rows
+    return torch.zeros(rows, mb.w, dtype=torch.int32, device=dev)
+
+
+def _launch(mb, arena, counts, dev, times=1):
+    kv = torch.zeros(mb.cfg.num_hidden_layers, 2, mb.page,
+                     mb.cfg.num_key_value_heads, 128, dtype=torch.bfloat16,
+                     device=dev)
+    toks = np.zeros(mb.batch, np.int32)
+    lens = (np.full(mb.batch, -1, np.int32) if mb.chunk
+            else np.zeros(mb.batch, np.int32))
+    table = np.ones(mb.n_slots * mb.p_max, np.int32)
+    for _ in range(times):
+        mb.launch(arena, kv, kv.clone(), toks, lens, table, counts=counts)
+    mb.wait(dev)
+
+
+def _plain(one, arena, counts=None):
+    """The plain bodies of an isolated build's tasks (no pools read)."""
+    zeros = np.zeros(one.batch, np.int64)
+    one.interpret(arena, None, None, zeros, zeros, np.zeros(1, np.int64),
+                  counts)
+
+
+@pytest.mark.parametrize("norm", [True, False], ids=["norm", "no-norm"])
+def test_moe_weights_kernel_matches_plain(dev, norm):
+    mb = _moe_builder(4, cfg=dict(norm_topk_prob=norm))
+    t = _first(mb, mkb.TaskType.MOE_WEIGHTS)
+    one = mb.isolate([t])
+    rl = mb.graph.tasks[t].args[0]
+    g = torch.Generator(device=dev).manual_seed(7)
+    arena = torch.zeros(mb.arena_rows, 128, dtype=torch.bfloat16, device=dev)
+    lg = torch.randn(4, 128, generator=g, device=dev).to(torch.bfloat16)
+    lg[0, 100:] = 50.0                      # masked columns never win
+    lg[1, [5, 17, 33, 64, 99, 3, 41, 70, 88]] = 4.0   # nine-way tie at top
+    lg[2, :] = 0.0                          # every expert equal
+    lg[3, 100:] = -50.0
+    arena[rl:rl + 4] = lg
+    a2 = arena.clone()
+    counts, c2 = _counts(mb, dev), _counts(mb, dev)
+    _launch(one, arena, counts, dev, times=300)
+    _plain(one, a2, c2)
+    got = arena[mb.graph.tasks[t].args[1]:][:4].float()
+    want = a2[mb.graph.tasks[t].args[1]:][:4].float()
+    assert torch.equal(got != 0, want != 0)
+    assert bool(((got - want).abs() <= 2.0 ** -8 * want.abs() + 1e-6).all())
+    picked = [sorted(torch.nonzero(r).flatten().tolist()) for r in want]
+    assert picked[1] == [3, 5, 17, 33, 41, 64, 70, 88]
+    assert picked[2] == list(range(8))
+    assert all(max(p) < 100 for p in picked)
+    assert torch.equal(counts, 300 * c2)
+    assert int(counts.sum()) == 300 * 4 * 8
+    if norm:
+        torch.testing.assert_close(got.sum(1), torch.ones(4, device=dev),
+                                   rtol=2e-2, atol=0)
+
+
+@pytest.mark.parametrize("rows", [4, 12, 128])
+def test_weighted_add_kernel_matches_plain(dev, rows):
+    """Expert 0's combine writes, expert 1's accumulates onto it, each a
+    launch of its own."""
+    mb = _moe_builder(rows)
+    g = torch.Generator(device=dev).manual_seed(rows)
+    arena = torch.randn(mb.arena_rows, 128, generator=g, device=dev).to(
+        torch.bfloat16)
+    a2 = arena.clone()
+    for e in (0, 1):
+        one = mb.isolate([_first(mb, mkb.TaskType.WEIGHTED_ADD, e)])
+        _launch(one, arena, _counts(mb, dev), dev)
+        _plain(one, a2)
+    acc = mb.graph.tasks[_first(mb, mkb.TaskType.WEIGHTED_ADD, 0)].args[0]
+    n = mb.d_tiles * rows
+    got, want = arena[acc:acc + n].float(), a2[acc:acc + n].float()
+    assert bool(((got - want).abs() <= 2.0 ** -8 * want.abs() + 1e-6).all())
+    assert torch.equal(arena[:acc], a2[:acc])
+
+
+def _moe_flips(mb, got_arena, want_arena):
+    """(layers, rows): the pairs whose routed expert set differs."""
+    diff = mb.routed_experts(got_arena) != mb.routed_experts(want_arena)
+    return diff.any(-1)
+
+
+
+@pytest.mark.parametrize("rows", [3, 16], ids=["decode", "chunk"])
+def test_moe_megakernel_matches_plain(dev, rows):
+    from triton_dist_tpu_torch.models import qwen_moe
+    from triton_dist_tpu_torch.ops.chunked_prefill import chunk_row_codes
+
+    kw = {} if rows <= 8 else dict(seq=rows, chunk=True)
+    cfg = _moe_cfg()
+    mb = mkb.ModelBuilder(cfg, batch=rows, max_len=256, t_tile=32,
+                          paged=True, page=32, **kw)
+    g = torch.Generator(device=dev).manual_seed(rows)
+    params = qwen_moe.init_params(cfg, generator=g, device=dev,
+                                  dtype=torch.bfloat16)
+    arena = mb.pack_arena(params, dtype=torch.bfloat16, device=dev)
+    slots = 1 if mb.chunk else rows
+    shape = (2, 1 + 3 * mb.p_max, 32, 2, 128)
+    kc = torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16)
+    vc = torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16)
+    rng = np.random.RandomState(rows)
+    table = (rng.permutation(3 * mb.p_max) + 1).astype(np.int32)[
+        :slots * mb.p_max]
+    toks = rng.randint(0, cfg.vocab_size, rows).astype(np.int32)
+    lens = (chunk_row_codes(CHUNK_START, rows, rows - 1, CHUNK_WFROM)
+            if mb.chunk else np.array([0, 37, 130], np.int32))
+    free = arena.clone(), kc.clone(), vc.clone()
+    forced = arena.clone(), kc.clone(), vc.clone()
+    counts, c_free, c2 = (_counts(mb, dev) for _ in range(3))
+    got = mb.step(arena, kc, vc, toks, lens, table, counts=counts)
+    mb.plain_step(*free, toks, lens, table, counts=c_free)
+    want = mb.plain_step(*forced, toks, lens, table, counts=c2,
+                         route_from=arena)
+    flips = _moe_flips(mb, arena, free[0])
+    rel = _row_rms(got, want)
+    print(f"[mk-card] MoE {rows} rows: {int(flips.sum())} routing flips "
+          f"against the free-running plain run; under the kernel's routing "
+          f"max |dlogit| {(got - want).abs().max().item():.3e}, row RMS "
+          f"{rel.max().item():.2e}")
+    assert int(flips.sum()) <= max(2, int(0.15 * flips.numel()))
+    _assert_close(got, want, MK_LOGITS_TOL)
+    assert bool((rel <= MK_ROW_RMS_TOL).all()), rel.tolist()
+    assert torch.equal(counts, c2)
+    assert int(counts.sum()) == int(c_free.sum()) == rows * 2 * 8
+    _assert_close(kc, forced[1], MK_KV_TOL)
+    _assert_close(vc, forced[2], MK_KV_TOL)

@@ -66,6 +66,26 @@ def test_engine_without_device_needs_cuda():
     Engine(ModelConfig.tiny(), device="cpu", dtype=torch.float32)
 
 
+def test_moe_modules_are_checked_and_need_cuda():
+    """The MoE slice's modules are among the sources checked above, and
+    its entry points (both lanes) raise without a card unless given
+    ``device="cpu"``."""
+    from triton_dist_tpu_torch.megakernel import MegaKernelEngine
+
+    names = {str(p.relative_to(ROOT)) for p in _sources()}
+    for mod in ("layers/ep_moe.py", "layers/tp_moe.py", "ops/group_gemm.py",
+                "models/qwen_moe.py"):
+        assert f"triton_dist_tpu_torch/{mod}" in names
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    cfg = ModelConfig.tiny_moe(num_experts=4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Engine(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        MegaKernelEngine(cfg, batch=2, max_len=16, tile_w=16, t_tile=8)
+    Engine(cfg, device="cpu", dtype=torch.float32)
+
+
 def _decode_args(device):
     kw = dict(device=device)
     return (torch.zeros(2, 4, 64, dtype=torch.bfloat16, **kw),

@@ -13,7 +13,12 @@
 //            one (p_max,) table row), at max(code >= 0 ? code : -code-2, 0),
 //            writing iff code >= 0 (lens holds the sign-encoded codes)
 //
-// so one write body and one attention body serve all three. The TPU kernel walks its task
+// so one write body and one attention body serve all three. A Qwen3-MoE
+// build adds the MoE pair (kernels.py moe_weights_body / weighted_add_body):
+// MOE_WEIGHTS routes each row (softmax, top-k, combine weights) and counts
+// the routed (row, expert) pairs in an int32 buffer beside the arena;
+// WEIGHTED_ADD accumulates one expert's output into the FFN partial. Both
+// follow the build's batch rows, so they serve every row mode. The TPU kernel walks its task
 // queue as a sequential grid on one core; here every block of a
 // cooperative launch (as many as fit on the card at once) loops:
 //
@@ -101,7 +106,8 @@ static_assert(kWarps * 16 == kW, "one 16-column fragment per warp");
 enum TaskType : int {
   kRmsNorm = 0, kLinear = 1, kAdd = 2, kSiluMul = 3, kAttnDecode = 4,
   kWriteKv = 5, kAllreduce = 6, kGather = 7, kNoop = 8,
-  kWriteKvPrefill = 9, kAttnPrefill = 10, kAttnChunk = 16, kWriteKvChunk = 17,
+  kWriteKvPrefill = 9, kAttnPrefill = 10, kMoeWeights = 11, kWeightedAdd = 12,
+  kAttnChunk = 16, kWriteKvChunk = 17,
 };
 
 // How a cache task maps its rows to (slot, position, writes).
@@ -124,7 +130,9 @@ struct Params {
   int* flags;
   int* err;            // mapped host memory: [set, task, pred, claim]
   long long* task_ns;  // optional [n_tasks][start, end] on %globaltimer
+  int* counts;         // MoE: [counts_rows][128] routed (row, expert) counts
   int n_claims, batch, seq, h_loc, kv_loc, num_pages, page, p_max;
+  int moe_topk, moe_norm;
   float eps, theta;
   unsigned long long timeout_ns;
 };
@@ -296,6 +304,102 @@ __device__ void elementwise(const Params& P, const int* a, bool silu) {
       x[i] = silu ? x[i] / (1.f + expf(-x[i])) * y[i] : x[i] + y[i];
     reinterpret_cast<uint4*>(po)[v] = make_uint4(pack2(x[0], x[1]), pack2(x[2], x[3]),
                                                  pack2(x[4], x[5]), pack2(x[6], x[7]));
+  }
+}
+
+// MOE_WEIGHTS (rl_off, wbe_off, n_experts, cnt_off): warp per row, lane l
+// holding columns [4l, 4l + 4) of the router-logit row. fp32 softmax over
+// the first n_experts columns (the rest -inf before it, 0 after), top-k by
+// k rounds of a warp argmax whose ties go to the lower column (jnp.argmax),
+// renormalised over max(sum, 1e-30) when moe_norm; stores the row of
+// combine weights and adds 1 per selected column to the row's counters
+// (atomics at L2: the counters are exact int32, where the JAX body adds
+// to its fp32 arena's cnt_off rows). Rows are independent, so every row
+// of every mode routes, as in the JAX body.
+__device__ void moe_weights(const Params& P, const int* a) {
+  const int rl_off = a[0], wbe_off = a[1], n_e = a[2];
+  const int b = P.batch, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int bb = warp; bb < b; bb += kWarps) {
+    float x[4], p[4];
+    load4_cg(arow(P, rl_off + bb) + lane * 4, x);
+    float m = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (lane * 4 + i >= n_e) x[i] = -INFINITY;
+      m = fmaxf(m, x[i]);
+    }
+    m = warp_max(m);
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      p[i] = lane * 4 + i < n_e ? expf(x[i] - m) : 0.f;
+      s += p[i];
+    }
+    s = warp_sum(s);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) p[i] /= s;
+    bool pick[4] = {false, false, false, false};
+    for (int k = 0; k < P.moe_topk; ++k) {
+      float bv = pick[0] ? -INFINITY : p[0];
+      int bi = lane * 4;
+#pragma unroll
+      for (int i = 1; i < 4; ++i) {
+        const float v = pick[i] ? -INFINITY : p[i];
+        if (v > bv) { bv = v; bi = lane * 4 + i; }
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        const float ov = __shfl_xor_sync(kFull, bv, o);
+        const int oi = __shfl_xor_sync(kFull, bi, o);
+        if (ov > bv || (ov == bv && oi < bi)) { bv = ov; bi = oi; }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pick[i] = pick[i] || bi == lane * 4 + i;
+    }
+    float wv[4], ws = 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      wv[i] = pick[i] ? p[i] : 0.f;
+      ws += wv[i];
+    }
+    if (P.moe_norm) {
+      ws = fmaxf(warp_sum(ws), 1e-30f);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) wv[i] /= ws;
+    }
+    store4(arow(P, wbe_off + bb) + lane * 4, wv);
+    int* cnt = P.counts + (size_t)bb * kW + lane * 4;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (pick[i]) atomicAdd(cnt + i, 1);
+  }
+}
+
+// WEIGHTED_ADD (acc_off, part_off, wbe_off, e, tiles, init): acc = part *
+// wbe[:, e] when init, acc += part * wbe[:, e] otherwise, over tiles *
+// batch contiguous rows, 8 values per thread per step, fp32 math and one
+// bf16 rounding per store.
+__device__ void weighted_add(const Params& P, const int* a) {
+  const int e = a[3], init = a[5], b = P.batch;
+  const uint4* pp = reinterpret_cast<const uint4*>(arow(P, a[1]));
+  uint4* pacc = reinterpret_cast<uint4*>(arow(P, a[0]));
+  const size_t n8 = (size_t)a[4] * b * kW / 8;
+  for (size_t v = threadIdx.x; v < n8; v += kThreads) {
+    const int bb = (int)((v / (kW / 8)) % b);
+    const float wgt = __bfloat162float(__ushort_as_bfloat16(
+        __ldcg(reinterpret_cast<const unsigned short*>(arow(P, a[2] + bb) + e))));
+    float x[8];
+    unpack8(__ldcg(pp + v), x);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) x[i] *= wgt;
+    if (!init) {
+      float y[8];
+      unpack8(__ldcg(pacc + v), y);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) x[i] += y[i];
+    }
+    pacc[v] = make_uint4(pack2(x[0], x[1]), pack2(x[2], x[3]), pack2(x[4], x[5]),
+                         pack2(x[6], x[7]));
   }
 }
 
@@ -631,6 +735,8 @@ __device__ void run_task(const Params& P, int t, float* smem) {
     case kAttnDecode: attn_rows(P, a, smem, kDecodeRows); return;
     case kWriteKv: write_kv(P, a, kDecodeRows); return;
     case kGather: gather(P, a); return;
+    case kMoeWeights: moe_weights(P, a); return;
+    case kWeightedAdd: weighted_add(P, a); return;
     case kAllreduce:     // one rank: nothing to reduce
     case kNoop: return;
     default: break;
@@ -733,7 +839,10 @@ cudaError_t resident_blocks(int device, bool mma, int* out) {
 // Plain C interface for ctypes. Pointers are device pointers on `device`
 // (int32 tables; `sync` holds 2 + n_tasks ints: the claim counter, the
 // failure gate, then the done flags; `task_ns`, null or 2 * n_tasks
-// int64, receives each task's start and end); `stream` is a cudaStream_t.
+// int64, receives each task's start and end; `counts`, null for a dense
+// build, the MoE build's int32 [rows][128] expert counters, rows >=
+// batch); `stream` is a cudaStream_t. `moe_topk` experts are kept per
+// row, renormalised when `moe_norm`.
 // `batch` counts rows, `seq` the rows per slot of a batched prefill;
 // `mma` = 1 launches the tensor-core instantiation (required for the
 // prompt row modes and for more than kMaxB rows). Returns a cudaError_t
@@ -742,15 +851,17 @@ cudaError_t resident_blocks(int device, bool mma, int* out) {
 extern "C" int tdt_megakernel_bf16(void* arena, void* kpool, void* vpool, const void* tokens,
                                    const void* lens, const void* table, const void* claims,
                                    const void* types, const void* args, const void* pred_start,
-                                   const void* preds, void* sync, void* task_ns, int n_claims,
-                                   int n_tasks, int batch, int seq, int w, int hd, int h_loc,
-                                   int kv_loc, int num_pages, int page, int p_max,
+                                   const void* preds, void* sync, void* task_ns, void* counts,
+                                   int n_claims, int n_tasks, int batch, int seq, int w, int hd,
+                                   int h_loc, int kv_loc, int num_pages, int page, int p_max,
                                    float rms_eps, float rope_theta, long long timeout_ns,
-                                   int mma, int device, void* stream) {
+                                   int mma, int moe_topk, int moe_norm, int device,
+                                   void* stream) {
   if (w != kW || hd != kHD || batch < 1 || seq < 1 || batch % seq || kv_loc < 1 ||
       h_loc % kv_loc || (!mma && batch > kMaxB) ||
       h_loc / kv_loc > kMaxRep || page < 1 || p_max < 1 || num_pages < 1 || n_tasks < 1 ||
-      n_claims < 1 || timeout_ns <= 0)
+      n_claims < 1 || timeout_ns <= 0 || moe_topk < 0 || moe_topk > kW ||
+      (moe_topk > 0 && counts == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
@@ -781,6 +892,9 @@ extern "C" int tdt_megakernel_bf16(void* arena, void* kpool, void* vpool, const 
   P.flags = static_cast<int*>(sync) + 2;
   P.err = g_err_dev;
   P.task_ns = static_cast<long long*>(task_ns);
+  P.counts = static_cast<int*>(counts);
+  P.moe_topk = moe_topk;
+  P.moe_norm = moe_norm;
   P.n_claims = n_claims;
   P.batch = batch;
   P.seq = seq;

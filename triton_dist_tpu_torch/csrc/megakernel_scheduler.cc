@@ -18,6 +18,7 @@
 // order as its claim list and the pruned edges as each task's
 // predecessors.
 
+#include <algorithm>
 #include <cstdint>
 #include <functional>
 #include <queue>
@@ -103,33 +104,61 @@ int tdt_schedule(int32_t n_tasks, const int32_t* dep_src,
 
 // Transitive-reduction style dependency pruning (reference
 // enable_dep_opt, core/graph.py): drop edge (a, c) when a path
-// a -> b -> c of retained edges exists. O(V*E) BFS bound — fine for
-// decode graphs (thousands of tasks). Returns the new edge count.
+// a -> b -> c of retained edges exists. Returns the new edge count.
+//
+// When every edge points to a higher task id (the builders' graphs: a
+// task depends only on tasks recorded before it), ids are a topological
+// order, so such a path ends at some other predecessor b of c with
+// a < b, and never leaves the ids (a, b]: the search from a is bounded by
+// c's largest other predecessor and stops at any predecessor of c. That
+// keeps a 48-layer MoE graph (~190k tasks, most edges within one expert's
+// chain) to a fraction of a second where a whole-graph search per edge
+// takes hours. Any other edge list gets the unbounded search. Both give
+// the same edges. Visit marks are stamped with the edge index instead of
+// a fresh array per edge.
 int32_t tdt_prune_deps(int32_t n_tasks, int32_t* dep_src,
                        int32_t* dep_dst, int32_t n_deps) {
-  std::vector<std::vector<int32_t>> succ(n_tasks);
-  for (int32_t e = 0; e < n_deps; ++e) succ[dep_src[e]].push_back(dep_dst[e]);
+  std::vector<std::vector<int32_t>> succ(n_tasks), pred(n_tasks);
+  bool forward = true;
+  for (int32_t e = 0; e < n_deps; ++e) {
+    succ[dep_src[e]].push_back(dep_dst[e]);
+    pred[dep_dst[e]].push_back(dep_src[e]);
+    if (dep_src[e] >= dep_dst[e]) forward = false;
+  }
+  std::vector<int32_t> seen(n_tasks, -1), target(n_tasks, -1), queue;
 
-  auto reachable_without = [&](int32_t from, int32_t to) {
-    // BFS from `from` skipping the direct edge from->to.
-    std::vector<uint8_t> seen(n_tasks, 0);
-    std::queue<int32_t> q;
-    for (int32_t s : succ[from]) {
-      if (s == to) continue;  // skip direct edge (all copies)
-      if (!seen[s]) { seen[s] = 1; q.push(s); }
+  // Is `to` reachable from `from` other than by the direct edge?
+  auto redundant = [&](int32_t e, int32_t from, int32_t to) {
+    int32_t bound = n_tasks - 1;
+    if (forward) {
+      bound = -1;
+      for (int32_t b : pred[to]) {
+        if (b == from) continue;
+        target[b] = e;
+        bound = std::max(bound, b);
+      }
+      if (bound <= from) return false;
+    } else {
+      target[to] = e;
     }
-    while (!q.empty()) {
-      int32_t u = q.front(); q.pop();
-      if (u == to) return true;
+    queue.clear();
+    for (int32_t s : succ[from]) {
+      if (s == to || s > bound || seen[s] == e) continue;  // skip direct edge
+      seen[s] = e;
+      queue.push_back(s);
+    }
+    for (std::size_t h = 0; h < queue.size(); ++h) {
+      const int32_t u = queue[h];
+      if (target[u] == e) return true;
       for (int32_t s : succ[u])
-        if (!seen[s]) { seen[s] = 1; q.push(s); }
+        if (s <= bound && seen[s] != e) { seen[s] = e; queue.push_back(s); }
     }
     return false;
   };
 
   int32_t kept = 0;
   for (int32_t e = 0; e < n_deps; ++e) {
-    if (!reachable_without(dep_src[e], dep_dst[e])) {
+    if (!redundant(e, dep_src[e], dep_dst[e])) {
       dep_src[kept] = dep_src[e];
       dep_dst[kept] = dep_dst[e];
       ++kept;

@@ -1,4 +1,4 @@
-"""ModelBuilder: a whole Qwen3 decode step as one task graph, scheduled
+"""ModelBuilder: a whole Qwen3 (dense or MoE) step as one task graph, scheduled
 natively and run as ONE persistent kernel (counterpart of
 ``triton_dist_tpu/megakernel/builder.py``).
 
@@ -30,14 +30,24 @@ cache task pair each layer records:
   (p_max,) table row rides the launch, positions sign-encoded per row
   (:func:`~triton_dist_tpu_torch.ops.chunked_prefill.chunk_row_codes`).
 
-The Q-block verify pair, quantized pools, MoE, hybrid GDN and profiling
-are later slices (ROADMAP.md).
+A MoE config (Qwen3-MoE, the tensor-parallel expert regime at one rank)
+replaces each layer's MLP by the JAX graph's MoE FFN: the router
+``LINEAR``, ``MOE_WEIGHTS`` (softmax, top-k, combine weights, expert
+counters), every expert's gate/up ``LINEAR``, ``SILU_MUL`` and down
+``LINEAR``, and a chain of ``WEIGHTED_ADD`` combines into ``mpart``; the
+same bodies serve all three row modes. Every expert runs for every row,
+as in the JAX design; the counters count what each row routed to.
+
+The Q-block verify pair, quantized pools, hybrid GDN and profiling are
+later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import copy
 import ctypes
 import dataclasses
+import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -53,9 +63,9 @@ from triton_dist_tpu_torch.utils.build import CudaKernel, load
 
 # ``KERNEL.launches`` counts launches of the CUDA megakernel.
 KERNEL = CudaKernel("megakernel.cu", "tdt_megakernel_bf16",
-                    [ctypes.c_void_p] * 13 + [ctypes.c_int] * 11
-                    + [ctypes.c_float, ctypes.c_float, ctypes.c_longlong,
-                       ctypes.c_int])
+                    [ctypes.c_void_p] * 14 + [ctypes.c_int] * 11
+                    + [ctypes.c_float, ctypes.c_float, ctypes.c_longlong]
+                    + [ctypes.c_int] * 3)
 # Launches of the CUDA megakernel by row mode (each also counts in
 # ``KERNEL.launches``).
 MODE_LAUNCHES = {"decode": 0, "prefill": 0, "chunk": 0}
@@ -66,13 +76,14 @@ KERNEL_MAX_GQA = 8            # query heads per KV head
 # Rows the decode instantiation's CUDA-core LINEAR takes; prompt modes and
 # wider decode launches run the tensor-core instantiation.
 KERNEL_CUDA_CORE_ROWS = 8
-# Task types the CUDA kernel runs: the decode set and the batched-prefill
-# and prefill-chunk cache pairs.
+# Task types the CUDA kernel runs: the decode set, the batched-prefill
+# and prefill-chunk cache pairs, and the MoE pair.
 KERNEL_TYPES = frozenset({
     TaskType.RMSNORM, TaskType.LINEAR, TaskType.ADD, TaskType.SILU_MUL,
     TaskType.ATTN_DECODE, TaskType.WRITE_KV, TaskType.ALLREDUCE,
     TaskType.GATHER, TaskType.WRITE_KV_PREFILL, TaskType.ATTN_PREFILL,
-    TaskType.WRITE_KV_CHUNK, TaskType.ATTN_CHUNK})
+    TaskType.WRITE_KV_CHUNK, TaskType.ATTN_CHUNK, TaskType.MOE_WEIGHTS,
+    TaskType.WEIGHTED_ADD})
 # The cache task pair (write, attend) each layer records, by row mode.
 CACHE_PAIRS = {
     "decode": (TaskType.WRITE_KV, TaskType.ATTN_DECODE),
@@ -109,7 +120,7 @@ class ArenaRegion:
 
     @property
     def in_arena(self) -> bool:
-        return self.kind in ARENA_KINDS
+        return self.kind in ARENA_KINDS and not self.shape
 
 
 class ArenaSchema:
@@ -134,7 +145,10 @@ class ArenaSchema:
         return off
 
     def add_buffer(self, name: str, shape, dtype, kind: str) -> None:
-        if kind in ARENA_KINDS:
+        """A device buffer beside the arena. ``kind`` ``"counter"`` is
+        allowed here too: the MoE engine's exact int32 expert counters
+        sit beside the arena's ``moe_counts`` rows."""
+        if kind in ARENA_KINDS and kind != "counter":
             raise ValueError(f"kind {kind!r} is an in-arena kind — use "
                              "alloc()")
         if name in self._regions:
@@ -190,14 +204,21 @@ class ModelBuilder:
     comm-priority-ordered claim list). Both are topological orders; the
     CUDA kernel's blocks claim tasks in that order. ``seq`` > 1 builds a
     batched prefill of ``batch // seq`` slots; ``chunk=True`` a prefill
-    chunk of ``batch == seq`` rows of one slot (module docstring)."""
+    chunk of ``batch == seq`` rows of one slot (module docstring).
+
+    MoE builds: ``counts_rows`` sizes the ``moe_counts`` region (the
+    largest row count over an engine's builds, so that every build
+    claims the same span); ``expert_load`` (per expert) biases the
+    dynamic claim order toward hot experts' chains
+    (:meth:`reprioritize`)."""
 
     def __init__(self, cfg: ModelConfig, *, batch: int, max_len: int,
                  tile_w: Optional[int] = None, t_tile: Optional[int] = None,
                  num_cores: int = 1, strategy: str = "round_robin",
                  schedule: str = "static", paged: bool = False,
                  page: Optional[int] = None, seq: int = 1,
-                 chunk: bool = False):
+                 chunk: bool = False, expert_load=None,
+                 counts_rows: Optional[int] = None):
         if schedule not in ("static", "dynamic"):
             raise ValueError(f"schedule must be 'static' or 'dynamic', "
                              f"got {schedule!r}")
@@ -228,6 +249,10 @@ class ModelBuilder:
         self.num_cores = num_cores
         self.strategy = strategy
         self.schedule = schedule
+        self.expert_load = (list(expert_load) if expert_load is not None
+                            else None)
+        self.counts_rows = (int(counts_rows) if counts_rows is not None
+                            else None)
         hd = cfg.head_dim
         self.w = tile_w or max(128, hd)
         if self.w % hd:
@@ -262,11 +287,29 @@ class ModelBuilder:
         self.hq_tiles = _cdiv(self.h_loc * hd, self.w)
         self.kv_tiles = _cdiv(self.kv_loc * hd, self.w)
         self.ff_tiles = _cdiv(cfg.intermediate_size, self.w)
+        # MoE: every expert's ffn in ffe_tiles tiles; the router logits
+        # must fit one tile.
+        self.moe = cfg.is_moe
+        if self.moe:
+            if cfg.num_experts > self.w:
+                raise ValueError(
+                    f"megakernel MoE needs num_experts={cfg.num_experts}"
+                    f" <= tile width {self.w} (router logits tile)")
+            if cfg.num_experts_per_tok > cfg.num_experts:
+                raise ValueError(
+                    f"num_experts_per_tok={cfg.num_experts_per_tok} > "
+                    f"num_experts={cfg.num_experts} (the static top-k "
+                    "loop would pick zero-probability padded columns)")
+            self.ffe_tiles = _cdiv(cfg.moe_intermediate_size, self.w)
         self._offsets: Dict[str, int] = {}
         self.schema = ArenaSchema(self.w)
         self.graph = Graph()
         self._device_tables = {}
+        self._router_tasks = set()       # MoE: each layer's router LINEAR
+        t0 = time.perf_counter()
         self._build()
+        # Host time of the graph, its pruning and the schedule.
+        self.build_seconds = time.perf_counter() - t0
 
     # ---------------- arena layout -------------------------------------
     def _alloc(self, name: str, rows: int, kind: str = "activation") -> int:
@@ -278,13 +321,14 @@ class ModelBuilder:
         return self._alloc(name, tiles * self.batch)
 
     def _linear(self, in_off, w_off, out_off, k_tiles, n_tiles, *, layer,
-                in_rows, w_rows):
+                in_rows, w_rows, expert: int = -1):
         b = self.batch
         for j in range(n_tiles):
             self.graph.add(TaskType.LINEAR,
                            (in_off, w_off, out_off, k_tiles, n_tiles, j),
                            reads=[(in_off, in_rows), (w_off, w_rows)],
-                           writes=[(out_off + j * b, b)], layer=layer)
+                           writes=[(out_off + j * b, b)], layer=layer,
+                           expert=expert)
 
     def _build(self):
         cfg, b, w = self.cfg, self.batch, self.w
@@ -305,9 +349,16 @@ class ModelBuilder:
             walloc(f"l{li}.wk", d_t, kv_t)
             walloc(f"l{li}.wv", d_t, kv_t)
             walloc(f"l{li}.wo", hq_t, d_t)
-            walloc(f"l{li}.w_gate", d_t, ff_t)
-            walloc(f"l{li}.w_up", d_t, ff_t)
-            walloc(f"l{li}.w_down", ff_t, d_t)
+            if self.moe:
+                walloc(f"l{li}.router", d_t, 1)
+                for e in range(cfg.num_experts):
+                    walloc(f"l{li}.e{e}.w_gate", d_t, self.ffe_tiles)
+                    walloc(f"l{li}.e{e}.w_up", d_t, self.ffe_tiles)
+                    walloc(f"l{li}.e{e}.w_down", self.ffe_tiles, d_t)
+            else:
+                walloc(f"l{li}.w_gate", d_t, ff_t)
+                walloc(f"l{li}.w_up", d_t, ff_t)
+                walloc(f"l{li}.w_down", ff_t, d_t)
             vecalloc(f"l{li}.ln_attn", d_t)
             vecalloc(f"l{li}.ln_mlp", d_t)
             vecalloc(f"l{li}.q_norm", 1)
@@ -315,6 +366,16 @@ class ModelBuilder:
         vecalloc("ln_f", d_t)
         vecalloc("embed", self.vocab_loc * d_t)
         walloc("lm_head_T", d_t, self.vloc_tiles)
+
+        # MoE expert counters: the JAX builder's (counts_rows, w) region,
+        # right after the weights so that every build of an engine claims
+        # the same span. The port counts exactly in an int32 buffer
+        # beside the arena (kernels.moe_weights_body); the region keeps
+        # every later offset the JAX package's.
+        self.moe_counts_off = 0
+        if self.moe:
+            self.moe_counts_off = self._alloc(
+                "moe_counts", max(b, self.counts_rows or 0), kind="counter")
 
         # The allreduce workspace: unused at one rank, kept so the layout
         # (and every offset after it) is the JAX package's.
@@ -338,9 +399,10 @@ class ModelBuilder:
             opart = self._alloc_act(f"l{li}.opart", d_t)
             x1 = self._alloc_act(f"l{li}.x1", d_t)
             t1 = self._alloc_act(f"l{li}.t1", d_t)
-            gx = self._alloc_act(f"l{li}.g", ff_t)
-            ux = self._alloc_act(f"l{li}.u", ff_t)
-            hx = self._alloc_act(f"l{li}.h", ff_t)
+            if not self.moe:
+                gx = self._alloc_act(f"l{li}.g", ff_t)
+                ux = self._alloc_act(f"l{li}.u", ff_t)
+                hx = self._alloc_act(f"l{li}.h", ff_t)
             mpart = self._alloc_act(f"l{li}.mpart", d_t)
             x2 = self._alloc_act(f"l{li}.x2", d_t)
 
@@ -376,15 +438,20 @@ class ModelBuilder:
             g.add(TaskType.RMSNORM, (x1, o[f"l{li}.ln_mlp"], t1, d_t),
                   reads=[(x1, d_t * b), (o[f"l{li}.ln_mlp"], d_t)],
                   writes=[(t1, d_t * b)], layer=li)
-            self._linear(t1, o[f"l{li}.w_gate"], gx, d_t, ff_t, layer=li,
-                         in_rows=d_t * b, w_rows=d_t * ff_t * w)
-            self._linear(t1, o[f"l{li}.w_up"], ux, d_t, ff_t, layer=li,
-                         in_rows=d_t * b, w_rows=d_t * ff_t * w)
-            g.add(TaskType.SILU_MUL, (gx, ux, hx, ff_t),
-                  reads=[(gx, ff_t * b), (ux, ff_t * b)],
-                  writes=[(hx, ff_t * b)], layer=li)
-            self._linear(hx, o[f"l{li}.w_down"], mpart, ff_t, d_t, layer=li,
-                         in_rows=ff_t * b, w_rows=ff_t * d_t * w)
+            if self.moe:
+                self._moe_ffn(li, t1, mpart)
+            else:
+                self._linear(t1, o[f"l{li}.w_gate"], gx, d_t, ff_t,
+                             layer=li, in_rows=d_t * b,
+                             w_rows=d_t * ff_t * w)
+                self._linear(t1, o[f"l{li}.w_up"], ux, d_t, ff_t, layer=li,
+                             in_rows=d_t * b, w_rows=d_t * ff_t * w)
+                g.add(TaskType.SILU_MUL, (gx, ux, hx, ff_t),
+                      reads=[(gx, ff_t * b), (ux, ff_t * b)],
+                      writes=[(hx, ff_t * b)], layer=li)
+                self._linear(hx, o[f"l{li}.w_down"], mpart, ff_t, d_t,
+                             layer=li, in_rows=ff_t * b,
+                             w_rows=ff_t * d_t * w)
             g.add(TaskType.ALLREDUCE, (mpart, d_t),
                   reads=[(mpart, d_t * b)],
                   writes=[(mpart, d_t * b), ar_ws], layer=li)
@@ -421,6 +488,62 @@ class ModelBuilder:
             self._schedule_static(psrc, pdst, pin, cost)
         self._emit_device_tables()
 
+    def _moe_ffn(self, li: int, t1: int, mpart: int) -> None:
+        """The MoE FFN of layer ``li``, as the JAX builder records it:
+        router logits, combine weights (and counters), every expert's
+        SwiGLU, and the combines chained through ``mpart`` in expert
+        order (the first writes, the rest accumulate)."""
+        cfg, b, w, g, o = self.cfg, self.batch, self.w, self.graph, \
+            self._offsets
+        d_t, E, ffe_t = self.d_tiles, cfg.num_experts, self.ffe_tiles
+        rl = self._alloc_act(f"l{li}.rl", 1)
+        wbe = self._alloc_act(f"l{li}.wbe", 1)
+        self._linear(t1, o[f"l{li}.router"], rl, d_t, 1, layer=li,
+                     in_rows=d_t * b, w_rows=d_t * w)
+        self._router_tasks.add(len(g.tasks) - 1)
+        # The counters' read + write chains the layers' MOE_WEIGHTS tasks.
+        cnt = self.moe_counts_off
+        g.add(TaskType.MOE_WEIGHTS, (rl, wbe, E, cnt),
+              reads=[(rl, b), (cnt, b)], writes=[(wbe, b), (cnt, b)],
+              layer=li)
+        for e in range(E):
+            ge = self._alloc_act(f"l{li}.e{e}.g", ffe_t)
+            ue = self._alloc_act(f"l{li}.e{e}.u", ffe_t)
+            he = self._alloc_act(f"l{li}.e{e}.h", ffe_t)
+            pe = self._alloc_act(f"l{li}.e{e}.part", d_t)
+            self._linear(t1, o[f"l{li}.e{e}.w_gate"], ge, d_t, ffe_t,
+                         layer=li, in_rows=d_t * b, w_rows=d_t * ffe_t * w,
+                         expert=e)
+            self._linear(t1, o[f"l{li}.e{e}.w_up"], ue, d_t, ffe_t,
+                         layer=li, in_rows=d_t * b, w_rows=d_t * ffe_t * w,
+                         expert=e)
+            g.add(TaskType.SILU_MUL, (ge, ue, he, ffe_t),
+                  reads=[(ge, ffe_t * b), (ue, ffe_t * b)],
+                  writes=[(he, ffe_t * b)], layer=li, expert=e)
+            self._linear(he, o[f"l{li}.e{e}.w_down"], pe, ffe_t, d_t,
+                         layer=li, in_rows=ffe_t * b,
+                         w_rows=ffe_t * d_t * w, expert=e)
+            g.add(TaskType.WEIGHTED_ADD,
+                  (mpart, pe, wbe, e, d_t, 1 if e == 0 else 0),
+                  reads=[(pe, d_t * b), (wbe, b), (mpart, d_t * b)],
+                  writes=[(mpart, d_t * b)], layer=li, expert=e)
+
+    def reprioritize(self, expert_load) -> None:
+        """Recompute the DYNAMIC claim order under a new per-expert load
+        vector (``graph.comm_priority``'s ``expert_load``; ``None`` is
+        uniform). Host only: the graph, the arena and the bodies stay;
+        the claim list and tables are re-emitted and uploaded again at
+        the next launch."""
+        if self.schedule != "dynamic":
+            raise ValueError(
+                "reprioritize() adjusts the dynamic claim order; this "
+                f"builder runs schedule={self.schedule!r}")
+        self.expert_load = (list(expert_load) if expert_load is not None
+                            else None)
+        psrc, pdst = self._pruned_edges
+        self._schedule_dynamic(psrc, pdst, self._pin, self._cost)
+        self._device_tables = {}
+
     def _schedule_static(self, src, dst, pin, cost):
         """Per-core slot lists packed by ``strategy``, NOOP-padded so the
         merged (q-major) order respects every dependency."""
@@ -435,7 +558,8 @@ class ModelBuilder:
     def _schedule_dynamic(self, src, dst, pin, cost):
         """One comm-priority-ordered claim list (holes are -1)."""
         prio, bkt, _ = comm_priority(self.graph.tasks, n_ranks=self.n,
-                                     task_cost=cost)
+                                     task_cost=cost,
+                                     expert_load=self.expert_load)
         dyn = schedule_dyn(len(self.graph.tasks), src, dst,
                            num_cores=self.num_cores, priority=prio,
                            bucket=bkt, task_cost=cost, pin_core=pin,
@@ -480,6 +604,8 @@ class ModelBuilder:
             return 2 * self.seq
         if t.task_type == TaskType.ALLREDUCE:
             return 2 * int(t.args[1])
+        if t.task_type == TaskType.WEIGHTED_ADD:
+            return int(t.args[4])
         return 1
 
     # ---------------- device contract ----------------------------------
@@ -496,6 +622,29 @@ class ModelBuilder:
         self.pred_start = np.zeros(n + 1, np.int32)
         np.cumsum(np.bincount(pdst, minlength=n), out=self.pred_start[1:])
 
+    def isolate(self, task_ids) -> "ModelBuilder":
+        """A copy of this build whose launch (and plain step) runs only
+        ``task_ids``, in that order, waiting on nothing: for holding one
+        task's CUDA body against its plain body on the same inputs.
+        Tasks of one launch run concurrently, so a task that reads
+        another's output needs a launch of its own."""
+        one = copy.copy(self)
+        one.claim_list = np.asarray(task_ids, np.int32)
+        one.pred_start = np.zeros_like(self.pred_start)
+        one.preds = np.zeros(0, np.int32)
+        one._device_tables = {}
+        return one
+
+    def routed_experts(self, arena: torch.Tensor) -> torch.Tensor:
+        """(layers, batch, num_experts) bool: the experts each row of the
+        last launch routed to in each layer, read off the combine-weight
+        tiles (``MOE_WEIGHTS`` writes a nonzero weight exactly where it
+        selected)."""
+        E, b = self.cfg.num_experts, self.batch
+        return torch.stack([
+            arena[self._offsets[f"l{li}.wbe"]:][:b, :E] != 0
+            for li in range(self.cfg.num_hidden_layers)])
+
     def describe_task(self, t: int) -> str:
         task = self.graph.tasks[t]
         return (f"task {t} ({TaskType(task.task_type).name}, layer "
@@ -505,54 +654,78 @@ class ModelBuilder:
     def pack_arena(self, params, *, dtype: torch.dtype = torch.float32,
                    device=None) -> torch.Tensor:
         """The (arena_rows, w) arena from a
-        :class:`~triton_dist_tpu_torch.models.dense.DenseLM`: the weight
-        region in the JAX package's layout and order, the activation
-        region zeroed. Port weights are ``(out, in)``; weight block
-        ``(kt, j)`` holds ``W.T[kt*w:(kt+1)*w, j*w:(j+1)*w]``."""
-        w = self.w
+        :class:`~triton_dist_tpu_torch.models.dense.DenseLM` (or a
+        :class:`~triton_dist_tpu_torch.models.qwen_moe.MoELM` for a MoE
+        build): the weight region in the JAX package's layout and order,
+        the rest zeroed. :meth:`pack_layer` and :meth:`pack_head` fill it
+        piece by piece, for a caller that draws one layer at a time."""
         device = params.embed.device if device is None else device
-        arena = torch.zeros(self.arena_rows, w, dtype=dtype, device=device)
+        arena = torch.zeros(self.arena_rows, self.w, dtype=dtype,
+                            device=device)
+        for li, layer in enumerate(params.layers):
+            self.pack_layer(arena, li, layer)
+        self.pack_head(arena, params)
+        return arena
 
-        def tile(name, wt, k_tiles, n_tiles):
-            n_out, n_in = wt.shape
-            if (n_out, n_in) != (n_tiles * w, k_tiles * w):
-                padded = torch.zeros(n_tiles * w, k_tiles * w,
-                                     dtype=wt.dtype, device=wt.device)
-                padded[:n_out, :n_in] = wt
-                wt = padded
-            r = self.schema.region(name)
-            arena[r.offset:r.offset + r.rows].view(
-                k_tiles, n_tiles, w, w).copy_(
-                    wt.view(n_tiles, w, k_tiles, w).permute(2, 0, 3, 1))
+    def _tile(self, arena, name, wt, k_tiles, n_tiles) -> None:
+        """Weight block ``(kt, j)`` of region ``name`` holds
+        ``W.T[kt*w:(kt+1)*w, j*w:(j+1)*w]`` for a port weight ``W`` of
+        shape ``(out, in)``, zero-padded to whole tiles."""
+        w = self.w
+        n_out, n_in = wt.shape
+        if (n_out, n_in) != (n_tiles * w, k_tiles * w):
+            padded = torch.zeros(n_tiles * w, k_tiles * w, dtype=wt.dtype,
+                                 device=wt.device)
+            padded[:n_out, :n_in] = wt
+            wt = padded
+        r = self.schema.region(name)
+        arena[r.offset:r.offset + r.rows].view(
+            k_tiles, n_tiles, w, w).copy_(
+                wt.view(n_tiles, w, k_tiles, w).permute(2, 0, 3, 1))
 
-        def vec(name, v):
-            r = self.schema.region(name)
-            flat = arena[r.offset:r.offset + r.rows].view(-1)
-            flat[:v.shape[0]] = v
+    def _vec(self, arena, name, v) -> None:
+        r = self.schema.region(name)
+        arena[r.offset:r.offset + r.rows].view(-1)[:v.shape[0]] = v
 
+    @torch.no_grad()
+    def pack_layer(self, arena: torch.Tensor, li: int, layer) -> None:
+        """Layer ``li``'s weights into their regions of ``arena``."""
         d_t, hq_t, kv_t, ff_t = (self.d_tiles, self.hq_tiles, self.kv_tiles,
                                  self.ff_tiles)
-        with torch.no_grad():
-            for li, layer in enumerate(params.layers):
-                a, m = layer.attn, layer.mlp
-                tile(f"l{li}.wq", a.wq, d_t, hq_t)
-                tile(f"l{li}.wk", a.wk, d_t, kv_t)
-                tile(f"l{li}.wv", a.wv, d_t, kv_t)
-                tile(f"l{li}.wo", a.wo, hq_t, d_t)
-                tile(f"l{li}.w_gate", m.w_gate, d_t, ff_t)
-                tile(f"l{li}.w_up", m.w_up, d_t, ff_t)
-                tile(f"l{li}.w_down", m.w_down, ff_t, d_t)
-                vec(f"l{li}.ln_attn", layer.ln_attn)
-                vec(f"l{li}.ln_mlp", layer.ln_mlp)
-                vec(f"l{li}.q_norm", a.q_norm)
-                vec(f"l{li}.k_norm", a.k_norm)
-            vec("ln_f", params.ln_f)
-            r = self.schema.region("embed")
-            arena[r.offset:r.offset + r.rows].view(
-                self.vocab_loc, d_t * w)[:, :self.cfg.hidden_size] = \
-                params.embed
-            tile("lm_head_T", params.lm_head, d_t, self.vloc_tiles)
-        return arena
+        a = layer.attn
+        self._tile(arena, f"l{li}.wq", a.wq, d_t, hq_t)
+        self._tile(arena, f"l{li}.wk", a.wk, d_t, kv_t)
+        self._tile(arena, f"l{li}.wv", a.wv, d_t, kv_t)
+        self._tile(arena, f"l{li}.wo", a.wo, hq_t, d_t)
+        if self.moe:
+            m, ffe_t = layer.moe, self.ffe_tiles
+            self._tile(arena, f"l{li}.router", m.router, d_t, 1)
+            for e in range(self.cfg.num_experts):
+                self._tile(arena, f"l{li}.e{e}.w_gate", m.w_gate[e], d_t,
+                           ffe_t)
+                self._tile(arena, f"l{li}.e{e}.w_up", m.w_up[e], d_t, ffe_t)
+                self._tile(arena, f"l{li}.e{e}.w_down", m.w_down[e], ffe_t,
+                           d_t)
+        else:
+            m = layer.mlp
+            self._tile(arena, f"l{li}.w_gate", m.w_gate, d_t, ff_t)
+            self._tile(arena, f"l{li}.w_up", m.w_up, d_t, ff_t)
+            self._tile(arena, f"l{li}.w_down", m.w_down, ff_t, d_t)
+        self._vec(arena, f"l{li}.ln_attn", layer.ln_attn)
+        self._vec(arena, f"l{li}.ln_mlp", layer.ln_mlp)
+        self._vec(arena, f"l{li}.q_norm", a.q_norm)
+        self._vec(arena, f"l{li}.k_norm", a.k_norm)
+
+    @torch.no_grad()
+    def pack_head(self, arena: torch.Tensor, params) -> None:
+        """The final norm, the embedding rows and the lm_head."""
+        d_t = self.d_tiles
+        self._vec(arena, "ln_f", params.ln_f)
+        r = self.schema.region("embed")
+        arena[r.offset:r.offset + r.rows].view(
+            self.vocab_loc, d_t * self.w)[:, :self.cfg.hidden_size] = \
+            params.embed
+        self._tile(arena, "lm_head_T", params.lm_head, d_t, self.vloc_tiles)
 
     # ---------------- the step -----------------------------------------
     def kernel_config(self) -> K.KernelConfig:
@@ -560,7 +733,9 @@ class ModelBuilder:
             w=self.w, batch=self.batch, h_loc=self.h_loc, kv_loc=self.kv_loc,
             hd=self.cfg.head_dim, rope_theta=self.cfg.rope_theta,
             rms_eps=self.cfg.rms_norm_eps, paged=self.paged, page=self.page,
-            p_max=self.p_max, seq=self.seq)
+            p_max=self.p_max, seq=self.seq,
+            moe_topk=self.cfg.num_experts_per_tok if self.moe else 0,
+            moe_norm=self.cfg.norm_topk_prob)
 
     def logits(self, arena: torch.Tensor, rows=None) -> torch.Tensor:
         """fp32 logits of the last step, read out of the arena's logits
@@ -619,7 +794,7 @@ class ModelBuilder:
         return toks, lens, table
 
     def step(self, arena, k_cache, v_cache, token_ids, cache_len,
-             block_table=None, *, rows=None,
+             block_table=None, *, rows=None, counts=None,
              timeout_s: float = DEFAULT_TIMEOUT_S) -> torch.Tensor:
         """One launch of this build, IN PLACE on ``arena`` and the pools.
 
@@ -631,8 +806,9 @@ class ModelBuilder:
         attends ``cache_len + 1`` keys; batched prefill: the shared base;
         chunk: the sign-encoded codes); block_table: the flat
         (n_slots * p_max,) page ids when paged (a chunk's: its slot's
-        (p_max,) row). Returns fp32 logits of ``rows`` (see
-        :meth:`logits`).
+        (p_max,) row); counts: a MoE build's int32 expert counters
+        (``moe_counts`` rows x w, on the arena's device), which the step
+        adds to. Returns fp32 logits of ``rows`` (see :meth:`logits`).
 
         CUDA tensors launch the megakernel on every block that fits on the
         card and wait for it (``timeout_s`` bounds each wait in the
@@ -641,36 +817,68 @@ class ModelBuilder:
         interpreter."""
         if arena.device.type == "cpu":
             return self.plain_step(arena, k_cache, v_cache, token_ids,
-                                   cache_len, block_table, rows=rows)
+                                   cache_len, block_table, rows=rows,
+                                   counts=counts)
         toks, lens, table = self._host_inputs(k_cache, token_ids, cache_len,
                                               block_table)
         self.launch(arena, k_cache, v_cache, toks, lens, table,
-                    timeout_s=timeout_s)
+                    counts=counts, timeout_s=timeout_s)
         self.wait(arena.device)
         return self.logits(arena, rows)
 
     def plain_step(self, arena, k_cache, v_cache, token_ids, cache_len,
-                   block_table=None, *, rows=None) -> torch.Tensor:
+                   block_table=None, *, rows=None, counts=None,
+                   route_from=None) -> torch.Tensor:
         """The plain version of :meth:`step`, on tensors of any device:
-        the claim list in order through the PyTorch task bodies."""
+        the claim list in order through the PyTorch task bodies.
+        ``route_from`` (MoE): an arena of another run of this build whose
+        router-logit tiles replace this run's, each right after its
+        router ``LINEAR``, so that this run routes as that one did (a
+        kernel run is then held to the plain bodies under its own
+        routing: a router logit one bf16 unit off moves an expert's whole
+        combine weight by about 1 %, and may swap its 8th and 9th
+        expert)."""
         toks, lens, table = self._host_inputs(k_cache, token_ids, cache_len,
                                               block_table)
-        self.interpret(arena, k_cache, v_cache, toks, lens, table)
+        self._check_counts(counts, arena.device)
+        self.interpret(arena, k_cache, v_cache, toks, lens, table, counts,
+                       route_from=route_from)
         return self.logits(arena, rows)
 
-    def interpret(self, arena, k_cache, v_cache, toks, lens, table) -> None:
+    def _check_counts(self, counts, device) -> None:
+        """A MoE build needs its int32 counters (``moe_counts`` rows x w)
+        on ``device``; a dense build takes none."""
+        if not self.moe:
+            if counts is not None:
+                raise ValueError("a dense build takes no expert counters")
+            return
+        rows = self.schema.region("moe_counts").rows
+        if (counts is None or counts.dtype != torch.int32
+                or counts.device != device or not counts.is_contiguous()
+                or tuple(counts.shape) != (rows, self.w)):
+            raise ValueError(f"a MoE step needs contiguous int32 expert "
+                             f"counters ({rows}, {self.w}) on {device}")
+
+    def interpret(self, arena, k_cache, v_cache, toks, lens, table,
+                  counts=None, *, route_from=None) -> None:
         """The plain version: the claim list in order through the PyTorch
-        task bodies (:data:`kernels.BODIES`)."""
+        task bodies (:data:`kernels.BODIES`); ``route_from`` as in
+        :meth:`plain_step`."""
         st = K.StepState(arena=arena, k_cache=k_cache, v_cache=v_cache,
                          tokens=[int(t) for t in toks],
                          lens=[int(x) for x in lens],
                          table=torch.as_tensor(table, dtype=torch.int64,
-                                               device=arena.device))
+                                               device=arena.device),
+                         counts=counts)
         cfg = self.kernel_config()
         tasks = self.graph.tasks
+        b = self.batch
         for t in self.claim_list:
             task = tasks[t]
             K.BODIES[task.task_type](cfg, task.args, st)
+            if route_from is not None and t in self._router_tasks:
+                rl = task.args[2]
+                arena[rl:rl + b] = route_from[rl:rl + b]
 
     def check_kernel_args(self, arena, k_cache, v_cache) -> None:
         """What ``csrc/megakernel.cu`` takes; raises on anything else."""
@@ -727,13 +935,15 @@ class ModelBuilder:
         return tabs
 
     def launch(self, arena, k_cache, v_cache, toks, lens, table, *,
-               timeout_s: float = DEFAULT_TIMEOUT_S,
+               counts=None, timeout_s: float = DEFAULT_TIMEOUT_S,
                task_ns: Optional[torch.Tensor] = None) -> None:
         """One launch of the CUDA megakernel on the current stream.
+        ``counts``: a MoE build's int32 expert counters on the card.
         ``task_ns``: an optional int64 (n_tasks, 2) tensor on the card
         that receives each task's start and end on the card's global
         timer (ns), for :meth:`task_ms`."""
         self.check_kernel_args(arena, k_cache, v_cache)
+        self._check_counts(counts, arena.device)
         dev = arena.device
         tabs = self._tables_on(dev)
 
@@ -761,10 +971,13 @@ class ModelBuilder:
             tabs["claims"].data_ptr(), tabs["types"].data_ptr(),
             tabs["args"].data_ptr(), tabs["pred_start"].data_ptr(),
             tabs["preds"].data_ptr(), tabs["sync"].data_ptr(), rec,
+            0 if counts is None else counts.data_ptr(),
             len(self.claim_list), len(self.graph.tasks), self.batch,
             self.seq, self.w, cfg.head_dim, self.h_loc, self.kv_loc,
             num_pages, page, p_max, cfg.rms_norm_eps, cfg.rope_theta,
-            int(timeout_s * 1e9), int(self.uses_tensor_cores), device=dev)
+            int(timeout_s * 1e9), int(self.uses_tensor_cores),
+            cfg.num_experts_per_tok if self.moe else 0,
+            int(cfg.norm_topk_prob), device=dev)
         MODE_LAUNCHES[self.mode] += 1
 
     @property

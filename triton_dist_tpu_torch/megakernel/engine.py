@@ -3,8 +3,9 @@ launch of the persistent kernel (counterpart of
 ``triton_dist_tpu/megakernel/engine.py``, without a mesh: one card).
 
 The whole step runs inside the kernel: the embedding gather, the norms,
-the projections, rope, attention over the KV cache, SwiGLU and the LM
-head — token ids in, logits out. Besides the decode step, an engine may
+the projections, rope, attention over the KV cache, SwiGLU (or, for a
+Qwen3-MoE config, the router, every expert and the weighted combine) and
+the LM head — token ids in, logits out. Besides the decode step, an engine may
 carry one prefill-chunk build per bucket (``prefill_buckets``: one launch
 per bucketed prompt chunk of one slot) or one batched-prefill build
 (``prefill_seq``: one launch per (batch, S) prompt); every build shares
@@ -20,19 +21,28 @@ import numpy as np
 import torch
 
 from triton_dist_tpu_torch.megakernel.builder import ModelBuilder
-from triton_dist_tpu_torch.models import dense
+from triton_dist_tpu_torch.models import dense, qwen_moe
 from triton_dist_tpu_torch.models.config import ModelConfig
 from triton_dist_tpu_torch.models.engine import resolve_device
 
 
 class MegaKernelEngine:
     """``params``: a :class:`~triton_dist_tpu_torch.models.dense.DenseLM`
-    (for example from :func:`~triton_dist_tpu_torch.models.convert.
+    (a :class:`~triton_dist_tpu_torch.models.qwen_moe.MoELM` for a MoE
+    config; for example from :func:`~triton_dist_tpu_torch.models.convert.
     from_jax_params`), or ``None`` for random weights drawn on the device
     from a ``torch.Generator`` seeded with ``seed``. The weights are
     packed into the arena in ``dtype`` (bf16 on the card, which is what
     the CUDA kernel takes; fp32 for the plain version on the CPU) and the
-    model is dropped unless ``keep_params``.
+    model is dropped unless ``keep_params``. A MoE model with random
+    weights and no ``keep_params`` is drawn and packed one layer at a
+    time, so the card never holds the weights twice.
+
+    A MoE engine routes inside the kernel and counts every routed (row,
+    expert) pair of every build's launches in one int32 buffer,
+    :attr:`counts` (``moe_counts`` rows x w; :meth:`expert_counts` sums
+    it); :meth:`set_expert_load` re-prioritizes a
+    ``schedule="dynamic"`` engine's claim order toward hot experts.
 
     ``paged=True`` keeps the KV cache as page pools (layers, num_pages,
     page, kv, hd) read through :attr:`block_table` (a serving layer
@@ -73,13 +83,19 @@ class MegaKernelEngine:
         self.paged = paged
         self.device = resolve_device(device)
         self.dtype = dtype
+        self.schedule = schedule
         self.steps_done = 0
         t_tile = t_tile or min(128, max_len)
         if paged and page is None:
             # One page for every build (they address the same pools).
             page = math.lcm(t_tile, prefill_seq if prefill_seq > 1 else 1)
+        # Every build claims the same moe_counts span, sized by the most
+        # rows any of them runs.
+        counts_rows = max([batch, *(self.prefill_buckets or ()),
+                           batch * prefill_seq])
         kw = dict(max_len=max_len, tile_w=tile_w, t_tile=t_tile,
-                  schedule=schedule, strategy=strategy, page=page)
+                  schedule=schedule, strategy=strategy, page=page,
+                  counts_rows=counts_rows)
         self.builder = ModelBuilder(cfg, batch=batch, paged=paged, **kw)
         # One chunk build per bucket: C rows of one slot per launch.
         self.chunk_builders = {
@@ -105,12 +121,30 @@ class MegaKernelEngine:
             raise ValueError("the engine's builds lay out different weight "
                              "regions and cannot share one arena")
         pack = max(builders, key=lambda b: b.arena_rows)
-        if params is None:
-            gen = torch.Generator(device=self.device).manual_seed(seed)
-            params = dense.init_params(cfg, generator=gen,
-                                       device=self.device, dtype=dtype)
-        self._arena = pack.pack_arena(params, dtype=dtype, device=self.device)
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        if params is None and cfg.is_moe and not keep_params:
+            self._arena = torch.zeros(pack.arena_rows, pack.w, dtype=dtype,
+                                      device=self.device)
+            draw = dict(generator=gen, device=self.device, dtype=dtype)
+            for li in range(cfg.num_hidden_layers):
+                pack.pack_layer(self._arena, li,
+                                qwen_moe.init_layer(cfg, **draw))
+            pack.pack_head(self._arena, qwen_moe.init_head(cfg, **draw))
+        else:
+            if params is None:
+                model = qwen_moe if cfg.is_moe else dense
+                params = model.init_params(cfg, generator=gen,
+                                           device=self.device, dtype=dtype)
+            self._arena = pack.pack_arena(params, dtype=dtype,
+                                          device=self.device)
         self.params = params if keep_params else None
+        self.counts = None
+        if cfg.is_moe:
+            rows = self.builder.schema.region("moe_counts").rows
+            self.counts = torch.zeros(rows, pack.w, dtype=torch.int32,
+                                       device=self.device)
+            self.builder.schema.add_buffer("expert_counters", (rows, pack.w),
+                                           "int32", kind="counter")
 
         kv, hd, L = cfg.num_key_value_heads, cfg.head_dim, \
             cfg.num_hidden_layers
@@ -147,7 +181,8 @@ class MegaKernelEngine:
         length, so a continuous-batching server drives slots of different
         ages through one launch."""
         logits = self.builder.step(self._arena, self.k_cache, self.v_cache,
-                                   token_ids, cache_len, self.block_table)
+                                   token_ids, cache_len, self.block_table,
+                                   counts=self.counts)
         self.steps_done += 1
         return logits
 
@@ -171,9 +206,28 @@ class MegaKernelEngine:
                 f"with prefill_buckets={self.prefill_buckets}; pad chunks "
                 "to a configured bucket (ops.chunked_prefill.plan_chunks)")
         logits = b.step(self._arena, self.k_cache, self.v_cache, toks,
-                        codes, table_row, rows=row)
+                        codes, table_row, rows=row, counts=self.counts)
         self.steps_done += 1
         return logits
+
+    def expert_counts(self) -> np.ndarray:
+        """Cumulative routed (row, expert) counts of every launch of every
+        build, (num_experts,) int64 — monotonic; diff two snapshots for a
+        window. Every row of a launch routes, parked and padding rows
+        included, as in the JAX engine. Exact on every device (int32
+        counters, where the JAX engine sums its fp32 arena rows)."""
+        if self.counts is None:
+            raise ValueError("expert_counts() needs a MoE megakernel")
+        return (self.counts.sum(dim=0, dtype=torch.int64).cpu().numpy()
+                [:self.cfg.num_experts])
+
+    def set_expert_load(self, load) -> None:
+        """Hot-expert rebalance hook: recompute the dynamic claim order
+        of the decode and chunk builds under a per-expert load vector
+        (``None``: uniform), as the JAX engine does."""
+        self.builder.reprioritize(load)
+        for b in self.chunk_builders.values():
+            b.reprioritize(load)
 
     def chunk_cache_size(self) -> int:
         """Chunk builds of this engine, one per bucket: the port runs
@@ -208,7 +262,8 @@ class MegaKernelEngine:
             self._arena, self.k_cache, self.v_cache, prompt.reshape(-1),
             np.full(self.batch * s, int(start_pos), np.int32),
             self.block_table,
-            rows=[bb * s + s - 1 for bb in range(self.batch)])
+            rows=[bb * s + s - 1 for bb in range(self.batch)],
+            counts=self.counts)
         self.steps_done += 1
         return logits
 

@@ -14,8 +14,11 @@ for CUDA tensors.
 The port carries the dense decode set (``RMSNORM``, ``LINEAR``,
 ``ADD``, ``SILU_MUL``, ``WRITE_KV``, ``ATTN_DECODE``, ``GATHER``,
 ``ALLREDUCE`` at one rank, ``NOOP``), batched prefill
-(``WRITE_KV_PREFILL``/``ATTN_PREFILL``) and the prefill chunk
-(``WRITE_KV_CHUNK``/``ATTN_CHUNK``). The three cache pairs differ only in
+(``WRITE_KV_PREFILL``/``ATTN_PREFILL``), the prefill chunk
+(``WRITE_KV_CHUNK``/``ATTN_CHUNK``) and the MoE pair (``MOE_WEIGHTS``,
+the in-kernel router with its expert counters, and ``WEIGHTED_ADD``, the
+per-expert combine), whose rows follow the build's ``batch`` in every
+row mode. The three cache pairs differ only in
 their row rule: which slot's block-table row a batch row reads, at which
 position, and whether it writes (:func:`_decode_rows`,
 :func:`_prefill_rows`, :func:`_chunk_rows`); one write core and one
@@ -27,7 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List
+from typing import List, Optional
 
 import torch
 
@@ -52,6 +55,10 @@ class KernelConfig:
     # Rows per slot of a batched-prefill build (batch = slots * seq,
     # slot-major); a chunk build has batch = seq = C rows of one slot.
     seq: int = 1
+    # MoE routing: experts kept per row, and whether their combine
+    # weights are renormalised to sum to one.
+    moe_topk: int = 0
+    moe_norm: bool = True
 
 
 @dataclasses.dataclass
@@ -59,13 +66,15 @@ class StepState:
     """What one step reads and writes: the arena, the K/V pools, and the
     step's per-row scalars as host lists (tokens; per-row cache lengths,
     the shared base of a batched prefill, or a chunk's sign-encoded
-    codes; the flat block table)."""
+    codes; the flat block table) and, for a MoE build, the int32
+    expert counters."""
     arena: torch.Tensor
     k_cache: torch.Tensor
     v_cache: torch.Tensor
     tokens: List[int]
     lens: List[int]
     table: torch.Tensor      # flat int64 block table (paged) or unused
+    counts: Optional[torch.Tensor] = None   # (counts_rows, w) int32
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -321,6 +330,50 @@ def attn_chunk_body(cfg: KernelConfig, args, st: StepState) -> None:
     _attn_rowpos_body(cfg, args, st, slots, pos)
 
 
+def moe_weights_body(cfg: KernelConfig, args, st: StepState) -> None:
+    """Router epilogue: the fp32 softmax of each row's router logits over
+    the first ``e_n`` columns (later columns masked to ``-inf`` before it
+    and to 0 after), the top-``moe_topk`` columns by repeated argmax (the
+    lowest column wins a tie, as ``jnp.argmax``), renormalised over
+    ``max(sum, 1e-30)`` when ``moe_norm``; writes the (batch, w)
+    combine-weight tile and adds 1 per selected (row, expert) to row r of
+    the int32 counters. The JAX body accumulates its counts in the fp32
+    arena's ``moe_counts`` region (``cnt_off``); the port keeps them
+    exact in ``st.counts`` on every device and leaves that region as it
+    is."""
+    rl_off, wout_off, e_n = args[:3]
+    b, w = cfg.batch, cfg.w
+    lg = _load(st, rl_off, b)
+    real = torch.arange(w, device=lg.device)[None] < e_n
+    p = torch.softmax(lg.masked_fill(~real, float("-inf")), dim=-1)
+    p = torch.where(real, p, torch.zeros_like(p))
+    mask = torch.zeros(b, w, dtype=torch.bool, device=lg.device)
+    work = p.clone()
+    for _ in range(cfg.moe_topk):
+        pick = torch.zeros_like(mask)
+        pick.scatter_(1, torch.argmax(work, dim=-1, keepdim=True), True)
+        mask |= pick
+        work = work.masked_fill(pick, float("-inf"))
+    wbe = torch.where(mask, p, torch.zeros_like(p))
+    if cfg.moe_norm:
+        wbe = wbe / torch.clamp(wbe.sum(dim=-1, keepdim=True), min=1e-30)
+    _store(st, wout_off, wbe)
+    st.counts[:b] += mask.to(st.counts.dtype)
+
+
+def weighted_add_body(cfg: KernelConfig, args, st: StepState) -> None:
+    """The per-expert combine: ``acc = part * wbe[:, e]`` when ``init``,
+    else ``acc += part * wbe[:, e]``, over ``tiles`` (batch, w) tiles,
+    in fp32."""
+    acc_off, part_off, wbe_off, e_idx, tiles, init = args[:6]
+    b, w = cfg.batch, cfg.w
+    wcol = _load(st, wbe_off, b)[:, e_idx].view(1, b, 1)
+    term = _load(st, part_off, tiles * b).view(tiles, b, w) * wcol
+    if not init:
+        term = _load(st, acc_off, tiles * b).view(tiles, b, w) + term
+    _store(st, acc_off, term.view(-1, w))
+
+
 def _not_ported(item: str):
     def body(cfg, args, st):
         raise NotImplementedError(
@@ -348,8 +401,8 @@ BODIES = {
     TaskType.ATTN_PREFILL: attn_prefill_body,
     TaskType.WRITE_KV_CHUNK: write_kv_chunk_body,
     TaskType.ATTN_CHUNK: attn_chunk_body,
-    TaskType.MOE_WEIGHTS: _not_ported("the MoE task set"),
-    TaskType.WEIGHTED_ADD: _not_ported("the MoE task set"),
+    TaskType.MOE_WEIGHTS: moe_weights_body,
+    TaskType.WEIGHTED_ADD: weighted_add_body,
     TaskType.GDN_DECODE: _not_ported("the hybrid GDN task set"),
     TaskType.ATTN_QBLOCK: _not_ported("the Q-block verify pair (spec_k)"),
     TaskType.WRITE_KV_QBLOCK: _not_ported(

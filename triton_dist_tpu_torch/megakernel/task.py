@@ -3,8 +3,9 @@
 All 18 type codes are kept, so a task's type number is the same in the
 port's tables as in the JAX package's; the port runs the dense decode set
 (``RMSNORM`` .. ``NOOP``), batched prefill (``WRITE_KV_PREFILL``,
-``ATTN_PREFILL``) and the prefill chunk (``ATTN_CHUNK``,
-``WRITE_KV_CHUNK``), and raises on the others.
+``ATTN_PREFILL``), the prefill chunk (``ATTN_CHUNK``,
+``WRITE_KV_CHUNK``) and the MoE pair (``MOE_WEIGHTS``,
+``WEIGHTED_ADD``), and raises on the others.
 """
 
 from __future__ import annotations
@@ -28,8 +29,8 @@ class TaskType(enum.IntEnum):
     NOOP = 8           # queue padding slot
     WRITE_KV_PREFILL = 9   # args as WRITE_KV; rows (slot, s), slot-major
     ATTN_PREFILL = 10      # args as ATTN_DECODE
-    MOE_WEIGHTS = 11
-    WEIGHTED_ADD = 12
+    MOE_WEIGHTS = 11       # args: rl_off, wbe_off, n_experts, cnt_off
+    WEIGHTED_ADD = 12      # args: acc_off, part_off, wbe_off, e, tiles, init
     GDN_DECODE = 13
     ATTN_QBLOCK = 14
     WRITE_KV_QBLOCK = 15

@@ -1,7 +1,9 @@
 """Model configuration (counterpart of ``triton_dist_tpu/models/config.py``).
 
-This slice serves dense Qwen3 models, so only the dense fields are
-carried over; MoE and hybrid-attention fields arrive with their slices.
+The port serves dense Qwen3 models and the Qwen3-MoE family, so the dense
+and the MoE fields are carried over; the hybrid-attention (Qwen3-Next)
+fields arrive with their slice, and a shared expert (a Qwen3-Next field)
+raises until then.
 """
 
 from __future__ import annotations
@@ -23,6 +25,23 @@ class ModelConfig:
     max_position_embeddings: int = 40960
     tie_word_embeddings: bool = False
     model_name: str = "qwen3"
+    # MoE fields (0 experts = dense; models/qwen_moe.py).
+    num_experts: int = 0
+    num_experts_per_tok: int = 8
+    moe_intermediate_size: int = 768
+    norm_topk_prob: bool = True
+    # Qwen3-Next's always-on shared expert; not ported (0 = none).
+    shared_expert_intermediate_size: int = 0
+
+    def __post_init__(self):
+        if self.shared_expert_intermediate_size:
+            raise NotImplementedError(
+                "shared_expert_intermediate_size > 0 (the Qwen3-Next shared "
+                "expert) is not ported yet (ROADMAP.md, queue A item 1.6)")
+
+    @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
 
     def kv_cache_plan(self, *, max_len: int, page: int, num_slots: int,
                       dtype_bytes: int = 2, kv_dtype: str = "bf16") -> dict:
@@ -62,6 +81,27 @@ class ModelConfig:
                    num_hidden_layers=36, num_attention_heads=32,
                    num_key_value_heads=8, head_dim=128,
                    model_name="qwen3-8b")
+
+    @classmethod
+    def qwen3_moe_30b_a3b(cls) -> "ModelConfig":
+        """Qwen3-30B-A3B (the JAX package's MoE demo, models/qwen_moe.py)."""
+        return cls(hidden_size=2048, intermediate_size=6144,
+                   num_hidden_layers=48, num_attention_heads=32,
+                   num_key_value_heads=4, head_dim=128,
+                   num_experts=128, num_experts_per_tok=8,
+                   moe_intermediate_size=768,
+                   model_name="qwen3-moe-30b-a3b")
+
+    @classmethod
+    def tiny_moe(cls, **kw) -> "ModelConfig":
+        """The JAX package's tiny MoE geometry; ``kw`` overrides fields."""
+        base = dict(vocab_size=256, hidden_size=32, intermediate_size=64,
+                    num_hidden_layers=2, num_attention_heads=8,
+                    num_key_value_heads=8, head_dim=8, num_experts=16,
+                    num_experts_per_tok=2, moe_intermediate_size=32,
+                    model_name="qwen3-moe-tiny")
+        base.update(kw)
+        return cls(**base)
 
     @classmethod
     def tiny(cls, *, vocab_size: int = 256, hidden_size: int = 32,

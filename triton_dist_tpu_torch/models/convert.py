@@ -7,6 +7,11 @@ each linear weight as ``(in_features, out_features)`` and multiplies
 ``F.linear(x, w)``. :func:`_linear` is the one place that transposes.
 ``embed`` and ``lm_head`` are ``(vocab, d)`` on both sides, and the JAX
 logits are ``x @ lm_head.T``, so they carry over as they are.
+
+For a MoE config the tree is ``qwen_moe.init_params``': each layer holds
+``moe`` (``router (d, E)``, ``w_gate``/``w_up (E, d, f)``, ``w_down (E,
+f, d)``) in place of ``mlp``; each expert's matrix is transposed the same
+way (:func:`_experts`).
 """
 
 from __future__ import annotations
@@ -16,13 +21,15 @@ import torch
 
 from triton_dist_tpu_torch.models.config import ModelConfig
 from triton_dist_tpu_torch.models.dense import DenseLM
+from triton_dist_tpu_torch.models.qwen_moe import MoELM
 
 
 def from_jax_params(np_params: dict, cfg: ModelConfig, device,
                     dtype: torch.dtype = torch.float32) -> DenseLM:
-    """``np_params``: the JAX ``dense.init_params`` pytree with every
-    leaf as a numpy array (``jax.tree.map(np.asarray, params)``).
-    Returns the port's :class:`DenseLM` on ``device`` in ``dtype``."""
+    """``np_params``: the JAX ``dense.init_params`` (or, for a MoE
+    config, ``qwen_moe.init_params``) pytree with every leaf as a numpy
+    array (``jax.tree.map(np.asarray, params)``). Returns the port's
+    :class:`DenseLM` (:class:`MoELM`) on ``device`` in ``dtype``."""
 
     def _tensor(a) -> torch.Tensor:
         return torch.from_numpy(np.array(a)).to(device=device, dtype=dtype)
@@ -30,7 +37,11 @@ def from_jax_params(np_params: dict, cfg: ModelConfig, device,
     def _linear(a) -> torch.Tensor:
         return _tensor(np.asarray(a).T)
 
-    model = DenseLM.empty(cfg, device=device, dtype=dtype)
+    def _experts(a) -> torch.Tensor:
+        return _tensor(np.swapaxes(np.asarray(a), 1, 2))
+
+    model = (MoELM if cfg.is_moe else DenseLM).empty(cfg, device=device,
+                                                     dtype=dtype)
     if len(np_params["layers"]) != cfg.num_hidden_layers:
         raise ValueError(f"{len(np_params['layers'])} layers in the pytree, "
                          f"{cfg.num_hidden_layers} in the config")
@@ -47,7 +58,13 @@ def from_jax_params(np_params: dict, cfg: ModelConfig, device,
                 getattr(a, name).copy_(_linear(sa[name]))
             a.q_norm.copy_(_tensor(sa["q_norm"]))
             a.k_norm.copy_(_tensor(sa["k_norm"]))
-            m, sm = layer.mlp, src["mlp"]
-            for name in ("w_gate", "w_up", "w_down"):
-                getattr(m, name).copy_(_linear(sm[name]))
+            if cfg.is_moe:
+                m, sm = layer.moe, src["moe"]
+                m.router.copy_(_linear(sm["router"]))
+                for name in ("w_gate", "w_up", "w_down"):
+                    getattr(m, name).copy_(_experts(sm[name]))
+            else:
+                m, sm = layer.mlp, src["mlp"]
+                for name in ("w_gate", "w_up", "w_down"):
+                    getattr(m, name).copy_(_linear(sm[name]))
     return model

@@ -95,16 +95,20 @@ def lm_head_logits(x: torch.Tensor, lm_head: torch.Tensor) -> torch.Tensor:
     return F.linear(x.float(), lm_head.float())
 
 
-def _layer_tail(layer: DecoderLayer, x, o, cfg):
-    """o-projection + residual, then the MLP block + residual."""
+def _layer_tail(layer, x, o, cfg, ffn_fn=None):
+    """o-projection + residual, then the FFN block + residual: the dense
+    MLP, or ``ffn_fn(layer, h)`` (the MoE model's hook)."""
     x = x + tp_attn.decode_output(layer.attn, o.reshape(x.shape[0], -1))
     h = rms_norm(x, layer.ln_mlp, cfg.rms_norm_eps)
-    return x + tp_mlp.fwd(layer.mlp, h)
+    if ffn_fn is None:
+        return x + tp_mlp.fwd(layer.mlp, h)
+    return x + ffn_fn(layer, h)
 
 
 def prefill_chunk_paged(params: DenseLM, chunk_toks: torch.Tensor, cache,
                         table_row: torch.Tensor, cfg: ModelConfig, *,
-                        start: int, wfrom: int, valid: int) -> torch.Tensor:
+                        start: int, wfrom: int, valid: int,
+                        ffn_fn=None) -> torch.Tensor:
     """One fixed-shape chunk of a bucketed paged prefill.
 
     chunk_toks: (C,) int32, padded past ``valid``; ``table_row``:
@@ -120,6 +124,8 @@ def prefill_chunk_paged(params: DenseLM, chunk_toks: torch.Tensor, cache,
     :func:`~triton_dist_tpu_torch.ops.paged_flash_qblock.paged_flash_qblock`
     with the global causal mask. Padding rows clamp to the last valid
     position, so they do not stretch the kernel's key walk.
+    ``ffn_fn(layer, h) -> h`` replaces the dense MLP block (the MoE
+    model's hook, as in the JAX trunk).
 
     Returns the fp32 logits (vocab,) of the LAST VALID token."""
     c = chunk_toks.shape[0]
@@ -138,13 +144,13 @@ def prefill_chunk_paged(params: DenseLM, chunk_toks: torch.Tensor, cache,
         o = paged_flash_qblock(q[:, 0][None], cache.k_pages[li],
                                cache.v_pages[li], table_row[None],
                                qpos[None])[0]
-        x = _layer_tail(layer, x, o, cfg)
+        x = _layer_tail(layer, x, o, cfg, ffn_fn)
     x = rms_norm(x[last:last + 1], params.ln_f, cfg.rms_norm_eps)
     return lm_head_logits(x, params.lm_head)[0]
 
 
 def decode_step_paged(params: DenseLM, token_ids: torch.Tensor, cache,
-                      cfg: ModelConfig) -> torch.Tensor:
+                      cfg: ModelConfig, *, ffn_fn=None) -> torch.Tensor:
     """One continuous-batching decode step over a
     :class:`~triton_dist_tpu_torch.serving.blocks.PagedKVCache`.
 
@@ -153,7 +159,8 @@ def decode_step_paged(params: DenseLM, token_ids: torch.Tensor, cache,
     the math, but their appends land in the scratch page, their lengths
     do not advance and their logits are garbage the scheduler ignores.
     The cache is updated IN PLACE (appends and :meth:`advance`).
-    Returns fp32 logits (S, vocab)."""
+    ``ffn_fn`` as in :func:`prefill_chunk_paged`. Returns fp32 logits
+    (S, vocab)."""
     x = params.embed[token_ids.long()]
     lens = cache.lens
     # Live slots attend including the token appended this step; parked
@@ -165,7 +172,7 @@ def decode_step_paged(params: DenseLM, token_ids: torch.Tensor, cache,
         cache.append_decode(li, k_tok, v_tok)
         o = paged_flash_decode(q[:, 0], cache.k_pages[li],
                                cache.v_pages[li], cache.block_table, kv_len)
-        x = _layer_tail(layer, x, o, cfg)
+        x = _layer_tail(layer, x, o, cfg, ffn_fn)
     x = rms_norm(x, params.ln_f, cfg.rms_norm_eps)
     logits = lm_head_logits(x, params.lm_head)
     cache.advance()

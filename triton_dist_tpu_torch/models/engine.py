@@ -1,7 +1,8 @@
 """Inference engine (counterpart of ``triton_dist_tpu/models/engine.py``).
 
-This slice carries the engine's configuration and weights and hands them
-to the continuous-batching server (:meth:`Engine.serving`). The dense-cache
+The engine carries the configuration, the model (dense Qwen3 or
+Qwen3-MoE) and its weights, and hands them to the continuous-batching
+server (:meth:`Engine.serving`). The dense-cache
 ``prefill``/``decode``/``serve`` loop and the fused tensor-parallel modes
 are not ported yet (ROADMAP.md).
 """
@@ -12,7 +13,7 @@ from typing import Optional
 
 import torch
 
-from triton_dist_tpu_torch.models import dense
+from triton_dist_tpu_torch.models import dense, qwen_moe
 from triton_dist_tpu_torch.models.config import ModelConfig
 
 
@@ -32,24 +33,45 @@ def resolve_device(device=None) -> torch.device:
 
 
 class Engine:
-    """One dense model on one device.
+    """One model on one device.
 
-    ``params``: a :class:`~triton_dist_tpu_torch.models.dense.DenseLM`
-    on ``device`` in ``dtype`` (for example from
+    ``model``: the model module, :mod:`~triton_dist_tpu_torch.models.dense`
+    or :mod:`~triton_dist_tpu_torch.models.qwen_moe` (``None``: qwen_moe
+    for a MoE config, dense otherwise); a MoE model runs its experts in
+    the tensor-parallel regime at one rank, the only one ported (the
+    expert-parallel one is ROADMAP.md queue A item 5). ``params``: the model's weights
+    (:class:`~triton_dist_tpu_torch.models.dense.DenseLM` or
+    :class:`~triton_dist_tpu_torch.models.qwen_moe.MoELM`) on ``device``
+    in ``dtype`` (for example from
     :func:`~triton_dist_tpu_torch.models.convert.from_jax_params`), or
     ``None`` to draw random weights on the device from a
     ``torch.Generator`` seeded with ``seed``."""
 
-    def __init__(self, cfg: ModelConfig, *, device=None,
+    def __init__(self, cfg: ModelConfig, *, model=None, device=None,
                  dtype: torch.dtype = torch.bfloat16, max_len: int = 512,
                  params: Optional[dense.DenseLM] = None, seed: int = 0):
+        if model is None:
+            model = qwen_moe if cfg.is_moe else dense
+        if model is qwen_moe:
+            if not cfg.is_moe:
+                raise ValueError("model=qwen_moe needs a MoE config "
+                                 "(num_experts > 0)")
+        elif model is dense:
+            if cfg.is_moe:
+                raise ValueError(
+                    f"the dense model takes a dense config (got "
+                    f"num_experts={cfg.num_experts}); use model=qwen_moe")
+        else:
+            raise ValueError(f"model {model!r}: the port serves "
+                             "models.dense and models.qwen_moe")
+        self.model = model
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = dtype
         self.max_len = max_len
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
-            params = dense.init_params(cfg, generator=gen,
+            params = model.init_params(cfg, generator=gen,
                                        device=self.device, dtype=dtype)
         else:
             w = params.embed

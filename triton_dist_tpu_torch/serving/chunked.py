@@ -3,8 +3,9 @@
 
 Prompts stream into the slot's pages in fixed-shape chunks
 (:func:`~triton_dist_tpu_torch.ops.chunked_prefill.plan_chunks`), each
-chunk one call of
-:func:`~triton_dist_tpu_torch.models.dense.prefill_chunk_paged`. PyTorch
+chunk one call of the engine model's ``prefill_chunk_paged``
+(:func:`~triton_dist_tpu_torch.models.dense.prefill_chunk_paged`, or the
+MoE model's). PyTorch
 runs eagerly, so there is no jit cache to bound; the JAX package's
 bucket-count gate becomes a count of the distinct chunk shapes
 dispatched, which must never exceed the bucket count.
@@ -20,7 +21,6 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from triton_dist_tpu_torch.models import dense
 from triton_dist_tpu_torch.ops.chunked_prefill import (
     chunk_row_codes, plan_chunks)
 
@@ -54,10 +54,11 @@ class ChunkedPrefill:
         """Dispatch one chunk; writes its K/V into ``cache`` in place and
         returns the fp32 logits (vocab,) of its last valid token.
         ``toks`` is (bucket,) int32, padded past ``valid``."""
-        dev = self.engine.device
-        logits = dense.prefill_chunk_paged(
+        eng = self.engine
+        dev = eng.device
+        logits = eng.model.prefill_chunk_paged(
             params, torch.as_tensor(toks, device=dev), cache,
-            torch.as_tensor(table_row, device=dev), self.engine.cfg,
+            torch.as_tensor(table_row, device=dev), eng.cfg,
             start=int(start), wfrom=int(wfrom), valid=int(valid))
         self._shapes.add(int(toks.shape[0]))
         if len(self._shapes) > len(self.buckets):

@@ -26,10 +26,20 @@ Two lanes, chosen by the engine:
   per tick through the decode launch (the prefill lane) while running
   slots decode beside them.
 
+The engine's model may be dense Qwen3 or Qwen3-MoE. On the megakernel
+lane a MoE engine routes inside the kernel and counts every routed
+(row, expert) pair; the server folds each decode tick's counts into
+``expert_totals`` and a load EWMA (``expert_ewma``, ``stats()
+["expert_load"]``) and, every ``REBALANCE_EVERY`` ticks, hands a changed
+hot-expert set to a dynamic-schedule engine's claim priorities
+(:meth:`MegaKernelEngine.set_expert_load`). The expert-parallel decode
+transports and hot-expert replicas are not ported (ROADMAP.md, queue A
+item 5).
+
 On a CUDA engine the kernels are the hand-written ones, on a CPU engine
 their plain versions. Monolithic prefill, speculative decoding, quantized
-pools, KV tiers, SLO scheduling, telemetry and the resilience hooks are
-not ported yet (ROADMAP.md).
+pools, KV tiers, SLO scheduling, trace telemetry and the resilience hooks
+are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -42,7 +52,6 @@ import numpy as np
 import torch
 
 from triton_dist_tpu_torch.megakernel.engine import MegaKernelEngine
-from triton_dist_tpu_torch.models import dense
 from triton_dist_tpu_torch.serving.blocks import (
     BlockManager, OutOfPagesError, PagedKVCache,
 )
@@ -51,6 +60,14 @@ from triton_dist_tpu_torch.serving.chunked import (
 from triton_dist_tpu_torch.serving.scheduler import (
     Request, RequestHandle, Scheduler,
 )
+
+# MoE megakernel lane: decode ticks between hand-offs of the expert-load
+# EWMA to a dynamic-schedule engine, the EWMA share over the mean that
+# makes an expert hot, and the EWMA's weight of each tick (the JAX
+# server's defaults).
+REBALANCE_EVERY = 8
+HOT_EXPERT_FACTOR = 2.0
+LOAD_ALPHA = 0.25
 
 
 def _sample_seed(seed: int, step: int) -> int:
@@ -160,6 +177,12 @@ class ServingEngine:
         self._lens = np.zeros((num_slots,), np.int32)
         self._live = np.zeros((num_slots,), np.int32)
         self._toks = np.zeros((num_slots,), np.int32)
+        # Expert-load telemetry (MoE megakernel lane): totals and EWMA of
+        # the routed (row, expert) counts of each decode tick.
+        self._mk_counts_base = None
+        self._mk_load_sig = None
+        self.expert_totals = np.zeros((cfg.num_experts,), np.int64)
+        self.expert_ewma = np.zeros((cfg.num_experts,), np.float64)
         self.stats_counters = {
             "decode_dispatches": 0, "tokens_generated": 0,
             "prefill_tokens": 0, "prefill_calls": 0, "prefill_chunks": 0,
@@ -250,6 +273,11 @@ class ServingEngine:
         out["pool"] = self.manager.fragmentation()
         out["plan"] = self.plan
         out["device"] = str(self.device)
+        out["dispatch_transport"] = (
+            "in-kernel-tp" if self.mega and self.cfg.is_moe else None)
+        if self._mk_counts_base is not None or self.expert_totals.any():
+            out["expert_load"] = self.expert_ewma.tolist()
+            out["expert_totals"] = self.expert_totals.tolist()
         # Decode-emitted tokens over decode-dispatch time only: the first
         # token of each request comes from prefill.
         out["tokens_per_s"] = (c["decode_tokens"] / c["decode_time_s"]
@@ -397,6 +425,7 @@ class ServingEngine:
         c = self.stats_counters
         c["decode_time_s"] += time.perf_counter() - t0
         c["decode_dispatches"] += 1
+        self._maybe_rebalance()
         for h in active:
             self._lens[h.slot] += 1
             if self._lane and h.status == "prefill":
@@ -423,16 +452,67 @@ class ServingEngine:
             # This tick's allocator table (flat, the builder's layout);
             # parked rows point at the scratch page.
             self.engine.block_table = tbl.reshape(-1)
-            return self.engine.decode_step(self._toks,
-                                           self._lens).cpu().numpy()
+            moe = self.cfg.is_moe
+            if moe and self._mk_counts_base is None:
+                # The counters only grow: snapshot them before the first
+                # serving dispatch, so traffic from before does not count.
+                self._mk_counts_base = self.engine.expert_counts()
+            logits = self.engine.decode_step(self._toks,
+                                             self._lens).cpu().numpy()
+            if moe:
+                total = self.engine.expert_counts()
+                self._note_expert_counts(total - self._mk_counts_base)
+                self._mk_counts_base = total
+            return logits
         cache = self.cache
         cache.block_table.copy_(torch.from_numpy(tbl))
         cache.lens.copy_(torch.from_numpy(self._lens))
         cache.live.copy_(torch.from_numpy(self._live))
         toks = torch.from_numpy(self._toks).to(self.device)
-        logits = dense.decode_step_paged(self.engine.params, toks, cache,
-                                         self.cfg)
+        logits = self.engine.model.decode_step_paged(
+            self.engine.params, toks, cache, self.cfg)
         return logits.cpu().numpy()
+
+    # -- expert-load telemetry + hot-expert rebalancing --------------
+
+    def _note_expert_counts(self, counts: np.ndarray):
+        """Fold one tick's per-expert routed counts into the totals and
+        the load EWMA (of each tick's share per expert)."""
+        counts = np.asarray(counts, np.int64)
+        if counts.sum() <= 0:
+            return
+        self.expert_totals += counts
+        a = LOAD_ALPHA
+        self.expert_ewma = ((1.0 - a) * self.expert_ewma
+                            + a * (counts / counts.sum()))
+
+    def _maybe_rebalance(self):
+        """Every ``REBALANCE_EVERY`` decode dispatches, hand the load EWMA
+        to the megakernel's claim priorities (a dynamic-schedule engine
+        only)."""
+        if (not self.mega or self.stats_counters["decode_dispatches"]
+                % REBALANCE_EVERY):
+            return
+        ewma = self.expert_ewma
+        if ewma.size == 0 or ewma.sum() <= 0:
+            return
+        self._rebalance_megakernel(ewma)
+
+    def _rebalance_megakernel(self, ewma: np.ndarray):
+        """Re-prioritize the dynamic claim order when the SET of hot
+        experts (EWMA > ``HOT_EXPERT_FACTOR`` x mean) changes; an emptied
+        hot set restores the uniform order once. A re-prioritization
+        re-emits claim tables, so an unchanged set never triggers one."""
+        eng = self.engine
+        if eng.schedule != "dynamic":
+            return
+        hot = frozenset(int(e) for e in np.nonzero(
+            ewma > HOT_EXPERT_FACTOR * ewma.mean())[0])
+        if hot == self._mk_load_sig or (not hot
+                                        and self._mk_load_sig is None):
+            return
+        eng.set_expert_load(ewma.tolist() if hot else None)
+        self._mk_load_sig = hot or None
 
     # -- per-request token handling ---------------------------------
 
