@@ -143,6 +143,41 @@ Phases (any failure exits nonzero; nothing is caught):
    every routing flip judged by phase 11's near-tie rule against the
    plain forward's fp32 router logits.
 
+15. Prefill kernels vs plain, at the shapes the dense-cache engine gives
+   them (bf16): the flash-attention kernel (``csrc/flash_attention.cu``)
+   at S 512 and 1000, GQA 4 and 8, head_dim 128 and 8, within the
+   Q-block limit 2e-2 + 2**-6 |want| (its plain version rounds normalised
+   probabilities to bf16 before P·V, the kernel unnormalised ones); the
+   row-tile grouped GEMM (``csrc/group_gemm.cu``) at Qwen3-30B-A3B widths
+   on a real routing of 60, 700 and 2048 tokens (row tiles 8, 32, 128),
+   gate/up as one launch over both weights and down, within one bf16
+   unit of last place, 1e-3 + 2**-7 |want| (both sum in fp32 and round
+   once). Controls: a key tile of another KV head planted in K, and a
+   tile->expert map shifted by one, must fail those limits. Times at the
+   Engine.serve prefill shapes against the bound, the plain version and
+   one library call (causal SDPA with enable_gqa; ``torch._grouped_mm``
+   over the same segments where this torch has it).
+16. The dense-cache engine at full depth, on phase 3's Qwen3-8B weights
+   and on phase 13's Qwen3-30B-A3B weights (one copy of each):
+   ``Engine(cfg, mode="fused", max_len=2048).serve`` of a (4, 512) batch
+   for 64 tokens, then monolithic serving (``serving(num_slots=4,
+   page=32)``, no buckets) of the 1000/700/300/60-token prompts for 64
+   tokens each. Counts set to zero just before each run: every prefill
+   layer launched ``flash_attention`` once and, for MoE,
+   ``group_gemm_tiles`` twice; monolithic decode ticks the paged decode
+   kernel once per layer. Prefill and decode-step times, and a
+   torch.profiler split of one prefill and one decode step.
+17. The same at 2 layers against the plain forward: monolithic serving's
+   first two tokens and ``Engine.prefill`` of a (2, 512) batch within
+   phase 4's 0.1 (dense, in phase 4); the MoE monolithic lane beside the
+   two lanes of phase 14, under its routing-flip rule and 0.15.
+18. The committed HF fixtures (``tests/fixtures/qwen3_tiny``,
+   ``qwen3_moe_tiny``) through ``load_hf_checkpoint`` onto the card in
+   bf16: ``Engine(mode="fused").serve`` with every layer's kernel
+   launches counted and prefill logits within phase 4's 0.1 of the plain
+   forward (not the paged server: the paged kernels take head_dim 128
+   only, the fixtures have 8).
+
 The last lines of output: one JSON object with every kernel's numbers
 (the megakernel once per row mode, and once per MoE row mode), the
 card's name and power limit as
@@ -167,6 +202,7 @@ TOL_DECODE = (5e-3, 2.0 ** -7)       # (absolute, relative to |want|)
 TOL_DECODE_SLOT_RMS = 1e-2
 TOL_QBLOCK = (2e-2, 2.0 ** -6)
 TOL_LOGITS = 0.1
+TOL_CKPT_LOGITS = 5e-3     # HF fixtures: logit std ~0.12, sound ~2e-3
 TOL_MK_LOGITS = (1e-1, 2.0 ** -6)
 TOL_MK_ROW_RMS = 2e-2
 TOL_MK_KV = (3e-2, 2.0 ** -6)
@@ -230,11 +266,12 @@ def build_kernels():
     from triton_dist_tpu_torch.utils import build
 
     t0 = time.perf_counter()
-    logs = build.build_all(["paged_attention.cu", "megakernel.cu",
-                            "megakernel_scheduler.cc"])
-    print(f"[build] nvcc x2 + g++ in parallel {time.perf_counter() - t0:.1f} "
-          f"s -> {build.BUILD_DIR}")
-    for source in ("paged_attention.cu", "megakernel.cu"):
+    cuda = ("paged_attention.cu", "megakernel.cu", "flash_attention.cu",
+            "group_gemm.cu")
+    logs = build.build_all([*cuda, "megakernel_scheduler.cc"])
+    print(f"[build] nvcc x{len(cuda)} + g++ in parallel "
+          f"{time.perf_counter() - t0:.1f} s -> {build.BUILD_DIR}")
+    for source in cuda:
         for line in logs[source].splitlines():
             if ("registers" in line or "spill" in line or "smem" in line
                     or "Compiling entry" in line):
@@ -418,19 +455,24 @@ def serve_phase():
              f"{L} layers x {st['decode_dispatches']} decode steps / "
              f"{st['prefill_chunks']} chunks")
     profile_serving(eng, prompts, serve_kw)
-    del srv, eng
+    del srv
+    dense_engine = engine_phase("dense", cfg, eng.params)
+    del eng
     torch.cuda.empty_cache()
-    return launches, st
+    return launches, st, dense_engine
 
 
 def launch_counters() -> dict:
     """Every kernel wrapper's launch counter, by the kernels line's key."""
     from triton_dist_tpu_torch.megakernel import builder as mkb
+    from triton_dist_tpu_torch.ops import flash_attention as fa
+    from triton_dist_tpu_torch.ops import group_gemm as gg
     from triton_dist_tpu_torch.ops import paged_flash_decode as pfd
     from triton_dist_tpu_torch.ops import paged_flash_qblock as pfq
 
     return {"decode": pfd.KERNEL, "qblock": pfq.KERNEL,
-            "megakernel": mkb.KERNEL}
+            "megakernel": mkb.KERNEL, "flash": fa.KERNEL,
+            "group_gemm": gg.KERNEL}
 
 
 def zero_counts() -> None:
@@ -460,18 +502,19 @@ def profile_serving(eng, prompts, serve_kw, ticks: int = 5):
     for p in prompts:
         srv.submit(p, max_new_tokens=64)
     torch.cuda.synchronize()
-    profile_window(srv, 1, "first tick (4 prefill chunks)")
+    profile_window(srv.step, 1, "first tick (4 prefill chunks)")
     while any(h.status != "running" for h in srv.sched.running()) or \
             srv.sched.queue:
         srv.step()
-    profile_window(srv, ticks, "decode ticks")
+    profile_window(srv.step, ticks, "decode ticks")
 
 
-def profile_window(srv, ticks: int, label: str) -> dict:
-    """Trace ``ticks`` serving ticks with torch.profiler and split device
-    time by kernel family; idle share = 1 - device busy time / host wall
-    time of the window (the profiler slows the host, so it overstates
-    the idle share of an unprofiled run)."""
+def profile_window(step, ticks: int, label: str) -> dict:
+    """Trace ``ticks`` calls of ``step`` (a serving tick, a prefill) with
+    torch.profiler and split device time by kernel family; idle share =
+    1 - device busy time / host wall time of the window (the profiler
+    slows the host, so it overstates the idle share of an unprofiled
+    run)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -480,10 +523,11 @@ def profile_window(srv, ticks: int, label: str) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(ticks):
-            srv.step()
+            step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    fam = {"megakernel": 0.0, "attention": 0.0, "gemm": 0.0, "other": 0.0}
+    fam = {"megakernel": 0.0, "attention": 0.0, "group_gemm": 0.0,
+           "gemm": 0.0, "other": 0.0}
     kernels = [ev for ev in prof.key_averages()
                if ev.device_type == DeviceType.CUDA]
     for ev in kernels:
@@ -491,8 +535,10 @@ def profile_window(srv, ticks: int, label: str) -> dict:
         name = ev.key.lower()
         if "megakernel" in name:
             fam["megakernel"] += t
-        elif "paged_" in name:
+        elif "paged_" in name or "flash_attention" in name:
             fam["attention"] += t
+        elif "group_gemm" in name:
+            fam["group_gemm"] += t
         elif any(k in name for k in ("gemm", "gemv", "xmma", "nvjet",
                                      "cutlass", "splitk")):
             fam["gemm"] += t
@@ -512,7 +558,8 @@ def profile_window(srv, ticks: int, label: str) -> dict:
     return {"launches_per_tick": sum(e.count for e in kernels) / ticks,
             "wall_ms": wall_ms / ticks, "busy_ms": busy / ticks,
             "idle_share": 1 - busy / wall_ms,
-            "megakernel_ms": fam["megakernel"] / ticks}
+            "megakernel_ms": fam["megakernel"] / ticks,
+            "families": {k: v / ticks for k, v in fam.items()}}
 
 
 def plain_last_logits(params, cfg, toks, ffn=None):
@@ -541,32 +588,49 @@ def plain_last_logits(params, cfg, toks, ffn=None):
 
 
 def parity_phase():
+    """Phases 4 and 17 (dense): the first two served tokens' logits of the
+    chunked layer lane and of monolithic serving (``Engine(mode="fused")``,
+    no buckets), and ``Engine.prefill``'s last-position logits of a
+    (2, 512) batch, against the plain forward, within TOL_LOGITS."""
     from triton_dist_tpu_torch import Engine, ModelConfig
 
     cfg = dataclasses.replace(ModelConfig.qwen3_8b(), num_hidden_layers=2)
     eng = Engine(cfg, device="cuda", dtype=torch.bfloat16, max_len=4096,
                  seed=1)
-    srv = eng.serving(num_slots=4, page=32, prefill_buckets=(128, 512))
-    seen = record_logits(srv, {0, 1})
+    fused = Engine(cfg, mode="fused", params=eng.params, device="cuda",
+                   dtype=torch.bfloat16, max_len=4096)
     rng = np.random.RandomState(1)
     prompts = [[int(t) for t in rng.randint(0, cfg.vocab_size, n)]
                for n in (700, 60)]
-    handles = [srv.submit(p, max_new_tokens=2) for p in prompts]
-    srv.run()
     worst = 0.0
-    for h, p in zip(handles, prompts):
-        for step, seq in ((0, p), (1, p + h.tokens[:1])):
-            served = seen[(h.request.request_id, step)]
-            plain = plain_last_logits(eng.params, cfg, seq).cpu().numpy()
-            err = float(np.abs(served - plain).max())
-            worst = max(worst, err)
-            print(f"[parity] prompt {len(p)} step {step}: max |dlogit| "
-                  f"{err:.4f} (tol {TOL_LOGITS}), logit std "
-                  f"{plain.std():.3f}, argmax served {int(served.argmax())} "
-                  f"plain {int(plain.argmax())}")
-            if not (np.isfinite(served).all() and err <= TOL_LOGITS):
-                fail(f"served logits disagree with the plain forward: {err}")
-    del srv, eng
+
+    def check(label, served, seq):
+        nonlocal worst
+        plain = plain_last_logits(eng.params, cfg, seq).cpu().numpy()
+        err = float(np.abs(served - plain).max())
+        worst = max(worst, err)
+        print(f"[parity] {label}: max |dlogit| {err:.4f} (tol {TOL_LOGITS}),"
+              f" logit std {plain.std():.3f}, argmax served "
+              f"{int(served.argmax())} plain {int(plain.argmax())}")
+        if not (np.isfinite(served).all() and err <= TOL_LOGITS):
+            fail(f"served logits disagree with the plain forward: {err}")
+
+    for lane, srv in (("chunked", eng.serving(
+            num_slots=4, page=32, prefill_buckets=(128, 512))),
+                      ("monolithic", fused.serving(num_slots=4, page=32))):
+        seen = record_logits(srv, {0, 1})
+        handles = [srv.submit(p, max_new_tokens=2) for p in prompts]
+        srv.run()
+        for h, p in zip(handles, prompts):
+            for step, seq in ((0, p), (1, p + h.tokens[:1])):
+                check(f"{lane} prompt {len(p)} step {step}",
+                      seen[(h.request.request_id, step)], seq)
+    ids = rng.randint(0, cfg.vocab_size, (2, 512))
+    logits, _ = fused.prefill(ids)
+    for r in range(2):
+        check(f"Engine.prefill (2, 512) row {r}", logits[r].cpu().numpy(),
+              ids[r].tolist())
+    del srv, eng, fused
     torch.cuda.empty_cache()
     return worst
 
@@ -793,7 +857,7 @@ def mk_serve_phase(layer_st):
     while any(h.status != "running" for h in srv.sched.running()) or \
             srv.sched.queue:
         srv.step()
-    prof = profile_window(srv, 5, "megakernel decode ticks")
+    prof = profile_window(srv.step, 5, "megakernel decode ticks")
 
     dev = torch.device("cuda", 0)
     _, _, toks, lens, table = mk_inputs(mb, eng.num_pages, dev, 4)
@@ -1704,9 +1768,12 @@ def moe_layer_serve_phase(held_before):
         fail(f"MoE layer lane bypassed a kernel: launches {launches}, "
              f"{L} layers x {st['decode_dispatches']} decode steps / "
              f"{st['prefill_chunks']} chunks")
-    del srv, eng
+    del srv
+    # Phase 16 on the same weights: a second copy of 61 GB would not fit.
+    moe_engine = engine_phase("moe", cfg, eng.params)
+    del eng
     torch.cuda.empty_cache()
-    return launches, st
+    return moe_engine
 
 
 class RouteLog:
@@ -1785,7 +1852,12 @@ def moe_parity_phase():
                    max_len=1024)
     lanes["layer"] = layer.serving(num_slots=4, page=32,
                                    prefill_buckets=(128, 512))
-    worst, flips = 0.0, {"mk": {}, "layer": {}}
+    # Phase 17: monolithic serving on the fused engine (the grouped GEMM
+    # kernel in every prefill layer).
+    fused = Engine(cfg, mode="fused", params=params, device=dev,
+                   dtype=torch.bfloat16, max_len=1024)
+    lanes["mono"] = fused.serving(num_slots=4, page=32)
+    worst, flips = 0.0, {name: {} for name in lanes}
     plain = {}
 
     def plain_run(seq):
@@ -1815,12 +1887,14 @@ def moe_parity_phase():
                           for _, m, _ in steps]
                 served = [lg for _, _, lg in steps]
             else:
-                valid = h.chunks[-1][2]
-                routes = [[set(rl.calls[-4 + li][valid - 1].tolist())
+                # The last prompt row: of the last chunk, or of the one
+                # monolithic prefill.
+                last = (h.chunks[-1][2] if name == "layer" else len(p)) - 1
+                routes = [[set(rl.calls[-4 + li][last].tolist())
                            for li in range(2)],
                           [set(rl.calls[-2 + li][0].tolist())
                            for li in range(2)]]
-                served = [[rl.logits[-4 + li][valid - 1] for li in range(2)],
+                served = [[rl.logits[-4 + li][last] for li in range(2)],
                           [rl.logits[-2 + li][0] for li in range(2)]]
             for step, seq in ((0, p), (1, p + h.tokens[:1])):
                 got = seen[(h.request.request_id, step)]
@@ -1846,9 +1920,324 @@ def moe_parity_phase():
     for name, rows in flips.items():
         judge_flips(f"moe-parity {name} lane", rows,
                     cfg.num_experts_per_tok, 2 * len(rows))
-    del lanes, eng, layer, params
+    del lanes, eng, layer, fused, params
     torch.cuda.empty_cache()
     return worst
+
+
+# ---- The dense-cache engine (phases 15-17) -------------------------------
+
+TOL_FLASH = TOL_QBLOCK
+TOL_GG = (1e-3, 2.0 ** -7)       # one bf16 unit: both sum in fp32, round once
+ENGINE_IDS = (4, 512)            # Engine.serve's prompt batch
+
+
+def fault_control(label, got, want, tol) -> None:
+    """A planted fault must fail ``tol`` against the sound plain output."""
+    atol, rtol = tol
+    diff = (got.float() - want.float()).abs()
+    caught = bool((diff > atol + rtol * want.float().abs()).any()) or \
+        not bool(torch.isfinite(got).all())
+    print(f"[{label}] planted fault: max_abs_err {diff.max().item():.3e}, "
+          f"caught={caught}")
+    if not caught:
+        fail(f"{label}: the limit does not catch a planted fault")
+
+
+def flash_kernel_phase():
+    """Phase 15a: the prefill flash-attention kernel against its plain
+    version: S 512 and 1000, GQA 4 and 8, head_dim 128 and 8; a key tile
+    of another KV head planted in K must fail the limit; times at the
+    dense Engine.serve shape (4 x 512, 32/8 heads, head_dim 128)."""
+    from triton_dist_tpu_torch.ops import flash_attention as fa
+    from triton_dist_tpu_torch.utils import build
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(41)
+    bf = dict(device=dev, dtype=torch.bfloat16)
+    errs, out = [], {}
+    for b, s, h, kv, hd in ((4, 512, 32, 8, 128), (1, 1000, 32, 4, 128),
+                            (1, 1000, 32, 8, 128), (2, 512, 8, 1, 8),
+                            (1, 1000, 8, 2, 8)):
+        q = torch.randn(b, s, h, hd, generator=g, **bf)
+        k = torch.randn(b, s, kv, hd, generator=g, **bf)
+        v = torch.randn(b, s, kv, hd, generator=g, **bf)
+        got = fa.flash_attention(q, k, v, sm_scale=hd ** -0.5)
+        want = fa.flash_attention_ref(q, k, v, sm_scale=hd ** -0.5)
+        torch.cuda.synchronize()
+        label = f"flash B {b} S {s} H {h} KV {kv} hd {hd}"
+        errs.append(check_close(label, got, want, TOL_FLASH))
+        if not out:
+            bad = k.clone()
+            bad[:, 64:128, 0] = k[:, 64:128, 1]
+            fault_control(label, fa.flash_attention(
+                q, bad, v, sm_scale=hd ** -0.5), want, TOL_FLASH)
+        if s == 1000 and kv == 4 or not out:
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            k_ms = time_ms(lambda: fa.flash_attention(q, k, v,
+                                                      sm_scale=hd ** -0.5))
+            p_ms = time_ms(lambda: fa.flash_attention_ref(
+                q, k, v, sm_scale=hd ** -0.5))
+            y_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                        enable_gqa=True))
+            nbytes = 2 * (q.numel() + k.numel()) * 2   # q, out; k, v
+            flops = 4 * b * h * hd * s * (s + 1) / 2
+            b_ms, b_by = bound(nbytes, flops)
+            print(f"[flash] {label}: kernel_ms {k_ms:.4f} plain_ms "
+                  f"{p_ms:.4f} bound_ms {b_ms:.4f} ({b_by}) library_ms "
+                  f"(causal SDPA, enable_gqa) {y_ms:.4f}; "
+                  f"{flops / k_ms / 1e9:.1f} TFLOP/s")
+            if not out:
+                out = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                           bound_by=b_by, library_ms=y_ms)
+    smem = build.load("flash_attention.cu").tdt_flash_attention_smem_bytes
+    print(f"[smem] flash_attention_kernel {smem(128)} B/block at head_dim "
+          f"128, {smem(8)} at 8 (dynamic)")
+    out["err"] = max(errs)
+    return out
+
+
+def grouped_mm_ms(xs, w, te, tm):
+    """Yardstick: ``torch._grouped_mm`` over the same expert segments
+    (every tile's rows, weights (E, out, in) read as (E, in, out)), or
+    None where the card's torch has no such call or refuses the shapes.
+    The port never calls it."""
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        print("[group_gemm] library: this torch has no torch._grouped_mm")
+        return None
+    offs = (torch.cumsum(torch.bincount(te.long(), minlength=w.shape[0]), 0)
+            * tm).to(torch.int32)
+    wt = w.transpose(1, 2)
+    try:
+        fn(xs, wt, offs=offs)
+        torch.cuda.synchronize()
+    except (RuntimeError, TypeError) as e:
+        print(f"[group_gemm] library: torch._grouped_mm refused: {e}")
+        return None
+    return time_ms(lambda: fn(xs, wt, offs=offs))
+
+
+def group_gemm_kernel_phase():
+    """Phase 15b: the row-tile grouped GEMM against its plain version at
+    Qwen3-30B-A3B widths (E 128, top-8, d 2048, expert ffn 768) on a real
+    routing of 60, 700 and 2048 tokens (row tiles 8, 32, 128): gate/up as
+    one launch over the two weights, then down; a tile->expert map
+    shifted by one must fail the limit; times at 2048 tokens (the MoE
+    Engine.serve prefill)."""
+    from triton_dist_tpu_torch.layers.ep_moe import route
+    from triton_dist_tpu_torch.layers.norm import rms_norm
+    from triton_dist_tpu_torch.ops import ag_moe
+    from triton_dist_tpu_torch.ops import group_gemm as gg
+
+    cfg = moe_cfg()
+    d, f = cfg.hidden_size, cfg.moe_intermediate_size
+    e, k = cfg.num_experts, cfg.num_experts_per_tok
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(43)
+    bf = dict(device=dev, dtype=torch.bfloat16)
+    wg = torch.randn(e, f, d, generator=g, **bf) * d ** -0.5
+    wu = torch.randn(e, f, d, generator=g, **bf) * d ** -0.5
+    wd = torch.randn(e, d, f, generator=g, **bf) * f ** -0.5
+    router = torch.randn(e, d, generator=g, **bf) * d ** -0.5
+    errs, out = [], {}
+    for t, want_tm in ((60, 8), (700, 32), (2048, 128)):
+        x = rms_norm(torch.randn(t, d, generator=g, **bf),
+                     torch.ones(d, **bf))
+        ids, _ = route(router, x, k)
+        tm = ag_moe.suggested_block_m(t, k, e, 256)
+        if tm != want_tm:
+            fail(f"suggested_block_m({t}) = {tm}, expected {want_tm}")
+        xs, te, row_src = ag_moe.prepare_grouped_tokens(x, ids, e, tm)
+        h = gg.grouped_gemm_tiles(xs, (wg, wu), te)
+        want = gg.grouped_gemm_tiles_ref(xs, (wg, wu), te)
+        torch.cuda.synchronize()
+        label = f"group_gemm T {t} tm {tm} ({te.numel()} tiles)"
+        errs.append(check_close(label + " gate/up", h, want, TOL_GG))
+        act = (torch.nn.functional.silu(h[:, :f].float())
+               * h[:, f:].float()).to(torch.bfloat16)
+        y = gg.grouped_gemm_tiles(act, wd, te)
+        y_want = gg.grouped_gemm_tiles_ref(act, wd, te)
+        torch.cuda.synchronize()
+        errs.append(check_close(label + " down", y, y_want, TOL_GG))
+        if t != 2048:
+            continue
+        fault_control(label + " gate/up", gg.grouped_gemm_tiles(
+            xs, (wg, wu), torch.roll(te, 1)), want, TOL_GG)
+        owned = torch.unique(te[(row_src.view(-1, tm) >= 0).any(1)]).numel()
+        rows = t * k
+        w_gu = torch.cat([wg, wu], 1)
+        for name, a, w, fo, wl in (("gate/up", xs, (wg, wu), 2 * f, w_gu),
+                                   ("down", act, wd, d, wd)):
+            fi = a.shape[1]
+            nbytes = (rows * fi + owned * fo * fi + rows * fo) * 2
+            b_ms, b_by = bound(nbytes, 2 * rows * fi * fo)
+            k_ms = time_ms(lambda: gg.grouped_gemm_tiles(a, w, te))
+            p_ms = time_ms(lambda: gg.grouped_gemm_tiles_ref(a, w, te),
+                           reps=5)
+            y_ms = grouped_mm_ms(a, wl, te, tm)
+            print(f"[group_gemm] {name} T {t}: {xs.shape[0]} sorted rows "
+                  f"({rows} routed), {owned} experts own a tile: kernel_ms "
+                  f"{k_ms:.4f} plain_ms {p_ms:.4f} bound_ms {b_ms:.4f} "
+                  f"({b_by}; {nbytes / 1e6:.0f} MB, "
+                  f"{2 * rows * fi * fo / 1e9:.0f} GFLOP routed) library_ms "
+                  f"(torch._grouped_mm) {y_ms}")
+            out[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                             bound_by=b_by, library_ms=y_ms)
+    out["err"] = max(errs)
+    return out
+
+
+def engine_phase(label, cfg, params):
+    """Phase 16: ``Engine(cfg, mode="fused").serve`` of a (4, 512) prompt
+    batch for 64 tokens and monolithic serving (``serving(num_slots=4,
+    page=32)``, no buckets) of the 1000/700/300/60-token prompts for 64
+    tokens each, on ``params`` at full depth. Every prefill layer must
+    launch the flash-attention kernel once and, for MoE, the grouped GEMM
+    twice; monolithic decode ticks run the paged decode kernel."""
+    from triton_dist_tpu_torch import Engine
+
+    eng = Engine(cfg, mode="fused", params=params, device="cuda",
+                 dtype=torch.bfloat16, max_len=2048)
+    L = cfg.num_hidden_layers
+    gg_per = 2 if cfg.is_moe else 0
+    rng = np.random.RandomState(2)
+    eng.serve(rng.randint(0, cfg.vocab_size, (1, 64)), gen_len=2)
+    ids = rng.randint(0, cfg.vocab_size, ENGINE_IDS)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = eng.serve(ids, gen_len=64)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = read_counts()
+    print(f"[{label}-engine] Engine.serve {ENGINE_IDS} + 64 tokens in "
+          f"{wall:.2f} s; kernel launches {n}")
+    if tuple(toks.shape) != (4, 64) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        fail(f"Engine.serve gave {tuple(toks.shape)} tokens or ids out of "
+             "range")
+    if (n["flash"] != L or n["group_gemm"] != gg_per * L
+            or n["decode"] or n["qblock"] or n["megakernel"]):
+        fail(f"Engine.serve bypassed a kernel: launches {n}, {L} layers")
+    reps = 3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        logits, cache = eng.prefill(ids)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3 / reps
+    tok = torch.argmax(logits, -1).to(torch.int32)
+    t0 = time.perf_counter()
+    for _ in range(8):
+        logits, cache = eng.decode(tok, cache)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / 8
+    tokens = int(np.prod(ENGINE_IDS))
+    print(f"[{label}-engine] {torch.cuda.get_device_name(0)}: prefill of "
+          f"{ENGINE_IDS} {prefill_ms:.1f} ms "
+          f"({tokens / prefill_ms * 1e3:.0f} tokens/s), decode step at "
+          f"512 {decode_ms:.2f} ms ({4 / decode_ms * 1e3:.1f} tokens/s over "
+          "4 rows)")
+    prof_dec = profile_window(lambda: eng.decode(tok, cache), 1,
+                              f"{label} Engine.decode step at 520")
+    del logits, cache
+    prof = profile_window(lambda: eng.prefill(ids), 1,
+                          f"{label} Engine.prefill {ENGINE_IDS}")
+
+    srv = eng.serving(num_slots=4, page=32)
+    rng = np.random.RandomState(0)
+    prompts = [[int(t) for t in rng.randint(0, cfg.vocab_size, m)]
+               for m in (1000, 700, 300, 60)]
+    zero_counts()
+    t0 = time.perf_counter()
+    outs = srv.generate(prompts, max_new_tokens=64)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    m = read_counts()
+    st = srv.stats()
+    print(f"[{label}-mono] {st['completed']} requests in {wall:.2f} s; "
+          f"prefill calls {st['prefill_calls']}, decode dispatches "
+          f"{st['decode_dispatches']}, kernel launches {m}; decode "
+          f"{st['tokens_per_s']:.1f} tokens/s, prefill "
+          f"{st['prefill_tokens_per_s']:.1f} tokens/s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if [len(o) for o in outs] != [64] * 4 or st["prefill_calls"] != 4:
+        fail(f"monolithic serving: {[len(o) for o in outs]} tokens, "
+             f"{st['prefill_calls']} prefill calls")
+    if (m["flash"] != L * 4 or m["group_gemm"] != gg_per * L * 4
+            or m["decode"] != L * st["decode_dispatches"] or m["qblock"]
+            or m["megakernel"]):
+        fail(f"monolithic serving bypassed a kernel: launches {m}")
+    del srv, eng
+    torch.cuda.empty_cache()
+    return dict(serve=n, mono=m, prefill_ms=prefill_ms, decode_ms=decode_ms,
+                prof=prof, prof_dec=prof_dec)
+
+
+def checkpoint_phase():
+    """Phase 18: the committed HF fixtures (``tests/fixtures/qwen3_tiny``,
+    ``qwen3_moe_tiny``) loaded onto the card in bf16 by
+    ``load_hf_checkpoint`` and served: ``Engine(mode="fused").serve`` of a
+    (2, 8) batch for 8 tokens through both kernels, every layer counted,
+    its prefill logits within TOL_CKPT_LOGITS of the plain forward. A
+    planted fault, the last layer's attention output scaled by 0.9 (about
+    1e-2 of logit), must fail that limit. (Not the paged server: the
+    paged kernels are compiled for head_dim 128 only, the fixtures have
+    8.)"""
+    import pathlib
+
+    from triton_dist_tpu_torch import Engine
+    from triton_dist_tpu_torch.models import qwen_moe
+    from triton_dist_tpu_torch.models.hf_loader import load_hf_checkpoint
+
+    root = pathlib.Path(__file__).resolve().parent / "tests" / "fixtures"
+    ids = np.array([[3, 17, 250, 9, 77, 1, 128, 64],
+                    [5, 5, 200, 11, 0, 42, 7, 99]], np.int32)
+    for name in ("qwen3_tiny", "qwen3_moe_tiny"):
+        cfg, params = load_hf_checkpoint(str(root / name), torch.bfloat16,
+                                         "cuda")
+        eng = Engine(cfg, mode="fused", params=params, max_len=64)
+        L = cfg.num_hidden_layers
+        zero_counts()
+        toks = eng.serve(ids, gen_len=8)
+        n = read_counts()
+        if (n["flash"] != L or n["group_gemm"] != (2 * L if cfg.is_moe
+                                                   else 0)
+                or tuple(toks.shape) != (2, 8)
+                or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all())):
+            fail(f"{name}: Engine.serve gave {tuple(toks.shape)} tokens, "
+                 f"launches {n}")
+        ffn = ((lambda layer, h: qwen_moe.moe_ffn_decode(layer.moe, h, cfg))
+               if cfg.is_moe else None)
+        want = [plain_last_logits(params, cfg, ids[r].tolist(), ffn)
+                for r in range(2)]
+
+        def served_err():
+            logits, _ = eng.prefill(ids)
+            return logits, max(float((logits[r] - want[r]).abs().max())
+                               for r in range(2))
+
+        logits, err = served_err()
+        wo = params.layers[-1].attn.wo
+        keep = wo.detach().clone()
+        with torch.no_grad():
+            wo.mul_(0.9)
+        _, planted = served_err()
+        with torch.no_grad():
+            wo.copy_(keep)
+        print(f"[checkpoint] {name}: {L} layers, Engine.serve tokens "
+              f"{toks.tolist()}, launches {n}; prefill logits max |dlogit| "
+              f"{err:.2e} against the plain forward (tol {TOL_CKPT_LOGITS},"
+              f" logit std {float(logits.float().std()):.3f}); planted "
+              f"fault (last layer's attention x0.9) {planted:.2e}")
+        if not err <= TOL_CKPT_LOGITS:
+            fail(f"{name}: served logits disagree with the plain forward")
+        if not planted > TOL_CKPT_LOGITS:
+            fail(f"{name}: the planted attention fault passed the limit")
+        del eng, params
+    torch.cuda.empty_cache()
 
 
 def grid_blocks() -> int:
@@ -1874,7 +2263,9 @@ def main():
     build_kernels()
     numbers = kernel_phase()
     numbers["megakernel"] = mk_kernel_phase()
-    launches, layer_st = serve_phase()
+    numbers["flash"] = flash_kernel_phase()
+    numbers["group_gemm"] = group_gemm_kernel_phase()
+    launches, layer_st, dense_engine = serve_phase()
     parity_phase()
     mk = mk_serve_phase(layer_st)
     mk_parity_phase()
@@ -1883,8 +2274,9 @@ def main():
     mk_chunk_parity_phase()
     moe = moe_kernel_phase()
     moe_serve = moe_mk_serve_phase()
-    moe_layer_serve_phase(moe_serve["held"])
+    moe_engine = moe_layer_serve_phase(moe_serve["held"])
     moe_parity_phase()
+    checkpoint_phase()
 
     rows = []
     for key, name, replaces in (
@@ -1930,6 +2322,27 @@ def main():
             "launches": launches_, "max_abs_err": err, "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None})
+    # The dense-cache engine's two kernels: launches over phase 16's
+    # Engine.serve and monolithic serving runs, dense and MoE; times at
+    # the Engine.serve prefill shapes (the grouped GEMM's gate/up launch;
+    # its down launch is printed).
+    for key, name, source, replaces, t in (
+            ("flash", "flash_attention", "flash_attention.cu",
+             "triton_dist_tpu/layers/tp_attn.py:182", numbers["flash"]),
+            ("group_gemm", "group_gemm_tiles", "group_gemm.cu",
+             "triton_dist_tpu/ops/group_gemm.py:51",
+             dict(numbers["group_gemm"]["gate/up"],
+                  err=numbers["group_gemm"]["err"]))):
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"triton_dist_tpu_torch/csrc/{source}",
+            "replaces": replaces,
+            "launches": sum(run[part][key] for run in (dense_engine,
+                                                       moe_engine)
+                            for part in ("serve", "mono")),
+            "max_abs_err": t["err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

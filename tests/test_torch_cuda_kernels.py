@@ -74,6 +74,8 @@ import torch
 
 from triton_dist_tpu_torch.megakernel import builder as mkb
 from triton_dist_tpu_torch.models import ModelConfig, dense
+from triton_dist_tpu_torch.ops import ag_moe, group_gemm
+from triton_dist_tpu_torch.ops import flash_attention as fa
 from triton_dist_tpu_torch.ops import paged_flash_decode as pfd
 from triton_dist_tpu_torch.ops import paged_flash_qblock as pfq
 
@@ -589,3 +591,123 @@ def test_moe_megakernel_matches_plain(dev, rows):
     assert int(counts.sum()) == int(c_free.sum()) == rows * 2 * 8
     _assert_close(kc, forced[1], MK_KV_TOL)
     _assert_close(vc, forced[2], MK_KV_TOL)
+
+
+GG_TOL = (1e-3, 2.0 ** -7)
+
+
+def _violates(got, want, tol):
+    diff = (got.float() - want.float()).abs()
+    return bool((diff > tol[0] + tol[1] * want.float().abs()).any())
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd,causal", [
+    (2, 1, 4, 4, 128, True), (1, 65, 8, 2, 8, True), (2, 130, 8, 1, 64,
+                                                      True),
+    (1, 1000, 32, 4, 128, True), (2, 77, 4, 2, 256, False),
+    (1, 200, 16, 2, 96, True), (1, 64, 2, 2, 12, False)])
+def test_flash_attention_kernel_matches_plain(dev, b, s, h, kv, hd, causal):
+    g = torch.Generator(device=dev).manual_seed(s + hd)
+    bf = dict(device=dev, dtype=torch.bfloat16)
+    q = torch.randn(b, s, h, hd, generator=g, **bf)
+    k = torch.randn(b, s, kv, hd, generator=g, **bf)
+    v = torch.randn(b, s, kv, hd, generator=g, **bf)
+    before = fa.KERNEL.launches
+    got = fa.flash_attention(q, k, v, causal=causal, sm_scale=hd ** -0.5)
+    assert fa.KERNEL.launches == before + 1
+    want = fa.flash_attention_ref(q, k, v, causal=causal,
+                                  sm_scale=hd ** -0.5)
+    _assert_close(got, want, QBLOCK_TOL)
+
+
+def test_flash_attention_limit_catches_a_planted_fault(dev):
+    g = torch.Generator(device=dev).manual_seed(3)
+    bf = dict(device=dev, dtype=torch.bfloat16)
+    q = torch.randn(1, 256, 8, 128, generator=g, **bf)
+    k = torch.randn(1, 256, 2, 128, generator=g, **bf)
+    v = torch.randn(1, 256, 2, 128, generator=g, **bf)
+    bad = k.clone()
+    bad[:, 64:128, 0] = k[:, 64:128, 1]          # a key tile of head 1
+    got = fa.flash_attention(q, bad, v, sm_scale=128 ** -0.5)
+    want = fa.flash_attention_ref(q, k, v, sm_scale=128 ** -0.5)
+    torch.cuda.synchronize()
+    assert _violates(got, want, QBLOCK_TOL)
+
+
+def _routed(dev, t, k, e, d, block_m, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(t, d, generator=g, device=dev, dtype=torch.bfloat16)
+    logits = torch.randn(t, e, generator=g, device=dev)
+    ids = torch.topk(logits, k, dim=-1).indices.to(torch.int32)
+    tm = ag_moe.suggested_block_m(t, k, e, block_m)
+    return (*ag_moe.prepare_grouped_tokens(x, ids, e, tm), tm, g)
+
+
+@pytest.mark.parametrize("t,k,e,d,f,block_m,pair", [
+    (6, 8, 128, 256, 96, 256, True),       # tm 8
+    (40, 4, 16, 64, 64, 32, False),        # tm 32
+    (300, 8, 32, 512, 160, 128, True),     # tm 128
+    (24, 2, 8, 36, 40, 16, False),         # K not a multiple of 8
+    (64, 2, 4, 128, 48, 64, True)])        # tm 64
+def test_group_gemm_kernel_matches_plain(dev, t, k, e, d, f, block_m, pair):
+    xs, te, _, tm, g = _routed(dev, t, k, e, d, block_m, t + d)
+    bf = dict(device=dev, dtype=torch.bfloat16)
+    ws = [torch.randn(e, f, d, generator=g, **bf) * d ** -0.5
+          for _ in range(2 if pair else 1)]
+    w = tuple(ws) if pair else ws[0]
+    before = group_gemm.KERNEL.launches
+    got = group_gemm.grouped_gemm_tiles(xs, w, te)
+    assert group_gemm.KERNEL.launches == before + 1
+    assert got.shape == (xs.shape[0], f * len(ws))
+    _assert_close(got, group_gemm.grouped_gemm_tiles_ref(xs, w, te), GG_TOL)
+
+
+def test_group_gemm_limit_catches_a_planted_fault(dev):
+    xs, te, _, tm, g = _routed(dev, 300, 8, 32, 512, 128, 5)
+    w = torch.randn(32, 128, 512, generator=g, device=dev,
+                    dtype=torch.bfloat16) * 512 ** -0.5
+    got = group_gemm.grouped_gemm_tiles(xs, w, torch.roll(te, 1))
+    torch.cuda.synchronize()
+    assert _violates(got, group_gemm.grouped_gemm_tiles_ref(xs, w, te),
+                     GG_TOL)
+
+
+def test_new_wrappers_reject_what_the_kernels_do_not_take(dev):
+    bf = dict(device=dev, dtype=torch.bfloat16)
+    q = torch.zeros(1, 8, 2, 16, **bf)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q.float(), q.float(), q.float(), sm_scale=1.0)
+    with pytest.raises(ValueError, match="head_dim"):
+        z = torch.zeros(1, 8, 2, 272, **bf)
+        fa.flash_attention(z, z, z, sm_scale=1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                           q, q, sm_scale=1.0)
+    x = torch.zeros(96, 16, **bf)
+    w = torch.zeros(2, 8, 16, **bf)
+    te = torch.zeros(1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="row tile"):
+        group_gemm.grouped_gemm_tiles(x, w, te)          # tm 96
+    with pytest.raises(TypeError):
+        group_gemm.grouped_gemm_tiles(x, w, te.long())
+
+
+def test_fused_moe_never_syncs_the_host(dev):
+    from triton_dist_tpu_torch.layers import ep_moe, tp_moe
+
+    cfg = ModelConfig.tiny_moe(hidden_size=64, num_experts=16,
+                               num_experts_per_tok=4, moe_intermediate_size=64)
+    g = torch.Generator(device=dev).manual_seed(0)
+    moe = ep_moe.init(cfg, generator=g, device=dev, dtype=torch.bfloat16)
+    x = torch.randn(40, 64, generator=g, device=dev, dtype=torch.bfloat16)
+    kw = dict(topk=4, num_experts=16)
+    want = tp_moe.fwd_fused(moe, x, **kw)      # builds and loads the kernel
+    torch.cuda.synchronize()
+    before = group_gemm.KERNEL.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tp_moe.fwd_fused(moe, x, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert group_gemm.KERNEL.launches == before + 2
+    assert torch.equal(got, want)

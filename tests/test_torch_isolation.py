@@ -86,6 +86,32 @@ def test_moe_modules_are_checked_and_need_cuda():
     Engine(cfg, device="cpu", dtype=torch.float32)
 
 
+def test_dense_cache_slice_modules_are_checked():
+    """The dense-cache engine slice's modules are among the sources
+    checked above; its entry points need the card unless given
+    ``device="cpu"``."""
+    from triton_dist_tpu_torch.models.hf_loader import (
+        load_hf_checkpoint, moe_params_from_hf_state_dict,
+        params_from_hf_state_dict)
+
+    names = {str(p.relative_to(ROOT)) for p in _sources()}
+    for mod in ("models/kv_cache.py", "models/hf_loader.py",
+                "ops/flash_attention.py", "ops/ag_moe.py",
+                "ops/moe_reduce.py"):
+        assert f"triton_dist_tpu_torch/{mod}" in names
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load_hf_checkpoint(str(ROOT / "tests" / "fixtures" / "qwen3_tiny"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Engine(ModelConfig.tiny(), mode="fused")
+    for mapper, cfg in ((params_from_hf_state_dict, ModelConfig.tiny()),
+                        (moe_params_from_hf_state_dict,
+                         ModelConfig.tiny_moe(num_experts=4))):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            mapper({}, cfg)
+
+
 def _decode_args(device):
     kw = dict(device=device)
     return (torch.zeros(2, 4, 64, dtype=torch.bfloat16, **kw),

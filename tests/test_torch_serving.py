@@ -126,14 +126,24 @@ def test_prefix_reuse_token_exact_with_jax(engines):
 
 
 def test_server_contracts(engines):
-    """Port-side serving contracts: unported options raise, static gang
-    admission waits for a full batch, deadlines time requests out, and
-    the queue bound pushes back."""
+    """Port-side serving contracts: monolithic admission (no
+    ``prefill_buckets``: each prompt one ``Engine.prefill``, blitted into
+    pages) gives the JAX monolithic server's tokens and counters, static
+    gang admission waits for a full batch, deadlines time requests out,
+    and the queue bound pushes back."""
     from triton_dist_tpu_torch.serving import QueueFullError
 
-    _, teng = engines
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        teng.serving(num_slots=2, page=PAGE)
+    jeng, teng = engines
+    prompts = _requests(teng.cfg.vocab_size)
+    mono = dict(num_slots=2, page=PAGE, num_pages=5)
+    tsrv, jsrv = teng.serving(**mono), JaxServingEngine(jeng, **mono)
+    assert (tsrv.generate(prompts, max_new_tokens=GEN)
+            == jsrv.generate(prompts, max_new_tokens=GEN))
+    tst, jst = tsrv.stats(), jsrv.stats()
+    for key in ("prefill_calls", "prefill_tokens", "preemptions",
+                "decode_dispatches"):
+        assert tst[key] == jst[key], key
+    assert tst["preemptions"] >= 1 and tst["prefill_chunks"] == 0
     srv = teng.serving(**SERVE)
     with pytest.raises(ValueError):
         srv.submit([1] * 60, max_new_tokens=8)      # beyond max_len

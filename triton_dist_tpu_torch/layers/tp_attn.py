@@ -1,9 +1,15 @@
-"""Attention projections of one decoder layer (counterpart of
-``triton_dist_tpu/layers/tp_attn.py``: ``init``, ``decode_project``,
-``decode_output`` and the q/k norm + rope of ``_norm_rope``).
+"""Attention of one decoder layer (counterpart of
+``triton_dist_tpu/layers/tp_attn.py``: ``init``, ``sdpa``,
+``fwd_prefill``, ``decode_project``, ``decode_output``, ``fwd_decode``
+and the q/k norm + rope of ``_norm_rope``).
 
-This slice runs on one card, so every projection is one ``F.linear``
-with no cross-shard reduce. Linear weights are stored
+The port runs at tp = 1, so every projection is one ``F.linear`` with no
+cross-shard collective: the JAX modes ``"xla"``, ``"fused"`` and
+``"fused_ar"`` compute the same function there (their one-rank
+``ag_gemm``/``gemm_rs``/``gemm_ar`` are plain products) and the port
+accepts the three names. A causal prefill attends through
+:func:`~triton_dist_tpu_torch.ops.flash_attention.flash_attention` (a
+CUDA kernel on the card at every shape). Linear weights are stored
 ``(out_features, in_features)``, the layout ``F.linear`` takes; the JAX
 package stores their transpose and multiplies ``x @ w``
 (:func:`triton_dist_tpu_torch.models.convert.from_jax_params` carries
@@ -12,12 +18,17 @@ weights across).
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from triton_dist_tpu_torch.layers.norm import rms_norm
 from triton_dist_tpu_torch.layers.rope import apply_rope, rope_freqs
+from triton_dist_tpu_torch.ops.flash_attention import flash_attention
+
+MODES = ("xla", "fused", "fused_ar")
 
 
 def empty_param(shape, *, device, dtype) -> nn.Parameter:
@@ -96,3 +107,84 @@ def decode_project(params: Attention, x: torch.Tensor, cfg,
 def decode_output(params: Attention, o: torch.Tensor) -> torch.Tensor:
     """o-projection of the attention output o: (B, H·hd) → (B, d)."""
     return F.linear(o, params.wo)
+
+
+def check_mode(mode: str) -> None:
+    if mode not in MODES:
+        raise ValueError(f"unknown TP_Attn mode {mode!r} (one of {MODES})")
+
+
+def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+         kv_len=None) -> torch.Tensor:
+    """q: (B, Sq, H, hd); k/v: (B, Skv, KV, hd). GQA by head group.
+
+    ``kv_len`` may be (B,), one length per batch row, or (B, Sq), one per
+    query. A causal attention of a sequence over its own keys (a prefill:
+    ``kv_len`` None, ``Sq == Skv``) goes through
+    :func:`~triton_dist_tpu_torch.ops.flash_attention.flash_attention`,
+    the CUDA kernel on a CUDA tensor at every such shape. The other forms
+    (decode over the dense cache, a causal block over a cache prefix) are
+    plain PyTorch, as JAX leaves them to XLA: fp32 scores, query heads
+    grouped by their KV head (a reshape of q, no K/V repeat),
+    probabilities cast to the value dtype before P·V. Returns (B, Sq, H,
+    hd)."""
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    if causal and kv_len is None and sq == skv:
+        return flash_attention(q, k, v, causal=True, sm_scale=hd ** -0.5)
+    qg = q.reshape(b, sq, kvh, h // kvh, hd)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float())
+    scores = scores / math.sqrt(hd)
+    keep = None                                   # (B or 1, Sq or 1, Skv)
+    ki = torch.arange(skv, device=q.device)
+    if causal:
+        qi = torch.arange(sq, device=q.device)
+        keep = (ki[None, :] <= qi[:, None] + (skv - sq))[None]
+    if kv_len is not None:
+        lim = kv_len[:, None] if kv_len.dim() == 1 else kv_len
+        in_len = ki[None, None, :] < lim[..., None]
+        keep = in_len if keep is None else keep & in_len
+    if keep is not None:
+        scores = scores.masked_fill(~keep[:, None, None], float("-inf"))
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
+    return out.reshape(b, sq, h, hd)
+
+
+def fwd_prefill(params: Attention, x: torch.Tensor, cfg, *, batch: int,
+                mode: str = "xla"):
+    """x: (tokens, d), ``batch`` sequences of ``tokens // batch``
+    positions each. QKV, q/k norm and rope at positions ``0..S-1``,
+    causal attention (:func:`sdpa`), o-projection. Returns ``(y (tokens,
+    d), (k, v))`` with k/v (B, S, KV, hd), the prompt's cache rows."""
+    check_mode(mode)
+    tokens, hd = x.shape[0], cfg.head_dim
+    seq = tokens // batch
+    q = F.linear(x, params.wq).view(batch, seq, -1, hd)
+    k = F.linear(x, params.wk).view(batch, seq, -1, hd)
+    v = F.linear(x, params.wv).view(batch, seq, -1, hd)
+    positions = torch.arange(seq, device=x.device).expand(batch, seq)
+    q, k = _norm_rope(q, k, params, cfg, positions)
+    o = sdpa(q, k, v, causal=True)
+    return F.linear(o.reshape(tokens, -1), params.wo), (k, v)
+
+
+def fwd_decode(params: Attention, x: torch.Tensor, cfg,
+               k_cache: torch.Tensor, v_cache: torch.Tensor, cache_len: int,
+               *, mode: str = "xla"):
+    """Single-token decode over one layer's dense cache. x: (B, d);
+    caches (B, max_len, KV, hd), written IN PLACE at ``cache_len``.
+    :func:`decode_project` → cache write → :func:`sdpa` over the first
+    ``cache_len + 1`` positions → :func:`decode_output`. Returns ``(y (B,
+    d), (k_cache, v_cache))``."""
+    check_mode(mode)
+    b = x.shape[0]
+    positions = torch.full((b,), cache_len, dtype=torch.int32,
+                           device=x.device)
+    q, k, v = decode_project(params, x, cfg, positions)
+    k_cache[:, cache_len] = k[:, 0].to(k_cache.dtype)
+    v_cache[:, cache_len] = v[:, 0].to(v_cache.dtype)
+    kv_len = torch.full((b,), cache_len + 1, dtype=torch.int32,
+                        device=x.device)
+    o = sdpa(q, k_cache, v_cache, causal=False, kv_len=kv_len)
+    return decode_output(params, o.reshape(b, -1)), (k_cache, v_cache)

@@ -1,7 +1,8 @@
 """Model configuration (counterpart of ``triton_dist_tpu/models/config.py``).
 
 The port serves dense Qwen3 models and the Qwen3-MoE family, so the dense
-and the MoE fields are carried over; the hybrid-attention (Qwen3-Next)
+and the MoE fields are carried over, and :meth:`ModelConfig.from_hf_config`
+maps a HuggingFace config onto them; the hybrid-attention (Qwen3-Next)
 fields arrive with their slice, and a shared expert (a Qwen3-Next field)
 raises until then.
 """
@@ -102,6 +103,73 @@ class ModelConfig:
                     model_name="qwen3-moe-tiny")
         base.update(kw)
         return cls(**base)
+
+    @classmethod
+    def from_hf_config(cls, hf_cfg) -> "ModelConfig":
+        """Build from a transformers config object or a raw
+        ``config.json`` dict: the dense and the MoE (Qwen3-MoE) field
+        sets, with the JAX mapper's required fields (a missing one raises
+        ``KeyError``) and its every-layer MoE schedule check. Projection
+        biases (``attention_bias``, the Qwen2 family), models without the
+        per-head q/k norm (Qwen2, Seed-OSS, Llama, Mistral) and hybrid
+        GDN configs (``linear_num_value_heads``) raise
+        ``NotImplementedError``: not ported (ROADMAP.md)."""
+        if isinstance(hf_cfg, dict):
+            get = lambda k, d=None: hf_cfg.get(k, d)        # noqa: E731
+        else:
+            get = lambda k, d=None: getattr(hf_cfg, k, d)   # noqa: E731
+
+        def req(k):
+            v = get(k)
+            if v is None:
+                raise KeyError(
+                    f"HF config missing required field {k!r} — is this "
+                    "a supported config.json?")
+            return v
+
+        d = req("hidden_size")
+        heads = req("num_attention_heads")
+        if get("num_experts", 0):
+            if get("decoder_sparse_step", 1) not in (None, 1) or \
+                    get("mlp_only_layers"):
+                raise NotImplementedError(
+                    "only the every-layer MoE schedule is supported "
+                    f"(decoder_sparse_step={get('decoder_sparse_step')}"
+                    f", mlp_only_layers={get('mlp_only_layers')})")
+        model_type = str(get("model_type", "qwen3"))
+        if get("linear_num_value_heads", 0):
+            raise NotImplementedError(
+                "hybrid GDN configs (Qwen3-Next) are not ported yet "
+                "(ROADMAP.md, queue A item 6)")
+        if get("attention_bias", model_type.startswith("qwen2")):
+            raise NotImplementedError(
+                "attention_bias=True (q/k/v/o projection biases) is not "
+                "ported yet (ROADMAP.md)")
+        if model_type.startswith("qwen2") or model_type in (
+                "seed_oss", "llama", "mistral"):
+            raise NotImplementedError(
+                f"model_type {model_type!r} has no per-head q/k norm "
+                "(qk_norm=False), which is not ported yet (ROADMAP.md)")
+        return cls(
+            vocab_size=req("vocab_size"),
+            hidden_size=d,
+            intermediate_size=get("intermediate_size", 4 * d),
+            num_hidden_layers=req("num_hidden_layers"),
+            num_attention_heads=heads,
+            num_key_value_heads=get("num_key_value_heads", heads),
+            head_dim=get("head_dim") or d // heads,
+            rms_norm_eps=get("rms_norm_eps", 1e-6),
+            rope_theta=get("rope_theta", 1_000_000.0),
+            max_position_embeddings=get("max_position_embeddings", 40960),
+            tie_word_embeddings=get("tie_word_embeddings", False),
+            model_name=get("model_type", "qwen3"),
+            num_experts=get("num_experts", 0) or 0,
+            num_experts_per_tok=get("num_experts_per_tok", 8) or 8,
+            moe_intermediate_size=get("moe_intermediate_size", 768) or 768,
+            norm_topk_prob=get("norm_topk_prob", True),
+            shared_expert_intermediate_size=get(
+                "shared_expert_intermediate_size", 0) or 0,
+        )
 
     @classmethod
     def tiny(cls, *, vocab_size: int = 256, hidden_size: int = 32,

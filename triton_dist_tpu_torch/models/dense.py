@@ -1,16 +1,22 @@
 """Dense Qwen3-style LLM on one card (counterpart of
-``triton_dist_tpu/models/dense.py``: ``init_params``,
-``prefill_chunk_paged`` and ``decode_step_paged``).
+``triton_dist_tpu/models/dense.py``: ``init_params``, the dense-cache
+``prefill``/``forward_tokens``/``decode_step`` and the paged
+``prefill_chunk_paged``/``decode_step_paged``).
 
 The weights are an ``nn.Module`` tree (:class:`DenseLM`) whose names
 follow the JAX pytree's keys; the model functions take it as ``params``.
-With one card there is no mesh, so the JAX package's ``param_specs`` has
-no counterpart. Both steps attend through the paged kernel wrappers,
-which launch the CUDA kernels on a CUDA tensor and run their plain
-versions on a CPU tensor.
+With one card there is no mesh, so the JAX package's ``param_specs`` and
+``cache_specs`` have no counterpart and the three forward modes compute
+the same function (:mod:`~triton_dist_tpu_torch.layers.tp_attn`). The
+prefill attends through the flash-attention kernel wrapper, the paged
+steps through the paged kernel wrappers; each launches its CUDA kernel
+on a CUDA tensor and runs its plain version on a CPU tensor.
 """
 
 from __future__ import annotations
+
+import dataclasses
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -20,6 +26,7 @@ from triton_dist_tpu_torch.layers import tp_attn, tp_mlp
 from triton_dist_tpu_torch.layers.norm import rms_norm
 from triton_dist_tpu_torch.layers.tp_attn import empty_param
 from triton_dist_tpu_torch.models.config import ModelConfig
+from triton_dist_tpu_torch.models.kv_cache import KVCache
 from triton_dist_tpu_torch.ops.paged_flash_decode import paged_flash_decode
 from triton_dist_tpu_torch.ops.paged_flash_qblock import paged_flash_qblock
 
@@ -87,6 +94,15 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
     return model
 
 
+@dataclasses.dataclass(frozen=True)
+class FwdContexts:
+    """The JAX per-layer fused-op contexts, reduced to what one card
+    reads: ``block_m``, the MoE row tile of the fused expert layout
+    (capped per call by ``ops.ag_moe.suggested_block_m``). Only the MoE
+    model's prefill reads it, so the dense functions do not take it."""
+    block_m: int = 256
+
+
 def lm_head_logits(x: torch.Tensor, lm_head: torch.Tensor) -> torch.Tensor:
     """fp32 logits (tokens, vocab): bf16 products accumulate and stay in
     fp32 (on the card one ``mm`` with ``out_dtype``; elsewhere in fp32)."""
@@ -103,6 +119,102 @@ def _layer_tail(layer, x, o, cfg, ffn_fn=None):
     if ffn_fn is None:
         return x + tp_mlp.fwd(layer.mlp, h)
     return x + ffn_fn(layer, h)
+
+
+def _embed_tokens(params: DenseLM, input_ids: torch.Tensor) -> torch.Tensor:
+    """(B, S) ids → (B·S, d) embeddings (one rank embeds every token)."""
+    return params.embed[input_ids.reshape(-1).long()]
+
+
+def _layer_fwd_prefill(layer, x, cfg, *, batch: int, mode: str,
+                       ffn_fn=None):
+    """One layer of the prefill trunk; ``ffn_fn(layer, h)`` replaces the
+    dense MLP (the MoE model's hook)."""
+    h = rms_norm(x, layer.ln_attn, cfg.rms_norm_eps)
+    attn_out, kv = tp_attn.fwd_prefill(layer.attn, h, cfg, batch=batch,
+                                       mode=mode)
+    x = x + attn_out
+    h = rms_norm(x, layer.ln_mlp, cfg.rms_norm_eps)
+    x = x + (tp_mlp.fwd(layer.mlp, h) if ffn_fn is None
+             else ffn_fn(layer, h))
+    return x, kv
+
+
+def _forward_trunk(params: DenseLM, input_ids: torch.Tensor,
+                   cfg: ModelConfig, *, mode: str,
+                   cache: Optional[KVCache], ffn_fn=None):
+    """Embed → layers (recording K/V into ``cache`` when given) → final
+    norm. Returns ``(x (B·S, d), cache)``."""
+    b = input_ids.shape[0]
+    x = _embed_tokens(params, input_ids)
+    for li, layer in enumerate(params.layers):
+        x, kv = _layer_fwd_prefill(layer, x, cfg, batch=b, mode=mode,
+                                   ffn_fn=ffn_fn)
+        if cache is not None:
+            cache.write_prefill(li, *kv)
+    return rms_norm(x, params.ln_f, cfg.rms_norm_eps), cache
+
+
+def _lm_head(params: DenseLM, x: torch.Tensor) -> torch.Tensor:
+    return lm_head_logits(x, params.lm_head)
+
+
+def prefill(params: DenseLM, input_ids: torch.Tensor, cfg: ModelConfig, *,
+            mode: str = "xla", max_len: Optional[int] = None, ffn_fn=None):
+    """Prefill of (B, S) token ids. Returns ``(logits (B, vocab) fp32 of
+    the last position, KVCache)``, the cache ``max_len`` (default S)
+    positions long with the prompt written and ``length = S``."""
+    b, s = input_ids.shape
+    max_len = max_len or s
+    if s > max_len:
+        raise ValueError(f"prompt of {s} tokens exceeds max_len={max_len}")
+    cache = KVCache.empty(cfg.num_hidden_layers, b, max_len,
+                          cfg.num_key_value_heads, cfg.head_dim,
+                          device=params.embed.device,
+                          dtype=params.embed.dtype)
+    x, cache = _forward_trunk(params, input_ids, cfg, mode=mode,
+                              cache=cache, ffn_fn=ffn_fn)
+    cache.length = s
+    last = x.view(b, s, -1)[:, -1]
+    return _lm_head(params, last), cache
+
+
+def forward_tokens(params: DenseLM, input_ids: torch.Tensor,
+                   cfg: ModelConfig, *, mode: str = "xla", ffn_fn=None):
+    """Logits of every position, (B, S, vocab) fp32 (the training-loss
+    forward)."""
+    b, s = input_ids.shape
+    x, _ = _forward_trunk(params, input_ids, cfg, mode=mode, cache=None,
+                          ffn_fn=ffn_fn)
+    return _lm_head(params, x).view(b, s, cfg.vocab_size)
+
+
+def decode_step(params: DenseLM, token_ids: torch.Tensor, cache: KVCache,
+                cfg: ModelConfig, *, mode: str = "xla", ffn_fn=None):
+    """One decode step over a dense :class:`KVCache`. token_ids: (B,).
+    Per layer: :func:`tp_attn.decode_project` at position
+    ``cache.length``, :meth:`KVCache.append_decode` (in place), plain
+    attention over the first ``length + 1`` positions, o-projection, FFN
+    (``ffn_fn``, the MoE hook, or the MLP). Returns ``(logits (B, vocab)
+    fp32, cache)`` with ``length`` advanced by one."""
+    tp_attn.check_mode(mode)
+    b = token_ids.shape[0]
+    dev = token_ids.device
+    x = params.embed[token_ids.long()]
+    pos = cache.length
+    positions = torch.full((b,), pos, dtype=torch.int32, device=dev)
+    for li, layer in enumerate(params.layers):
+        h = rms_norm(x, layer.ln_attn, cfg.rms_norm_eps)
+        q, k_tok, v_tok = tp_attn.decode_project(layer.attn, h, cfg,
+                                                 positions)
+        cache.append_decode(li, k_tok, v_tok)
+        # The written prefix only: JAX masks the positions past it
+        # (kv_len = length + 1), which adds exact zeros.
+        o = tp_attn.sdpa(q, cache.k[li, :, :pos + 1],
+                         cache.v[li, :, :pos + 1], causal=False)
+        x = _layer_tail(layer, x, o, cfg, ffn_fn)
+    x = rms_norm(x, params.ln_f, cfg.rms_norm_eps)
+    return _lm_head(params, x), cache.advance()
 
 
 def prefill_chunk_paged(params: DenseLM, chunk_toks: torch.Tensor, cache,

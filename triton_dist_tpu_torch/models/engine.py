@@ -1,9 +1,13 @@
 """Inference engine (counterpart of ``triton_dist_tpu/models/engine.py``).
 
 The engine carries the configuration, the model (dense Qwen3 or
-Qwen3-MoE) and its weights, and hands them to the continuous-batching
-server (:meth:`Engine.serving`). The dense-cache
-``prefill``/``decode``/``serve`` loop and the fused tensor-parallel modes
+Qwen3-MoE) and its weights: :meth:`Engine.prefill`, :meth:`Engine.decode`
+and :meth:`Engine.serve` run the dense-cache loop, and
+:meth:`Engine.serving` hands the engine to the continuous-batching
+server. At one card the three forward modes compute the same function
+except for the MoE prefill, where ``mode="fused"`` runs the fused expert
+pipeline (the row-tile grouped GEMM kernel). The resilience knobs
+(``fallback``, ``probe``, ``timeout_s``) and the expert-parallel regime
 are not ported yet (ROADMAP.md).
 """
 
@@ -11,10 +15,13 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
+from triton_dist_tpu_torch.layers.tp_attn import check_mode
 from triton_dist_tpu_torch.models import dense, qwen_moe
 from triton_dist_tpu_torch.models.config import ModelConfig
+from triton_dist_tpu_torch.models.kv_cache import KVCache
 
 
 def resolve_device(device=None) -> torch.device:
@@ -45,11 +52,15 @@ class Engine:
     in ``dtype`` (for example from
     :func:`~triton_dist_tpu_torch.models.convert.from_jax_params`), or
     ``None`` to draw random weights on the device from a
-    ``torch.Generator`` seeded with ``seed``."""
+    ``torch.Generator`` seeded with ``seed``. ``mode``: ``"xla"``,
+    ``"fused"`` or ``"fused_ar"``; ``block_m``: the MoE row tile of the
+    fused expert layout (capped per prefill by ``suggested_block_m``)."""
 
-    def __init__(self, cfg: ModelConfig, *, model=None, device=None,
-                 dtype: torch.dtype = torch.bfloat16, max_len: int = 512,
-                 params: Optional[dense.DenseLM] = None, seed: int = 0):
+    def __init__(self, cfg: ModelConfig, *, mode: str = "xla", model=None,
+                 device=None, dtype: torch.dtype = torch.bfloat16,
+                 max_len: int = 512, params: Optional[dense.DenseLM] = None,
+                 seed: int = 0, block_m: int = 256):
+        check_mode(mode)
         if model is None:
             model = qwen_moe if cfg.is_moe else dense
         if model is qwen_moe:
@@ -65,6 +76,11 @@ class Engine:
             raise ValueError(f"model {model!r}: the port serves "
                              "models.dense and models.qwen_moe")
         self.model = model
+        self.mode = mode
+        # The fused expert layout's row tile: only the MoE prefill reads it.
+        self._prefill_kw = (
+            {"ctxs": dense.FwdContexts(block_m=block_m)}
+            if model is qwen_moe else {})
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = dtype
@@ -80,6 +96,69 @@ class Engine:
                     f"params are {w.dtype} on {w.device}; the engine was "
                     f"asked for {dtype} on {self.device}")
         self.params = params.eval()
+
+    def _ids(self, ids) -> torch.Tensor:
+        if not isinstance(ids, torch.Tensor):
+            ids = torch.as_tensor(np.asarray(ids))
+        return ids.to(self.device).long()
+
+    @torch.no_grad()
+    def prefill(self, input_ids):
+        """(B, S) token ids → ``(logits (B, vocab) fp32 of the last
+        position, KVCache)``, the cache ``max_len`` long."""
+        return self.model.prefill(self.params, self._ids(input_ids),
+                                  self.cfg, mode=self.mode,
+                                  max_len=self.max_len, **self._prefill_kw)
+
+    @torch.no_grad()
+    def decode(self, tokens, cache: KVCache):
+        """One decode step: tokens (B,) → ``(logits (B, vocab), cache)``,
+        the cache written in place. Raises ``ValueError`` once the cache
+        holds ``max_len`` tokens (its length is a host int: no sync)."""
+        if cache.length >= self.max_len:
+            raise ValueError(
+                f"KV cache full ({self.max_len}); cannot decode further")
+        return self.model.decode_step(self.params, self._ids(tokens), cache,
+                                      self.cfg, mode=self.mode)
+
+    def serve(self, input_ids, gen_len: int = 32, *,
+              temperature: float = 0.0, top_k: int = 0,
+              seed: int = 0) -> torch.Tensor:
+        """Token generation: (B, S) ids → (B, gen_len) int32 tokens on the
+        device. ``temperature`` 0 is greedy (the first maximum); above 0
+        samples from the softmax at that temperature, truncated to the
+        ``top_k`` most likely tokens when ``top_k > 0``, from a
+        ``torch.Generator`` seeded by (seed, step) as the server's
+        sampler: the samples do not reproduce JAX's ``jax.random``
+        bits."""
+        ids = self._ids(input_ids)
+        s = ids.shape[1]
+        if s + gen_len > self.max_len:
+            raise ValueError(
+                f"sequence {s}+{gen_len} exceeds max_len={self.max_len}")
+        if top_k < 0 or top_k > self.cfg.vocab_size:
+            raise ValueError(f"top_k={top_k} outside [0, vocab="
+                             f"{self.cfg.vocab_size}]")
+        from triton_dist_tpu_torch.serving.server import sample_seed
+
+        def pick(logits, step):
+            if temperature <= 0.0:
+                return torch.argmax(logits, dim=-1).to(torch.int32)
+            lg = logits.float() / temperature
+            if top_k > 0:
+                kth = torch.topk(lg, top_k, dim=-1).values[:, -1:]
+                lg = lg.masked_fill(lg < kth, float("-inf"))
+            gen = torch.Generator(device=lg.device).manual_seed(
+                sample_seed(seed, step))
+            return torch.multinomial(torch.softmax(lg, dim=-1), 1,
+                                     generator=gen)[:, 0].to(torch.int32)
+
+        logits, cache = self.prefill(ids)
+        out = [pick(logits, 0)]
+        for i in range(gen_len - 1):
+            logits, cache = self.decode(out[-1], cache)
+            out.append(pick(logits, i + 1))
+        return torch.stack(out, dim=1)
 
     def serving(self, **kw):
         """Wrap this engine in a continuous-batching

@@ -1,19 +1,25 @@
 """Qwen3-MoE on one card (counterpart of
-``triton_dist_tpu/models/qwen_moe.py``: ``init_params``,
-``moe_ffn_decode``, ``prefill_chunk_paged`` and ``decode_step_paged``).
+``triton_dist_tpu/models/qwen_moe.py``: ``init_params``, ``moe_ffn``,
+``moe_ffn_decode``, the dense-cache ``prefill``/``forward_tokens``/
+``decode_step`` and the paged ``prefill_chunk_paged``/
+``decode_step_paged``).
 
 The transformer trunk is :mod:`~triton_dist_tpu_torch.models.dense`'s,
 with the MoE block plugged into its ``ffn_fn`` hook: one trunk, two
-models. The experts run the tensor-parallel regime at one rank
-(:func:`~triton_dist_tpu_torch.layers.tp_moe.fwd_ar`); the
-expert-parallel regime, the shared expert and the per-step expert counts
-of the layer path (``with_expert_counts``) are not ported yet
-(ROADMAP.md, queue A).
+models. The experts run the tensor-parallel regime at one rank: a
+prefill in ``mode="fused"`` through
+:func:`~triton_dist_tpu_torch.layers.tp_moe.fwd_fused` (the row-tile
+grouped GEMM kernel), otherwise :func:`~triton_dist_tpu_torch.layers.
+tp_moe.fwd`; decode and paged chunks through
+:func:`~triton_dist_tpu_torch.layers.tp_moe.fwd_ar`. The expert-parallel
+regime, the shared expert and the per-step expert counts of the layer
+path (``with_expert_counts``) are not ported yet (ROADMAP.md, queue A).
 """
 
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import torch
 from torch import nn
@@ -93,6 +99,57 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
     model = init_head(cfg, **kw)
     model.layers = nn.ModuleList(layers)
     return model
+
+
+def moe_ffn(moe: ep_moe.MoE, h: torch.Tensor, cfg: ModelConfig, *,
+            mode: str, ctxs: dense.FwdContexts) -> torch.Tensor:
+    """One prefill MoE FFN block: ``mode="fused"`` runs the fused
+    pipeline (:func:`tp_moe.fwd_fused`, row tile ``ctxs.block_m``), the
+    other modes :func:`tp_moe.fwd`."""
+    if mode == "fused":
+        return tp_moe.fwd_fused(
+            moe, h, topk=cfg.num_experts_per_tok,
+            num_experts=cfg.num_experts, block_m=ctxs.block_m,
+            norm_topk_prob=cfg.norm_topk_prob)
+    return tp_moe.fwd(moe, h, topk=cfg.num_experts_per_tok,
+                      num_experts=cfg.num_experts,
+                      norm_topk_prob=cfg.norm_topk_prob)
+
+
+def _moe_block(layer: MoEDecoderLayer, h: torch.Tensor, cfg: ModelConfig, *,
+               mode: str, ctxs: dense.FwdContexts) -> torch.Tensor:
+    """The dense trunk's ``ffn_fn`` hook form of :func:`moe_ffn`."""
+    return moe_ffn(layer.moe, h, cfg, mode=mode, ctxs=ctxs)
+
+
+def prefill(params: MoELM, input_ids: torch.Tensor, cfg: ModelConfig, *,
+            mode: str = "xla", ctxs: dense.FwdContexts = dense.FwdContexts(),
+            max_len: Optional[int] = None):
+    """:func:`~triton_dist_tpu_torch.models.dense.prefill` with the MoE
+    block: ``(last-position logits (B, vocab), KVCache)``."""
+    ffn = functools.partial(_moe_block, cfg=cfg, mode=mode, ctxs=ctxs)
+    return dense.prefill(params, input_ids, cfg, mode=mode,
+                         max_len=max_len, ffn_fn=ffn)
+
+
+def forward_tokens(params: MoELM, input_ids: torch.Tensor, cfg: ModelConfig,
+                   *, mode: str = "xla",
+                   ctxs: dense.FwdContexts = dense.FwdContexts()
+                   ) -> torch.Tensor:
+    """Logits of every position (B, S, vocab), the MoE block in the
+    trunk."""
+    ffn = functools.partial(_moe_block, cfg=cfg, mode=mode, ctxs=ctxs)
+    return dense.forward_tokens(params, input_ids, cfg, mode=mode,
+                                ffn_fn=ffn)
+
+
+def decode_step(params: MoELM, token_ids: torch.Tensor, cache,
+                cfg: ModelConfig, *, mode: str = "xla"):
+    """:func:`~triton_dist_tpu_torch.models.dense.decode_step` with the
+    small-batch MoE FFN (:func:`tp_moe.fwd_ar`)."""
+    ffn = functools.partial(_moe_ffn_decode, cfg=cfg)
+    return dense.decode_step(params, token_ids, cache, cfg, mode=mode,
+                             ffn_fn=ffn)
 
 
 def moe_ffn_decode(moe: ep_moe.MoE, h: torch.Tensor,

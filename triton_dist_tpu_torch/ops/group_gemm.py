@@ -1,19 +1,40 @@
 """Grouped expert GEMM for MoE (counterpart of
-``triton_dist_tpu/ops/group_gemm.py``: ``sort_by_expert`` and
-``grouped_swiglu``).
+``triton_dist_tpu/ops/group_gemm.py``).
 
-The JAX package computes ``grouped_swiglu`` with ``jax.lax.ragged_dot``,
-outside any Pallas kernel, so the port computes it as plain PyTorch: one
-product per expert segment of the expert-sorted rows. Its Pallas kernel,
-``_gg_tiles_kernel`` (``grouped_gemm_tiles``), runs only on the fused
-tensor-parallel prefill (``Engine(mode="fused").prefill``) and waits for
-that slice (ROADMAP.md, queue A item 2).
+Two forms, as in the JAX package:
+
+- :func:`grouped_gemm` / :func:`grouped_swiglu`: rows sorted by expert
+  with unpadded segments. JAX computes them with ``jax.lax.ragged_dot``,
+  outside any Pallas kernel, so the port computes them as plain PyTorch,
+  one product per expert segment (the segment sizes are read on the
+  host).
+- :func:`grouped_gemm_tiles`: the row-tile-aligned expert-major layout of
+  :func:`~triton_dist_tpu_torch.ops.ag_moe.prepare_grouped_tokens`, where
+  row tile i belongs to expert ``tile_expert[i]``. On a CUDA tensor it
+  launches ``group_gemm_kernel`` (``csrc/group_gemm.cu``), which replaces
+  the Pallas ``_gg_tiles_kernel``; on a CPU tensor it runs
+  :func:`grouped_gemm_tiles_ref`, JAX's per-tile product. Nothing is read
+  on the host. JAX's ``block_n``/``block_k`` (VMEM tilings) have no
+  counterpart; ``grouped_gemm_tiles_tuned`` waits for the autotuner
+  (ROADMAP.md).
+
+Expert weights are stored ``(E, out, in)`` (:mod:`~triton_dist_tpu_torch.
+layers.ep_moe`), the transpose of JAX's ``(E, in, out)``.
 """
 
 from __future__ import annotations
 
+import ctypes
+from typing import Sequence, Union
+
 import torch
 import torch.nn.functional as F
+
+from triton_dist_tpu_torch.utils.build import CudaKernel
+
+# ``KERNEL.launches`` counts launches of the CUDA kernel.
+KERNEL = CudaKernel("group_gemm.cu", "tdt_group_gemm_bf16",
+                    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6)
 
 
 def sort_by_expert(tokens: torch.Tensor, expert_ids: torch.Tensor,
@@ -60,3 +81,101 @@ def grouped_swiglu(x: torch.Tensor, w_gate: torch.Tensor,
         out[start:start + n] = _mm_f32(h, w_down[e]).to(x.dtype)
         start += n
     return out
+
+
+def grouped_gemm(x: torch.Tensor, w: torch.Tensor,
+                 group_sizes: torch.Tensor) -> torch.Tensor:
+    """x: (M, d) sorted by group; w: (E, f, d); group_sizes: (E,). Rows of
+    group e times ``w[e]``, fp32 sums, returned in ``x.dtype`` (JAX's
+    ``ragged_dot`` form). Rows past the groups are zero."""
+    out = x.new_zeros((x.shape[0], w.shape[1]))
+    start = 0
+    for e, n in enumerate(group_sizes.tolist()):
+        if n:
+            out[start:start + n] = _mm_f32(x[start:start + n],
+                                           w[e]).to(x.dtype)
+            start += n
+    return out
+
+
+Weights = Union[torch.Tensor, Sequence[torch.Tensor]]
+
+
+def _weights(w: Weights):
+    ws = (w,) if isinstance(w, torch.Tensor) else tuple(w)
+    if not 1 <= len(ws) <= 2:
+        raise ValueError(f"one or two weights, got {len(ws)}")
+    e, _, d = ws[0].shape
+    for t in ws:
+        if t.dim() != 3 or t.shape[0] != e or t.shape[2] != d:
+            raise ValueError(f"weights {[tuple(t.shape) for t in ws]} are "
+                             "not (E, f, d) of one E and d")
+    return ws
+
+
+def grouped_gemm_tiles(x_sorted: torch.Tensor, w: Weights,
+                       tile_expert: torch.Tensor) -> torch.Tensor:
+    """Grouped GEMM over a row-tile-aligned expert-major layout.
+
+    ``x_sorted``: (S, d), every row tile owned by one expert; ``w``: (E, f,
+    d), or a pair of them whose outputs stand side by side (the MoE gate
+    and up weights: columns ``[0, f0)`` from the first, ``[f0, f0 + f1)``
+    from the second, with no concatenated copy); ``tile_expert``: (S //
+    tm,) int32, the row tile ``tm`` inferred from it. Each output is an
+    fp32 sum rounded once to ``x_sorted.dtype``. Returns (S, sum of f)."""
+    ws = _weights(w)
+    s, d = x_sorted.shape
+    n_tiles = tile_expert.shape[0]
+    if n_tiles == 0 or s % n_tiles or ws[0].shape[2] != d:
+        raise ValueError(f"x_sorted {tuple(x_sorted.shape)}, {n_tiles} "
+                         f"tiles, weights (E, f, {ws[0].shape[2]})")
+    if x_sorted.device.type == "cpu":
+        return grouped_gemm_tiles_ref(x_sorted, ws, tile_expert)
+    tm = s // n_tiles
+    dev = x_sorted.device
+    if dev.type != "cuda":
+        raise RuntimeError(f"grouped_gemm_tiles runs on CUDA tensors (got "
+                           f"{dev}); only CPU tensors take the plain version")
+    for t in (x_sorted, *ws):
+        if t.device != dev or t.dtype != torch.bfloat16:
+            raise TypeError(f"expected bf16 tensors on {dev}, got {t.dtype} "
+                            f"on {t.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("x_sorted and the weights must be contiguous "
+                             "and 16-byte aligned")
+    if (tile_expert.device != dev or tile_expert.dtype != torch.int32
+            or not tile_expert.is_contiguous()):
+        raise TypeError("tile_expert must be contiguous int32 on " + str(dev))
+    if tm > 64 and tm % 64:
+        raise ValueError(f"row tile {tm}: the kernel takes tiles of at most "
+                         "64 rows or multiples of 64")
+    f0 = ws[0].shape[1]
+    f1 = ws[1].shape[1] if len(ws) == 2 else 0
+    out = x_sorted.new_empty((s, f0 + f1))
+    KERNEL.launch(x_sorted.data_ptr(), ws[0].data_ptr(),
+                  ws[1].data_ptr() if f1 else None, tile_expert.data_ptr(),
+                  out.data_ptr(), s, d, ws[0].shape[0], f0, f1, tm,
+                  device=dev)
+    return out
+
+
+def grouped_gemm_tiles_ref(x_sorted: torch.Tensor, w: Weights,
+                           tile_expert: torch.Tensor, *,
+                           tiles_per_step: int = 16) -> torch.Tensor:
+    """Plain version, JAX's per-tile product: each row tile times its
+    expert's weight in fp32, rounded once to ``x_sorted.dtype``. The
+    weight gather runs ``tiles_per_step`` tiles at a time, so it never
+    holds every tile's weights at once."""
+    ws = _weights(w)
+    s, d = x_sorted.shape
+    n_tiles = tile_expert.shape[0]
+    tm = s // n_tiles
+    tiles = x_sorted.reshape(n_tiles, tm, d)
+    te = tile_expert.long()
+    out = x_sorted.new_empty((n_tiles, tm, sum(t.shape[1] for t in ws)))
+    for i in range(0, n_tiles, tiles_per_step):
+        sl = slice(i, i + tiles_per_step)
+        a = tiles[sl].float()
+        out[sl] = torch.cat([torch.bmm(a, t[te[sl]].float().transpose(1, 2))
+                             for t in ws], dim=-1).to(out.dtype)
+    return out.reshape(s, -1)

@@ -131,6 +131,25 @@ class PagedKVCache:
                                      page=self.page)
         self._put(layer, pids, offs, k_tok[:, 0], v_tok[:, 0])
 
+    def write_prompt(self, k_prompt, v_prompt, page_ids) -> None:
+        """Blit a prefilled prompt's K/V into pages, in place (every
+        layer at once).
+
+        k_prompt/v_prompt: (L, S_pad, KV, hd), S_pad a multiple of
+        ``page`` (the tail past the slot's length is masked by every
+        reader); ``page_ids``: (S_pad // page,) int page ids, one per
+        page block. The caller passes only the suffix of its allocation
+        that is not prefix-shared (:meth:`BlockManager.prefix_hits`):
+        shared pages keep the first sharer's bytes."""
+        num_l, s_pad, kvh, hd = k_prompt.shape
+        n_p = s_pad // self.page
+        ids = torch.as_tensor(page_ids, dtype=torch.long,
+                              device=self.k_pages.device)
+        for pool, prompt in ((self.k_pages, k_prompt),
+                             (self.v_pages, v_prompt)):
+            blocks = prompt.reshape(num_l, n_p, self.page, kvh, hd)
+            pool[:, ids] = blocks.transpose(2, 3).to(pool.dtype)
+
     def dense_row(self, layer: int, table_row):
         """ONE slot's pages of one layer, gathered to the dense
         position-major view (p_max·page, KV, hd) — K and V."""

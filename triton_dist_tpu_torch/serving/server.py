@@ -36,10 +36,15 @@ hot-expert set to a dynamic-schedule engine's claim priorities
 transports and hot-expert replicas are not ported (ROADMAP.md, queue A
 item 5).
 
+On the layer lane, ``prefill_buckets=None`` (the default) admits each
+prompt monolithically: one dense-cache :meth:`Engine.prefill` of the
+whole sequence (the prefill flash-attention kernel; a fused MoE engine's
+grouped expert GEMM), whose K/V is blitted into the slot's pages.
+
 On a CUDA engine the kernels are the hand-written ones, on a CPU engine
-their plain versions. Monolithic prefill, speculative decoding, quantized
-pools, KV tiers, SLO scheduling, trace telemetry and the resilience hooks
-are not ported yet (ROADMAP.md).
+their plain versions. Speculative decoding, quantized pools, KV tiers,
+SLO scheduling, trace telemetry and the resilience hooks are not ported
+yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -70,7 +75,7 @@ HOT_EXPERT_FACTOR = 2.0
 LOAD_ALPHA = 0.25
 
 
-def _sample_seed(seed: int, step: int) -> int:
+def sample_seed(seed: int, step: int) -> int:
     """Per-(request seed, step) generator seed, so a request samples the
     same tokens alone or in a shared batch."""
     return ((int(seed) & 0xFFFFFFFF) << 32 | (int(step) & 0xFFFFFFFF))
@@ -87,8 +92,9 @@ class ServingEngine:
     the reserved scratch page (default: full residency for every slot;
     undersize it to exercise backpressure and preemption). ``policy``:
     ``"continuous"`` | ``"static"``. ``prefill_buckets``: the chunk
-    lengths prompts stream through — required on the layer lane, since
-    monolithic prefill is not ported. ``clock`` is injectable for deadline
+    lengths prompts stream through; ``None`` on the layer lane admits
+    each prompt with one monolithic :meth:`Engine.prefill` and blits its
+    K/V into the pages. ``clock`` is injectable for deadline
     tests. On the megakernel lane the engine must be paged; its batch,
     page and pool are the server's (``num_slots``, ``page`` and
     ``num_pages`` are not read, as in the JAX server), and
@@ -134,12 +140,6 @@ class ServingEngine:
                     "construct the engine with num_pages >= batch*p_max+1 "
                     f"(= {need}, got {num_pages})")
         else:
-            if not prefill_buckets:
-                raise NotImplementedError(
-                    "prefill_buckets=None selects monolithic prefill, which "
-                    "needs the dense-cache Engine.prefill and a prefill "
-                    "flash-attention kernel; neither is ported yet "
-                    "(ROADMAP.md). Pass prefill_buckets=(...)")
             num_slots = num_slots or 4
             page = page or math.gcd(self.max_len, 32)
             if self.max_len % page:
@@ -164,8 +164,9 @@ class ServingEngine:
                 cfg.num_hidden_layers, num_pages, page,
                 cfg.num_key_value_heads, cfg.head_dim, num_slots=num_slots,
                 p_max=self.p_max, device=self.device, dtype=engine.dtype)
-            self.prefill_buckets = prefill_buckets
-            self.chunker = ChunkedPrefill(engine, self.prefill_buckets)
+            if prefill_buckets:
+                self.prefill_buckets = prefill_buckets
+                self.chunker = ChunkedPrefill(engine, prefill_buckets)
         # The megakernel's one-token prefill lane: prompts ride the decode
         # launch (no chunker).
         self._lane = self.mega and self.chunker is None
@@ -315,7 +316,7 @@ class ServingEngine:
         slot = h.slot
         seq = list(h.request.prompt) + [int(t) for t in h.tokens[:-1]]
         try:
-            self.manager.alloc_prefill(slot, seq)
+            pages = self.manager.alloc_prefill(slot, seq)
         except OutOfPagesError as e:
             self._unadmit(h, e, stalled)
             return
@@ -329,6 +330,9 @@ class ServingEngine:
             self._live[slot] = 1
             self._toks[slot] = seq[0]
             return
+        if self.chunker is None:
+            self._admit_monolithic(h, seq, pages)
+            return
         h.resident = self.manager.prefix_hits(slot) * self.page
         h.lane = seq
         h.prompt_pos = min(h.resident, len(seq) - 1)
@@ -339,6 +343,34 @@ class ServingEngine:
         self._lens[slot] = 0
         self._live[slot] = 0
         self._toks[slot] = 0
+
+    def _admit_monolithic(self, h: RequestHandle, seq: List[int],
+                          pages: List[int]):
+        """Monolithic admission (``prefill_buckets=None`` on the layer
+        lane): one :meth:`Engine.prefill` of the whole (1, len) sequence,
+        then a blit of only the pages that are not prefix hits (shared
+        pages keep the first sharer's bytes), then the pages are
+        published for sharing and the slot goes live with its first
+        token. A failing prefill releases the slot and re-raises."""
+        slot = h.slot
+        t0 = time.perf_counter()
+        try:
+            logits, kv = self.engine.prefill(np.asarray([seq], np.int32))
+            hits = self.manager.prefix_hits(slot)
+            if hits < len(pages):
+                span = slice(hits * self.page, len(pages) * self.page)
+                self.cache.write_prompt(kv.k[:, 0, span], kv.v[:, 0, span],
+                                        pages[hits:])
+            logits = logits[0].cpu().numpy()
+        except Exception as e:  # noqa: BLE001 — release the slot, re-raise
+            self._retire(h, "failed", e)
+            raise
+        c = self.stats_counters
+        c["prefill_time_s"] += time.perf_counter() - t0
+        c["prefill_calls"] += 1
+        c["prefill_tokens"] += len(seq)
+        h.lane = seq
+        self._activate(h, logits)
 
     def _advance_chunks(self):
         """One bucketed chunk per prefilling slot per tick (the
@@ -527,7 +559,7 @@ class ServingEngine:
         if req.top_k > 0:
             kth = torch.topk(lg, req.top_k).values[-1]
             lg = lg.masked_fill(lg < kth, float("-inf"))
-        gen = torch.Generator().manual_seed(_sample_seed(req.seed, step))
+        gen = torch.Generator().manual_seed(sample_seed(req.seed, step))
         return int(torch.multinomial(torch.softmax(lg, dim=-1), 1,
                                      generator=gen))
 
