@@ -177,6 +177,56 @@ Phases (any failure exits nonzero; nothing is caught):
    launches counted and prefill logits within phase 4's 0.1 of the plain
    forward (not the paged server: the paged kernels take head_dim 128
    only, the fixtures have 8).
+19. Rows 15 and 16 on quantized pools (int8 and fp8) against their plain
+   versions at phase 2's shapes: pools and per-page scales written by
+   the plain writer (``PagedKVCache.write_prompt``) from seeded K/V; the
+   decode kernel at 1/1025/736/333, the Q-block kernel on a 512-query
+   chunk from 0 and on a verify block of K = 4 per slot at those lengths;
+   phase 2's limits (both attend in fp32 and round the output to bf16
+   once). Planted fault: the scale table of the next page id. Times
+   against a bound of one byte an element plus the scales, q and out.
+20. The megakernel's quantized write task alone (Qwen3-8B widths, 2
+   layers, page 128) in decode rows (a parked row, one at a reused
+   page's first offset, two mid-page), a 512-row chunk from 0, a 100-row
+   chunk from 130 (ends mid-page) and a 4 x 4 verify block with masked
+   rows, against the plain ``_quant_store_token`` sequence on the same
+   seeded K/V rows and codes: int8 codes within one step, fp8 codes
+   within two units of last place (a one-step tie flip carried into a
+   lower binade by a rescale), scales within 1e-6 relative (the two runs
+   quantize the same rows up to the ulps of two rope spellings). Planted
+   fault: the plain run's table row shifted by one page. Its time alone.
+21. Qwen3-8B at full depth (phase 3's weights, seed 0) on both lanes,
+   four prompts (two repetitive) within one 128-row chunk, 32 tokens:
+   bf16, int8, fp8 pools and bf16 with spec_k = 4 (n-gram 3). Counts
+   set to zero around each run: every new form launched exactly as often
+   as the layers x dispatches / chunks say, and nothing else. Spec
+   tokens against the non-spec run of the same lane: a request's first
+   divergence must sit where the non-spec top-2 logits are within 4 bf16
+   units (verify runs the Q-block kernel or the tensor-core LINEAR where
+   decode does not). Printed: tokens/s, acceptance, dispatches per token,
+   pool bytes and capacity, greedy agreement and first-decode logit gap
+   against bf16 pools beside the JAX CPU battery's 0.05 / 0.15. At 2
+   layers: the quantized lanes' served logits (first two tokens) within
+   0.1 (int8) and 0.15 (fp8) of the same serving through the plain
+   versions (the layer lane's plain paged attention; the megakernel's
+   plain interpreter), and every new megakernel form (int8/fp8 decode,
+   chunk and verify, bf16 verify) against its plain interpreter from the
+   same state within phase 5's limits, the dequantized pools within 0.1
+   (int8) and 0.25 (fp8, 3.5 steps of its top binade) of each page's
+   max-abs (the K rows differ by bf16 units, so the
+   running scales grow at different tokens and codes round a different
+   number of times: 5 int8 codes measured in a 128-row chunk; a misplaced
+   row is off by the order of the max-abs). Full depth times of each
+   form against its bound.
+22. Qwen3-30B-A3B cut to 4 layers on both lanes with int8 pools and
+   spec_k = 4, against the int8 run without spec under the near-tie
+   rule; at 2 layers its chunk and verify launches against the plain
+   interpreter, routing judged by phase 14's rule.
+23. Qwen3-32B (the rider) at full width, 8 of 64 layers, on the layer
+   lane with int8 pools: GQA 8 through the int8 forms of rows 15 and 16,
+   launches counted, the first two served tokens' logits within 0.1 of
+   the plain quantized run. (Every plain run of phases 21-23 is fed the
+   kernel run's tokens, so both compute each step on the same inputs.)
 
 The last lines of output: one JSON object with every kernel's numbers
 (the megakernel once per row mode, and once per MoE row mode), the
@@ -184,6 +234,7 @@ card's name and power limit as
 nvidia-smi gives them, then ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import copy
 import ctypes
 import dataclasses
@@ -283,11 +334,12 @@ def build_kernels():
           "(resident on every SM)")
     # Both kernels take their shared memory dynamically (ptxas does not
     # report it): rows = 4 query heads per KV head for decode, 32 (query,
-    # head) rows for the Q-block kernel.
+    # head) rows for the Q-block kernel; bf16 pools, then int8/fp8 ones.
     smem = build.load("paged_attention.cu").tdt_paged_smem_bytes
-    smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
-    print(f"[smem] paged_decode_kernel {smem(4)} B/block, "
-          f"paged_qblock_kernel {smem(32)} B/block (dynamic)")
+    smem.argtypes, smem.restype = [ctypes.c_int] * 2, ctypes.c_int
+    print(f"[smem] paged_decode_kernel {smem(4, 0)} / {smem(4, 1)} B/block, "
+          f"paged_qblock_kernel {smem(32, 0)} / {smem(32, 1)} B/block "
+          "(dynamic; bf16 / int8-fp8 pools)")
 
 
 def kernel_phase():
@@ -471,6 +523,10 @@ def launch_counters() -> dict:
     from triton_dist_tpu_torch.ops import paged_flash_qblock as pfq
 
     return {"decode": pfd.KERNEL, "qblock": pfq.KERNEL,
+            "decode-int8": pfd.KERNELS[torch.int8],
+            "decode-fp8": pfd.KERNELS[torch.float8_e4m3fn],
+            "qblock-int8": pfq.KERNELS[torch.int8],
+            "qblock-fp8": pfq.KERNELS[torch.float8_e4m3fn],
             "megakernel": mkb.KERNEL, "flash": fa.KERNEL,
             "group_gemm": gg.KERNEL}
 
@@ -781,15 +837,22 @@ def mk_step_work(mb, lens):
     cfg, b = mb.cfg, mb.batch
     lens = np.asarray(lens, np.int64)
     pos = mb._row_positions(lens)
-    writes = (lens >= 0) if mb.mode == "chunk" else np.ones(b, bool)
+    writes = ((lens >= 0) if mb.mode in ("chunk", "qblock")
+              else np.ones(b, bool))
     slots = {"decode": np.arange(b), "prefill": np.arange(b) // mb.seq,
+             "qblock": np.arange(b) // mb.seq,
              "chunk": np.zeros(b, np.int64)}[mb.mode]
-    keys = sum(int(pos[slots == s].max()) + 1 for s in np.unique(slots))
+    keys = [int(pos[slots == s].max()) + 1 for s in np.unique(slots)]
     weight_rows = sum(r.rows for r in mb.schema.regions("weight")
                       if r.name != "embed")
     kv_row = cfg.num_hidden_layers * cfg.num_key_value_heads * cfg.head_dim
+    # A quantized pool: one byte an element, and the fp32 K and V scales
+    # of every attended page.
+    elem = 1 if mb.kv_quant else 2
+    scales = (sum(-(-k // mb.page) for k in keys) * cfg.num_hidden_layers
+              * cfg.num_key_value_heads * 4 * 2 if mb.kv_quant else 0)
     nbytes = (weight_rows * mb.w * 2 + b * cfg.hidden_size * 2
-              + (keys + int(writes.sum())) * kv_row * 2 * 2
+              + (sum(keys) + int(writes.sum())) * kv_row * elem * 2 + scales
               + b * mb.vloc_tiles * mb.w * 2)
     flops = (2 * b * weight_rows * mb.w
              + 4 * int((pos + 1).sum()) * cfg.num_attention_heads
@@ -2240,6 +2303,991 @@ def checkpoint_phase():
     torch.cuda.empty_cache()
 
 
+# ---- Quantized pools and speculative decoding (phases 19-23) -------------
+
+KV_QUANT = ("int8", "fp8")
+# Quantized served logits against the plain quantized run (the layer
+# lane's limits), and the JAX CPU battery's bounds of a quantized pool's
+# first-decode logits against a bf16 pool's (printed, not gated).
+TOL_QUANT_LOGITS = {"int8": 0.1, "fp8": 0.15}
+JAX_CPU_BOUND = {"int8": 0.05, "fp8": 0.15}
+SPEC_K, SPEC_NGRAM = 4, 3
+# Code steps the write task alone may stray from the plain sequence. The
+# two quantize the same rows up to the ulps of two rope spellings, so a
+# token's code may land one step off at a rounding tie; a later rescale
+# carries that step on, and for fp8, whose steps halve in each lower
+# binade, a step of the binade above can become two below (measured on
+# an H100: 1.6 of the plain value's step in a 512-row chunk).
+WRITE_STEPS = {"int8": 1, "fp8": 2}
+
+
+def quant_pools(dev, kvd, num_pages, kvh, page, hd, seed):
+    """One layer's quantized page pool written by the plain writer
+    (``PagedKVCache.write_prompt``: one fresh max-abs scale per page and
+    head) from seeded bf16 K/V; page 0 stays the zero scratch page.
+    Returns (K codes, V codes, K scales, V scales)."""
+    from triton_dist_tpu_torch.serving.blocks import PagedKVCache
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cache = PagedKVCache.empty(1, num_pages, page, kvh, hd, num_slots=1,
+                               p_max=1, device=dev, kv_dtype=kvd)
+    n = (num_pages - 1) * page
+    k, v = (torch.randn(1, n, kvh, hd, generator=g, device=dev,
+                        dtype=torch.bfloat16) for _ in range(2))
+    cache.write_prompt(k, v, list(range(1, num_pages)))
+    return (cache.k_pages[0], cache.v_pages[0], cache.k_scale[0],
+            cache.v_scale[0])
+
+
+def quant_kernel_phase():
+    """Phase 19: the int8 and fp8 forms of rows 15 and 16 against their
+    plain versions at the serve shapes, with a planted fault each."""
+    from triton_dist_tpu_torch.ops import paged_flash_decode as pfd
+    from triton_dist_tpu_torch.ops import paged_flash_qblock as pfq
+
+    dev = torch.device("cuda", 0)
+    S, H, KV, HD, PAGE, P_MAX = 4, 32, 8, 128, 32, 128
+    num_pages = 1 + S * P_MAX
+    g = torch.Generator(device=dev).manual_seed(19)
+    bf = dict(device=dev, dtype=torch.bfloat16)
+    perm = torch.randperm(num_pages - 1, generator=g, device=dev) + 1
+    table = perm.view(S, P_MAX).to(torch.int32).contiguous()
+    table[0] = 0                                     # parked slot
+    kv_len = torch.tensor([1, 1025, 736, 333], dtype=torch.int32, device=dev)
+    n = kv_len.clamp(min=1).double()
+    out = {}
+    for kvd in KV_QUANT:
+        kc, vc, ks, vs = quant_pools(dev, kvd, num_pages, KV, PAGE, HD, 19)
+        sc = dict(k_scale=ks, v_scale=vs)
+        # The scale table of the next page id: every page misread.
+        bad = dict(k_scale=ks.roll(-1, 0).contiguous(),
+                   v_scale=vs.roll(-1, 0).contiguous())
+        q = torch.randn(S, H, HD, generator=g, **bf)
+        got = pfd.paged_flash_decode(q, kc, vc, table, kv_len, **sc)
+        want = pfd.paged_flash_decode_ref(q, kc, vc, table, kv_len, ks, vs)
+        torch.cuda.synchronize()
+        err = check_close(f"decode-{kvd}", got, want, TOL_DECODE)
+        fault_control(f"decode-{kvd} next page's scales",
+                      pfd.paged_flash_decode(q, kc, vc, table, kv_len, **bad),
+                      want, TOL_DECODE)
+        pages = (n / PAGE).ceil().sum().item()
+        # One byte an element, the K and V scales of every page read.
+        nbytes = (2 * q.numel() * 2 + n.sum().item() * KV * HD * 2
+                  + pages * KV * 4 * 2 + S * 4 + pages * 4)
+        flops = 4 * H * HD * n.sum().item()
+        k_ms = time_ms(lambda: pfd.paged_flash_decode(q, kc, vc, table,
+                                                      kv_len, **sc))
+        p_ms = time_ms(lambda: pfd.paged_flash_decode_ref(
+            q, kc, vc, table, kv_len, ks, vs))
+        b_ms, b_by = bound(nbytes, flops)
+        print(f"[decode-{kvd}] kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} "
+              f"bound_ms {b_ms:.4f} ({b_by})")
+        out[f"decode-{kvd}"] = dict(err=err, ms=k_ms, plain_ms=p_ms,
+                                    bound_ms=b_ms, bound_by=b_by)
+
+        # Q-block: a 512-query chunk from 0, and a verify block of K = 4
+        # per slot at the decode lengths (query j at kv_len + j).
+        row = table[1:2]
+        C = 512
+        qc = torch.randn(1, C, H, HD, generator=g, **bf)
+        pos0 = torch.arange(C, dtype=torch.int32, device=dev)[None]
+        got = pfq.paged_flash_qblock(qc, kc, vc, row, pos0, **sc)
+        want = pfq.paged_flash_qblock_ref(qc, kc, vc, row, pos0, ks, vs)
+        torch.cuda.synchronize()
+        errs = [check_close(f"qblock-{kvd} C {C} from 0", got, want,
+                            TOL_QBLOCK)]
+        fault_control(f"qblock-{kvd} next page's scales",
+                      pfq.paged_flash_qblock(qc, kc, vc, row, pos0, **bad),
+                      want, TOL_QBLOCK)
+        qv = torch.randn(S, SPEC_K, H, HD, generator=g, **bf)
+        posv = (kv_len[:, None] + torch.arange(
+            SPEC_K, dtype=torch.int32, device=dev)[None]).contiguous()
+        got = pfq.paged_flash_qblock(qv, kc, vc, table, posv, **sc)
+        want = pfq.paged_flash_qblock_ref(qv, kc, vc, table, posv, ks, vs)
+        torch.cuda.synchronize()
+        errs.append(check_close(f"qblock-{kvd} verify K {SPEC_K}", got,
+                                want, TOL_QBLOCK))
+        v_ms = time_ms(lambda: pfq.paged_flash_qblock(qv, kc, vc, table,
+                                                      posv, **sc))
+        pages = math.ceil(C / PAGE)
+        nbytes = (2 * qc.numel() * 2 + C * KV * HD * 2 + pages * KV * 4 * 2
+                  + C * 4 + pages * 4)
+        flops = 4 * H * HD * (C * (C + 1) / 2)
+        k_ms = time_ms(lambda: pfq.paged_flash_qblock(qc, kc, vc, row, pos0,
+                                                      **sc))
+        p_ms = time_ms(lambda: pfq.paged_flash_qblock_ref(
+            qc, kc, vc, row, pos0, ks, vs))
+        b_ms, b_by = bound(nbytes, flops)
+        print(f"[qblock-{kvd}] 512-query chunk: kernel_ms {k_ms:.4f} "
+              f"plain_ms {p_ms:.4f} bound_ms {b_ms:.4f} ({b_by}); verify "
+              f"block {S} x {SPEC_K}: kernel_ms {v_ms:.4f}")
+        out[f"qblock-{kvd}"] = dict(err=max(errs), ms=k_ms, plain_ms=p_ms,
+                                    bound_ms=b_ms, bound_by=b_by)
+        del kc, vc, ks, vs
+    torch.cuda.empty_cache()
+    return out
+
+
+def quant_write_case(mb, kvd, lens, table, dev, seed, *, shift=False):
+    """Layer 0's write task of ``mb`` alone, on the card and through the
+    plain ``_quant_store_token`` sequence, from the same seeded K/V rows
+    (written into the arena's K and V regions) over pages holding seeded
+    codes and scales. ``shift``: the plain run reads the table row
+    shifted by one page (the planted fault). Returns (kernel pools,
+    plain pools) as [K codes, K scales, V codes, V scales], and the
+    write task's time alone."""
+    from triton_dist_tpu_torch.megakernel.task import TaskType
+
+    cfg = mb.cfg
+    g = torch.Generator(device=dev).manual_seed(seed)
+    arena = torch.zeros(mb.arena_rows, mb.w, device=dev,
+                        dtype=torch.bfloat16)
+    o = mb._offsets
+    arena[o["l0.k_norm"]] = 1.0
+    for name in ("l0.k", "l0.v"):
+        rows = mb.kv_tiles * mb.batch
+        arena[o[name]:o[name] + rows] = torch.randn(
+            rows, mb.w, generator=g, device=dev, dtype=torch.bfloat16)
+    num_pages = int(np.max(table)) + 2
+    kc, vc, ks, vs = quant_pools(dev, kvd, num_pages,
+                                 cfg.num_key_value_heads, mb.page,
+                                 cfg.head_dim, seed)
+    L = cfg.num_hidden_layers
+
+    def pool(codes):        # (N, KV, page, hd) -> (L, N, page, KV, hd)
+        return codes.transpose(1, 2).unsqueeze(0).expand(
+            L, *codes.transpose(1, 2).shape).contiguous()
+
+    pools = [pool(kc), ks[None].expand(L, *ks.shape).contiguous(),
+             pool(vc), vs[None].expand(L, *vs.shape).contiguous()]
+    plain = [t.clone() for t in pools]
+    wk = next(t.task_id for t in mb.graph.tasks
+              if t.task_type in (TaskType.WRITE_KV, TaskType.WRITE_KV_CHUNK,
+                                 TaskType.WRITE_KV_QBLOCK))
+    one = mb.isolate([wk])
+    toks = np.zeros(mb.batch, np.int32)
+    one.step(arena, pools[0], pools[2], toks, lens, table,
+             k_scale=pools[1], v_scale=pools[3])
+    ptable = np.roll(table, 1) if shift else table
+    one.plain_step(arena.clone(), plain[0], plain[2], toks, lens, ptable,
+                   k_scale=plain[1], v_scale=plain[3])
+    torch.cuda.synchronize()
+    scratch = [t.clone() for t in pools]
+    t_ms = time_events(lambda: one.launch(
+        arena, scratch[0], scratch[2], toks, lens, table,
+        k_scale=scratch[1], v_scale=scratch[3]), reps=3)
+    return pools, plain, t_ms
+
+
+def codes_close(label, pools, plain, steps=1, scale_rtol=1e-6) -> bool:
+    """Codes within ``steps`` steps of the plain ones (int8: 1; fp8: one
+    unit of last place, 2**-3 of the value, 2**-9 at the smallest) and
+    scales within ``scale_rtol`` relative; prints and returns whether."""
+    worst_c, worst_s = 0.0, 0.0
+    ok = True
+    for i in (0, 2):
+        d = (pools[i].float() - plain[i].float()).abs()
+        step = (torch.ones_like(d) if pools[i].dtype == torch.int8 else
+                (plain[i].float().abs() * 2.0 ** -3).clamp(min=2.0 ** -9))
+        worst_c = max(worst_c, float((d / step).max()))
+        rel = float(((pools[i + 1] - plain[i + 1]).abs()
+                     / plain[i + 1]).max())
+        worst_s = max(worst_s, rel)
+        ok = ok and bool((d <= steps * step).all()) and rel <= scale_rtol
+    print(f"[{label}] codes within {worst_c:.2f} steps (limit {steps}), "
+          f"scales within {worst_s:.2e} relative (limit {scale_rtol}): "
+          f"{'ok' if ok else 'OUTSIDE'}")
+    return ok
+
+
+# Whole quantized steps: dequantized pools against the plain run's, as a
+# fraction of each page's max-abs (int8: 12.7 codes; fp8: 3.5 steps of
+# its top binade, whose step is 32/448 = 0.071 of the max-abs).
+TOL_STEP_POOLS = {torch.int8: 0.1, torch.float8_e4m3fn: 0.25}
+
+
+def dequant_close(label, pools, plain) -> bool:
+    """Whole quantized steps: the dequantized pools within TOL_STEP_POOLS
+    of each (layer, page, head)'s max-abs (the plain run's scale x
+    qmax). The K rows the kernel and the plain run quantize differ by
+    the bf16 units of the projections before them, so their running
+    scales grow at different tokens and the page's codes are rounded a
+    different number of times (measured: 5 int8 codes, 4 % of max-abs,
+    in a 128-row chunk, and 0.11 of the max-abs in fp8, 1.5 of its top
+    steps); a row written at a wrong page, position or head is off by the
+    order of the max-abs."""
+    worst = 0.0
+    tol = TOL_STEP_POOLS[pools[0].dtype]
+    for i in (0, 2):
+        qmax = 127.0 if pools[i].dtype == torch.int8 else 448.0
+        deq = [p[i].float() * p[i + 1][:, :, None, :, None]
+               for p in (pools, plain)]
+        amax = plain[i + 1][:, :, None, :, None] * qmax
+        worst = max(worst, float(((deq[0] - deq[1]).abs() / amax).max()))
+    ok = worst <= tol
+    print(f"[{label}] dequantized pools within {worst:.4f} of each page's "
+          f"max-abs (limit {tol}): {'ok' if ok else 'OUTSIDE'}")
+    return ok
+
+
+def mk_quant_write_phase():
+    """Phase 20: the megakernel's quantized write task alone at Qwen3-8B
+    widths (2 layers), in decode, chunk and Q-block rows, held to the
+    plain ``_quant_store_token`` sequence on the same inputs."""
+    from triton_dist_tpu_torch import ModelConfig
+    from triton_dist_tpu_torch.megakernel import builder as mkb
+    from triton_dist_tpu_torch.ops.chunked_prefill import chunk_row_codes
+
+    dev = torch.device("cuda", 0)
+    cfg = dataclasses.replace(ModelConfig.qwen3_8b(), num_hidden_layers=2)
+    kw = dict(max_len=2048, t_tile=128, paged=True, page=128)
+    p_max = 2048 // 128
+    rng = np.random.RandomState(20)
+    perm = (rng.permutation(4 * p_max) + 1).astype(np.int32)
+    out = {}
+    for kvd in KV_QUANT:
+        # Decode: a parked row on the scratch page, one at a page's first
+        # offset over a page holding a stale scale (a freed page reused),
+        # two mid-page.
+        mb = mkb.ModelBuilder(cfg, batch=4, kv_quant=kvd, **kw)
+        table = perm.copy()
+        table[:p_max] = 0
+        cases = [("decode", mb, np.array([0, 1024, 700, 130], np.int32),
+                  table)]
+        for c, start, valid in ((512, 0, 512), (100, 130, 100)):
+            mb = mkb.ModelBuilder(cfg, batch=c, seq=c, chunk=True,
+                                  kv_quant=kvd, **kw)
+            cases.append((f"chunk {c} from {start}", mb,
+                          chunk_row_codes(start, c, valid, 0),
+                          perm[p_max:2 * p_max]))
+        mb = mkb.ModelBuilder(cfg, batch=4 * SPEC_K, seq=SPEC_K, qblock=True,
+                              kv_quant=kvd, **kw)
+        pos = np.concatenate([np.array(MK_LENS)[:, None] + np.arange(SPEC_K)]
+                             ).reshape(-1).astype(np.int32)
+        pos[:SPEC_K] = -1                     # the parked slot: masked
+        pos[2 * SPEC_K - 1] = -1              # an over-budget candidate
+        cases.append(("qblock 4 x 4", mb, pos, table))
+        for label, mb, lens, tbl in cases:
+            pools, plain, t_ms = quant_write_case(mb, kvd, lens, tbl, dev,
+                                                  20)
+            print(f"[mk-quant-write] {kvd} {label}: write task alone "
+                  f"{t_ms:.4f} ms (one layer, K and V)")
+            if not codes_close(f"mk-quant-write {kvd} {label}", pools,
+                               plain, steps=WRITE_STEPS[kvd]):
+                fail(f"megakernel quantized write ({kvd}, {label}) strays "
+                     "from the plain sequence")
+            out[f"{kvd} {label}"] = t_ms
+        # The planted fault: the plain run's table row shifted by a page.
+        label, mb, lens, tbl = cases[1]
+        pools, plain, _ = quant_write_case(mb, kvd, lens, tbl, dev, 20,
+                                           shift=True)
+        if codes_close(f"mk-quant-write {kvd} {label} shifted table (fault)",
+                       pools, plain, steps=WRITE_STEPS[kvd]):
+            fail(f"the quantized write limits miss a shifted table ({kvd})")
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """The layer lane's paged attention through the plain versions: the
+    plain run the quantized kernels' served logits are held against."""
+    from triton_dist_tpu_torch.models import dense
+    from triton_dist_tpu_torch.ops import paged_flash_decode as pfd
+    from triton_dist_tpu_torch.ops import paged_flash_qblock as pfq
+
+    saved = dense.paged_flash_decode, dense.paged_flash_qblock
+    dense.paged_flash_decode = (
+        lambda q, kp, vp, bt, n, k_scale=None, v_scale=None, axis=None:
+        pfd.paged_flash_decode_ref(q, kp, vp, bt, n, k_scale, v_scale))
+    dense.paged_flash_qblock = (
+        lambda q, kp, vp, bt, pos, k_scale=None, v_scale=None:
+        pfq.paged_flash_qblock_ref(q, kp, vp, bt, pos, k_scale, v_scale))
+    try:
+        yield
+    finally:
+        dense.paged_flash_decode, dense.paged_flash_qblock = saved
+
+
+@contextlib.contextmanager
+def plain_megakernel():
+    """Every megakernel launch through the plain interpreter instead."""
+    from triton_dist_tpu_torch.megakernel import builder as mkb
+
+    saved = mkb.ModelBuilder.step
+    mkb.ModelBuilder.step = (
+        lambda self, *a, timeout_s=None, **kw: self.plain_step(*a, **kw))
+    try:
+        yield
+    finally:
+        mkb.ModelBuilder.step = saved
+
+
+def spec_prompts(cfg, seed):
+    """Four prompts: two repetitive (a drafted continuation is found in
+    the prompt), two random, all within one 128-row chunk."""
+    rng = np.random.RandomState(seed)
+    motif = [int(t) for t in rng.randint(0, cfg.vocab_size, 9)]
+    return ([motif * 8, (motif[:5] * 20)[:96]]
+            + [[int(t) for t in rng.randint(0, cfg.vocab_size, n)]
+               for n in (120, 40)])
+
+
+def judge_tokens(label, got, want, ref_logits) -> int:
+    """Tokens of a run against a reference run of the same lane: a
+    request's first divergence must sit at a step whose reference top-2
+    logits lie within TOL_MOE_TIE bf16 units (a unit at the larger); the
+    rest of that request follows from it. Returns the diverged count."""
+    n = 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        j = next((j for j, (a, b) in enumerate(zip(g, w)) if a != b), None)
+        if j is None:
+            if len(g) != len(w):
+                fail(f"{label}: request {i} has {len(g)} tokens, the "
+                     f"reference {len(w)}")
+            continue
+        n += 1
+        top2_near_tie(label, i, j, ref_logits[(i, j)])
+    print(f"[{label}] {n} of {len(got)} requests diverge, each at a "
+          "near-tie")
+    return n
+
+
+def top2_near_tie(label, i, j, logits) -> None:
+    """Fail unless request ``i``'s reference logits at step ``j`` have
+    their top two within TOL_MOE_TIE bf16 units (a unit at the larger)."""
+    row = np.sort(np.asarray(logits, np.float64))
+    unit = 2.0 ** (math.floor(math.log2(max(abs(row[-1]), 2.0 ** -126))) - 7)
+    gap = (row[-1] - row[-2]) / unit
+    print(f"[{label}] request {i} diverges at step {j}: reference top-2 gap "
+          f"{gap:.2f} bf16 units (near-tie limit {TOL_MOE_TIE})")
+    if gap > TOL_MOE_TIE:
+        fail(f"{label}: request {i} diverges from the reference at step {j}, "
+             f"{gap:.2f} bf16 units from a tie")
+
+
+def serve_run(label, srv, prompts, gen, steps=(), force=None):
+    """Serve ``prompts`` for ``gen`` tokens with the counts set to zero
+    just before; returns (tokens, launches, stats, logits by (request
+    index, step) for ``steps``). ``force``: tokens by (request index,
+    step) that replace the greedy picks (the plain run of a parity check
+    takes the kernel run's tokens, so both compute on the same inputs)."""
+    seen = record_logits(srv, set(steps))
+    index = {}
+    if force:
+        pick = srv._pick
+
+        def forced(row, req, step):
+            tok = pick(row, req, step)
+            return force.get((index[req.request_id], step), tok)
+
+        srv._pick = forced
+    zero_counts()
+    t0 = time.perf_counter()
+    hs = [srv.submit(p, max_new_tokens=gen) for p in prompts]
+    index.update({h.request.request_id: i for i, h in enumerate(hs)})
+    srv.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    st = srv.stats()
+    toks = [h.tokens for h in hs]
+    if [len(t) for t in toks] != [gen] * len(prompts) or not all(
+            0 <= t < srv.cfg.vocab_size for o in toks for t in o):
+        fail(f"{label}: requests did not finish with {gen} in-range tokens")
+    ids = {h.request.request_id: i for i, h in enumerate(hs)}
+    logits = {(ids[r], s): v for (r, s), v in seen.items()}
+    spec = st.get("spec") or {}
+    print(f"[{label}] {wall:.2f} s; {st['decode_dispatches']} decode "
+          f"dispatches, {st['prefill_chunks']} chunks; decode "
+          f"{st['tokens_per_s']:.1f} tokens/s, "
+          f"{st['decode_dispatches'] / max(st['decode_tokens'], 1):.3f} "
+          f"dispatches per token; acceptance "
+          f"{spec.get('accept_rate')}; pool {st['kv_dtype']} "
+          f"{st['kv_bytes_per_token']:.0f} B/token, "
+          f"{st['plan']['pool_bytes_per_rank'] / 2**20:.1f} MiB for "
+          f"{st['plan']['num_pages']} pages, capacity x"
+          f"{st['plan']['capacity_ratio_vs_native']} of bf16; launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    return toks, launches, st, logits
+
+
+def agreement(got, want) -> float:
+    """Greedy-token agreement of two runs (``compare_greedy``'s rule)."""
+    n = [min(len(g), len(w)) for g, w in zip(got, want)]
+    return sum(sum(a == b for a, b in zip(g[:k], w[:k]))
+               for g, w, k in zip(got, want, n)) / max(sum(n), 1)
+
+
+def logit_gap(got, want, got_toks, want_toks) -> float:
+    """Largest logit difference at step 1 (the first decode) of the
+    requests whose first token agrees."""
+    keys = [k for k in want if k[1] == 1 and k in got
+            and got_toks[k[0]][0] == want_toks[k[0]][0]]
+    return max((float(np.abs(got[k] - want[k]).max()) for k in keys),
+               default=float("nan"))
+
+
+def taken(toks) -> dict:
+    """A run's tokens by (request index, step), for ``serve_run(force=)``."""
+    return {(i, j): t for i, ts in enumerate(toks) for j, t in enumerate(ts)}
+
+
+def expect_launches(label, launches, want) -> None:
+    """Exact launch counts: every key of ``want`` equal, every other
+    counter zero."""
+    bad = {k: (v, want.get(k, 0)) for k, v in launches.items()
+           if v != want.get(k, 0)}
+    if bad or not any(want.values()):
+        fail(f"{label}: launch counts (got, want) {bad}")
+
+
+def quant_layer_parity(cfg_full, label, layers=2):
+    """The layer lane's quantized served logits (first two tokens) against
+    the plain quantized run on the same weights, at ``layers`` layers."""
+    from triton_dist_tpu_torch import Engine
+
+    cfg = dataclasses.replace(cfg_full, num_hidden_layers=layers)
+    eng = Engine(cfg, device="cuda", dtype=torch.bfloat16, max_len=2048,
+                 seed=21)
+    prompts = spec_prompts(cfg, 21)[1:3]
+    worst = {}
+    for kvd in KV_QUANT:
+        kw = dict(num_slots=4, page=32, prefill_buckets=(128,), kv_dtype=kvd)
+        toks, _, _, got = serve_run(f"{label}-parity {kvd} kernels",
+                                    eng.serving(**kw), prompts, 2,
+                                    steps=(0, 1))
+        with plain_attention():
+            want = serve_run(f"{label}-parity {kvd} plain",
+                             eng.serving(**kw), prompts, 2, steps=(0, 1),
+                             force=taken(toks))[3]
+        err = max(float(np.abs(got[k] - want[k]).max()) for k in want)
+        print(f"[{label}-parity] {kvd}: served vs plain quantized logits "
+              f"max |d| {err:.4f} (limit {TOL_QUANT_LOGITS[kvd]}) at "
+              f"{layers} layers")
+        if not err <= TOL_QUANT_LOGITS[kvd]:
+            fail(f"{label}: quantized served logits stray from the plain "
+                 f"run ({kvd}: {err})")
+        worst[kvd] = err
+    del eng
+    torch.cuda.empty_cache()
+    return worst
+
+
+def quant_spec_serve_phase():
+    """Phase 21: Qwen3-8B at full depth (phase 3's weights, seed 0) on
+    both lanes, with kv_dtype int8 and fp8 and with spec_k=4: tokens,
+    exact launches of every new kernel form, and the plain-run parity of
+    the quantized logits (2 layers)."""
+    from triton_dist_tpu_torch import Engine, ModelConfig, ServingEngine
+    from triton_dist_tpu_torch.megakernel import MegaKernelEngine
+
+    cfg = ModelConfig.qwen3_8b()
+    L = cfg.num_hidden_layers
+    prompts = spec_prompts(cfg, 0)
+    gen = 32
+    runs = {"bf16": {}, "int8": dict(kv_dtype="int8"),
+            "fp8": dict(kv_dtype="fp8"),
+            "spec": dict(spec_k=SPEC_K, spec_ngram=SPEC_NGRAM)}
+    out = {"layer": {}, "mega": {}}
+
+    eng = Engine(cfg, device="cuda", dtype=torch.bfloat16, max_len=2048,
+                 seed=0)
+    eng.serving(num_slots=4, page=32, prefill_buckets=(128,)).generate(
+        [[7] * 40], max_new_tokens=2)                 # warm-up
+    res = {}
+    for name, kw in runs.items():
+        srv = eng.serving(num_slots=4, page=32, prefill_buckets=(128,), **kw)
+        res[name] = serve_run(f"q-layer {name}", srv, prompts, gen,
+                              steps=range(gen) if name == "bf16" else (1,))
+        toks, launches, st, _ = res[name]
+        d, c = st["decode_dispatches"], st["prefill_chunks"]
+        kv = kw.get("kv_dtype")
+        want = ({"qblock": L * (c + d)} if name == "spec" else
+                {f"decode-{kv}": L * d, f"qblock-{kv}": L * c} if kv else
+                {"decode": L * d, "qblock": L * c})
+        expect_launches(f"q-layer {name}", launches, want)
+    base, _, _, ref = res["bf16"]
+    for kvd in KV_QUANT:
+        print(f"[q-layer {kvd}] greedy agreement with bf16 pools "
+              f"{agreement(res[kvd][0], base):.3f}; first-decode logit gap "
+              f"to bf16 pools "
+              f"{logit_gap(res[kvd][3], ref, res[kvd][0], base):.4f} (the JAX "
+              f"CPU battery's bound {JAX_CPU_BOUND[kvd]}, not gated)")
+    judge_tokens("q-layer spec vs non-spec", res["spec"][0], base, ref)
+    out["layer"] = {k: v[1] for k, v in res.items()}
+    del eng
+    torch.cuda.empty_cache()
+    out["layer_parity"] = quant_layer_parity(cfg, "q-layer")
+
+    res, timed = {}, {}
+    for name, kw in runs.items():
+        eng = MegaKernelEngine(cfg, batch=4, max_len=2048, t_tile=128,
+                               paged=True, page=128, num_pages=1 + 4 * 16,
+                               device="cuda", dtype=torch.bfloat16, seed=0,
+                               prefill_buckets=(128,),
+                               kv_dtype=kw.get("kv_dtype", "bf16"),
+                               spec_k=kw.get("spec_k", 0))
+        skw = dict(kw, prefill_buckets=(128,))
+        ServingEngine(eng, **skw).generate([[7] * 3], max_new_tokens=2)
+        res[name] = serve_run(f"q-mega {name}", ServingEngine(eng, **skw),
+                              prompts, gen,
+                              steps=range(gen) if name == "bf16" else (1,))
+        _, launches, st, _ = res[name]
+        d, c = st["decode_dispatches"], st["prefill_chunks"]
+        kv = kw.get("kv_dtype")
+        suffix = f"-{kv}" if kv else ""
+        want = {"megakernel": d + c, f"mk_chunk{suffix}": c,
+                (f"mk_qblock" if name == "spec" else f"mk_decode{suffix}"): d}
+        expect_launches(f"q-mega {name}", launches, want)
+        if name != "bf16":
+            timed.update(mk_form_times(
+                eng, ("qblock",) if name == "spec" else ("decode", "chunk")))
+        del eng
+        torch.cuda.empty_cache()
+    base, _, _, ref = res["bf16"]
+    for kvd in KV_QUANT:
+        print(f"[q-mega {kvd}] greedy agreement with bf16 pools "
+              f"{agreement(res[kvd][0], base):.3f}; first-decode logit gap "
+              f"to bf16 pools "
+              f"{logit_gap(res[kvd][3], ref, res[kvd][0], base):.4f} (the JAX "
+              f"CPU battery's bound {JAX_CPU_BOUND[kvd]}, not gated)")
+    judge_tokens("q-mega spec vs non-spec", res["spec"][0], base, ref)
+    out["mega"] = {k: v[1] for k, v in res.items()}
+    out["mega_timed"] = timed
+    out["mega_errs"], out["mega_parity"] = quant_mega_parity(cfg)
+    return out
+
+
+def mk_history(eng, seed) -> None:
+    """Seeded history in an engine's pools: bf16 values, or codes and
+    scales as the plain writer leaves them."""
+    dev = eng.device
+    L, n, page, kv, hd = eng.k_cache.shape
+    if eng.k_scale is None:
+        g = torch.Generator(device=dev).manual_seed(seed)
+        for pool in (eng.k_cache, eng.v_cache):
+            pool.copy_(torch.randn(pool.shape, generator=g, device=dev,
+                                   dtype=pool.dtype))
+        return
+    for li in range(L):
+        kc, vc, ks, vs = quant_pools(dev, eng.kv_dtype, n, kv, page, hd,
+                                     seed + li)
+        eng.k_cache[li] = kc.transpose(1, 2)
+        eng.v_cache[li] = vc.transpose(1, 2)
+        eng.k_scale[li], eng.v_scale[li] = ks, vs
+
+
+def mk_forms(eng, forms, seed):
+    """Launch inputs of an engine's new forms, over a shuffled table
+    (row 0 parked on the scratch page) and the rows of MK_LENS: "decode"
+    (4 rows), "chunk" (128 rows of slot 1 from 0) and "qblock" (K = 4
+    candidates per slot at MK_LENS + j, the parked slot's rows and the
+    last slot's last candidate masked). Returns [(form, build, tokens,
+    per-row values, table, rows that carry logits)]."""
+    from triton_dist_tpu_torch.ops.chunked_prefill import chunk_row_codes
+
+    dev = eng.device
+    _, _, toks, lens, table = mk_inputs(eng.builder, eng.num_pages, dev, seed)
+    p_max = eng.builder.p_max
+    out = []
+    if "decode" in forms:
+        out.append(("decode", eng.builder, toks, lens, table,
+                    np.ones(4, bool)))
+    if "chunk" in forms:
+        out.append(("chunk", eng.chunk_builders[128], np.repeat(toks, 32),
+                    chunk_row_codes(0, 128, 128, 0),
+                    table[p_max:2 * p_max], np.ones(128, bool)))
+    if "qblock" in forms:
+        pos = (np.array(MK_LENS)[:, None] + np.arange(SPEC_K)).reshape(-1)
+        pos[:SPEC_K] = -1
+        pos[-1] = -1
+        pos = pos.astype(np.int32)
+        out.append(("qblock", eng.verify_builder, np.repeat(toks, SPEC_K),
+                    pos, table, pos >= 0))
+    return out
+
+
+def form_key(form, eng) -> str:
+    return form + ("" if eng.k_scale is None else f"-{eng.kv_dtype}")
+
+
+def mk_form_times(eng, forms):
+    """Kernel, plain and bound times of an engine's new launch forms (see
+    ``mk_forms``) at its depth, over the history its serving left."""
+    sc = {} if eng.k_scale is None else dict(k_scale=eng.k_scale,
+                                             v_scale=eng.v_scale)
+    cnt = {} if eng.counts is None else dict(counts=eng.counts)
+    out = {}
+    for form, mb, t, ln, tb, _ in mk_forms(eng, forms, 4):
+        key = form_key(form, eng)
+        host = mb._host_inputs(eng.k_cache, t, ln, tb)
+        k_ms = time_events(lambda: mb.launch(eng.arena, eng.k_cache,
+                                             eng.v_cache, *host, **sc,
+                                             **cnt), reps=5)
+        p_ms = time_events(lambda: mb.plain_step(eng.arena, eng.k_cache,
+                                                 eng.v_cache, t, ln, tb,
+                                                 **sc, **cnt),
+                           reps=1, warmup=0)
+        b_ms, b_by = mk_step_bound(mb, ln)
+        print(f"[mk-step {key}] {eng.cfg.num_hidden_layers} layers: "
+              f"kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} bound_ms "
+              f"{b_ms:.4f} ({b_by})")
+        out[key] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+    return out
+
+
+def mk_form_check(eng, forms, label):
+    """Each new form of a 2-layer engine on the card and through the
+    plain interpreter from the same seeded state: logits within phase 5's
+    limits (a MoE build's plain run routes as the kernel did, its routing
+    then judged by phase 14's rule against a free plain run); quantized
+    pools by ``dequant_close``. Returns the largest logit error by
+    form."""
+    errs = {}
+    for form, mb, t, ln, tb, rows in mk_forms(eng, forms, 5):
+        key = form_key(form, eng)
+        mk_history(eng, 5)
+        state = [x.clone() if x is not None else None
+                 for x in (eng.arena, eng.k_cache, eng.v_cache, eng.k_scale,
+                           eng.v_scale, eng.counts)]
+        free = [x.clone() if x is not None else None for x in state]
+        sc = {} if eng.k_scale is None else dict(k_scale=eng.k_scale,
+                                                 v_scale=eng.v_scale)
+        got = mb.step(eng.arena, eng.k_cache, eng.v_cache, t, ln, tb,
+                      counts=eng.counts, **sc)
+        a2, k2, v2, ks2, vs2, c2 = state
+        psc = {} if ks2 is None else dict(k_scale=ks2, v_scale=vs2)
+        want = mb.plain_step(a2, k2, v2, t, ln, tb, counts=c2, **psc,
+                             route_from=eng.arena if mb.moe else None)
+        torch.cuda.synchronize()
+        rows_t = torch.as_tensor(rows, device=got.device)
+        errs[key] = check_close(f"{label} {key} logits", got[rows_t],
+                                want[rows_t], TOL_MK_LOGITS)
+        rel = row_rms(got[rows_t], want[rows_t])
+        print(f"[{label} {key}] worst row RMS error / RMS logits "
+              f"{rel.max().item():.2e} (tol {TOL_MK_ROW_RMS})")
+        if not bool((rel <= TOL_MK_ROW_RMS).all()):
+            fail(f"{label} {key}: a row's logits stray from the plain run")
+        if eng.k_scale is not None and not dequant_close(
+                f"{label} {key} pools",
+                [eng.k_cache, eng.k_scale, eng.v_cache, eng.v_scale],
+                [k2, ks2, v2, vs2]):
+            fail(f"{label} {key}: pools stray from the plain run")
+        if mb.moe:
+            fa, fk, fv, fks, fvs, fc = free
+            fsc = {} if fks is None else dict(k_scale=fks, v_scale=fvs)
+            mb.plain_step(fa, fk, fv, t, ln, tb, counts=fc, **fsc)
+            got_r, want_r = mb.routed_experts(eng.arena), \
+                mb.routed_experts(fa)
+            flip_rows = {
+                f"row {r}": [(ids_of(got_r[li, r]), ids_of(want_r[li, r]),
+                              router_logits(mb, eng.arena, r)[li],
+                              router_logits(mb, fa, r)[li])
+                             for li in range(mb.cfg.num_hidden_layers)]
+                for r in np.nonzero(rows)[0]}
+            judge_flips(f"{label} {key} routing", flip_rows,
+                        mb.cfg.num_experts_per_tok,
+                        len(flip_rows) * mb.cfg.num_hidden_layers)
+    return errs
+
+
+def quant_mega_parity(cfg_full, layers=2):
+    """At 2 layers: every new megakernel form against its plain
+    interpreter (``mk_form_check``: int8 and fp8 decode, chunk and verify
+    launches, and the bf16 verify launch), then the quantized lane's
+    served logits (first two tokens) against the same serving through
+    the plain interpreter, within TOL_QUANT_LOGITS."""
+    from triton_dist_tpu_torch import ServingEngine
+    from triton_dist_tpu_torch.megakernel import MegaKernelEngine
+
+    cfg = dataclasses.replace(cfg_full, num_hidden_layers=layers)
+    mk = dict(batch=4, max_len=2048, t_tile=128, paged=True, page=128,
+              num_pages=1 + 4 * 16, device="cuda", dtype=torch.bfloat16,
+              seed=21, prefill_buckets=(128,))
+    errs = {}
+    for kvd in ("bf16",) + KV_QUANT:
+        eng = MegaKernelEngine(cfg, kv_dtype=kvd, spec_k=SPEC_K, **mk)
+        errs.update(mk_form_check(
+            eng, ("qblock",) if kvd == "bf16" else ("decode", "chunk",
+                                                    "qblock"),
+            "q-mega-form"))
+        del eng
+    prompts = spec_prompts(cfg, 21)[1:3]
+    worst = {}
+    for kvd in KV_QUANT:
+        logits, force = [], None
+        for plain in (False, True):
+            eng = MegaKernelEngine(cfg, kv_dtype=kvd, **mk)
+            srv = ServingEngine(eng, prefill_buckets=(128,), kv_dtype=kvd)
+            with (plain_megakernel() if plain else contextlib.nullcontext()):
+                toks, _, _, seen = serve_run(
+                    f"q-mega-parity {kvd} {'plain' if plain else 'kernel'}",
+                    srv, prompts, 2, (0, 1), force=force)
+            logits.append(seen)
+            force = taken(toks)
+            del srv, eng
+        err = max(float(np.abs(logits[0][k] - logits[1][k]).max())
+                  for k in logits[1])
+        print(f"[q-mega-parity] {kvd}: served vs plain-interpreter logits "
+              f"max |d| {err:.4f} (limit {TOL_QUANT_LOGITS[kvd]})")
+        if not err <= TOL_QUANT_LOGITS[kvd]:
+            fail(f"megakernel quantized logits stray from the plain run "
+                 f"({kvd}: {err})")
+        worst[kvd] = err
+    torch.cuda.empty_cache()
+    return errs, worst
+
+
+class SpecRoutes:
+    """(slot, position) -> per layer (expert ids, fp32 router logits) of
+    the last decode or verify row at that position, on either lane: the
+    megakernel's routed experts and router-logit tiles after each
+    ``decode_step``/``verify_step``, or the layer lane's ``tp_moe.route``
+    calls inside its model's decode and verify steps. A rejected
+    candidate's position is computed again with the committed token, so
+    the last record of a position is the committed one."""
+
+    def __init__(self, eng):
+        self.eng, self.at = eng, {}
+
+    def _mega_rows(self, mb, rows):
+        eng = self.eng
+        got = mb.routed_experts(eng.arena)
+        for r, key in enumerate(rows):
+            if key is not None:
+                logits = router_logits(mb, eng.arena, r)
+                self.at[key] = [(ids_of(got[li, r]), logits[li])
+                                for li in range(mb.cfg.num_hidden_layers)]
+
+    def __enter__(self):
+        from triton_dist_tpu_torch.layers import tp_moe
+        from triton_dist_tpu_torch.megakernel import MegaKernelEngine
+        from triton_dist_tpu_torch.models import qwen_moe
+
+        eng = self.eng
+        if isinstance(eng, MegaKernelEngine):
+            dec, ver = eng.decode_step, eng.verify_step
+            self._undo = lambda: (setattr(eng, "decode_step", dec),
+                                  setattr(eng, "verify_step", ver))
+
+            def decode_step(toks, lens):
+                out = dec(toks, lens)
+                lens = np.broadcast_to(np.asarray(lens), (eng.batch,))
+                self._mega_rows(eng.builder, [(s, int(lens[s]))
+                                              for s in range(eng.batch)])
+                return out
+
+            def verify_step(toks, pos):
+                out = ver(toks, pos)
+                pos = np.asarray(pos).reshape(-1)
+                self._mega_rows(eng.verify_builder, [
+                    (r // eng.spec_k, int(p)) if p >= 0 else None
+                    for r, p in enumerate(pos)])
+                return out
+
+            eng.decode_step, eng.verify_step = decode_step, verify_step
+            return self
+        route, dec, ver = (tp_moe.route, qwen_moe.decode_step_paged,
+                           qwen_moe.verify_step_paged)
+        calls = []
+
+        def recording(router_w, x, *a, **kw):
+            ids, w = route(router_w, x, *a, **kw)
+            calls.append((ids.cpu().numpy(),
+                          (x.float() @ router_w.float().T).cpu().numpy()))
+            return ids, w
+
+        def step(fn, verify):
+            def run(params, toks, cache, cfg, **kw):
+                lens = cache.lens.cpu().numpy()
+                live = cache.live.cpu().numpy()
+                k = toks.shape[1] if verify else 1
+                rows = [(sl, int(lens[sl]) + j) if live[sl] else None
+                        for sl in range(len(lens)) for j in range(k)]
+                del calls[:]
+                out = fn(params, toks, cache, cfg, **kw)
+                for r, key in enumerate(rows):
+                    if key is not None:
+                        self.at[key] = [(set(ids[r].tolist()), lg[r])
+                                        for ids, lg in calls]
+                return out
+            return run
+
+        tp_moe.route = recording
+        qwen_moe.decode_step_paged = step(dec, False)
+        qwen_moe.verify_step_paged = step(ver, True)
+
+        def undo():
+            tp_moe.route = route
+            qwen_moe.decode_step_paged, qwen_moe.verify_step_paged = dec, ver
+
+        self._undo = undo
+        return self
+
+    def __exit__(self, *exc):
+        self._undo()
+
+
+def judge_spec_moe(label, got, want, ref_logits, prompts, routes,
+                   ref_routes, k) -> int:
+    """MoE spec tokens against the non-spec run: a request's first token
+    divergence must follow a routing flip at a near-tie (phase 14's rule:
+    the first (position, layer) before it whose expert set differs, the
+    reference logits of the swapped experts within TOL_MOE_TIE bf16
+    units), or, with no flip before it, sit at a near-tie of the
+    reference's top-2 logits (``judge_tokens``). Requests sit in slots
+    0.. in order on both runs."""
+    n = 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        j = next((j for j, (a, b) in enumerate(zip(g, w)) if a != b), None)
+        if j is None:
+            continue
+        n += 1
+        n0, flip = len(prompts[i]), None
+        for p in range(n0, n0 + j):     # the rows that produced tokens 1..j
+            a, b = routes.at.get((i, p)), ref_routes.at.get((i, p))
+            for li, ((sa, _), (sb, lb)) in enumerate(zip(a or (), b or ())):
+                if sa != sb:
+                    flip = (p, li, sa, sb, np.asarray(lb, np.float64))
+                    break
+            if flip:
+                break
+        if flip is None:
+            top2_near_tie(label, i, j, ref_logits[(i, j)])
+            continue
+        p, li, sa, sb, ref = flip
+        kth = abs(float(np.sort(ref)[-k]))
+        unit = 2.0 ** (math.floor(math.log2(max(kth, 2.0 ** -126))) - 7)
+        gap = (max(ref[e] for e in sb - sa) - min(ref[e] for e in sa - sb)
+               ) / unit
+        print(f"[{label}] request {i} diverges at step {j} after a routing "
+              f"flip at position {p} layer {li} (reference-only experts "
+              f"{sorted(sb - sa)}, spec-only {sorted(sa - sb)}): reference "
+              f"gap {gap:.2f} bf16 units (near-tie limit {TOL_MOE_TIE})")
+        if gap > TOL_MOE_TIE:
+            fail(f"{label}: request {i}'s routing flips at position {p} "
+                 f"layer {li} by {gap:.2f} bf16 units, no near-tie")
+    print(f"[{label}] {n} of {len(got)} requests diverge, each after a "
+          "routing flip at a near-tie or at a near-tie of the logits")
+    return n
+
+
+def moe_quant_spec_phase():
+    """Phase 22: Qwen3-30B-A3B cut to 4 layers on both lanes with int8
+    pools and spec_k=4, against the same lane without speculation: a
+    request's first divergence must be a near-tie of the reference's
+    top-2 logits. Then the MoE chunk and verify launches of the int8
+    megakernel against its plain interpreter, under phase 14's routing
+    rule, at 2 layers (``mk_form_check``)."""
+    from triton_dist_tpu_torch import Engine, ServingEngine
+    from triton_dist_tpu_torch.megakernel import MegaKernelEngine
+
+    cfg = moe_cfg(4)
+    L = cfg.num_hidden_layers
+    prompts = spec_prompts(cfg, 22)
+    gen = 24
+    out = {}
+    eng = Engine(cfg, device="cuda", dtype=torch.bfloat16, max_len=2048,
+                 seed=0)
+    res, routes = {}, {}
+    for name, kw in (("int8", {}), ("int8+spec", dict(spec_k=SPEC_K))):
+        srv = eng.serving(num_slots=4, page=32, prefill_buckets=(128,),
+                          kv_dtype="int8", **kw)
+        with SpecRoutes(eng) as routes[name]:
+            res[name] = serve_run(f"moe-q-layer {name}", srv, prompts, gen,
+                                  steps=range(gen) if not kw else ())
+        _, launches, st, _ = res[name]
+        d, c = st["decode_dispatches"], st["prefill_chunks"]
+        want = ({"qblock-int8": L * (c + d)} if kw else
+                {"decode-int8": L * d, "qblock-int8": L * c})
+        expect_launches(f"moe-q-layer {name}", launches, want)
+    judge_spec_moe("moe-q-layer spec vs non-spec", res["int8+spec"][0],
+                   res["int8"][0], res["int8"][3], prompts,
+                   routes["int8+spec"], routes["int8"],
+                   cfg.num_experts_per_tok)
+    out["layer"] = {k: v[1] for k, v in res.items()}
+    del eng
+    torch.cuda.empty_cache()
+
+    res, routes = {}, {}
+    for name, k in (("int8", 0), ("int8+spec", SPEC_K)):
+        eng = MegaKernelEngine(cfg, batch=4, max_len=2048, t_tile=128,
+                               paged=True, page=128, num_pages=1 + 4 * 16,
+                               device="cuda", dtype=torch.bfloat16, seed=0,
+                               prefill_buckets=(128,), kv_dtype="int8",
+                               spec_k=k)
+        skw = dict(prefill_buckets=(128,), kv_dtype="int8", spec_k=k)
+        srv = ServingEngine(eng, **skw)
+        with SpecRoutes(eng) as routes[name]:
+            res[name] = serve_run(f"moe-q-mega {name}", srv, prompts, gen,
+                                  steps=range(gen) if not k else ())
+        _, launches, st, _ = res[name]
+        d, c = st["decode_dispatches"], st["prefill_chunks"]
+        want = {"megakernel": d + c, "mk_chunk-int8": c,
+                ("mk_qblock-int8" if k else "mk_decode-int8"): d}
+        expect_launches(f"moe-q-mega {name}", launches, want)
+        if k:
+            out["timed"] = mk_form_times(eng, ("chunk", "qblock"))
+        del eng
+        torch.cuda.empty_cache()
+    judge_spec_moe("moe-q-mega spec vs non-spec", res["int8+spec"][0],
+                   res["int8"][0], res["int8"][3], prompts,
+                   routes["int8+spec"], routes["int8"],
+                   cfg.num_experts_per_tok)
+    out["mega"] = {k: v[1] for k, v in res.items()}
+    eng = MegaKernelEngine(moe_cfg(2), batch=4, max_len=2048, t_tile=128,
+                           paged=True, page=128, num_pages=1 + 4 * 16,
+                           device="cuda", dtype=torch.bfloat16, seed=22,
+                           prefill_buckets=(128,), kv_dtype="int8",
+                           spec_k=SPEC_K)
+    out["errs"] = mk_form_check(eng, ("chunk", "qblock"), "moe-q-mega-form")
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def qwen3_32b_phase():
+    """Phase 23 (rider): Qwen3-32B at full width, 8 of its 64 layers, on
+    the layer lane with int8 pools: GQA 8 (64/8 heads) through the int8
+    forms of rows 15 and 16, launches counted, and the first two served
+    tokens' logits (the prefill chunk's, then a decode step's) within 0.1
+    of the plain quantized run."""
+    from triton_dist_tpu_torch import Engine, ModelConfig
+
+    cfg = dataclasses.replace(ModelConfig.qwen3_32b(), num_hidden_layers=8)
+    L = cfg.num_hidden_layers
+    t0 = time.perf_counter()
+    eng = Engine(cfg, device="cuda", dtype=torch.bfloat16, max_len=2048,
+                 seed=23)
+    torch.cuda.synchronize()
+    print(f"[q32b] Qwen3-32B at {L} layers on the card in "
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    prompts = spec_prompts(cfg, 23)
+    kw = dict(num_slots=4, page=32, prefill_buckets=(128,), kv_dtype="int8")
+    toks, launches, st, got = serve_run("q32b int8", eng.serving(**kw),
+                                        prompts, 8, steps=(0, 1))
+    d, c = st["decode_dispatches"], st["prefill_chunks"]
+    expect_launches("q32b int8", launches,
+                    {"decode-int8": L * d, "qblock-int8": L * c})
+    with plain_attention():
+        want = serve_run("q32b int8 plain", eng.serving(**kw), prompts, 8,
+                         steps=(0, 1), force=taken(toks))[3]
+    errs = {k: float(np.abs(got[k] - want[k]).max()) for k in want}
+    err = max(errs.values())
+    print(f"[q32b] served vs plain quantized logits by (request, step) "
+          f"{ {k: round(v, 4) for k, v in sorted(errs.items())} }")
+    print(f"[q32b] served vs plain quantized logits max |d| {err:.4f} "
+          f"(limit {TOL_QUANT_LOGITS['int8']}), logit std "
+          f"{float(np.std(want[(0, 0)])):.3f}")
+    if not err <= TOL_QUANT_LOGITS["int8"]:
+        fail(f"Qwen3-32B quantized logits stray from the plain run: {err}")
+    del eng
+    torch.cuda.empty_cache()
+    return dict(launches=launches, err=err)
+
+
 def grid_blocks() -> int:
     from triton_dist_tpu_torch.megakernel import builder as mkb
 
@@ -2265,6 +3313,8 @@ def main():
     numbers["megakernel"] = mk_kernel_phase()
     numbers["flash"] = flash_kernel_phase()
     numbers["group_gemm"] = group_gemm_kernel_phase()
+    numbers.update(quant_kernel_phase())
+    mk_quant_write_phase()
     launches, layer_st, dense_engine = serve_phase()
     parity_phase()
     mk = mk_serve_phase(layer_st)
@@ -2277,6 +3327,9 @@ def main():
     moe_engine = moe_layer_serve_phase(moe_serve["held"])
     moe_parity_phase()
     checkpoint_phase()
+    q21 = quant_spec_serve_phase()
+    q22 = moe_quant_spec_phase()
+    q23 = qwen3_32b_phase()
 
     rows = []
     for key, name, replaces in (
@@ -2343,6 +3396,54 @@ def main():
             "max_abs_err": t["err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    # The int8 / fp8 forms of rows 15 and 16: phase 19's numbers (the
+    # Q-block's at the 512-query chunk; its verify block is printed);
+    # launches over every serving run of phases 21-23.
+    served = [*q21["layer"].values(), *q22["layer"].values(),
+              q23["launches"]]
+    for key, name, replaces in (
+            ("decode-int8", "paged_decode_kernel[int8]",
+             "triton_dist_tpu/ops/paged_flash_decode.py:118"),
+            ("decode-fp8", "paged_decode_kernel[fp8]",
+             "triton_dist_tpu/ops/paged_flash_decode.py:118"),
+            ("qblock-int8", "paged_qblock_kernel[int8]",
+             "triton_dist_tpu/ops/paged_flash_qblock.py:81"),
+            ("qblock-fp8", "paged_qblock_kernel[fp8]",
+             "triton_dist_tpu/ops/paged_flash_qblock.py:81")):
+        num = numbers[key]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "triton_dist_tpu_torch/csrc/paged_attention.cu",
+            "replaces": replaces,
+            "launches": sum(run[key] for run in served),
+            "max_abs_err": num["err"], "ms": num["ms"],
+            "plain_ms": num["plain_ms"], "bound_ms": num["bound_ms"],
+            "bound_by": num["bound_by"], "library_ms": None})
+    # The megakernel's quantized and Q-block forms: times at full depth
+    # (Qwen3-8B, phase 21; Qwen3-30B-A3B at 4 layers, phase 22), errors
+    # against the plain interpreter at 2 layers, launches over the
+    # serving runs of the same phase.
+    # The JAX bodies each form replaces: the quantized write (:338) with
+    # the quantized decode attention (:498), the quant branches of the
+    # per-row attention (:1073) the chunk rides, the Q-block pair (:956).
+    line = {"decode": 338, "chunk": 1073, "qblock": 956}
+    for prefix, timed, errs, runs, keys in (
+            ("", q21["mega_timed"], q21["mega_errs"], q21["mega"],
+             ("decode-int8", "decode-fp8", "chunk-int8", "chunk-fp8",
+              "qblock")),
+            ("moe-", q22["timed"], q22["errs"], q22["mega"],
+             ("chunk-int8", "qblock-int8"))):
+        for key in keys:
+            t = timed[key]
+            rows.append({
+                "name": f"megakernel_kernel[{prefix}{key}]", "route": "cuda",
+                "source": "triton_dist_tpu_torch/csrc/megakernel.cu",
+                "replaces": "triton_dist_tpu/megakernel/kernels.py:"
+                            f"{line[key.split('-')[0]]}",
+                "launches": sum(run[f"mk_{key}"] for run in runs.values()),
+                "max_abs_err": errs[key], "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -711,3 +711,266 @@ def test_fused_moe_never_syncs_the_host(dev):
         torch.cuda.set_sync_debug_mode(0)
     assert group_gemm.KERNEL.launches == before + 2
     assert torch.equal(got, want)
+
+
+# ---- Quantized (int8 / fp8) pools and the Q-block verify build ----------
+#
+# The paged kernels' int8/fp8 instantiations dequantize each page with its
+# (page, head) scale; the plain versions dequantize in the gather. Both
+# attend in fp32 and round the output to bf16 once, so the decode limits
+# hold. The megakernel's quantized write runs alone (``isolate``) on the
+# same arena and pools as the plain ``_quant_store_token`` sequence: the
+# K rows it quantizes are the same up to the ulps of two rope and norm
+# spellings, so its codes must lie within one step of the plain codes
+# (fp8: two units of last place, a tie flip carried into a lower binade
+# by a rescale) and its scales within 1e-6 relative. Whole quantized steps (decode, a chunk,
+# a verify block with a masked row) are held to the megakernel limits on
+# the logits and on the dequantized pools. Planted faults: the scale
+# table of the next page id, and the plain run's table row shifted by one
+# page.
+
+QUANT_DTYPES = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
+QMAX = {"int8": 127.0, "fp8": 448.0}
+
+
+def _quantize(x, kvd):
+    """Per-(page, head) max-abs quantization of a (..., page, hd) fp32
+    block over its last two dims (the layer lane's page layout)."""
+    amax = x.abs().amax(dim=(-2, -1))
+    sc = torch.where(amax > 0, amax / QMAX[kvd], torch.ones_like(amax))
+    y = x / sc[..., None, None]
+    y = (y.round().clamp(-127, 127).to(torch.int8) if kvd == "int8"
+         else y.clamp(-448, 448).to(torch.float8_e4m3fn))
+    return y, sc.float().contiguous()
+
+
+def _qpool(dev, seed, b, kvh, page, p_max, kvd):
+    kp, vp, tbl, g = _pool(dev, seed, b, kvh, page, HD, p_max)
+    kc, ks = _quantize(kp.float(), kvd)
+    vc, vs = _quantize(vp.float(), kvd)
+    return kc, vc, ks, vs, tbl, g
+
+
+@pytest.mark.parametrize("kvd", ["int8", "fp8"])
+@pytest.mark.parametrize("rep,page", [(4, 32), (8, 16), (1, 64)])
+def test_quantized_decode_kernel_matches_plain(dev, kvd, rep, page):
+    kvh, b, p_max = 2, 5, 6
+    kc, vc, ks, vs, tbl, g = _qpool(dev, rep, b, kvh, page, p_max, kvd)
+    tbl[0] = 0                                            # parked
+    cap = p_max * page
+    lens = torch.tensor([1, page, page + 1, cap, 3 * page - 5],
+                        dtype=torch.int32, device=dev)
+    q = torch.randn(b, kvh * rep, HD, generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    kernel = pfd.KERNELS[QUANT_DTYPES[kvd]]
+    before = kernel.launches
+    got = pfd.paged_flash_decode(q, kc, vc, tbl, lens, k_scale=ks,
+                                 v_scale=vs)
+    assert kernel.launches == before + 1
+    want = pfd.paged_flash_decode_ref(q, kc, vc, tbl, lens, ks, vs)
+    _assert_close(got, want, DECODE_TOL)
+    # Planted fault: every page read with the next page id's scales.
+    bad = pfd.paged_flash_decode(q, kc, vc, tbl, lens,
+                                 k_scale=ks.roll(-1, 0).contiguous(),
+                                 v_scale=vs.roll(-1, 0).contiguous())
+    with pytest.raises(AssertionError):
+        _assert_close(bad, want, DECODE_TOL)
+
+
+@pytest.mark.parametrize("kvd", ["int8", "fp8"])
+@pytest.mark.parametrize("rep,page,c", [(4, 32, 37), (8, 16, 4), (2, 64, 9)])
+def test_quantized_qblock_kernel_matches_plain(dev, kvd, rep, page, c):
+    kvh, b, p_max = 2, 3, 5
+    kc, vc, ks, vs, tbl, g = _qpool(dev, rep + c, b, kvh, page, p_max, kvd)
+    cap = p_max * page
+    pos = torch.randint(0, cap, (b, 1), generator=g, device=dev,
+                        dtype=torch.int32) + torch.arange(
+                            c, device=dev, dtype=torch.int32)
+    pos[0] = torch.arange(c, device=dev) + page - 2       # a chunk
+    pos[2] = -1                                           # parked
+    q = torch.randn(b, c, kvh * rep, HD, generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    kernel = pfq.KERNELS[QUANT_DTYPES[kvd]]
+    before = kernel.launches
+    got = pfq.paged_flash_qblock(q, kc, vc, tbl, pos, k_scale=ks, v_scale=vs)
+    assert kernel.launches == before + 1
+    want = pfq.paged_flash_qblock_ref(q, kc, vc, tbl, pos.clamp(max=cap - 1),
+                                      ks, vs)
+    _assert_close(got, want, QBLOCK_TOL)
+
+
+def test_quantized_kernel_wrappers_reject_bad_scales(dev):
+    kc, vc, ks, vs, tbl, g = _qpool(dev, 0, 2, 2, 32, 2, "int8")
+    q = torch.randn(2, 8, HD, device=dev, dtype=torch.bfloat16)
+    lens = torch.ones(2, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="QUANTIZED"):
+        pfd.paged_flash_decode(q, kc, vc, tbl, lens)
+    with pytest.raises(TypeError, match="scales"):
+        pfd.paged_flash_decode(q, kc, vc, tbl, lens, k_scale=ks.double(),
+                               v_scale=vs)
+    with pytest.raises(TypeError):
+        pfd.paged_flash_decode(q, kc, vc.view(torch.float8_e4m3fn), tbl,
+                               lens, k_scale=ks, v_scale=vs)
+
+
+def _mk_quant_pools(mb, kc, vc, kvd):
+    """The random bf16 pools of a megakernel setup quantized per (layer,
+    page, head): codes (L, N, page, kv, hd) and scales (L, N, kv)."""
+    out = []
+    for pool in (kc, vc):
+        codes, sc = _quantize(pool.float().transpose(2, 3), kvd)
+        out += [codes.transpose(2, 3).contiguous(), sc]
+    return out
+
+
+def _check_mk_quant(got, want, pools, plain):
+    """The megakernel limits on the logits; the dequantized pools within
+    0.1 (int8) or 0.25 (fp8: 3.5 steps of its top binade) of each (layer,
+    page, head)'s max-abs. A whole step's K rows
+    differ from the plain run's by the bf16 units of the projections
+    before them, so the running scales grow at different tokens and the
+    codes are rounded a different number of times (chip_smoke.py
+    ``dequant_close``: 5 int8 codes at Qwen3-8B widths); a misplaced row
+    is off by the order of the max-abs."""
+    rel = _row_rms(got, want)
+    print(f"[mk-card] quant: max |dlogit| {(got - want).abs().max().item():.3e}"
+          f", worst row RMS error / RMS {rel.max().item():.2e}")
+    _assert_close(got, want, MK_LOGITS_TOL)
+    assert bool((rel <= MK_ROW_RMS_TOL).all()), rel.tolist()
+    for i in (0, 2):
+        qmax = 127.0 if pools[i].dtype == torch.int8 else 448.0
+        deq = [p[i].float() * p[i + 1][:, :, None, :, None]
+               for p in (pools, plain)]
+        amax = plain[i + 1][:, :, None, :, None] * qmax
+        tol = 0.1 if pools[i].dtype == torch.int8 else 0.25
+        assert float(((deq[0] - deq[1]).abs() / amax).max()) <= tol
+
+
+@pytest.mark.parametrize("kvd", ["int8", "fp8"])
+def test_megakernel_quantized_decode_matches_plain(dev, kvd):
+    mb, arena, kc, vc, toks, lens, table = _mk_setup(
+        dev, paged=True, schedule="static")
+    mb = mkb.ModelBuilder(MK_CFG, batch=3, max_len=256, t_tile=32,
+                          paged=True, page=32, kv_quant=kvd)
+    pools = _mk_quant_pools(mb, kc, vc, kvd)
+    plain = [t.clone() for t in pools]
+    a2 = arena.clone()
+    key = f"decode-{kvd}"
+    before = mkb.MODE_LAUNCHES[key]
+    got = mb.step(arena, pools[0], pools[2], toks, lens, table,
+                  k_scale=pools[1], v_scale=pools[3])
+    assert mkb.MODE_LAUNCHES[key] == before + 1
+    want = mb.plain_step(a2, plain[0], plain[2], toks, lens, table,
+                         k_scale=plain[1], v_scale=plain[3])
+    _check_mk_quant(got, want, pools, plain)
+
+
+def _mk_write_alone(dev, mb, kvd, toks, lens, table, arena, kc, vc):
+    """Run layer 0's write task alone on the kernel and on the plain
+    bodies, after the same plain run of its inputs; returns both pools."""
+    pools = _mk_quant_pools(mb, kc, vc, kvd)
+    wk = next(t.task_id for t in mb.graph.tasks
+              if t.task_type in (mkb.TaskType.WRITE_KV,
+                                 mkb.TaskType.WRITE_KV_CHUNK,
+                                 mkb.TaskType.WRITE_KV_QBLOCK))
+    pre = mb.isolate([t for t in mb.claim_list if t < wk])
+    pre.plain_step(arena, *pools[::2], toks, lens, table,
+                   k_scale=pools[1], v_scale=pools[3])
+    plain = [t.clone() for t in pools]
+    one = mb.isolate([wk])
+    one.step(arena, pools[0], pools[2], toks, lens, table, k_scale=pools[1],
+             v_scale=pools[3])
+    one.plain_step(arena.clone(), plain[0], plain[2], toks, lens, table,
+                   k_scale=plain[1], v_scale=plain[3])
+    torch.cuda.synchronize()
+    return pools, plain
+
+
+def _assert_codes_close(pools, plain, steps=1, scale_rtol=1e-6):
+    """Codes within ``steps`` steps of the plain codes (a step: int8 1;
+    fp8 one unit of last place, 2**-3 of the value, 2**-9 at the
+    smallest), scales within ``scale_rtol`` relative."""
+    for i in (0, 2):
+        d = (pools[i].float() - plain[i].float()).abs()
+        step = 1.0 if pools[i].dtype == torch.int8 else (
+            plain[i].float().abs() * 2.0 ** -3).clamp(min=2.0 ** -9)
+        assert bool((d <= steps * step).all()), float(d.max())
+        rel = ((pools[i + 1] - plain[i + 1]).abs() / plain[i + 1]).max()
+        assert float(rel) <= scale_rtol, float(rel)
+
+
+@pytest.mark.parametrize("kvd", ["int8", "fp8"])
+@pytest.mark.parametrize("rows", [3, 16])
+def test_megakernel_quantized_write_alone(dev, kvd, rows):
+    """The write task alone: a decode batch (3 rows, one parked on the
+    scratch page) and a 16-row chunk from 40 (rows 40-43 attend-only, the
+    last dead) over pages holding random codes."""
+    if rows == 3:
+        mb0, arena, kc, vc, toks, lens, table = _mk_setup(
+            dev, paged=True, schedule="static")
+        mb = mkb.ModelBuilder(MK_CFG, batch=3, max_len=256, t_tile=32,
+                              paged=True, page=32, kv_quant=kvd)
+    else:
+        mb0, arena, kc, vc, toks, lens, table = _mk_chunk_setup(dev, rows)
+        mb = mkb.ModelBuilder(MK_CFG, batch=rows, seq=rows, chunk=True,
+                              max_len=256, t_tile=32, paged=True, page=32,
+                              kv_quant=kvd)
+        table = table[1]
+    pools, plain = _mk_write_alone(dev, mb, kvd, toks, lens, table, arena,
+                                   kc, vc)
+    # An fp8 code one step off at a rounding tie can become two steps of
+    # a lower binade after a rescale (chip_smoke.py WRITE_STEPS).
+    _assert_codes_close(pools, plain, steps=1 if kvd == "int8" else 2)
+
+
+@pytest.mark.parametrize("kvd", ["bf16", "int8", "fp8"])
+def test_megakernel_qblock_matches_plain(dev, kvd):
+    """A verify block of 3 slots x K = 4 (16 rows would be 4 x 4): slot 0
+    parked (masked rows), slot 1 with its last candidate over budget
+    (masked), slot 2 whole, against the plain interpreter; the masked
+    rows write no page and no scale."""
+    kq, slots, page = 4, 3, 32
+    quant = None if kvd == "bf16" else kvd
+    mb = mkb.ModelBuilder(MK_CFG, batch=slots * kq, seq=kq, qblock=True,
+                          max_len=256, t_tile=page, paged=True, page=page,
+                          kv_quant=quant)
+    assert mb.mode == "qblock" and mb.uses_tensor_cores
+    _, arena, kc, vc, toks, lens, table = _mk_setup(
+        dev, paged=True, schedule="static", b=slots * kq)
+    table = table[:slots * mb.p_max]
+    pos = np.concatenate([[-1] * kq, 37 + np.arange(kq), 130 + np.arange(kq)])
+    pos[2 * kq - 1] = -1
+    pos = pos.astype(np.int32)
+    toks = toks[:slots * kq]
+    if quant:
+        pools = _mk_quant_pools(mb, kc, vc, kvd)
+        kw = dict(k_scale=pools[1], v_scale=pools[3])
+        plain = [t.clone() for t in pools]
+        pkw = dict(k_scale=plain[1], v_scale=plain[3])
+        kc, vc, k2, v2 = pools[0], pools[2], plain[0], plain[2]
+    else:
+        kw = pkw = {}
+        k2, v2 = kc.clone(), vc.clone()
+    k0 = k2.clone()
+    a2 = arena.clone()
+    key = "qblock" + (f"-{kvd}" if quant else "")
+    before = mkb.MODE_LAUNCHES[key]
+    got = mb.step(arena, kc, vc, toks, pos, table, **kw)
+    assert mkb.MODE_LAUNCHES[key] == before + 1
+    want = mb.plain_step(a2, k2, v2, toks, pos, table, **pkw)
+    rows = pos >= 0
+    if quant:
+        _check_mk_quant(got[rows], want[rows], pools, plain)
+    else:
+        _assert_close(got[rows], want[rows], MK_LOGITS_TOL)
+        _assert_close(kc, k2, MK_KV_TOL)
+        _assert_close(vc, v2, MK_KV_TOL)
+    # The plain run wrote exactly the unmasked rows' positions.
+    written = (k2 != k0).any(-1).any(-1)
+    expect = torch.zeros_like(written)
+    tab = table.reshape(slots, mb.p_max)
+    for r in np.nonzero(rows)[0]:
+        p = int(pos[r])
+        expect[:, int(tab[r // kq][p // page]), p % page] = True
+    if not quant:
+        assert torch.equal(written, expect)

@@ -103,8 +103,10 @@ def test_swiglu_mlp_matches_jax(weights):
 @pytest.mark.parametrize("kw", [dict(max_len=64, page=8, num_slots=2),
                                 dict(max_len=4096, page=32, num_slots=4)])
 def test_kv_cache_plan_matches_jax(kw):
-    """The bf16 pool plan (bytes at 2 per element) is the JAX plan."""
+    """The bf16 pool plan (bytes at 2 per element) is the JAX plan, and so
+    is the int8 one (one byte per element plus the per-page scales)."""
     jplan = JaxConfig.qwen3_8b().kv_cache_plan(dtype_bytes=2, **kw)
     assert ModelConfig.qwen3_8b().kv_cache_plan(**kw) == jplan
-    with pytest.raises(NotImplementedError):
-        ModelConfig.qwen3_8b().kv_cache_plan(kv_dtype="int8", **kw)
+    assert ModelConfig.qwen3_8b().kv_cache_plan(kv_dtype="int8", **kw) == \
+        JaxConfig.qwen3_8b().kv_cache_plan(dtype_bytes=2, kv_dtype="int8",
+                                           **kw)

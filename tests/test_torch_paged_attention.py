@@ -85,10 +85,12 @@ def test_unported_forms_raise():
     lens = torch.tensor([3], dtype=torch.int32)
     with pytest.raises(NotImplementedError):
         paged_flash_decode(q, kpt, vpt, tblt, lens, axis="sp")
-    with pytest.raises(NotImplementedError):
+    # Quantized pools are ported: a scaleless read of one, and scales
+    # beside an unquantized pool, raise (the JAX readers' contract).
+    with pytest.raises(ValueError, match="QUANTIZED"):
         paged_flash_decode(q, kpt.to(torch.int8), vpt.to(torch.int8), tblt,
                            lens)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="unquantized"):
         paged_flash_qblock(q[:, None], kpt, vpt, tblt,
                            torch.zeros(1, 1, dtype=torch.int32),
                            k_scale=torch.ones(1), v_scale=torch.ones(1))

@@ -12,8 +12,12 @@
 //   chunk   (WRITE_KV_CHUNK / ATTN_CHUNK)      slot 0 (the launch carries
 //            one (p_max,) table row), at max(code >= 0 ? code : -code-2, 0),
 //            writing iff code >= 0 (lens holds the sign-encoded codes)
+//   qblock  (WRITE_KV_QBLOCK / ATTN_QBLOCK)    slot r / K (seq = K drafted
+//            candidates a slot), at max(lens[r], 0), writing iff
+//            lens[r] >= 0 (kernels.py write_kv_qblock_body :956,
+//            attn_qblock_body :1044: the speculative verify block)
 //
-// so one write body and one attention body serve all three. A Qwen3-MoE
+// so one write body and one attention body serve all four. A Qwen3-MoE
 // build adds the MoE pair (kernels.py moe_weights_body / weighted_add_body):
 // MOE_WEIGHTS routes each row (softmax, top-k, combine weights) and counts
 // the routed (row, expert) pairs in an int32 buffer beside the arena;
@@ -48,6 +52,24 @@
 // (the dense cache is the same with page = max_len and table = arange).
 // Math inside a task is fp32; every output is rounded to bf16 when stored.
 //
+// Quantized pools (kv_quant 1 = int8, 2 = fp8 e4m3; kernels.py
+// _write_kv_body_quant :338, _attn_decode_body_quant :498 and the
+// kv_quant branches of _attn_rowpos_body): the pools hold one byte per
+// element and (layers, num_pages, kv) fp32 scale tables ride beside them.
+// The write task quantizes token by token under a running max-abs scale
+// per (layer, page, kv head), as _quant_store_token :129 does: a page's
+// first position resets the scale; a token that grows it first rescales
+// the page's stored codes by s_old / s_new. That update is serial within a
+// (page, head) pair, so warp w owns the pairs of KV head w % kv and of the
+// pages whose id is w / kv modulo kWarps / kv, and walks the rows in order:
+// two warps never touch one scale, and a page takes its tokens in
+// ascending position. Every attention read dequantizes (code * scale) as
+// it loads. Rounding follows the plain version: x / scale (a division, not
+// a reciprocal), int8 by rintf (half to even) clipped to +-127, fp8 clipped
+// to +-448 and cast with __nv_cvt_float_to_fp8 (satfinite, to nearest).
+// The rescale rereads and rewrites the page (page x 128 bytes) each time a
+// token grows its scale, so a write task's worst case is slow.
+//
 // What bounds a step on the H100: at decode batch <= 8, bytes. Every weight
 // element is used for <= 8 multiply-adds, far below the ~295 flops per
 // byte where the tensor cores become the limit; the step's floor is its
@@ -58,9 +80,14 @@
 // each weight 512 times, so it is bound by operations, and its LINEAR runs
 // on tensor cores (nvcuda::wmma, bf16 16x16x16 with fp32 sums) in passes
 // of 64 rows, zero-padding rows past the batch in shared memory. The
-// kernel is instantiated twice (run_task<kMma>): the decode set with the
-// CUDA-core LINEAR, and every ported type with the tensor-core one, so
-// the decode kernel's registers are not shared with the prompt paths. Known
+// kernel is instantiated per (kMma, pool storage) (run_task<kMma, kQ>):
+// the decode set with the CUDA-core LINEAR, and every ported type with the
+// tensor-core one, each for bf16, int8 and fp8 pools, so no kernel shares
+// its registers with paths it does not run (one kernel holding every
+// storage's bodies spilled, and its bf16 512-row chunk took 10 % longer,
+// measured in PERF.md §6). A verify launch (K rows a slot) is a prompt-mode
+// launch: it runs the tensor-core LINEAR, where decode runs the CUDA-core
+// one, so its logits differ from decode's by the order of the sums. Known
 // slow points, measured in PERF.md and left for the redesign: the
 // tensor-core LINEAR stages without pipelining and rereads its weight
 // panel once per 64-row pass (no wgmma, no TMA), and attention is one
@@ -68,6 +95,7 @@
 // work grows with rows x attended keys.
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <mma.h>
@@ -75,6 +103,7 @@
 #include <string.h>
 
 #include <algorithm>
+#include <type_traits>
 
 namespace {
 
@@ -107,16 +136,21 @@ enum TaskType : int {
   kRmsNorm = 0, kLinear = 1, kAdd = 2, kSiluMul = 3, kAttnDecode = 4,
   kWriteKv = 5, kAllreduce = 6, kGather = 7, kNoop = 8,
   kWriteKvPrefill = 9, kAttnPrefill = 10, kMoeWeights = 11, kWeightedAdd = 12,
-  kAttnChunk = 16, kWriteKvChunk = 17,
+  kAttnQblock = 14, kWriteKvQblock = 15, kAttnChunk = 16, kWriteKvChunk = 17,
 };
 
 // How a cache task maps its rows to (slot, position, writes).
-enum RowMode : int { kDecodeRows = 0, kPrefillRows = 1, kChunkRows = 2 };
+enum RowMode : int { kDecodeRows = 0, kPrefillRows = 1, kChunkRows = 2, kQblockRows = 3 };
+
+// Pool storage: the arena's bf16, or a quantized pool with scale tables.
+enum KvQuant : int { kKvBf16 = 0, kKvInt8 = 1, kKvFp8 = 2 };
 
 struct Params {
   __nv_bfloat16* arena;
-  __nv_bfloat16* kpool;
-  __nv_bfloat16* vpool;
+  void* kpool;         // bf16, int8 or fp8 by kv_quant
+  void* vpool;
+  float* kscale;       // quantized pools: [layers][num_pages][kv] fp32
+  float* vscale;
   const int* tokens;
   const int* lens;
   const int* table;
@@ -133,6 +167,8 @@ struct Params {
   int* counts;         // MoE: [counts_rows][128] routed (row, expert) counts
   int n_claims, batch, seq, h_loc, kv_loc, num_pages, page, p_max;
   int moe_topk, moe_norm;
+  int kv_quant;        // KvQuant
+  float qmax;          // 127 (int8) or 448 (fp8)
   float eps, theta;
   unsigned long long timeout_ns;
 };
@@ -201,13 +237,27 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&f)[4]) {
   *reinterpret_cast<uint2*>(p) = make_uint2(pack2(f[0], f[1]), pack2(f[2], f[3]));
 }
 
+// Page id of KV position `pos` of `slot`'s table row.
+__device__ __forceinline__ int page_of(const Params& P, int slot, int pos) {
+  const int pi = min(pos / P.page, P.p_max - 1);
+  return __ldg(P.table + (size_t)slot * P.p_max + pi);
+}
+
+// Pool row (layer, page pid, in-page offset off, KV head g), in elements.
+__device__ __forceinline__ size_t pool_row(const Params& P, int layer, int pid, int off,
+                                           int g) {
+  return ((((size_t)layer * P.num_pages + pid) * P.page + off) * P.kv_loc + g) * kHD;
+}
+
 // Pool row (layer, KV position `pos` of `slot`'s table row, KV head g).
 __device__ __forceinline__ size_t pool_off(const Params& P, int layer, int slot, int pos,
                                            int g) {
-  const int pi = min(pos / P.page, P.p_max - 1);
-  const int pid = __ldg(P.table + (size_t)slot * P.p_max + pi);
-  return ((((size_t)layer * P.num_pages + pid) * P.page + pos % P.page) * P.kv_loc + g) *
-         kHD;
+  return pool_row(P, layer, page_of(P, slot, pos), pos % P.page, g);
+}
+
+// Scale-table index of (layer, page pid, KV head g).
+__device__ __forceinline__ size_t scale_idx(const Params& P, int layer, int pid, int g) {
+  return ((size_t)layer * P.num_pages + pid) * P.kv_loc + g;
 }
 
 struct Row {
@@ -226,6 +276,10 @@ __device__ __forceinline__ Row row_at(const Params& P, RowMode mode, int r) {
   } else if (mode == kChunkRows) {
     x.slot = 0;
     x.pos = max(v >= 0 ? v : -v - 2, 0);
+    x.writes = v >= 0;
+  } else if (mode == kQblockRows) {
+    x.slot = r / P.seq;
+    x.pos = max(v, 0);
     x.writes = v >= 0;
   } else {
     x.slot = r;
@@ -437,9 +491,123 @@ __device__ void write_kv(const Params& P, const int* a, RowMode mode) {
     load4_cg(arow(P, k_off + (long long)g * b + bb) + lane * 4, k);
     norm_rope(P, k, arow(P, kn_off), pos);
     const size_t off = pool_off(P, layer, row.slot, pos, g) + lane * 4;
-    store4(P.kpool + off, k);
-    *reinterpret_cast<uint2*>(P.vpool + off) = __ldcg(reinterpret_cast<const uint2*>(
-        arow(P, v_off + (long long)g * b + bb) + lane * 4));
+    store4(static_cast<__nv_bfloat16*>(P.kpool) + off, k);
+    *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(P.vpool) + off) =
+        __ldcg(reinterpret_cast<const uint2*>(arow(P, v_off + (long long)g * b + bb) +
+                                              lane * 4));
+  }
+}
+
+// One byte of a quantized pool, as fp32 and from fp32 (the cast of
+// kernels.py _quant_cast: int8 rounds half to even and clips; fp8 clips,
+// then rounds to nearest).
+__device__ __forceinline__ float code_f32(int8_t c) { return (float)c; }
+__device__ __forceinline__ float code_f32(__nv_fp8_e4m3 c) { return static_cast<float>(c); }
+
+template <typename T>
+__device__ __forceinline__ T quant_cast(float x, float qmax);
+template <>
+__device__ __forceinline__ int8_t quant_cast<int8_t>(float x, float qmax) {
+  return (int8_t)(int)fminf(fmaxf(rintf(x), -qmax), qmax);
+}
+template <>
+__device__ __forceinline__ __nv_fp8_e4m3 quant_cast<__nv_fp8_e4m3>(float x, float qmax) {
+  __nv_fp8_e4m3 r;
+  r.__x = __nv_cvt_float_to_fp8(fminf(fmaxf(x, -qmax), qmax), __NV_SATFINITE, __NV_E4M3);
+  return r;
+}
+
+// Four consecutive codes (4-byte aligned) as fp32.
+template <typename T>
+__device__ __forceinline__ void unpack_codes(uint32_t w, float (&f)[4]) {
+  const T* c = reinterpret_cast<const T*>(&w);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) f[i] = code_f32(c[i]);
+}
+
+template <typename T>
+__device__ __forceinline__ uint32_t pack_codes(const float (&f)[4], float qmax) {
+  uint32_t w;
+  T* c = reinterpret_cast<T*>(&w);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) c[i] = quant_cast<T>(f[i], qmax);
+  return w;
+}
+
+// One token's 128-dim row x (4 dims per lane) into quantized page pid at
+// offset off, KV head g, under the running scale s (in: the page's scale
+// before this token, out: after). kernels.py _quant_store_token: the
+// page's first position resets the scale; a grown scale first rescales
+// the page's codes by s_old / s_new. Lane l only ever reads and writes
+// dims [4l, 4l + 4) of the page, so the warp needs no barrier for them.
+template <typename T>
+__device__ void quant_store(const Params& P, T* pool, int layer, int pid, int off, int g,
+                            const float (&x)[4], float& s) {
+  const int lane = threadIdx.x % 32;
+  float am = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) am = fmaxf(am, fabsf(x[i]));
+  am = warp_max(am);
+  const float s_old = s;
+  const float s_tok = am > 0.f ? am / P.qmax : 0.f;
+  const float s_new = off == 0 ? (am > 0.f ? am / P.qmax : 1.f) : fmaxf(s_old, s_tok);
+  if (off != 0 && s_new > s_old) {
+    const float ratio = s_old / s_new;
+    for (int p = 0; p < P.page; ++p) {
+      uint32_t* cw = reinterpret_cast<uint32_t*>(pool + pool_row(P, layer, pid, p, g) + lane * 4);
+      float c[4];
+      unpack_codes<T>(__ldcg(cw), c);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) c[i] *= ratio;
+      *cw = pack_codes<T>(c, P.qmax);
+    }
+  }
+  float y[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) y[i] = x[i] / s_new;
+  *reinterpret_cast<uint32_t*>(pool + pool_row(P, layer, pid, off, g) + lane * 4) =
+      pack_codes<T>(y, P.qmax);
+  s = s_new;
+}
+
+// WRITE_KV* on a quantized pool: the same k-norm and rope as write_kv,
+// then quant_store of K and V. Warp w walks the rows in order for its
+// (KV head, page bucket) units (the header's ownership rule), keeping the
+// running scale of its current page in registers; lane 0 stores it.
+template <typename T>
+__device__ void write_kv_quant(const Params& P, const int* a, RowMode mode) {
+  const int k_off = a[0], v_off = a[1], layer = a[2], kn_off = a[3];
+  const int b = P.batch, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int buckets = max(1, kWarps / P.kv_loc);
+  T* kpool = static_cast<T*>(P.kpool);
+  T* vpool = static_cast<T*>(P.vpool);
+  for (int unit = warp; unit < P.kv_loc * buckets; unit += kWarps) {
+    const int g = unit % P.kv_loc, bucket = unit / P.kv_loc;
+    int cur = -1;
+    float ks = 0.f, vs = 0.f;
+    for (int bb = 0; bb < b; ++bb) {
+      const Row row = row_at(P, mode, bb);
+      if (!row.writes) continue;
+      const int pid = page_of(P, row.slot, row.pos);
+      if (pid % buckets != bucket) continue;
+      const size_t si = scale_idx(P, layer, pid, g);
+      if (pid != cur) {
+        cur = pid;
+        ks = __ldcg(P.kscale + si);
+        vs = __ldcg(P.vscale + si);
+      }
+      float k[4], v[4];
+      load4_cg(arow(P, k_off + (long long)g * b + bb) + lane * 4, k);
+      load4_cg(arow(P, v_off + (long long)g * b + bb) + lane * 4, v);
+      norm_rope(P, k, arow(P, kn_off), row.pos);
+      const int off = row.pos % P.page;
+      quant_store<T>(P, kpool, layer, pid, off, g, k, ks);
+      quant_store<T>(P, vpool, layer, pid, off, g, v, vs);
+      if (lane == 0) {
+        P.kscale[si] = ks;
+        P.vscale[si] = vs;
+      }
+    }
   }
 }
 
@@ -450,10 +618,18 @@ __device__ void write_kv(const Params& P, const int* a, RowMode mode) {
 // 32-key steps, lane t scoring key kbase + t; for P.V lane owns output
 // dims [4 * lane, 4 * lane + 4). Keeps the -inf guards and
 // max(l, 1e-30) of the JAX body.
+//
+// T is the pool's storage: __nv_bfloat16, or int8_t / __nv_fp8_e4m3 for a
+// quantized pool, whose K and V elements are dequantized (code * the
+// page's scale for head g) as they are loaded.
+template <typename T>
 __device__ void attn_rows(const Params& P, const int* a, float* smem, RowMode mode) {
+  constexpr bool kQuant = sizeof(T) == 1;
   const int q_off = a[0], out_off = a[1], layer = a[2], qn_off = a[3];
   const int b = P.batch, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int rep = P.h_loc / P.kv_loc;
+  const T* kpool = static_cast<const T*>(P.kpool);
+  const T* vpool = static_cast<const T*>(P.vpool);
   float* qs = smem + warp * kMaxRep * kHD;
   const float qscale = 1.f / sqrtf((float)kHD);
   for (int p = warp; p < b * P.kv_loc; p += kWarps) {
@@ -482,18 +658,46 @@ __device__ void attn_rows(const Params& P, const int* a, float* smem, RowMode mo
       float s[kMaxRep];
 #pragma unroll
       for (int r = 0; r < kMaxRep; ++r) s[r] = 0.f;
+      float vsl = 0.f;                 // quantized: V scale of this lane's key
       if (key < n_keys) {
+        const int pid = page_of(P, slot, key);
         const uint4* kp =
-            reinterpret_cast<const uint4*>(P.kpool + pool_off(P, layer, slot, key, g));
+            reinterpret_cast<const uint4*>(kpool + pool_row(P, layer, pid, key % P.page, g));
+        if constexpr (kQuant) {
+          const size_t si = scale_idx(P, layer, pid, g);
+          const float ksl = __ldcg(P.kscale + si);
+          vsl = __ldcg(P.vscale + si);
+#pragma unroll 2
+          for (int c = 0; c < kHD / 16; ++c) {
+            const uint4 u = __ldcg(kp + c);
+            const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+            for (int h = 0; h < 4; ++h) {
+              float kf[4];
+              unpack_codes<T>(w[h], kf);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) kf[e] *= ksl;
+#pragma unroll
+              for (int r = 0; r < kMaxRep; ++r) {
+                if (r < rep) {
+#pragma unroll
+                  for (int e = 0; e < 4; ++e)
+                    s[r] = fmaf(qs[r * kHD + c * 16 + h * 4 + e], kf[e], s[r]);
+                }
+              }
+            }
+          }
+        } else {
 #pragma unroll 4
-        for (int c = 0; c < kHD / 8; ++c) {
-          float kf[8];
-          unpack8(__ldcg(kp + c), kf);
+          for (int c = 0; c < kHD / 8; ++c) {
+            float kf[8];
+            unpack8(__ldcg(kp + c), kf);
 #pragma unroll
-          for (int r = 0; r < kMaxRep; ++r) {
-            if (r < rep) {
+            for (int r = 0; r < kMaxRep; ++r) {
+              if (r < rep) {
 #pragma unroll
-              for (int e = 0; e < 8; ++e) s[r] = fmaf(qs[r * kHD + c * 8 + e], kf[e], s[r]);
+                for (int e = 0; e < 8; ++e) s[r] = fmaf(qs[r * kHD + c * 8 + e], kf[e], s[r]);
+              }
             }
           }
         }
@@ -516,17 +720,26 @@ __device__ void attn_rows(const Params& P, const int* a, float* smem, RowMode mo
       // (keys past n_keys load zeros and carry p = 0).
       const int t_end = min(32, n_keys - kbase);
       for (int t0 = 0; t0 < t_end; t0 += 8) {
-        uint2 vv[8];
+        // bf16: 4 values are a uint2; quantized: 4 codes are one uint32.
+        using VV = typename std::conditional<kQuant, uint32_t, uint2>::type;
+        VV vv[8];
 #pragma unroll
         for (int u = 0; u < 8; ++u)
           vv[u] = t0 + u < t_end
-                      ? __ldcg(reinterpret_cast<const uint2*>(
-                            P.vpool + pool_off(P, layer, slot, kbase + t0 + u, g) + lane * 4))
-                      : make_uint2(0, 0);
+                      ? __ldcg(reinterpret_cast<const VV*>(
+                            vpool + pool_off(P, layer, slot, kbase + t0 + u, g) + lane * 4))
+                      : VV{};
 #pragma unroll
         for (int u = 0; u < 8; ++u) {
           float v[4];
-          unpack4(vv[u], v);
+          if constexpr (kQuant) {
+            unpack_codes<T>(vv[u], v);
+            const float vs = __shfl_sync(kFull, vsl, t0 + u);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) v[i] *= vs;
+          } else {
+            unpack4(vv[u], v);
+          }
 #pragma unroll
           for (int r = 0; r < kMaxRep; ++r) {
             if (r < rep) {
@@ -718,13 +931,40 @@ __device__ void fail(const Params& P, int task, int pred, int claim) {
   __trap();
 }
 
-// The task bodies of one launch. Two instantiations: kMma = false is the
-// decode kernel (the decode task set, LINEAR on CUDA cores for <= kMaxB
-// rows); kMma = true runs every ported type, LINEAR on tensor cores for
-// any row count (the prompt modes, or decode past kMaxB rows). Keeping
-// the tensor-core body and the prompt row rules out of the decode kernel
-// keeps its register allocation that of the decode set alone.
-template <bool kMma>
+// A cache task's body for the pools' storage: each kernel instantiation
+// holds the bodies of one storage type (kQ, a KvQuant), so the quantized
+// bodies never share a register allocation with the bf16 ones.
+template <int kQ>
+__device__ void attn_task(const Params& P, const int* a, float* smem, RowMode mode) {
+  if constexpr (kQ == kKvInt8) {
+    attn_rows<int8_t>(P, a, smem, mode);
+  } else if constexpr (kQ == kKvFp8) {
+    attn_rows<__nv_fp8_e4m3>(P, a, smem, mode);
+  } else {
+    attn_rows<__nv_bfloat16>(P, a, smem, mode);
+  }
+}
+
+template <int kQ>
+__device__ void write_task(const Params& P, const int* a, RowMode mode) {
+  if constexpr (kQ == kKvInt8) {
+    write_kv_quant<int8_t>(P, a, mode);
+  } else if constexpr (kQ == kKvFp8) {
+    write_kv_quant<__nv_fp8_e4m3>(P, a, mode);
+  } else {
+    write_kv(P, a, mode);
+  }
+}
+
+// The task bodies of one launch. Instantiated per (kMma, kQ): kMma = false
+// is the decode kernel (the decode task set, LINEAR on CUDA cores for <=
+// kMaxB rows); kMma = true runs every ported type, LINEAR on tensor cores
+// for any row count (the prompt and Q-block modes, or decode past kMaxB
+// rows). kQ is the pools' storage (batched prefill only on bf16 pools: the
+// builder refuses a quantized prefill build). Keeping the tensor-core body,
+// the prompt row rules and the quantized bodies out of the bf16 decode
+// kernel keeps its register allocation that of the decode set alone.
+template <bool kMma, int kQ>
 __device__ void run_task(const Params& P, int t, float* smem) {
   const int* a = P.args + (size_t)t * 8;
   const int type = P.types[t];
@@ -732,8 +972,8 @@ __device__ void run_task(const Params& P, int t, float* smem) {
     case kRmsNorm: rmsnorm(P, a); return;
     case kAdd: elementwise(P, a, false); return;
     case kSiluMul: elementwise(P, a, true); return;
-    case kAttnDecode: attn_rows(P, a, smem, kDecodeRows); return;
-    case kWriteKv: write_kv(P, a, kDecodeRows); return;
+    case kAttnDecode: attn_task<kQ>(P, a, smem, kDecodeRows); return;
+    case kWriteKv: write_task<kQ>(P, a, kDecodeRows); return;
     case kGather: gather(P, a); return;
     case kMoeWeights: moe_weights(P, a); return;
     case kWeightedAdd: weighted_add(P, a); return;
@@ -744,11 +984,18 @@ __device__ void run_task(const Params& P, int t, float* smem) {
   if constexpr (kMma) {
     switch (type) {
       case kLinear: linear_mma(P, a, smem); return;
-      case kAttnPrefill: attn_rows(P, a, smem, kPrefillRows); return;
-      case kAttnChunk: attn_rows(P, a, smem, kChunkRows); return;
-      case kWriteKvPrefill: write_kv(P, a, kPrefillRows); return;
-      case kWriteKvChunk: write_kv(P, a, kChunkRows); return;
+      case kAttnChunk: attn_task<kQ>(P, a, smem, kChunkRows); return;
+      case kWriteKvChunk: write_task<kQ>(P, a, kChunkRows); return;
+      case kAttnQblock: attn_task<kQ>(P, a, smem, kQblockRows); return;
+      case kWriteKvQblock: write_task<kQ>(P, a, kQblockRows); return;
       default: break;
+    }
+    if constexpr (kQ == kKvBf16) {
+      switch (type) {
+        case kAttnPrefill: attn_rows<__nv_bfloat16>(P, a, smem, kPrefillRows); return;
+        case kWriteKvPrefill: write_kv(P, a, kPrefillRows); return;
+        default: break;
+      }
     }
   } else if (type == kLinear) {
     switch (P.batch) {
@@ -777,7 +1024,7 @@ __device__ void wait_preds(const Params& P, int t, int claim) {
   }
 }
 
-template <bool kMma>
+template <bool kMma, int kQ>
 __global__ void __launch_bounds__(kThreads, 2) megakernel_kernel(const Params P) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   float* smem = reinterpret_cast<float*>(smem_raw);
@@ -796,7 +1043,7 @@ __global__ void __launch_bounds__(kThreads, 2) megakernel_kernel(const Params P)
     const int t = s_task;
     if (t < 0) return;
     if (P.task_ns != nullptr && threadIdx.x == 0) P.task_ns[2 * t] = (long long)globaltimer();
-    run_task<kMma>(P, t, smem);
+    run_task<kMma, kQ>(P, t, smem);
     __syncthreads();
     if (threadIdx.x == 0) {
       if (P.task_ns != nullptr) P.task_ns[2 * t + 1] = (long long)globaltimer();
@@ -818,17 +1065,23 @@ cudaError_t ensure_error_record() {
   return cudaHostGetDevicePointer(reinterpret_cast<void**>(&g_err_dev), g_err_host, 0);
 }
 
-const void* kernel_for(bool mma) {
-  return mma ? reinterpret_cast<const void*>(megakernel_kernel<true>)
-             : reinterpret_cast<const void*>(megakernel_kernel<false>);
+const void* kernel_for(bool mma, int kv_quant) {
+  static const void* const kernels[2][3] = {
+      {reinterpret_cast<const void*>(megakernel_kernel<false, kKvBf16>),
+       reinterpret_cast<const void*>(megakernel_kernel<false, kKvInt8>),
+       reinterpret_cast<const void*>(megakernel_kernel<false, kKvFp8>)},
+      {reinterpret_cast<const void*>(megakernel_kernel<true, kKvBf16>),
+       reinterpret_cast<const void*>(megakernel_kernel<true, kKvInt8>),
+       reinterpret_cast<const void*>(megakernel_kernel<true, kKvFp8>)}};
+  return kernels[mma ? 1 : 0][kv_quant];
 }
 
-cudaError_t resident_blocks(int device, bool mma, int* out) {
+cudaError_t resident_blocks(int device, bool mma, int kv_quant, int* out) {
   int sms = 0, per_sm = 0;
   cudaError_t e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (e != cudaSuccess) return e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel_for(mma), kThreads,
-                                                    kSmemBytes);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel_for(mma, kv_quant),
+                                                    kThreads, kSmemBytes);
   if (e != cudaSuccess) return e;
   *out = sms * per_sm;
   return cudaSuccess;
@@ -842,7 +1095,9 @@ cudaError_t resident_blocks(int device, bool mma, int* out) {
 // int64, receives each task's start and end; `counts`, null for a dense
 // build, the MoE build's int32 [rows][128] expert counters, rows >=
 // batch); `stream` is a cudaStream_t. `moe_topk` experts are kept per
-// row, renormalised when `moe_norm`.
+// row, renormalised when `moe_norm`. `kv_quant` (0 bf16, 1 int8, 2 fp8)
+// is the pools' storage; a quantized pool comes with its fp32 (layers,
+// num_pages, kv) `kscale` / `vscale` tables and `qmax` (127 or 448).
 // `batch` counts rows, `seq` the rows per slot of a batched prefill;
 // `mma` = 1 launches the tensor-core instantiation (required for the
 // prompt row modes and for more than kMaxB rows). Returns a cudaError_t
@@ -855,20 +1110,22 @@ extern "C" int tdt_megakernel_bf16(void* arena, void* kpool, void* vpool, const 
                                    int n_claims, int n_tasks, int batch, int seq, int w, int hd,
                                    int h_loc, int kv_loc, int num_pages, int page, int p_max,
                                    float rms_eps, float rope_theta, long long timeout_ns,
-                                   int mma, int moe_topk, int moe_norm, int device,
+                                   int mma, int moe_topk, int moe_norm, void* kscale,
+                                   void* vscale, int kv_quant, float qmax, int device,
                                    void* stream) {
   if (w != kW || hd != kHD || batch < 1 || seq < 1 || batch % seq || kv_loc < 1 ||
       h_loc % kv_loc || (!mma && batch > kMaxB) ||
       h_loc / kv_loc > kMaxRep || page < 1 || p_max < 1 || num_pages < 1 || n_tasks < 1 ||
       n_claims < 1 || timeout_ns <= 0 || moe_topk < 0 || moe_topk > kW ||
-      (moe_topk > 0 && counts == nullptr))
+      (moe_topk > 0 && counts == nullptr) || kv_quant < kKvBf16 || kv_quant > kKvFp8 ||
+      (kv_quant != kKvBf16 && (kscale == nullptr || vscale == nullptr || !(qmax > 0.f))))
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   e = ensure_error_record();
   if (e != cudaSuccess) return (int)e;
   int grid = 0;
-  e = resident_blocks(device, mma != 0, &grid);
+  e = resident_blocks(device, mma != 0, kv_quant, &grid);
   if (e != cudaSuccess) return (int)e;
   if (grid < 1) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -877,8 +1134,12 @@ extern "C" int tdt_megakernel_bf16(void* arena, void* kpool, void* vpool, const 
   g_err_host[0] = 0;
   Params P;
   P.arena = static_cast<__nv_bfloat16*>(arena);
-  P.kpool = static_cast<__nv_bfloat16*>(kpool);
-  P.vpool = static_cast<__nv_bfloat16*>(vpool);
+  P.kpool = kpool;
+  P.vpool = vpool;
+  P.kscale = static_cast<float*>(kscale);
+  P.vscale = static_cast<float*>(vscale);
+  P.kv_quant = kv_quant;
+  P.qmax = qmax;
   P.tokens = static_cast<const int*>(tokens);
   P.lens = static_cast<const int*>(lens);
   P.table = static_cast<const int*>(table);
@@ -907,8 +1168,8 @@ extern "C" int tdt_megakernel_bf16(void* arena, void* kpool, void* vpool, const 
   P.theta = rope_theta;
   P.timeout_ns = (unsigned long long)timeout_ns;
   void* kargs[] = {&P};
-  e = cudaLaunchCooperativeKernel(kernel_for(mma != 0), dim3(grid), dim3(kThreads), kargs,
-                                  kSmemBytes, s);
+  e = cudaLaunchCooperativeKernel(kernel_for(mma != 0, kv_quant), dim3(grid),
+                                  dim3(kThreads), kargs, kSmemBytes, s);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -929,7 +1190,7 @@ extern "C" int tdt_megakernel_error(int* out) {
 extern "C" int tdt_megakernel_grid(int device, int mma) {
   int grid = 0;
   cudaError_t e = cudaSetDevice(device);
-  if (e == cudaSuccess) e = resident_blocks(device, mma != 0, &grid);
+  if (e == cudaSuccess) e = resident_blocks(device, mma != 0, kKvBf16, &grid);
   return e == cudaSuccess ? grid : -(int)e;
 }
 

@@ -1,4 +1,5 @@
-// Paged GQA attention for Hopper (sm_90a), bf16 pools, fp32 accumulation.
+// Paged GQA attention for Hopper (sm_90a): bf16, int8 or fp8 (e4m3) pools,
+// fp32 accumulation, bf16 queries and outputs.
 //
 // Two kernels share one body (attend_rows):
 //
@@ -12,6 +13,17 @@
 // The pool is head-major, (num_pages, KV, page, hd): each page's (page, hd)
 // block of one KV head is contiguous. Query head h reads KV head
 // h / (H / KV) (the JAX package's jnp.repeat(..., rep) mapping).
+//
+// Quantized pools (the int8 and fp8 instantiations) replace the same Pallas
+// kernels' fused-dequant form (paged_flash_decode.py _decode_kernel with
+// quantized=True, scale operands at :362-368; paged_flash_qblock.py
+// _qblock_kernel, :249). Each page carries one fp32 scale per KV head in
+// the layer's (num_pages, KV) table; the staging loop reads the scale of
+// every key row's page through the block table (no host-side gather of
+// the scales, which the TPU kernel needed to stage them in VMEM) and the
+// math dequantizes each element to fp32 as it loads it from shared memory,
+// as page_attend (paged_flash_decode.py:54-59) does. The pool bytes halve
+// against bf16, and so does the floor.
 //
 // What bounds them on the H100: bytes. Decode does 4 flops per K/V element
 // it reads (one multiply-add for q.k, one for p.v), far below the ~295
@@ -31,6 +43,7 @@
 // are the next steps (PERF.md).
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -59,27 +72,69 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Shared memory: qs (rows x HD fp32) | ks (kTile x (HD + 2) bf16, padded so
-// lane t reading key row t hits its own bank) | vs (kTile x HD bf16) |
-// lims (kMaxRows int).
-template <int HD>
-size_t smem_bytes(int rows) {
-  return (size_t)rows * HD * sizeof(float) +
-         (size_t)kTile * (HD + 2) * sizeof(__nv_bfloat16) +
-         (size_t)kTile * HD * sizeof(__nv_bfloat16) + kMaxRows * sizeof(int);
+// What a pool element is stored as: the shared-memory key row's padding
+// (in elements) makes each row's byte stride 4 x an odd number, so lane t
+// reading key row t hits its own bank; kQuant pools carry scales.
+template <typename T>
+struct Storage;
+template <>
+struct Storage<__nv_bfloat16> {
+  static constexpr int kPad = 2;
+  static constexpr bool kQuant = false;
+};
+template <>
+struct Storage<int8_t> {
+  static constexpr int kPad = 4;
+  static constexpr bool kQuant = true;
+};
+template <>
+struct Storage<__nv_fp8_e4m3> {
+  static constexpr int kPad = 4;
+  static constexpr bool kQuant = true;
+};
+
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
+__device__ __forceinline__ float to_f32(__nv_fp8_e4m3 x) { return static_cast<float>(x); }
+
+// Two consecutive elements (2-element aligned) as fp32.
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 load2(const int8_t* p) {
+  const char2 c = *reinterpret_cast<const char2*>(p);
+  return make_float2((float)c.x, (float)c.y);
+}
+__device__ __forceinline__ float2 load2(const __nv_fp8_e4m3* p) {
+  return static_cast<float2>(*reinterpret_cast<const __nv_fp8x2_e4m3*>(p));
 }
 
-template <int HD>
+// Shared memory: qs (rows x HD fp32) | ks (kTile x (HD + kPad) T) | vs
+// (kTile x HD T) | lims (kMaxRows int) | ksc, vsc (kTile fp32 each: the
+// scale of each staged key row's page; quantized pools only).
+template <typename T, int HD>
+size_t smem_bytes(int rows) {
+  return (size_t)rows * HD * sizeof(float) +
+         (size_t)kTile * (HD + Storage<T>::kPad) * sizeof(T) +
+         (size_t)kTile * HD * sizeof(T) + kMaxRows * sizeof(int) +
+         2 * kTile * sizeof(float);
+}
+
+template <typename T, int HD>
 struct Smem {
   float* qs;
-  __nv_bfloat16* ks;
-  __nv_bfloat16* vs;
+  T* ks;
+  T* vs;
   int* lims;
+  float* ksc;
+  float* vsc;
   __device__ Smem(unsigned char* base, int rows) {
     qs = reinterpret_cast<float*>(base);
-    ks = reinterpret_cast<__nv_bfloat16*>(base + (size_t)rows * HD * sizeof(float));
-    vs = ks + kTile * (HD + 2);
+    ks = reinterpret_cast<T*>(base + (size_t)rows * HD * sizeof(float));
+    vs = ks + kTile * (HD + Storage<T>::kPad);
     lims = reinterpret_cast<int*>(vs + kTile * HD);
+    ksc = reinterpret_cast<float*>(lims + kMaxRows);
+    vsc = ksc + kTile;
   }
 };
 
@@ -88,15 +143,21 @@ struct Smem {
 // positions [0, n_keys) of one slot and one KV head `g`, read through the
 // slot's block-table row. On return each active row of sm.qs holds its
 // normalised output (acc / max(l, 1e-30)). Every thread of the block calls
-// this; warp w owns rows [w * rpw, w * rpw + rpw).
-template <int HD>
-__device__ void attend_rows(const Smem<HD>& sm, int rows, int n_keys,
-                            const __nv_bfloat16* __restrict__ kpool,
-                            const __nv_bfloat16* __restrict__ vpool,
+// this; warp w owns rows [w * rpw, w * rpw + rpw). A quantized pool's
+// elements are dequantized with their page's (layer, page, g) scale from
+// kscale / vscale (num_pages x kvh fp32) as they are read.
+template <typename T, int HD>
+__device__ void attend_rows(const Smem<T, HD>& sm, int rows, int n_keys,
+                            const T* __restrict__ kpool, const T* __restrict__ vpool,
+                            const float* __restrict__ kscale,
+                            const float* __restrict__ vscale,
                             const int* __restrict__ table_row, int kvh, int g,
                             int page) {
+  constexpr bool kQuant = Storage<T>::kQuant;
+  constexpr int KLD = HD + Storage<T>::kPad;   // shared key row stride
   constexpr int DPL = HD / 32;        // output dims per lane
-  constexpr int VPR = HD / 8;         // 16-byte vectors per key row
+  constexpr int EPV = 16 / sizeof(T); // elements per 16-byte vector
+  constexpr int VPR = HD / EPV;       // 16-byte vectors per key row
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int rpw = (rows + kWarps - 1) / kWarps;
@@ -123,19 +184,32 @@ __device__ void attend_rows(const Smem<HD>& sm, int rows, int n_keys,
       const int j = v / VPR, c = v % VPR;
       const int pos = kbase + j;
       uint4 kv4 = make_uint4(0, 0, 0, 0), vv4 = make_uint4(0, 0, 0, 0);
+      float ksc = 0.f, vsc = 0.f;
       if (pos < n_keys) {
         const int pid = table_row[pos / page];
         const size_t off =
-            (((size_t)pid * kvh + g) * page + (pos % page)) * HD + c * 8;
+            (((size_t)pid * kvh + g) * page + (pos % page)) * HD + c * EPV;
         kv4 = *reinterpret_cast<const uint4*>(kpool + off);
         vv4 = *reinterpret_cast<const uint4*>(vpool + off);
+        if constexpr (kQuant) {
+          if (c == 0) {
+            ksc = kscale[(size_t)pid * kvh + g];
+            vsc = vscale[(size_t)pid * kvh + g];
+          }
+        }
       }
-      uint32_t* kd = reinterpret_cast<uint32_t*>(sm.ks + j * (HD + 2) + c * 8);
+      if constexpr (kQuant) {
+        if (c == 0) {
+          sm.ksc[j] = ksc;
+          sm.vsc[j] = vsc;
+        }
+      }
+      uint32_t* kd = reinterpret_cast<uint32_t*>(sm.ks + j * KLD + c * EPV);
       kd[0] = kv4.x;
       kd[1] = kv4.y;
       kd[2] = kv4.z;
       kd[3] = kv4.w;
-      *reinterpret_cast<uint4*>(sm.vs + j * HD + c * 8) = vv4;
+      *reinterpret_cast<uint4*>(sm.vs + j * HD + c * EPV) = vv4;
     }
     __syncthreads();
     if (nrows == 0) continue;
@@ -144,11 +218,15 @@ __device__ void attend_rows(const Smem<HD>& sm, int rows, int n_keys,
     float s[kMaxRowsPerWarp];
 #pragma unroll
     for (int r = 0; r < kMaxRowsPerWarp; ++r) s[r] = 0.f;
-    const __nv_bfloat162* krow =
-        reinterpret_cast<const __nv_bfloat162*>(sm.ks + lane * (HD + 2));
+    const T* krow = sm.ks + lane * KLD;
+    const float kq = kQuant ? sm.ksc[lane] : 1.f;
 #pragma unroll 4
     for (int d2 = 0; d2 < HD / 2; ++d2) {
-      const float2 kf = __bfloat1622float2(krow[d2]);
+      float2 kf = load2(krow + 2 * d2);
+      if constexpr (kQuant) {
+        kf.x *= kq;
+        kf.y *= kq;
+      }
 #pragma unroll
       for (int r = 0; r < kMaxRowsPerWarp; ++r) {
         if (r < nrows) {
@@ -179,9 +257,13 @@ __device__ void attend_rows(const Smem<HD>& sm, int rows, int n_keys,
     const int t_end = min(kTile, n_keys - kbase);
     for (int t = 0; t < t_end; ++t) {
       float vf[DPL];
-      const __nv_bfloat16* vrow = sm.vs + t * HD + lane * DPL;
+      const T* vrow = sm.vs + t * HD + lane * DPL;
+      const float vq = kQuant ? sm.vsc[t] : 1.f;
 #pragma unroll
-      for (int j = 0; j < DPL; ++j) vf[j] = __bfloat162float(vrow[j]);
+      for (int j = 0; j < DPL; ++j) {
+        vf[j] = to_f32(vrow[j]);
+        if constexpr (kQuant) vf[j] *= vq;
+      }
 #pragma unroll
       for (int r = 0; r < kMaxRowsPerWarp; ++r) {
         if (r < nrows) {
@@ -209,27 +291,26 @@ __device__ void attend_rows(const Smem<HD>& sm, int rows, int n_keys,
 // head g for slot b. Slot b attends positions < max(kv_len[b], 1), capped
 // at the table row's capacity (a parked slot's clamped length of 1 reads
 // its all-zero row's scratch page, finite garbage the caller drops).
-template <int HD>
+template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ kpool,
-                    const __nv_bfloat16* __restrict__ vpool,
-                    const int* __restrict__ table,
+paged_decode_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ kpool,
+                    const T* __restrict__ vpool, const float* __restrict__ kscale,
+                    const float* __restrict__ vscale, const int* __restrict__ table,
                     const int* __restrict__ kv_len,
                     __nv_bfloat16* __restrict__ out, int H, int kvh, int page,
                     int p_max) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int g = blockIdx.x, b = blockIdx.y;
   const int rep = H / kvh;
-  const Smem<HD> sm(smem, rep);
+  const Smem<T, HD> sm(smem, rep);
   const int n_keys = min(max(kv_len[b], 1), p_max * page);
   const size_t qbase = ((size_t)b * H + (size_t)g * rep) * HD;
   for (int e = threadIdx.x; e < rep * HD; e += kThreads)
     sm.qs[e] = __bfloat162float(q[qbase + e]);
   for (int r = threadIdx.x; r < rep; r += kThreads) sm.lims[r] = n_keys - 1;
   __syncthreads();
-  attend_rows<HD>(sm, rep, n_keys, kpool, vpool, table + (size_t)b * p_max,
-                  kvh, g, page);
+  attend_rows<T, HD>(sm, rep, n_keys, kpool, vpool, kscale, vscale,
+                     table + (size_t)b * p_max, kvh, g, page);
   __syncthreads();
   for (int e = threadIdx.x; e < rep * HD; e += kThreads)
     out[qbase + e] = __float2bfloat16(sm.qs[e]);
@@ -240,12 +321,11 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
 // Query i attends positions <= clamp(positions[b, i], 0, cap - 1); the
 // block walks keys up to its own largest position only, so pages past it
 // are never read.
-template <int HD>
+template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
-paged_qblock_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ kpool,
-                    const __nv_bfloat16* __restrict__ vpool,
-                    const int* __restrict__ table,
+paged_qblock_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ kpool,
+                    const T* __restrict__ vpool, const float* __restrict__ kscale,
+                    const float* __restrict__ vscale, const int* __restrict__ table,
                     const int* __restrict__ positions,
                     __nv_bfloat16* __restrict__ out, int C, int H, int kvh,
                     int page, int p_max, int qt) {
@@ -255,7 +335,7 @@ paged_qblock_kernel(const __nv_bfloat16* __restrict__ q,
   const int rows = qt * rep;
   const int i0 = tile * qt;
   const int cap = p_max * page;
-  const Smem<HD> sm(smem, rows);
+  const Smem<T, HD> sm(smem, rows);
   for (int R = threadIdx.x; R < rows; R += kThreads) {
     const int i = i0 + R / rep;
     sm.lims[R] = i < C ? min(max(positions[(size_t)b * C + i], 0), cap - 1) : -1;
@@ -269,8 +349,8 @@ paged_qblock_kernel(const __nv_bfloat16* __restrict__ q,
   __syncthreads();
   int n_keys = 0;
   for (int R = 0; R < rows; ++R) n_keys = max(n_keys, sm.lims[R] + 1);
-  attend_rows<HD>(sm, rows, n_keys, kpool, vpool, table + (size_t)b * p_max,
-                  kvh, g, page);
+  attend_rows<T, HD>(sm, rows, n_keys, kpool, vpool, kscale, vscale,
+                     table + (size_t)b * p_max, kvh, g, page);
   __syncthreads();
   for (int e = threadIdx.x; e < rows * HD; e += kThreads) {
     const int R = e / HD, d = e % HD;
@@ -286,33 +366,34 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
-template <int HD>
+template <typename T, int HD>
 cudaError_t launch_decode(const void* q, const void* kpool, const void* vpool,
-                          const int* table, const int* kv_len, void* out, int S,
-                          int H, int kvh, int page, int p_max, cudaStream_t stream) {
-  const size_t smem = smem_bytes<HD>(H / kvh);
-  cudaError_t err = allow_smem(paged_decode_kernel<HD>, smem);
+                          const float* kscale, const float* vscale, const int* table,
+                          const int* kv_len, void* out, int S, int H, int kvh, int page,
+                          int p_max, cudaStream_t stream) {
+  const size_t smem = smem_bytes<T, HD>(H / kvh);
+  cudaError_t err = allow_smem(paged_decode_kernel<T, HD>, smem);
   if (err != cudaSuccess) return err;
-  paged_decode_kernel<HD><<<dim3(kvh, S), kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kpool),
-      static_cast<const __nv_bfloat16*>(vpool), table, kv_len,
+  paged_decode_kernel<T, HD><<<dim3(kvh, S), kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(kpool),
+      static_cast<const T*>(vpool), kscale, vscale, table, kv_len,
       static_cast<__nv_bfloat16*>(out), H, kvh, page, p_max);
   return cudaGetLastError();
 }
 
-template <int HD>
+template <typename T, int HD>
 cudaError_t launch_qblock(const void* q, const void* kpool, const void* vpool,
-                          const int* table, const int* positions, void* out, int B,
-                          int C, int H, int kvh, int page, int p_max,
-                          cudaStream_t stream) {
+                          const float* kscale, const float* vscale, const int* table,
+                          const int* positions, void* out, int B, int C, int H, int kvh,
+                          int page, int p_max, cudaStream_t stream) {
   const int rep = H / kvh;
   const int qt = std::max(1, std::min(kMaxRows / rep, C));
-  const size_t smem = smem_bytes<HD>(qt * rep);
-  cudaError_t err = allow_smem(paged_qblock_kernel<HD>, smem);
+  const size_t smem = smem_bytes<T, HD>(qt * rep);
+  cudaError_t err = allow_smem(paged_qblock_kernel<T, HD>, smem);
   if (err != cudaSuccess) return err;
-  paged_qblock_kernel<HD><<<dim3((C + qt - 1) / qt, kvh, B), kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kpool),
-      static_cast<const __nv_bfloat16*>(vpool), table, positions,
+  paged_qblock_kernel<T, HD><<<dim3((C + qt - 1) / qt, kvh, B), kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(kpool),
+      static_cast<const T*>(vpool), kscale, vscale, table, positions,
       static_cast<__nv_bfloat16*>(out), C, H, kvh, page, p_max, qt);
   return cudaGetLastError();
 }
@@ -322,22 +403,69 @@ bool shape_ok(int H, int kvh, int hd, int page, int p_max) {
          page > 0 && p_max > 0;
 }
 
+template <typename T>
+int decode_entry(const void* q, const void* kpool, const void* vpool, const void* kscale,
+                 const void* vscale, const void* table, const void* kv_len, void* out,
+                 int S, int H, int kvh, int hd, int page, int p_max, int device,
+                 void* stream) {
+  if (!shape_ok(H, kvh, hd, page, p_max) || S <= 0) return (int)cudaErrorInvalidValue;
+  if (Storage<T>::kQuant && (kscale == nullptr || vscale == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_decode<T, kHeadDim>(
+      q, kpool, vpool, static_cast<const float*>(kscale), static_cast<const float*>(vscale),
+      static_cast<const int*>(table), static_cast<const int*>(kv_len), out, S, H, kvh, page,
+      p_max, static_cast<cudaStream_t>(stream));
+}
+
+template <typename T>
+int qblock_entry(const void* q, const void* kpool, const void* vpool, const void* kscale,
+                 const void* vscale, const void* table, const void* positions, void* out,
+                 int B, int C, int H, int kvh, int hd, int page, int p_max, int device,
+                 void* stream) {
+  if (!shape_ok(H, kvh, hd, page, p_max) || B <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
+  if (Storage<T>::kQuant && (kscale == nullptr || vscale == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_qblock<T, kHeadDim>(
+      q, kpool, vpool, static_cast<const float*>(kscale), static_cast<const float*>(vscale),
+      static_cast<const int*>(table), static_cast<const int*>(positions), out, B, C, H, kvh,
+      page, p_max, static_cast<cudaStream_t>(stream));
+}
+
 }  // namespace
 
 // Plain C interface for ctypes. Pointers are device pointers on `device`;
-// `stream` is a cudaStream_t. Returns a cudaError_t code (0 = launched).
+// `stream` is a cudaStream_t. The int8 / fp8 entry points take the layer's
+// (num_pages, KV) fp32 scale tables of the K and V pools. Returns a
+// cudaError_t code (0 = launched).
 extern "C" int tdt_paged_decode_bf16(const void* q, const void* kpool,
                                      const void* vpool, const void* table,
                                      const void* kv_len, void* out, int S, int H,
                                      int kvh, int hd, int page, int p_max,
                                      int device, void* stream) {
-  if (!shape_ok(H, kvh, hd, page, p_max) || S <= 0) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const int* t = static_cast<const int*>(table);
-  const int* n = static_cast<const int*>(kv_len);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)launch_decode<kHeadDim>(q, kpool, vpool, t, n, out, S, H, kvh, page, p_max, s);
+  return decode_entry<__nv_bfloat16>(q, kpool, vpool, nullptr, nullptr, table, kv_len, out,
+                                     S, H, kvh, hd, page, p_max, device, stream);
+}
+
+extern "C" int tdt_paged_decode_int8(const void* q, const void* kpool, const void* vpool,
+                                     const void* kscale, const void* vscale,
+                                     const void* table, const void* kv_len, void* out,
+                                     int S, int H, int kvh, int hd, int page, int p_max,
+                                     int device, void* stream) {
+  return decode_entry<int8_t>(q, kpool, vpool, kscale, vscale, table, kv_len, out, S, H, kvh,
+                              hd, page, p_max, device, stream);
+}
+
+extern "C" int tdt_paged_decode_fp8(const void* q, const void* kpool, const void* vpool,
+                                    const void* kscale, const void* vscale,
+                                    const void* table, const void* kv_len, void* out,
+                                    int S, int H, int kvh, int hd, int page, int p_max,
+                                    int device, void* stream) {
+  return decode_entry<__nv_fp8_e4m3>(q, kpool, vpool, kscale, vscale, table, kv_len, out, S,
+                                     H, kvh, hd, page, p_max, device, stream);
 }
 
 extern "C" int tdt_paged_qblock_bf16(const void* q, const void* kpool,
@@ -345,18 +473,35 @@ extern "C" int tdt_paged_qblock_bf16(const void* q, const void* kpool,
                                      const void* positions, void* out, int B, int C,
                                      int H, int kvh, int hd, int page, int p_max,
                                      int device, void* stream) {
-  if (!shape_ok(H, kvh, hd, page, p_max) || B <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const int* t = static_cast<const int*>(table);
-  const int* pos = static_cast<const int*>(positions);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)launch_qblock<kHeadDim>(q, kpool, vpool, t, pos, out, B, C, H, kvh, page, p_max, s);
+  return qblock_entry<__nv_bfloat16>(q, kpool, vpool, nullptr, nullptr, table, positions,
+                                     out, B, C, H, kvh, hd, page, p_max, device, stream);
+}
+
+extern "C" int tdt_paged_qblock_int8(const void* q, const void* kpool, const void* vpool,
+                                     const void* kscale, const void* vscale,
+                                     const void* table, const void* positions, void* out,
+                                     int B, int C, int H, int kvh, int hd, int page,
+                                     int p_max, int device, void* stream) {
+  return qblock_entry<int8_t>(q, kpool, vpool, kscale, vscale, table, positions, out, B, C,
+                              H, kvh, hd, page, p_max, device, stream);
+}
+
+extern "C" int tdt_paged_qblock_fp8(const void* q, const void* kpool, const void* vpool,
+                                    const void* kscale, const void* vscale,
+                                    const void* table, const void* positions, void* out,
+                                    int B, int C, int H, int kvh, int hd, int page,
+                                    int p_max, int device, void* stream) {
+  return qblock_entry<__nv_fp8_e4m3>(q, kpool, vpool, kscale, vscale, table, positions, out,
+                                     B, C, H, kvh, hd, page, p_max, device, stream);
 }
 
 // Dynamic shared memory a block of either kernel takes for `rows` (query,
-// head) rows: decode rows = H / KV, Q-block rows = qt * (H / KV) <= 32.
-extern "C" int tdt_paged_smem_bytes(int rows) { return (int)smem_bytes<kHeadDim>(rows); }
+// head) rows: decode rows = H / KV, Q-block rows = qt * (H / KV) <= 32;
+// `quant` = 1 for the int8 / fp8 pools (1-byte elements).
+extern "C" int tdt_paged_smem_bytes(int rows, int quant) {
+  return quant ? (int)smem_bytes<int8_t, kHeadDim>(rows)
+               : (int)smem_bytes<__nv_bfloat16, kHeadDim>(rows);
+}
 
 extern "C" const char* tdt_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

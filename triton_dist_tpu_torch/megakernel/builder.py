@@ -28,7 +28,16 @@ cache task pair each layer records:
 - prefill chunk (``chunk=True``, ``batch = seq = C``:
   ``WRITE_KV_CHUNK``/``ATTN_CHUNK``), paged only: C rows of one slot whose
   (p_max,) table row rides the launch, positions sign-encoded per row
-  (:func:`~triton_dist_tpu_torch.ops.chunked_prefill.chunk_row_codes`).
+  (:func:`~triton_dist_tpu_torch.ops.chunked_prefill.chunk_row_codes`);
+- Q-block verify (``qblock=True``, ``seq = K``: ``WRITE_KV_QBLOCK``/
+  ``ATTN_QBLOCK``), paged only: ``batch`` = slots * K rows, slot-major,
+  each at its own position; a negative position masks the row.
+
+``kv_quant="int8"|"fp8"`` (paged; decode, chunk and Q-block builds)
+stores the pools at one byte per element with (layers, num_pages, kv)
+fp32 scale tables beside them, quantize fused into the write task and
+dequantize into every attention read; batched prefill has no
+fused-quant write and refuses it, as in the JAX builder.
 
 A MoE config (Qwen3-MoE, the tensor-parallel expert regime at one rank)
 replaces each layer's MLP by the JAX graph's MoE FFN: the router
@@ -38,8 +47,7 @@ counters), every expert's gate/up ``LINEAR``, ``SILU_MUL`` and down
 same bodies serve all three row modes. Every expert runs for every row,
 as in the JAX design; the counters count what each row routed to.
 
-The Q-block verify pair, quantized pools, hybrid GDN and profiling are
-later slices (ROADMAP.md).
+Hybrid GDN and profiling are later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -65,10 +73,18 @@ from triton_dist_tpu_torch.utils.build import CudaKernel, load
 KERNEL = CudaKernel("megakernel.cu", "tdt_megakernel_bf16",
                     [ctypes.c_void_p] * 14 + [ctypes.c_int] * 11
                     + [ctypes.c_float, ctypes.c_float, ctypes.c_longlong]
-                    + [ctypes.c_int] * 3)
-# Launches of the CUDA megakernel by row mode (each also counts in
-# ``KERNEL.launches``).
-MODE_LAUNCHES = {"decode": 0, "prefill": 0, "chunk": 0}
+                    + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+                    + [ctypes.c_int, ctypes.c_float])
+# Launches of the CUDA megakernel by row mode, and by row mode and pool
+# storage for quantized pools ("decode-int8", ...); each also counts in
+# ``KERNEL.launches``.
+MODE_LAUNCHES = {f"{mode}{kv}": 0
+                 for mode in ("decode", "prefill", "chunk", "qblock")
+                 for kv in ("", "-int8", "-fp8")}
+# The pool storage the kernel takes, by ``kv_quant`` (0: the arena's bf16).
+KV_QUANT_CODES = {None: 0, "int8": 1, "fp8": 2}
+KV_QUANT_DTYPES = {None: torch.bfloat16, "int8": torch.int8,
+                   "fp8": torch.float8_e4m3fn}
 # What csrc/megakernel.cu is compiled for.
 KERNEL_TILE_W = 128
 KERNEL_HEAD_DIM = 128
@@ -76,19 +92,20 @@ KERNEL_MAX_GQA = 8            # query heads per KV head
 # Rows the decode instantiation's CUDA-core LINEAR takes; prompt modes and
 # wider decode launches run the tensor-core instantiation.
 KERNEL_CUDA_CORE_ROWS = 8
-# Task types the CUDA kernel runs: the decode set, the batched-prefill
-# and prefill-chunk cache pairs, and the MoE pair.
+# Task types the CUDA kernel runs: the decode set, the batched-prefill,
+# prefill-chunk and Q-block cache pairs, and the MoE pair.
 KERNEL_TYPES = frozenset({
     TaskType.RMSNORM, TaskType.LINEAR, TaskType.ADD, TaskType.SILU_MUL,
     TaskType.ATTN_DECODE, TaskType.WRITE_KV, TaskType.ALLREDUCE,
     TaskType.GATHER, TaskType.WRITE_KV_PREFILL, TaskType.ATTN_PREFILL,
-    TaskType.WRITE_KV_CHUNK, TaskType.ATTN_CHUNK, TaskType.MOE_WEIGHTS,
-    TaskType.WEIGHTED_ADD})
+    TaskType.WRITE_KV_CHUNK, TaskType.ATTN_CHUNK, TaskType.WRITE_KV_QBLOCK,
+    TaskType.ATTN_QBLOCK, TaskType.MOE_WEIGHTS, TaskType.WEIGHTED_ADD})
 # The cache task pair (write, attend) each layer records, by row mode.
 CACHE_PAIRS = {
     "decode": (TaskType.WRITE_KV, TaskType.ATTN_DECODE),
     "prefill": (TaskType.WRITE_KV_PREFILL, TaskType.ATTN_PREFILL),
     "chunk": (TaskType.WRITE_KV_CHUNK, TaskType.ATTN_CHUNK),
+    "qblock": (TaskType.WRITE_KV_QBLOCK, TaskType.ATTN_QBLOCK),
 }
 DEFAULT_TIMEOUT_S = 5.0
 
@@ -204,7 +221,10 @@ class ModelBuilder:
     comm-priority-ordered claim list). Both are topological orders; the
     CUDA kernel's blocks claim tasks in that order. ``seq`` > 1 builds a
     batched prefill of ``batch // seq`` slots; ``chunk=True`` a prefill
-    chunk of ``batch == seq`` rows of one slot (module docstring).
+    chunk of ``batch == seq`` rows of one slot; ``qblock=True`` a verify
+    block of K = ``seq`` rows for each of ``batch // seq`` slots (module
+    docstring). ``kv_quant`` ("int8" | "fp8" | None) picks the pools'
+    storage.
 
     MoE builds: ``counts_rows`` sizes the ``moe_counts`` region (the
     largest row count over an engine's builds, so that every build
@@ -218,13 +238,40 @@ class ModelBuilder:
                  schedule: str = "static", paged: bool = False,
                  page: Optional[int] = None, seq: int = 1,
                  chunk: bool = False, expert_load=None,
-                 counts_rows: Optional[int] = None):
+                 counts_rows: Optional[int] = None, qblock: bool = False,
+                 kv_quant: Optional[str] = None):
         if schedule not in ("static", "dynamic"):
             raise ValueError(f"schedule must be 'static' or 'dynamic', "
                              f"got {schedule!r}")
         if seq < 1 or batch % seq:
             raise ValueError(f"batch rows {batch} not divisible by "
                              f"seq {seq}")
+        if qblock and chunk:
+            raise ValueError("qblock and chunk are mutually exclusive "
+                             "task-set selectors (verify rows vs prompt-chunk "
+                             "rows)")
+        if qblock:
+            if seq < 2:
+                raise ValueError(f"qblock builds verify K >= 2 candidates "
+                                 f"per slot (seq={seq})")
+            if not paged:
+                raise ValueError("the Q-block verify task set addresses the "
+                                 "cache through block tables: build with "
+                                 "paged=True")
+        from triton_dist_tpu_torch.serving.blocks import kv_quant_spec
+
+        qdtype, qmax = kv_quant_spec(kv_quant)
+        self.kv_quant = None if qdtype is None else kv_quant
+        self.kv_qmax = 0.0 if qdtype is None else float(qmax)
+        if self.kv_quant is not None:
+            if not paged:
+                raise ValueError("quantized megakernel KV needs paged=True "
+                                 "(scales are per (layer, page, kv_head))")
+            if seq > 1 and not (qblock or chunk):
+                raise NotImplementedError(
+                    "the batched-prefill bodies have no fused-quant write; "
+                    "quantized engines stream prompts through the prefill "
+                    "lane (decode kernel) or chunk tasks")
         if chunk:
             if batch != seq:
                 raise ValueError(
@@ -237,8 +284,9 @@ class ModelBuilder:
                                  "with paged=True")
         self.seq = seq
         self.chunk = bool(chunk)
-        self.mode = ("chunk" if self.chunk else
-                     "prefill" if seq > 1 else "decode")
+        self.qblock = bool(qblock)
+        self.mode = ("chunk" if self.chunk else "qblock" if self.qblock
+                     else "prefill" if seq > 1 else "decode")
         # Slots the rows belong to: the chunk's one table row, or
         # batch // seq block-table rows (dense: cache rows).
         self.n_slots = 1 if self.chunk else batch // seq
@@ -269,8 +317,9 @@ class ModelBuilder:
             self.page = page or max(self.t_tile, seq)
             # A batched prefill's slot writes seq consecutive positions
             # from a seq-aligned base, which the JAX body stores as one
-            # block inside one page; chunk rows write one position each.
-            seq_align = seq > 1 and not self.chunk
+            # block inside one page; chunk and Q-block rows write one
+            # position each.
+            seq_align = seq > 1 and not (self.chunk or self.qblock)
             if (self.page % self.t_tile or (seq_align and self.page % seq)
                     or max_len % self.page):
                 raise ValueError(
@@ -596,11 +645,11 @@ class ModelBuilder:
             return 4 * self.d_tiles
         if t.task_type == TaskType.ATTN_PREFILL:
             return 8 * self.d_tiles * max(self.seq // 8, 1)
-        if t.task_type == TaskType.ATTN_CHUNK:
+        if t.task_type in (TaskType.ATTN_QBLOCK, TaskType.ATTN_CHUNK):
             return 4 * self.d_tiles * self.seq
         if t.task_type == TaskType.WRITE_KV_PREFILL:
             return 2 * max(self.seq // 8, 1)
-        if t.task_type == TaskType.WRITE_KV_CHUNK:
+        if t.task_type in (TaskType.WRITE_KV_QBLOCK, TaskType.WRITE_KV_CHUNK):
             return 2 * self.seq
         if t.task_type == TaskType.ALLREDUCE:
             return 2 * int(t.args[1])
@@ -735,7 +784,8 @@ class ModelBuilder:
             rms_eps=self.cfg.rms_norm_eps, paged=self.paged, page=self.page,
             p_max=self.p_max, seq=self.seq,
             moe_topk=self.cfg.num_experts_per_tok if self.moe else 0,
-            moe_norm=self.cfg.norm_topk_prob)
+            moe_norm=self.cfg.norm_topk_prob, kv_quant=self.kv_quant,
+            qmax=self.kv_qmax)
 
     def logits(self, arena: torch.Tensor, rows=None) -> torch.Tensor:
         """fp32 logits of the last step, read out of the arena's logits
@@ -761,6 +811,8 @@ class ModelBuilder:
         plain bodies' ``_*_rows``)."""
         if self.mode == "chunk":
             return np.maximum(np.where(lens >= 0, lens, -lens - 2), 0)
+        if self.mode == "qblock":
+            return np.maximum(lens, 0)
         if self.mode == "prefill":
             return lens + np.arange(self.batch) % self.seq
         return lens
@@ -774,7 +826,7 @@ class ModelBuilder:
         if toks.shape != (b,):
             raise ValueError(f"token_ids {toks.shape} != ({b},)")
         pos = self._row_positions(lens)
-        if (self.mode != "chunk" and lens.min() < 0) \
+        if (self.mode not in ("chunk", "qblock") and lens.min() < 0) \
                 or pos.max() >= self.max_len:
             raise ValueError(f"cache_len {lens.tolist()} puts a row "
                              f"outside [0, max_len={self.max_len})")
@@ -795,7 +847,8 @@ class ModelBuilder:
 
     def step(self, arena, k_cache, v_cache, token_ids, cache_len,
              block_table=None, *, rows=None, counts=None,
-             timeout_s: float = DEFAULT_TIMEOUT_S) -> torch.Tensor:
+             timeout_s: float = DEFAULT_TIMEOUT_S, k_scale=None,
+             v_scale=None) -> torch.Tensor:
         """One launch of this build, IN PLACE on ``arena`` and the pools.
 
         arena: (rows >= arena_rows, w), shared by every build of one
@@ -804,11 +857,14 @@ class ModelBuilder:
         cache_len: a scalar or (batch,) per-row values read by the row
         rule (decode: each row's position, where it writes its K/V and
         attends ``cache_len + 1`` keys; batched prefill: the shared base;
-        chunk: the sign-encoded codes); block_table: the flat
-        (n_slots * p_max,) page ids when paged (a chunk's: its slot's
-        (p_max,) row); counts: a MoE build's int32 expert counters
-        (``moe_counts`` rows x w, on the arena's device), which the step
-        adds to. Returns fp32 logits of ``rows`` (see :meth:`logits`).
+        chunk: the sign-encoded codes; Q-block: each row's position, < 0
+        masking it); block_table: the flat (n_slots * p_max,) page ids
+        when paged (a chunk's: its slot's (p_max,) row); counts: a MoE
+        build's int32 expert counters (``moe_counts`` rows x w, on the
+        arena's device), which the step adds to; k_scale/v_scale: a
+        quantized build's (layers, num_pages, kv) fp32 scale tables,
+        updated in place with the pools. Returns fp32 logits of ``rows``
+        (see :meth:`logits`).
 
         CUDA tensors launch the megakernel on every block that fits on the
         card and wait for it (``timeout_s`` bounds each wait in the
@@ -818,17 +874,20 @@ class ModelBuilder:
         if arena.device.type == "cpu":
             return self.plain_step(arena, k_cache, v_cache, token_ids,
                                    cache_len, block_table, rows=rows,
-                                   counts=counts)
+                                   counts=counts, k_scale=k_scale,
+                                   v_scale=v_scale)
         toks, lens, table = self._host_inputs(k_cache, token_ids, cache_len,
                                               block_table)
         self.launch(arena, k_cache, v_cache, toks, lens, table,
-                    counts=counts, timeout_s=timeout_s)
+                    counts=counts, timeout_s=timeout_s, k_scale=k_scale,
+                    v_scale=v_scale)
         self.wait(arena.device)
         return self.logits(arena, rows)
 
     def plain_step(self, arena, k_cache, v_cache, token_ids, cache_len,
                    block_table=None, *, rows=None, counts=None,
-                   route_from=None) -> torch.Tensor:
+                   route_from=None, k_scale=None,
+                   v_scale=None) -> torch.Tensor:
         """The plain version of :meth:`step`, on tensors of any device:
         the claim list in order through the PyTorch task bodies.
         ``route_from`` (MoE): an arena of another run of this build whose
@@ -841,9 +900,30 @@ class ModelBuilder:
         toks, lens, table = self._host_inputs(k_cache, token_ids, cache_len,
                                               block_table)
         self._check_counts(counts, arena.device)
+        self._check_scales(k_cache, k_scale, v_scale, arena.device)
         self.interpret(arena, k_cache, v_cache, toks, lens, table, counts,
-                       route_from=route_from)
+                       route_from=route_from, k_scale=k_scale,
+                       v_scale=v_scale)
         return self.logits(arena, rows)
+
+    def _check_scales(self, k_cache, k_scale, v_scale, device) -> None:
+        """A quantized build needs its pools in the storage dtype and two
+        contiguous fp32 (layers, num_pages, kv) scale tables on
+        ``device``; an unquantized build takes none."""
+        if self.kv_quant is None:
+            if k_scale is not None or v_scale is not None:
+                raise ValueError("an unquantized build takes no scales")
+            return
+        want = KV_QUANT_DTYPES[self.kv_quant]
+        if k_cache.dtype != want:
+            raise TypeError(f"a {self.kv_quant} build needs {want} pools, "
+                            f"got {k_cache.dtype}")
+        shape = (self.cfg.num_hidden_layers, k_cache.shape[1], self.kv_loc)
+        for t in (k_scale, v_scale):
+            if (t is None or t.dtype != torch.float32 or t.device != device
+                    or tuple(t.shape) != shape or not t.is_contiguous()):
+                raise ValueError(f"a quantized step needs contiguous fp32 "
+                                 f"k_scale/v_scale {shape} on {device}")
 
     def _check_counts(self, counts, device) -> None:
         """A MoE build needs its int32 counters (``moe_counts`` rows x w)
@@ -860,7 +940,8 @@ class ModelBuilder:
                              f"counters ({rows}, {self.w}) on {device}")
 
     def interpret(self, arena, k_cache, v_cache, toks, lens, table,
-                  counts=None, *, route_from=None) -> None:
+                  counts=None, *, route_from=None, k_scale=None,
+                  v_scale=None) -> None:
         """The plain version: the claim list in order through the PyTorch
         task bodies (:data:`kernels.BODIES`); ``route_from`` as in
         :meth:`plain_step`."""
@@ -869,7 +950,7 @@ class ModelBuilder:
                          lens=[int(x) for x in lens],
                          table=torch.as_tensor(table, dtype=torch.int64,
                                                device=arena.device),
-                         counts=counts)
+                         counts=counts, k_scale=k_scale, v_scale=v_scale)
         cfg = self.kernel_config()
         tasks = self.graph.tasks
         b = self.batch
@@ -887,9 +968,11 @@ class ModelBuilder:
             raise RuntimeError(f"the megakernel runs on CUDA tensors (got "
                                f"{dev}); only CPU tensors take the plain "
                                "version")
-        for t in (arena, k_cache, v_cache):
-            if t.device != dev or t.dtype != torch.bfloat16:
-                raise TypeError(f"expected bf16 tensors on {dev}, got "
+        pool_dtype = KV_QUANT_DTYPES[self.kv_quant]
+        for t, want in ((arena, torch.bfloat16), (k_cache, pool_dtype),
+                        (v_cache, pool_dtype)):
+            if t.device != dev or t.dtype != want:
+                raise TypeError(f"expected a {want} tensor on {dev}, got "
                                 f"{t.dtype} on {t.device}")
             if not t.is_contiguous() or t.data_ptr() % 16:
                 raise ValueError("the arena and the pools must be "
@@ -936,14 +1019,17 @@ class ModelBuilder:
 
     def launch(self, arena, k_cache, v_cache, toks, lens, table, *,
                counts=None, timeout_s: float = DEFAULT_TIMEOUT_S,
-               task_ns: Optional[torch.Tensor] = None) -> None:
+               task_ns: Optional[torch.Tensor] = None, k_scale=None,
+               v_scale=None) -> None:
         """One launch of the CUDA megakernel on the current stream.
-        ``counts``: a MoE build's int32 expert counters on the card.
+        ``counts``: a MoE build's int32 expert counters on the card;
+        ``k_scale``/``v_scale``: a quantized build's scale tables.
         ``task_ns``: an optional int64 (n_tasks, 2) tensor on the card
         that receives each task's start and end on the card's global
         timer (ns), for :meth:`task_ms`."""
         self.check_kernel_args(arena, k_cache, v_cache)
         self._check_counts(counts, arena.device)
+        self._check_scales(k_cache, k_scale, v_scale, arena.device)
         dev = arena.device
         tabs = self._tables_on(dev)
 
@@ -977,8 +1063,17 @@ class ModelBuilder:
             num_pages, page, p_max, cfg.rms_norm_eps, cfg.rope_theta,
             int(timeout_s * 1e9), int(self.uses_tensor_cores),
             cfg.num_experts_per_tok if self.moe else 0,
-            int(cfg.norm_topk_prob), device=dev)
-        MODE_LAUNCHES[self.mode] += 1
+            int(cfg.norm_topk_prob),
+            0 if k_scale is None else k_scale.data_ptr(),
+            0 if v_scale is None else v_scale.data_ptr(),
+            KV_QUANT_CODES[self.kv_quant], self.kv_qmax, device=dev)
+        MODE_LAUNCHES[self.launch_key] += 1
+
+    @property
+    def launch_key(self) -> str:
+        """This build's :data:`MODE_LAUNCHES` key: its row mode, with its
+        pool storage for a quantized build ("chunk-int8")."""
+        return self.mode + (f"-{self.kv_quant}" if self.kv_quant else "")
 
     @property
     def uses_tensor_cores(self) -> bool:

@@ -8,8 +8,10 @@ Qwen3-MoE config, the router, every expert and the weighted combine) and
 the LM head — token ids in, logits out. Besides the decode step, an engine may
 carry one prefill-chunk build per bucket (``prefill_buckets``: one launch
 per bucketed prompt chunk of one slot) or one batched-prefill build
-(``prefill_seq``: one launch per (batch, S) prompt); every build shares
-the one arena.
+(``prefill_seq``: one launch per (batch, S) prompt), and a Q-block verify
+build (``spec_k``: one launch scores K drafted tokens of every slot);
+every build shares the one arena. ``kv_dtype="int8"|"fp8"`` stores the
+paged pools quantized with per-(layer, page, kv_head) scale tables.
 """
 
 from __future__ import annotations
@@ -53,7 +55,16 @@ class MegaKernelEngine:
     prefill-chunk step per bucket (:meth:`prefill_chunk`: one launch takes
     a C-token prompt chunk of one slot); ``prefill_seq=S`` instead builds
     the batched prefill (:meth:`prefill`: one launch takes a (batch, S)
-    prompt). The two exclude each other, as in the JAX engine."""
+    prompt). The two exclude each other, as in the JAX engine.
+
+    ``kv_dtype``: ``"bf16"`` keeps the pools at ``dtype``; ``"int8"`` /
+    ``"fp8"`` store them at one byte per element with (layers, num_pages,
+    kv) fp32 scale tables :attr:`k_scale`/:attr:`v_scale` (ones at
+    first), quantize fused into the write task and dequantize into every
+    attention read. ``spec_k=K`` (>= 2; 1 means 0) also builds the Q-block
+    verify step (:meth:`verify_step`). Both need ``paged=True`` and
+    exclude ``prefill_seq``: prompts stream through the one-token lane or
+    the chunk builds."""
 
     def __init__(self, cfg: ModelConfig, *, batch: int, max_len: int = 512,
                  tile_w: Optional[int] = None, t_tile: Optional[int] = None,
@@ -63,20 +74,36 @@ class MegaKernelEngine:
                  params: Optional[dense.DenseLM] = None, seed: int = 0,
                  device=None, dtype: torch.dtype = torch.bfloat16,
                  keep_params: bool = False, prefill_seq: int = 0,
-                 prefill_buckets=None):
+                 prefill_buckets=None, kv_dtype: str = "bf16",
+                 spec_k: int = 0):
+        from triton_dist_tpu_torch.serving.blocks import kv_quant_spec
+
+        qdtype, _ = kv_quant_spec(kv_dtype)
+        self.kv_dtype = "bf16" if qdtype is None else kv_dtype
+        self.spec_k = int(spec_k or 0)
+        if self.spec_k == 1:
+            self.spec_k = 0              # K = 1 is plain decode
+        if self.spec_k < 0:
+            raise ValueError(f"spec_k must be 0 or >= 2, got {spec_k}")
         self.prefill_buckets = (tuple(sorted(set(
             int(c) for c in prefill_buckets))) if prefill_buckets else None)
-        if self.prefill_buckets:
-            if self.prefill_buckets[0] < 1:
-                raise ValueError(f"prefill buckets must be positive ints, "
-                                 f"got {prefill_buckets!r}")
+        if self.prefill_buckets and self.prefill_buckets[0] < 1:
+            raise ValueError(f"prefill buckets must be positive ints, "
+                             f"got {prefill_buckets!r}")
+        for knob, on in (("kv_dtype", qdtype is not None),
+                         ("spec_k", bool(self.spec_k)),
+                         ("prefill_buckets", bool(self.prefill_buckets))):
+            if not on:
+                continue
             if not paged:
-                raise ValueError("prefill_buckets needs paged=True "
-                                 "(block-table addressing)")
+                raise ValueError(f"{knob} needs paged=True (per-page scales "
+                                 "/ block-table addressing)")
             if prefill_seq > 1:
                 raise ValueError(
-                    "prefill_buckets is incompatible with prefill_seq: "
-                    "stream prompts through the chunk steps instead")
+                    f"{knob} is incompatible with prefill_seq: stream "
+                    "prompts through the prefill lane (the decode kernel) "
+                    "or the chunk steps instead")
+        kv_quant = None if qdtype is None else kv_dtype
         self.cfg = cfg
         self.batch = batch
         self.max_len = max_len
@@ -90,18 +117,25 @@ class MegaKernelEngine:
             # One page for every build (they address the same pools).
             page = math.lcm(t_tile, prefill_seq if prefill_seq > 1 else 1)
         # Every build claims the same moe_counts span, sized by the most
-        # rows any of them runs.
+        # rows any of them runs (a verify launch runs batch * K).
         counts_rows = max([batch, *(self.prefill_buckets or ()),
-                           batch * prefill_seq])
+                           batch * prefill_seq, batch * self.spec_k])
         kw = dict(max_len=max_len, tile_w=tile_w, t_tile=t_tile,
                   schedule=schedule, strategy=strategy, page=page,
                   counts_rows=counts_rows)
-        self.builder = ModelBuilder(cfg, batch=batch, paged=paged, **kw)
+        self.builder = ModelBuilder(cfg, batch=batch, paged=paged,
+                                    kv_quant=kv_quant, **kw)
         # One chunk build per bucket: C rows of one slot per launch.
         self.chunk_builders = {
             c: ModelBuilder(cfg, batch=c, seq=c, chunk=True, paged=True,
-                            **kw)
+                            kv_quant=kv_quant, **kw)
             for c in (self.prefill_buckets or ())}
+        # The Q-block verify build: batch * K rows, K per slot.
+        self.verify_builder = None
+        if self.spec_k:
+            self.verify_builder = ModelBuilder(
+                cfg, batch=batch * self.spec_k, seq=self.spec_k,
+                qblock=True, paged=True, kv_quant=kv_quant, **kw)
         self.prefill_builder = None
         self.prefill_seq = 0
         if prefill_seq > 1:
@@ -110,8 +144,9 @@ class MegaKernelEngine:
                 **kw)
             self.prefill_seq = prefill_seq
         builders = [self.builder, *self.chunk_builders.values()]
-        if self.prefill_builder is not None:
-            builders.append(self.prefill_builder)
+        for extra in (self.prefill_builder, self.verify_builder):
+            if extra is not None:
+                builders.append(extra)
         # One arena for every build: each lays out the same weight region
         # first, and the activation tail is per-launch scratch, so the
         # largest footprint sizes and packs it.
@@ -162,13 +197,26 @@ class MegaKernelEngine:
             self.num_pages = None
             shape = (L, batch, max_len, kv, hd)
             self.block_table = None
-        self.k_cache = torch.zeros(shape, dtype=dtype, device=self.device)
-        self.v_cache = torch.zeros(shape, dtype=dtype, device=self.device)
+        pool_dtype = dtype if qdtype is None else qdtype
+        self.k_cache = torch.zeros(shape, dtype=pool_dtype,
+                                   device=self.device)
+        self.v_cache = torch.zeros(shape, dtype=pool_dtype,
+                                   device=self.device)
         sch = self.builder.schema
-        sch.add_buffer("k_cache", shape, str(dtype).replace("torch.", ""),
-                       kind="kv")
-        sch.add_buffer("v_cache", shape, str(dtype).replace("torch.", ""),
-                       kind="kv")
+        name = str(pool_dtype).replace("torch.", "")
+        sch.add_buffer("k_cache", shape, name, kind="kv")
+        sch.add_buffer("v_cache", shape, name, kind="kv")
+        # Per-(layer, page, kv_head) dequant scales of quantized pools;
+        # a page's first write resets its scale.
+        self.k_scale = self.v_scale = None
+        if qdtype is not None:
+            sshape = shape[:2] + (kv,)
+            self.k_scale = torch.ones(sshape, dtype=torch.float32,
+                                      device=self.device)
+            self.v_scale = torch.ones(sshape, dtype=torch.float32,
+                                      device=self.device)
+            sch.add_buffer("k_scale", sshape, "float32", kind="scale")
+            sch.add_buffer("v_scale", sshape, "float32", kind="scale")
 
     @property
     def arena(self) -> torch.Tensor:
@@ -182,9 +230,35 @@ class MegaKernelEngine:
         ages through one launch."""
         logits = self.builder.step(self._arena, self.k_cache, self.v_cache,
                                    token_ids, cache_len, self.block_table,
-                                   counts=self.counts)
+                                   counts=self.counts, **self._scales())
         self.steps_done += 1
         return logits
+
+    def _scales(self) -> dict:
+        return dict(k_scale=self.k_scale, v_scale=self.v_scale)
+
+    def verify_step(self, token_rows, positions) -> torch.Tensor:
+        """ONE Q-block verify launch (``spec_k`` builds): ``token_rows``
+        (B, K) or (B·K,) drafted candidates, slot-major; ``positions``
+        (B·K,) each row's cache position, -1 masking a row (over-budget
+        candidates and parked slots write nothing; their logits are
+        garbage the host discards). Writes each unmasked row's K/V at its
+        position, attends under the per-row causal bound, and returns fp32
+        logits (B, K, vocab): row j's are those :meth:`decode_step` would
+        give at that position, up to the order of the sums (the verify
+        launch runs the tensor-core LINEAR)."""
+        if self.verify_builder is None:
+            raise ValueError("engine built without spec_k: there is no "
+                             "Q-block verify build")
+        toks = np.asarray(torch.as_tensor(token_rows).cpu(),
+                          np.int32).reshape(-1)
+        pos = np.asarray(torch.as_tensor(positions).cpu(),
+                         np.int32).reshape(-1)
+        logits = self.verify_builder.step(
+            self._arena, self.k_cache, self.v_cache, toks, pos,
+            self.block_table, counts=self.counts, **self._scales())
+        self.steps_done += 1
+        return logits.reshape(self.batch, self.spec_k, -1)
 
     def prefill_chunk(self, token_row, codes, table_row, *,
                       row: Optional[int] = None) -> torch.Tensor:
@@ -206,7 +280,8 @@ class MegaKernelEngine:
                 f"with prefill_buckets={self.prefill_buckets}; pad chunks "
                 "to a configured bucket (ops.chunked_prefill.plan_chunks)")
         logits = b.step(self._arena, self.k_cache, self.v_cache, toks,
-                        codes, table_row, rows=row, counts=self.counts)
+                        codes, table_row, rows=row, counts=self.counts,
+                        **self._scales())
         self.steps_done += 1
         return logits
 
@@ -226,8 +301,9 @@ class MegaKernelEngine:
         of the decode and chunk builds under a per-expert load vector
         (``None``: uniform), as the JAX engine does."""
         self.builder.reprioritize(load)
-        for b in self.chunk_builders.values():
-            b.reprioritize(load)
+        for b in (*self.chunk_builders.values(), self.verify_builder):
+            if b is not None:
+                b.reprioritize(load)
 
     def chunk_cache_size(self) -> int:
         """Chunk builds of this engine, one per bucket: the port runs

@@ -15,15 +15,22 @@ The port carries the dense decode set (``RMSNORM``, ``LINEAR``,
 ``ADD``, ``SILU_MUL``, ``WRITE_KV``, ``ATTN_DECODE``, ``GATHER``,
 ``ALLREDUCE`` at one rank, ``NOOP``), batched prefill
 (``WRITE_KV_PREFILL``/``ATTN_PREFILL``), the prefill chunk
-(``WRITE_KV_CHUNK``/``ATTN_CHUNK``) and the MoE pair (``MOE_WEIGHTS``,
+(``WRITE_KV_CHUNK``/``ATTN_CHUNK``), the speculative verify block
+(``WRITE_KV_QBLOCK``/``ATTN_QBLOCK``) and the MoE pair (``MOE_WEIGHTS``,
 the in-kernel router with its expert counters, and ``WEIGHTED_ADD``, the
 per-expert combine), whose rows follow the build's ``batch`` in every
-row mode. The three cache pairs differ only in
+row mode. The four cache pairs differ only in
 their row rule: which slot's block-table row a batch row reads, at which
 position, and whether it writes (:func:`_decode_rows`,
-:func:`_prefill_rows`, :func:`_chunk_rows`); one write core and one
-attention core serve all three. Every other type raises
-``NotImplementedError`` naming its ROADMAP item.
+:func:`_prefill_rows`, :func:`_chunk_rows`, :func:`_qblock_rows`); one
+write core and one attention core serve all four.
+
+Quantized pools (``cfg.kv_quant`` "int8"/"fp8", paged): the pools store
+one byte per element with one fp32 scale per (layer, page, kv_head) in
+``st.k_scale``/``st.v_scale``. Writes quantize token by token under a
+running max-abs scale (:func:`_quant_store_token`), reads dequantize.
+Only the hybrid GDN type raises ``NotImplementedError`` naming its
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -59,6 +66,10 @@ class KernelConfig:
     # weights are renormalised to sum to one.
     moe_topk: int = 0
     moe_norm: bool = True
+    # Quantized pools: "int8" | "fp8" (None: the pools' own dtype), and
+    # the storage's largest code (127 or 448).
+    kv_quant: Optional[str] = None
+    qmax: float = 0.0
 
 
 @dataclasses.dataclass
@@ -75,6 +86,9 @@ class StepState:
     lens: List[int]
     table: torch.Tensor      # flat int64 block table (paged) or unused
     counts: Optional[torch.Tensor] = None   # (counts_rows, w) int32
+    # Quantized pools: (layers, num_pages, kv) fp32 dequant scales.
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -152,6 +166,60 @@ def _chunk_rows(cfg: KernelConfig, st: StepState):
     enc = torch.tensor(st.lens, dtype=torch.int64, device=dev)
     return (torch.zeros(cfg.batch, dtype=torch.int64, device=dev),
             _chunk_apos(enc), enc >= 0)
+
+
+def _qblock_rows(cfg: KernelConfig, st: StepState):
+    """Q-block (speculative verify): rows are (slot, j) pairs, slot-major,
+    ``seq`` = K rows a slot; row r is slot ``r // K`` at its own position
+    ``lens[r]``. A negative position masks the row: it writes no page and
+    no scale (an over-budget candidate or a parked slot), and its output,
+    attended at position 0, is garbage the host discards."""
+    dev = st.arena.device
+    r = torch.arange(cfg.batch, device=dev)
+    pos = torch.tensor(st.lens, dtype=torch.int64, device=dev)
+    return (torch.div(r, cfg.seq, rounding_mode="floor"),
+            torch.clamp(pos, min=0), pos >= 0)
+
+
+# Quantized pools: the JAX kernel's fused scheme, op for op.
+
+def _quant_cast(x: torch.Tensor, qdtype: torch.dtype, qmax: float):
+    """fp32 → storage dtype: int8 rounds half to even and clips to ±qmax;
+    fp8 clips to ±qmax, then the cast rounds to nearest even."""
+    if qdtype == torch.int8:
+        return torch.clamp(torch.round(x), -qmax, qmax).to(torch.int8)
+    return torch.clamp(x, -qmax, qmax).to(qdtype)
+
+
+def _quant_store_token(cfg: KernelConfig, cache: torch.Tensor,
+                       scales: torch.Tensor, layer: int, pid: int, off: int,
+                       rows: torch.Tensor) -> None:
+    """Quantize ONE token's (KV, hd) fp32 rows into page ``pid`` at
+    ``off``, every KV head under its running max-abs scale: a page's first
+    position (``off == 0``) resets the scale, so a reused page never
+    inherits a stale one; a token whose amax exceeds the running amax
+    grows the scale and first rescales the page's stored codes by
+    ``s_old / s_new`` (rounding them twice, as the layer lane's merge
+    does). Heads are independent, so all of them go at once."""
+    qmax, qdtype = cfg.qmax, cache.dtype
+    amax = rows.abs().amax(dim=-1)                       # (KV,)
+    s_old = scales[layer, pid]
+    zero = torch.zeros_like(amax)
+    if off == 0:
+        s_new = torch.where(amax > 0, amax / qmax, torch.ones_like(amax))
+    else:
+        s_new = torch.maximum(s_old, torch.where(amax > 0, amax / qmax,
+                                                 zero))
+        grow = s_new > s_old
+        if bool(grow.any()):
+            ratio = (s_old / s_new)[None, :, None]          # (1, KV, 1)
+            page = cache[layer, pid]                        # (page, KV, hd)
+            cache[layer, pid] = torch.where(
+                grow[None, :, None],
+                _quant_cast(page.float() * ratio, qdtype, qmax), page)
+    cache[layer, pid, off] = _quant_cast(rows / s_new[:, None], qdtype,
+                                         qmax)
+    scales[layer, pid] = s_new
 
 
 def _rms_rows(x: torch.Tensor, w_row: torch.Tensor, eps: float):
@@ -244,9 +312,16 @@ def _write_kv_rowpos(cfg: KernelConfig, args, st: StepState, slots, pos,
     v = _heads(_load(st, v_off, kv_tiles * b), b, hd)[:, :kv_loc]
     k = _rope_rows(_rms_rows(k, wrow, cfg.rms_eps), pos, hd, cfg.rope_theta)
     # In row order: a later row wins a clash (parked decode rows share
-    # the scratch page).
+    # the scratch page); a quantized page takes its tokens in ascending
+    # position, as the rows come.
     for bb in torch.nonzero(writes).flatten().tolist():
         pid, off = _kv_rows(cfg, st, int(slots[bb]), pos[bb:bb + 1])
+        if cfg.kv_quant:
+            for cache, scales, x in ((st.k_cache, st.k_scale, k),
+                                     (st.v_cache, st.v_scale, v)):
+                _quant_store_token(cfg, cache, scales, layer, int(pid),
+                                   int(off), x[bb])
+            continue
         st.k_cache[layer, pid, off] = k[bb:bb + 1].to(st.k_cache.dtype)
         st.v_cache[layer, pid, off] = v[bb:bb + 1].to(st.v_cache.dtype)
 
@@ -273,8 +348,12 @@ def _attn_rowpos_body(cfg: KernelConfig, args, st: StepState, slots,
         rows = torch.nonzero(slots == slot).flatten()
         keys = torch.arange(int(pos[rows].max()) + 1, device=dev)
         pid, off = _kv_rows(cfg, st, slot, keys)
-        kk = st.k_cache[layer, pid, off].float()[:, kv_of]  # (n, h_loc, hd)
-        vv = st.v_cache[layer, pid, off].float()[:, kv_of]
+        kk = st.k_cache[layer, pid, off].float()             # (n, kv, hd)
+        vv = st.v_cache[layer, pid, off].float()
+        if cfg.kv_quant:                       # dequantize as it is read
+            kk = kk * st.k_scale[layer, pid][..., None]
+            vv = vv * st.v_scale[layer, pid][..., None]
+        kk, vv = kk[:, kv_of], vv[:, kv_of]                  # (n, h_loc, hd)
         s = torch.einsum("rhd,nhd->rhn", q[rows, :h_loc], kk)
         s = s.masked_fill(keys[None, None, :] > pos[rows][:, None, None],
                           float("-inf"))
@@ -327,6 +406,22 @@ def attn_chunk_body(cfg: KernelConfig, args, st: StepState) -> None:
     are invisible to the math. Dead rows compute garbage the host
     discards."""
     slots, pos, _ = _chunk_rows(cfg, st)
+    _attn_rowpos_body(cfg, args, st, slots, pos)
+
+
+def write_kv_qblock_body(cfg: KernelConfig, args, st: StepState) -> None:
+    """Q-block verify: row r writes its candidate's K/V at ``lens[r]`` of
+    slot ``r // K``; a masked row (``lens[r] < 0``) touches no page and no
+    scale."""
+    _write_kv_rowpos(cfg, args, st, *_qblock_rows(cfg, st))
+
+
+def attn_qblock_body(cfg: KernelConfig, args, st: StepState) -> None:
+    """Q-block verify: each candidate row attends its slot's keys at
+    positions ``<= lens[r]`` (its history and the candidates through
+    itself), the same per-row stream as decode, so an accepted
+    candidate's logits are those a sequential decode would give."""
+    slots, pos, _ = _qblock_rows(cfg, st)
     _attn_rowpos_body(cfg, args, st, slots, pos)
 
 
@@ -404,7 +499,6 @@ BODIES = {
     TaskType.MOE_WEIGHTS: moe_weights_body,
     TaskType.WEIGHTED_ADD: weighted_add_body,
     TaskType.GDN_DECODE: _not_ported("the hybrid GDN task set"),
-    TaskType.ATTN_QBLOCK: _not_ported("the Q-block verify pair (spec_k)"),
-    TaskType.WRITE_KV_QBLOCK: _not_ported(
-        "the Q-block verify pair (spec_k)"),
+    TaskType.ATTN_QBLOCK: attn_qblock_body,
+    TaskType.WRITE_KV_QBLOCK: write_kv_qblock_body,
 }

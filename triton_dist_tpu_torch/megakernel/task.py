@@ -4,8 +4,9 @@ All 18 type codes are kept, so a task's type number is the same in the
 port's tables as in the JAX package's; the port runs the dense decode set
 (``RMSNORM`` .. ``NOOP``), batched prefill (``WRITE_KV_PREFILL``,
 ``ATTN_PREFILL``), the prefill chunk (``ATTN_CHUNK``,
-``WRITE_KV_CHUNK``) and the MoE pair (``MOE_WEIGHTS``,
-``WEIGHTED_ADD``), and raises on the others.
+``WRITE_KV_CHUNK``), the speculative verify block (``ATTN_QBLOCK``,
+``WRITE_KV_QBLOCK``) and the MoE pair (``MOE_WEIGHTS``,
+``WEIGHTED_ADD``), and raises on ``GDN_DECODE``.
 """
 
 from __future__ import annotations
@@ -32,8 +33,8 @@ class TaskType(enum.IntEnum):
     MOE_WEIGHTS = 11       # args: rl_off, wbe_off, n_experts, cnt_off
     WEIGHTED_ADD = 12      # args: acc_off, part_off, wbe_off, e, tiles, init
     GDN_DECODE = 13
-    ATTN_QBLOCK = 14
-    WRITE_KV_QBLOCK = 15
+    ATTN_QBLOCK = 14       # args as ATTN_DECODE; rows (slot, j), per-row pos
+    WRITE_KV_QBLOCK = 15   # args as WRITE_KV; a row at pos < 0 is masked
     ATTN_CHUNK = 16        # args as ATTN_DECODE; rows sign-encoded
     WRITE_KV_CHUNK = 17    # args as WRITE_KV
 

@@ -49,30 +49,34 @@ class ModelConfig:
         """Serving pool sizing off the model geometry: pages per
         block-table row, pool pages for full residency (+1 reserved
         scratch page), and the bytes of the K+V pools on the one card
-        (the JAX plan's ``*_per_rank`` keys at ``tp=1``). Only the
-        unquantized (``kv_dtype="bf16"``) pool is ported; int8/fp8 pools
-        are listed in ROADMAP.md."""
+        (the JAX plan's ``*_per_rank`` keys at ``tp=1``).
+
+        ``kv_dtype="int8"|"fp8"`` plans a quantized pool: one byte per
+        element plus one fp32 scale per (layer, page, kv_head) per pool;
+        ``native_page_bytes_per_rank`` is what the page would cost at
+        ``dtype_bytes``, and ``capacity_ratio_vs_native`` the pages per
+        byte the quantization buys."""
         if max_len % page:
             raise ValueError(f"page={page} must divide max_len={max_len}")
         from triton_dist_tpu_torch.serving.blocks import kv_quant_spec
 
-        if kv_quant_spec(kv_dtype)[0] is not None:
-            raise NotImplementedError(
-                f"kv_dtype={kv_dtype!r}: quantized KV pools are not "
-                "ported yet (ROADMAP.md, queue A)")
+        qdtype, _ = kv_quant_spec(kv_dtype)
         kv_loc = self.num_key_value_heads
         p_max = max_len // page
         num_pages = 1 + num_slots * p_max
-        page_bytes = (self.num_hidden_layers * kv_loc * page
-                      * self.head_dim * dtype_bytes)
+        native_bytes = (self.num_hidden_layers * kv_loc * page
+                        * self.head_dim * dtype_bytes)
+        page_bytes = native_bytes if qdtype is None else (
+            self.num_hidden_layers * kv_loc * (page * self.head_dim + 4))
         return {
             "page": page, "p_max": p_max, "num_pages": num_pages,
-            "kv_heads_loc": kv_loc, "kv_dtype": "bf16",
+            "kv_heads_loc": kv_loc,
+            "kv_dtype": "bf16" if qdtype is None else kv_dtype,
             "page_bytes_per_rank": 2 * page_bytes,      # K and V
-            "native_page_bytes_per_rank": 2 * page_bytes,
+            "native_page_bytes_per_rank": 2 * native_bytes,
             "pool_bytes_per_rank": 2 * page_bytes * num_pages,
             "bytes_per_token": 2 * page_bytes / page,
-            "capacity_ratio_vs_native": 1.0,
+            "capacity_ratio_vs_native": round(native_bytes / page_bytes, 4),
             "tokens_per_page": page,
         }
 
@@ -82,6 +86,13 @@ class ModelConfig:
                    num_hidden_layers=36, num_attention_heads=32,
                    num_key_value_heads=8, head_dim=128,
                    model_name="qwen3-8b")
+
+    @classmethod
+    def qwen3_32b(cls) -> "ModelConfig":
+        return cls(hidden_size=5120, intermediate_size=25600,
+                   num_hidden_layers=64, num_attention_heads=64,
+                   num_key_value_heads=8, head_dim=128,
+                   model_name="qwen3-32b")
 
     @classmethod
     def qwen3_moe_30b_a3b(cls) -> "ModelConfig":

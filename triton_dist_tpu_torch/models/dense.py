@@ -1,7 +1,7 @@
 """Dense Qwen3-style LLM on one card (counterpart of
 ``triton_dist_tpu/models/dense.py``: ``init_params``, the dense-cache
 ``prefill``/``forward_tokens``/``decode_step`` and the paged
-``prefill_chunk_paged``/``decode_step_paged``).
+``prefill_chunk_paged``/``decode_step_paged``/``verify_step_paged``).
 
 The weights are an ``nn.Module`` tree (:class:`DenseLM`) whose names
 follow the JAX pytree's keys; the model functions take it as ``params``.
@@ -253,9 +253,10 @@ def prefill_chunk_paged(params: DenseLM, chunk_toks: torch.Tensor, cache,
                                                  positions)
         cache.write_chunk(li, k_tok, v_tok, table_row, positions, valid,
                           wfrom)
+        ksc, vsc = cache.layer_scales(li)
         o = paged_flash_qblock(q[:, 0][None], cache.k_pages[li],
                                cache.v_pages[li], table_row[None],
-                               qpos[None])[0]
+                               qpos[None], k_scale=ksc, v_scale=vsc)[0]
         x = _layer_tail(layer, x, o, cfg, ffn_fn)
     x = rms_norm(x[last:last + 1], params.ln_f, cfg.rms_norm_eps)
     return lm_head_logits(x, params.lm_head)[0]
@@ -282,10 +283,62 @@ def decode_step_paged(params: DenseLM, token_ids: torch.Tensor, cache,
         h = rms_norm(x, layer.ln_attn, cfg.rms_norm_eps)
         q, k_tok, v_tok = tp_attn.decode_project(layer.attn, h, cfg, lens)
         cache.append_decode(li, k_tok, v_tok)
+        ksc, vsc = cache.layer_scales(li)
         o = paged_flash_decode(q[:, 0], cache.k_pages[li],
-                               cache.v_pages[li], cache.block_table, kv_len)
+                               cache.v_pages[li], cache.block_table, kv_len,
+                               k_scale=ksc, v_scale=vsc)
         x = _layer_tail(layer, x, o, cfg, ffn_fn)
     x = rms_norm(x, params.ln_f, cfg.rms_norm_eps)
     logits = lm_head_logits(x, params.lm_head)
     cache.advance()
     return logits
+
+
+def verify_step_paged(params: DenseLM, token_ids: torch.Tensor, cache,
+                      cfg: ModelConfig, *, budget=None,
+                      ffn_fn=None) -> torch.Tensor:
+    """One speculative-verify step over a
+    :class:`~triton_dist_tpu_torch.serving.blocks.PagedKVCache`: K
+    candidate tokens per slot in one fixed-shape dispatch.
+
+    token_ids: (S, K) int32 — slot s's candidates are fed at positions
+    ``lens[s] .. lens[s] + K - 1``; ``budget`` (S,) int32 caps how many
+    candidates of a slot write real pages (the rest go to the scratch
+    page). Per layer: project the S·K rows at their positions, write
+    every candidate's K/V IN PLACE (:meth:`PagedKVCache.append_block`),
+    then attend each candidate through
+    :func:`~triton_dist_tpu_torch.ops.paged_flash_qblock.paged_flash_qblock`
+    under its own causal bound ``lens[s] + j`` (a parked slot's rows at
+    position 0), so candidate j sees what a sequential decode of the
+    accepted prefix would see. ``ffn_fn`` as in
+    :func:`prefill_chunk_paged`.
+
+    Returns fp32 logits (S, K, vocab): ``[s, j]`` is the next-token
+    distribution after feeding candidates 0..j. The lengths are NOT
+    advanced: the host commits the accepted prefix by advancing its
+    length mirrors (rejected candidates stay masked garbage)."""
+    s, k = token_ids.shape
+    dev = token_ids.device
+    x = params.embed[token_ids.reshape(-1).long()]        # (S·K, d)
+    lens = cache.lens
+    j = torch.arange(k, dtype=torch.int32, device=dev)
+    positions = (lens[:, None] + j[None]).reshape(-1)
+    qpos = (torch.clamp(lens[:, None] + cache.live[:, None] * (j[None] + 1),
+                        min=1) - 1).to(torch.int32)
+    if budget is not None:
+        budget = torch.as_tensor(budget, dtype=torch.int32, device=dev)
+    for li, layer in enumerate(params.layers):
+        h = rms_norm(x, layer.ln_attn, cfg.rms_norm_eps)
+        q, k_tok, v_tok = tp_attn.decode_project(layer.attn, h, cfg,
+                                                 positions)
+        hl, hd = q.shape[2], q.shape[3]
+        cache.append_block(li, k_tok[:, 0].reshape(s, k, -1, hd),
+                           v_tok[:, 0].reshape(s, k, -1, hd), budget=budget)
+        ksc, vsc = cache.layer_scales(li)
+        o = paged_flash_qblock(q[:, 0].reshape(s, k, hl, hd),
+                               cache.k_pages[li], cache.v_pages[li],
+                               cache.block_table, qpos, k_scale=ksc,
+                               v_scale=vsc)
+        x = _layer_tail(layer, x, o, cfg, ffn_fn)
+    x = rms_norm(x, params.ln_f, cfg.rms_norm_eps)
+    return lm_head_logits(x, params.lm_head).view(s, k, -1)

@@ -180,6 +180,16 @@ def prefill_chunk_paged(params: MoELM, chunk_toks: torch.Tensor, cache,
                                      valid=valid, ffn_fn=ffn)
 
 
+def verify_step_paged(params: MoELM, token_ids: torch.Tensor, cache,
+                      cfg: ModelConfig, *, budget=None) -> torch.Tensor:
+    """One speculative-verify step
+    (:func:`~triton_dist_tpu_torch.models.dense.verify_step_paged`) with
+    the MoE FFN in the decode regime. Returns fp32 logits (S, K, vocab)."""
+    ffn = functools.partial(_moe_ffn_decode, cfg=cfg)
+    return dense.verify_step_paged(params, token_ids, cache, cfg,
+                                   budget=budget, ffn_fn=ffn)
+
+
 def decode_step_paged(params: MoELM, token_ids: torch.Tensor, cache,
                       cfg: ModelConfig) -> torch.Tensor:
     """One continuous-batching decode step

@@ -8,8 +8,11 @@
   sign-encoded positions;
 - :func:`chunk_attend` — causal attention of a chunk over a slot's
   gathered position-major KV view;
+- :func:`block_attend` — the K-token verify attention over every
+  slot's gathered view (speculative decoding);
 - :func:`gather_pages_dense` — THE dense-row gather (pool pages →
-  position-major view) every plain paged reader shares.
+  position-major view, dequantized for int8/fp8 pools) every plain paged
+  reader shares.
 
 ``plan_chunks``, ``chunk_write_ids`` and ``chunk_row_codes`` are exact
 copies of the JAX logic: preemption replays re-prefill through the same
@@ -28,16 +31,20 @@ import torch
 SCRATCH_PAGE = 0
 
 
-def gather_pages_dense(pool: torch.Tensor,
-                       table: torch.Tensor) -> torch.Tensor:
+def gather_pages_dense(pool: torch.Tensor, table: torch.Tensor,
+                       scale=None) -> torch.Tensor:
     """Gather block-table pages into the dense position-major view.
 
     pool: (num_pages, KV, page, hd) — ONE layer's page pool; table:
     (..., P) int page ids (``(p_max,)`` for one slot's row, ``(S,
-    p_max)`` for a decode batch). Returns (..., P·page, KV, hd);
-    positions past the written region are garbage the caller masks."""
+    p_max)`` for a decode batch); scale: (num_pages, KV) fp32 dequant
+    scales of a quantized pool (the gather dequantizes to fp32), or
+    None. Returns (..., P·page, KV, hd); positions past the written
+    region are garbage the caller masks."""
     kvh, page, hd = pool.shape[1:]
     g = pool[table.long()]                   # (..., P, KV, page, hd)
+    if scale is not None:
+        g = g.float() * scale[table.long()][..., None, None]
     g = g.movedim(-2, -3)                    # (..., P, page, KV, hd)
     return g.reshape(*table.shape[:-1], table.shape[-1] * page, kvh, hd)
 
@@ -130,3 +137,31 @@ def chunk_attend(q: torch.Tensor, k_dense: torch.Tensor,
     scores = scores.masked_fill(~mask[None], float("-inf"))
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     return torch.einsum("hct,thd->chd", probs, v).to(q.dtype)
+
+
+def block_attend(q: torch.Tensor, k_dense: torch.Tensor,
+                 v_dense: torch.Tensor, lens: torch.Tensor,
+                 live: torch.Tensor) -> torch.Tensor:
+    """K-token verify attention over every slot's gathered view: query j
+    of a live slot attends positions ``< lens[s] + j + 1``, its history
+    plus the candidates through itself (the mask a sequential decode of
+    them would apply); a parked slot's rows clamp to one position.
+
+    q: (S, K, H, hd); k_dense/v_dense: (S, T, KV, hd), candidates
+    already written at ``lens[s] .. lens[s] + K - 1``; lens, live: (S,)
+    int. GQA by head repeat, fp32 softmax, probabilities cast to the
+    value dtype before P·V. Returns (S, K, H, hd)."""
+    s, kq, h, hd = q.shape
+    t, kvh = k_dense.shape[1], k_dense.shape[2]
+    rep = h // kvh
+    j = torch.arange(kq, device=q.device)
+    kv_len = torch.clamp(lens.long()[:, None]
+                         + live.long()[:, None] * (j[None] + 1), min=1)
+    k = k_dense.repeat_interleave(rep, dim=2)        # (S, T, H, hd)
+    v = v_dense.repeat_interleave(rep, dim=2)
+    scores = torch.einsum("skhd,sthd->shkt", q.float(), k.float())
+    scores = scores / math.sqrt(hd)
+    mask = torch.arange(t, device=q.device)[None, None] < kv_len[..., None]
+    scores = scores.masked_fill(~mask[:, None], float("-inf"))
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.einsum("shkt,sthd->skhd", probs, v).to(q.dtype)

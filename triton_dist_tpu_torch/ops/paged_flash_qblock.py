@@ -3,9 +3,12 @@
 generalized from one query to Cq queries per slot, each with its own
 causal bound. The chunked-prefill step rides it.
 
-On a CUDA tensor :func:`paged_flash_qblock` launches
-``paged_qblock_kernel`` (``csrc/paged_attention.cu``), which replaces the
-Pallas ``_qblock_kernel``; on a CPU tensor it runs
+Both serving uses ride it: the chunk (``start + arange(C)`` positions)
+and the speculative verify block (``lens[s] + j``). Pools are bf16, int8
+or fp8 (quantized pools with their per-page scales). On a CUDA tensor
+:func:`paged_flash_qblock` launches ``paged_qblock_kernel``
+(``csrc/paged_attention.cu``, one instantiation per pool dtype), which
+replaces the Pallas ``_qblock_kernel``; on a CPU tensor it runs
 :func:`paged_flash_qblock_ref`, the plain version.
 """
 
@@ -18,13 +21,23 @@ import torch
 
 from triton_dist_tpu_torch.ops.chunked_prefill import gather_pages_dense
 from triton_dist_tpu_torch.ops.paged_flash_decode import (
-    check_kernel_args, require_bf16_pool,
+    kernel_args, require_pool_scales,
 )
 from triton_dist_tpu_torch.utils.build import CudaKernel
 
-# ``KERNEL.launches`` counts launches of the CUDA kernel.
+# Each kernel's ``launches`` counts launches of its CUDA instantiation:
+# ``KERNELS[pool dtype]``; ``KERNEL`` is the bf16 one.
+_PTRS = [ctypes.c_void_p]
 KERNEL = CudaKernel("paged_attention.cu", "tdt_paged_qblock_bf16",
-                    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7)
+                    _PTRS * 6 + [ctypes.c_int] * 7)
+KERNELS = {
+    torch.bfloat16: KERNEL,
+    torch.int8: CudaKernel("paged_attention.cu", "tdt_paged_qblock_int8",
+                           _PTRS * 8 + [ctypes.c_int] * 7),
+    torch.float8_e4m3fn: CudaKernel("paged_attention.cu",
+                                    "tdt_paged_qblock_fp8",
+                                    _PTRS * 8 + [ctypes.c_int] * 7),
+}
 
 
 def paged_flash_qblock(q: torch.Tensor, k_pages: torch.Tensor,
@@ -37,11 +50,13 @@ def paged_flash_qblock(q: torch.Tensor, k_pages: torch.Tensor,
     layer's pool with every attended key already written; block_table:
     (B, P_max) int32; positions: (B, Cq) int32 — query (b, i) attends
     keys at positions ``<= positions[b, i]``, clamped to
-    ``[0, P_max·page - 1]``. Returns (B, Cq, H, hd)."""
-    require_bf16_pool(k_pages, k_scale, v_scale)
+    ``[0, P_max·page - 1]``. A quantized (int8/fp8) pool needs
+    ``k_scale``/``v_scale``: its layer's (num_pages, KV) fp32 dequant
+    scales. Returns (B, Cq, H, hd)."""
+    require_pool_scales(k_pages, k_scale, reject_spurious=True)
     if q.device.type == "cpu":
         return paged_flash_qblock_ref(q, k_pages, v_pages, block_table,
-                                      positions)
+                                      positions, k_scale, v_scale)
     b, cq, h, hd = q.shape
     _, kvh, page, _ = k_pages.shape
     if k_pages.shape != v_pages.shape or k_pages.shape[-1] != hd:
@@ -51,28 +66,29 @@ def paged_flash_qblock(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError(f"block_table {tuple(block_table.shape)} / "
                          f"positions {tuple(positions.shape)} do not match "
                          f"q {tuple(q.shape)}")
-    check_kernel_args(q, (k_pages, v_pages), (block_table, positions),
-                      head_dim=hd)
+    ptrs = kernel_args(q, k_pages, v_pages, k_scale, v_scale,
+                       (block_table, positions), head_dim=hd)
     out = torch.empty_like(q)
-    KERNEL.launch(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                  block_table.data_ptr(), positions.data_ptr(),
-                  out.data_ptr(), b, cq, h, kvh, hd, page,
-                  block_table.shape[1], device=q.device)
+    KERNELS[k_pages.dtype].launch(
+        *ptrs, block_table.data_ptr(), positions.data_ptr(), out.data_ptr(),
+        b, cq, h, kvh, hd, page, block_table.shape[1], device=q.device)
     return out
 
 
 def paged_flash_qblock_ref(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, block_table: torch.Tensor,
-                           positions: torch.Tensor) -> torch.Tensor:
+                           positions: torch.Tensor, k_scale=None,
+                           v_scale=None) -> torch.Tensor:
     """Plain version: gather each slot's pages into the dense
-    position-major view and run per-query masked fp32 attention;
-    probabilities are cast to the value dtype before P·V.
-    Returns (B, Cq, H, hd)."""
+    position-major view (dequantized to fp32 for a quantized pool) and
+    run per-query masked fp32 attention; probabilities are cast to the
+    value dtype before P·V. Returns (B, Cq, H, hd)."""
+    require_pool_scales(k_pages, k_scale)
     b, cq, h, hd = q.shape
     rep = h // k_pages.shape[1]
     positions = torch.clamp(positions, min=0)
-    kd = gather_pages_dense(k_pages, block_table)
-    vd = gather_pages_dense(v_pages, block_table)
+    kd = gather_pages_dense(k_pages, block_table, k_scale)
+    vd = gather_pages_dense(v_pages, block_table, v_scale)
     t = kd.shape[1]
     k = kd.repeat_interleave(rep, dim=2)              # (B, T, H, hd)
     v = vd.repeat_interleave(rep, dim=2)

@@ -14,8 +14,14 @@
 
 Page id 0 is RESERVED as the scratch page: parked slots keep an all-zero
 table row, so the fixed-shape decode step's writes for them land there.
-Only unquantized pools are ported; int8/fp8 pools and the KV-tier hooks
-are listed in ROADMAP.md.
+
+Quantized pools (``kv_dtype="int8"|"fp8"``) store one byte per element
+and one fp32 scale per (layer, page, kv_head) beside it: symmetric
+max-abs, ``scale = amax / qmax``, ``stored = round/cast(x / scale)``,
+``dequant = stored * scale``. Every writer merges the token range it
+writes into the touched pages under a fresh max-abs scale
+(:func:`_quant_range_write`), every reader dequantizes. The KV-tier
+hooks are listed in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -48,6 +54,69 @@ def kv_quant_spec(kv_dtype: str):
     return _KV_QUANT[kv_dtype]
 
 
+def quantize(x: torch.Tensor, scale, qdtype: torch.dtype,
+             qmax: float) -> torch.Tensor:
+    """fp32 ``x`` → storage dtype under ``scale`` (broadcastable). Divides
+    (a reciprocal would move ties by one code); int8 rounds half to even
+    and clips to ±qmax; fp8 clips to ±qmax first (the cast gives NaN out
+    of range), then rounds to nearest even in the cast."""
+    y = x / scale
+    if qdtype == torch.int8:
+        return torch.clamp(torch.round(y), -qmax, qmax).to(torch.int8)
+    return torch.clamp(y, -qmax, qmax).to(qdtype)
+
+
+def safe_scale(amax: torch.Tensor, qmax: float) -> torch.Tensor:
+    """amax → scale, with an all-zero page stored under scale 1."""
+    return torch.where(amax > 0, amax / qmax,
+                       torch.ones_like(amax)).to(torch.float32)
+
+
+def _quant_range_write(pool, scales, layer: int, pids, loc, toks, tok_mask,
+                       had_prior, qmax: float) -> None:
+    """Merge consecutive token ranges into QUANTIZED pages, in place:
+    the shared core of every partial-page quantized write (decode append,
+    the K-token verify block, the prefill chunk).
+
+    pool: (L, N, KV, page, hd) storage; scales: (L, N, KV) fp32; pids:
+    (S, n_t) touched page ids per slot (scratch-substituted windows write
+    garbage there); loc: (S, K) each token's place in the window
+    [0, n_t·page) (tokens whose ``tok_mask`` is False are dropped); toks:
+    (S, K, KV, hd); had_prior: (S, n_t) — a page holding earlier valid
+    tokens keeps its running amax (scale·qmax) through the merge, a page
+    whose first token lands now gets a fresh scale, so a freed-and-reused
+    page never inherits a stale one. A page no token lands in
+    requantizes to itself exactly (same scale)."""
+    s, n_t = pids.shape
+    _, _, kvh, page, hd = pool.shape
+    dev = pool.device
+    pids = pids.long()
+    toks = toks.float()
+    old_scale = scales[layer][pids]                      # (S, n_t, KV)
+    deq = pool[layer][pids].float() * old_scale[..., None, None]
+    dense = deq.permute(0, 1, 3, 2, 4).reshape(s, n_t * page, kvh, hd)
+    # One dump row past the window takes the masked tokens.
+    dense = torch.cat([dense, torch.zeros(s, 1, kvh, hd, device=dev)], 1)
+    loc_w = torch.where(tok_mask, loc, torch.full_like(loc, n_t * page))
+    rows = torch.arange(s, device=dev)[:, None].expand_as(loc_w)
+    dense[rows, loc_w.long()] = toks
+    dense = dense[:, :n_t * page]
+    tok_amax = torch.where(tok_mask[..., None], toks.abs().amax(dim=-1),
+                           torch.zeros((), device=dev))  # (S, K, KV)
+    tpage = torch.clamp(torch.div(loc, page, rounding_mode="floor"), 0,
+                        n_t - 1).long()
+    amax_new = torch.zeros(s, n_t, kvh, device=dev).scatter_reduce(
+        1, tpage[..., None].expand(-1, -1, kvh), tok_amax, reduce="amax")
+    amax = torch.maximum(
+        torch.where(had_prior[..., None], old_scale * qmax,
+                    torch.zeros((), device=dev)), amax_new)
+    new_scale = safe_scale(amax, qmax)
+    blocks = dense.reshape(s, n_t, page, kvh, hd).permute(0, 1, 3, 2, 4)
+    pool[layer][pids] = quantize(blocks, new_scale[..., None, None],
+                                 pool.dtype, qmax)
+    scales[layer][pids] = new_scale
+
+
 class OutOfPagesError(RuntimeError):
     """The pool has no free page (and nothing evictable) — the caller
     should apply backpressure (queue or preempt the request)."""
@@ -66,27 +135,53 @@ class PagedKVCache:
     ``k_pages``/``v_pages``: (L, num_pages, KV, page, hd) pools;
     ``block_table``: (num_slots, p_max) int32 page ids; ``lens``:
     (num_slots,) int32 valid tokens per slot; ``live``: (num_slots,)
-    int32 0/1. Every write method updates the pools in place and returns
-    nothing."""
+    int32 0/1. A quantized pool (int8/fp8 storage) also carries
+    ``k_scale``/``v_scale``: (L, num_pages, KV) fp32 dequant scales,
+    ones at first. Every write method updates the pools (and scales) in
+    place and returns nothing."""
 
     k_pages: torch.Tensor
     v_pages: torch.Tensor
     block_table: torch.Tensor
     lens: torch.Tensor
     live: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
 
     @classmethod
     def empty(cls, num_layers: int, num_pages: int, page: int,
               kv_heads: int, head_dim: int, *, num_slots: int, p_max: int,
-              device, dtype=torch.bfloat16) -> "PagedKVCache":
+              device, dtype=torch.bfloat16,
+              kv_dtype: str = "bf16") -> "PagedKVCache":
         shape = (num_layers, num_pages, kv_heads, page, head_dim)
         ints = dict(dtype=torch.int32, device=device)
+        qdtype, _ = kv_quant_spec(kv_dtype)
+        pool_dtype = dtype if qdtype is None else qdtype
+        scales = [None, None] if qdtype is None else [
+            torch.ones(shape[:3], dtype=torch.float32, device=device)
+            for _ in range(2)]
         return cls(
-            k_pages=torch.zeros(shape, dtype=dtype, device=device),
-            v_pages=torch.zeros(shape, dtype=dtype, device=device),
+            k_pages=torch.zeros(shape, dtype=pool_dtype, device=device),
+            v_pages=torch.zeros(shape, dtype=pool_dtype, device=device),
             block_table=torch.zeros((num_slots, p_max), **ints),
             lens=torch.zeros((num_slots,), **ints),
-            live=torch.zeros((num_slots,), **ints))
+            live=torch.zeros((num_slots,), **ints),
+            k_scale=scales[0], v_scale=scales[1])
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+    @property
+    def qmax(self) -> float:
+        return 127.0 if self.k_pages.dtype == torch.int8 else 448.0
+
+    def layer_scales(self, layer: int):
+        """One layer's ``(k_scale, v_scale)``, or ``(None, None)`` on an
+        unquantized pool: what every paged-kernel call site passes."""
+        if not self.quantized:
+            return None, None
+        return self.k_scale[layer], self.v_scale[layer]
 
     @property
     def page(self) -> int:
@@ -110,10 +205,68 @@ class PagedKVCache:
         length, in place. k_tok/v_tok: (num_slots, 1, KV, hd). Parked
         slots (all-zero table row) write the scratch page. Lengths
         advance once per step via :meth:`advance`, not here."""
+        if self.quantized:
+            self._quant_append(layer, k_tok, v_tok)
+            return
         page = self.page
         row = (self.lens // page).long()
         pids = torch.gather(self.block_table, 1, row[:, None])[:, 0]
         self._put(layer, pids, self.lens % page, k_tok[:, 0], v_tok[:, 0])
+
+    def append_block(self, layer: int, k_tok, v_tok, budget=None) -> None:
+        """Write K consecutive tokens per slot at positions
+        ``lens[s] .. lens[s] + K - 1``, in place: the speculative-verify
+        form of :meth:`append_decode` (the host commits the accepted
+        prefix by advancing only its length mirrors). k_tok/v_tok: (S, K,
+        KV, hd). Parked slots write the scratch page, and so do tokens
+        past the table row or past the slot's ``budget`` (S,): a
+        fixed-K dispatch near a request's token budget must not write a
+        real page (or, quantized, grow its scale)."""
+        if self.quantized:
+            self._quant_append(layer, k_tok, v_tok, budget)
+            return
+        page = self.page
+        k = k_tok.shape[1]
+        j = torch.arange(k, dtype=torch.int32, device=self.lens.device)
+        pos = self.lens[:, None] + j[None]
+        rows_raw = torch.div(pos, page, rounding_mode="floor")
+        valid = rows_raw < self.block_table.shape[1]
+        if budget is not None:
+            valid = valid & (j[None] < budget[:, None])
+        rows = torch.clamp(rows_raw, 0, self.block_table.shape[1] - 1)
+        pids = torch.where(valid, torch.gather(self.block_table, 1,
+                                               rows.long()),
+                           torch.full_like(rows, SCRATCH_PAGE))
+        self._put(layer, pids.flatten(), (pos % page).flatten(),
+                  k_tok.flatten(0, 1), v_tok.flatten(0, 1))
+
+    def _quant_append(self, layer: int, k_tok, v_tok, budget=None) -> None:
+        """Quantized slot-range write of :meth:`append_decode` (K = 1) and
+        :meth:`append_block`: the touched pages merge under a fresh
+        max-abs scale; a page whose first position reaches ``lens`` gets
+        a fresh scale."""
+        page = self.page
+        k = k_tok.shape[1]
+        p_max = self.block_table.shape[1]
+        dev = self.lens.device
+        n_t = (k - 1) // page + 2
+        lens = self.lens[:, None]
+        rows = (torch.div(lens, page, rounding_mode="floor")
+                + torch.arange(n_t, dtype=torch.int32, device=dev)[None])
+        rows_c = torch.clamp(rows, 0, p_max - 1).long()
+        pids = torch.where(rows < p_max,
+                           torch.gather(self.block_table, 1, rows_c),
+                           torch.full_like(rows, SCRATCH_PAGE))
+        j = torch.arange(k, dtype=torch.int32, device=dev)[None]
+        loc = lens % page + j
+        mask = torch.div(lens + j, page, rounding_mode="floor") < p_max
+        if budget is not None:
+            mask = mask & (j < budget[:, None])
+        had_prior = rows * page < lens
+        for pool, scales, tok in ((self.k_pages, self.k_scale, k_tok),
+                                  (self.v_pages, self.v_scale, v_tok)):
+            _quant_range_write(pool, scales, layer, pids, loc, tok, mask,
+                               had_prior, self.qmax)
 
     def advance(self) -> None:
         """Bump live slots' lengths after all layers appended."""
@@ -127,9 +280,42 @@ class PagedKVCache:
         ``positions``: (C,) global positions; ``valid``/``wfrom`` route
         bucket padding and prefix-resident positions to the scratch page
         (:func:`~triton_dist_tpu_torch.ops.chunked_prefill.chunk_write_ids`)."""
+        if self.quantized:
+            self._quant_write_chunk(layer, k_tok, v_tok, table_row,
+                                    positions, valid, wfrom)
+            return
         pids, offs = chunk_write_ids(positions, table_row, valid, wfrom,
                                      page=self.page)
         self._put(layer, pids, offs, k_tok[:, 0], v_tok[:, 0])
+
+    def _quant_write_chunk(self, layer, k_tok, v_tok, table_row, positions,
+                           valid, wfrom) -> None:
+        """Quantized chunk write. Positions are consecutive (``start +
+        arange(C)``), so the touched pages are a bounded window. Pages
+        below the page-aligned ``wfrom`` (prefix-resident, read by
+        another request) are swapped for the scratch page: their bytes
+        and scales are never rewritten; a page whose first token landed
+        in an earlier chunk keeps its running amax."""
+        page = self.page
+        c = positions.shape[0]
+        dev = positions.device
+        start = int(positions[0])
+        n_t = (c - 1) // page + 2
+        row0 = start // page
+        rows = row0 + torch.arange(n_t, dtype=torch.int32, device=dev)
+        rows_c = torch.clamp(rows, 0, table_row.shape[0] - 1).long()
+        writable = rows >= int(wfrom) // page
+        pids = torch.where(writable, table_row[rows_c],
+                           torch.full_like(rows, SCRATCH_PAGE))[None]
+        i = torch.arange(c, dtype=torch.int32, device=dev)
+        tok_mask = ((i < int(valid)) & (positions >= int(wfrom)))[None]
+        loc = (positions - row0 * page)[None]
+        had_prior = ((rows * page < start) & writable)[None]
+        for pool, scales, tok in ((self.k_pages, self.k_scale, k_tok),
+                                  (self.v_pages, self.v_scale, v_tok)):
+            _quant_range_write(pool, scales, layer, pids, loc,
+                               tok[:, 0][None], tok_mask, had_prior,
+                               self.qmax)
 
     def write_prompt(self, k_prompt, v_prompt, page_ids) -> None:
         """Blit a prefilled prompt's K/V into pages, in place (every
@@ -145,22 +331,75 @@ class PagedKVCache:
         n_p = s_pad // self.page
         ids = torch.as_tensor(page_ids, dtype=torch.long,
                               device=self.k_pages.device)
-        for pool, prompt in ((self.k_pages, k_prompt),
-                             (self.v_pages, v_prompt)):
+        for pool, scales, prompt in ((self.k_pages, self.k_scale, k_prompt),
+                                     (self.v_pages, self.v_scale, v_prompt)):
             blocks = prompt.reshape(num_l, n_p, self.page, kvh, hd)
-            pool[:, ids] = blocks.transpose(2, 3).to(pool.dtype)
+            blocks = blocks.transpose(2, 3)
+            if scales is None:
+                pool[:, ids] = blocks.to(pool.dtype)
+                continue
+            # Whole-page quantize, one fresh scale per (layer, page,
+            # head); the tail padding is the prefill cache's zeros.
+            b32 = blocks.float()
+            sc = safe_scale(b32.abs().amax(dim=(3, 4)), self.qmax)
+            pool[:, ids] = quantize(b32, sc[..., None, None], pool.dtype,
+                                    self.qmax)
+            scales[:, ids] = sc
+
+    def gather_pages(self, page_ids):
+        """Whole pages as a migration payload: (K, V) each (L, n, KV,
+        page, hd) as stored, plus (K_scale, V_scale) each (L, n, KV) on
+        a quantized pool, so the receiver dequantizes bit-exactly."""
+        ids = torch.as_tensor(page_ids, dtype=torch.long,
+                              device=self.k_pages.device)
+        k, v = self.k_pages[:, ids], self.v_pages[:, ids]
+        if not self.quantized:
+            return k, v
+        return k, v, self.k_scale[:, ids], self.v_scale[:, ids]
+
+    def scatter_pages(self, k_payload, v_payload, page_ids, k_scale=None,
+                      v_scale=None) -> None:
+        """Blit a :meth:`gather_pages` payload into this pool's pages, in
+        place (ids meant to be dropped point at the scratch page). A
+        quantized pool needs the payload's scales, and an unquantized one
+        takes none: bytes without their scales are unreadable."""
+        if self.quantized and (k_scale is None or v_scale is None):
+            raise ValueError(
+                "scatter_pages into a quantized pool needs the payload's "
+                "k_scale/v_scale (gather_pages returns them) — bytes "
+                "without scales are unreadable")
+        if not self.quantized and (k_scale is not None
+                                   or v_scale is not None):
+            raise ValueError(
+                "scatter_pages got quantization scales but this pool is "
+                "unquantized (kv_dtype mismatch between roles?)")
+        ids = torch.as_tensor(page_ids, dtype=torch.long,
+                              device=self.k_pages.device)
+        self.k_pages[:, ids] = torch.as_tensor(k_payload).to(
+            self.k_pages.device, self.k_pages.dtype)
+        self.v_pages[:, ids] = torch.as_tensor(v_payload).to(
+            self.v_pages.device, self.v_pages.dtype)
+        if self.quantized:
+            self.k_scale[:, ids] = torch.as_tensor(k_scale).to(
+                self.k_scale.device, torch.float32)
+            self.v_scale[:, ids] = torch.as_tensor(v_scale).to(
+                self.v_scale.device, torch.float32)
 
     def dense_row(self, layer: int, table_row):
-        """ONE slot's pages of one layer, gathered to the dense
-        position-major view (p_max·page, KV, hd) — K and V."""
-        return (gather_pages_dense(self.k_pages[layer], table_row),
-                gather_pages_dense(self.v_pages[layer], table_row))
+        """ONE slot's pages of one layer, gathered (and dequantized) to
+        the dense position-major view (p_max·page, KV, hd) — K and V."""
+        ks, vs = self.layer_scales(layer)
+        return (gather_pages_dense(self.k_pages[layer], table_row, ks),
+                gather_pages_dense(self.v_pages[layer], table_row, vs))
 
     def dense_layer(self, layer: int):
-        """Every slot's pages of one layer, gathered to
+        """Every slot's pages of one layer, gathered (and dequantized) to
         (num_slots, p_max·page, KV, hd) — K and V."""
-        return (gather_pages_dense(self.k_pages[layer], self.block_table),
-                gather_pages_dense(self.v_pages[layer], self.block_table))
+        ks, vs = self.layer_scales(layer)
+        return (gather_pages_dense(self.k_pages[layer], self.block_table,
+                                   ks),
+                gather_pages_dense(self.v_pages[layer], self.block_table,
+                                   vs))
 
 
 class BlockManager:
@@ -179,6 +418,7 @@ class BlockManager:
     def __init__(self, num_pages: int, page: int, p_max: int, *,
                  prefix_reuse: bool = False,
                  page_bytes: Optional[int] = None,
+                 native_page_bytes: Optional[int] = None,
                  score_decay: float = 0.9):
         if num_pages < 2:
             raise ValueError(f"num_pages={num_pages} < 2 (page 0 is the "
@@ -191,6 +431,7 @@ class BlockManager:
         self.p_max = p_max
         self.prefix_reuse = prefix_reuse
         self.page_bytes = page_bytes
+        self.native_page_bytes = native_page_bytes
         self.score_decay = float(score_decay)
         self._free: deque = deque(range(1, num_pages))
         self._refs: Dict[int, int] = {}
@@ -468,5 +709,12 @@ class BlockManager:
             **self.stats,
         }
         if self.page_bytes:
+            # What a resident token costs, and how many more pages the
+            # same bytes buy than unquantized pages would.
             out["bytes_per_token"] = self.page_bytes / self.page
+            if self.native_page_bytes:
+                ratio = self.native_page_bytes / self.page_bytes
+                out["capacity_ratio_vs_native"] = round(ratio, 4)
+                out["pages_at_native_bytes"] = int(
+                    (self.num_pages - 1) * ratio)
         return out

@@ -41,10 +41,17 @@ prompt monolithically: one dense-cache :meth:`Engine.prefill` of the
 whole sequence (the prefill flash-attention kernel; a fused MoE engine's
 grouped expert GEMM), whose K/V is blitted into the slot's pages.
 
+``kv_dtype="int8"|"fp8"`` stores the K/V pools quantized, one fp32 scale
+per (layer, page, kv_head) beside them (:mod:`.blocks`); ``spec_k=K``
+(K >= 2) replaces each decode dispatch by ONE K-token verify dispatch over
+an n-gram self-draft (:mod:`.spec`): greedy acceptance commits the
+accepted prefix, the rejected suffix's page growth rolls back. On the
+megakernel lane both are ENGINE knobs (``MegaKernelEngine(kv_dtype=...,
+spec_k=...)``), and the server's must match them.
+
 On a CUDA engine the kernels are the hand-written ones, on a CPU engine
-their plain versions. Speculative decoding, quantized pools, KV tiers,
-SLO scheduling, trace telemetry and the resilience hooks are not ported
-yet (ROADMAP.md).
+their plain versions. KV tiers, SLO scheduling, trace telemetry and the
+resilience hooks are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -58,13 +65,14 @@ import torch
 
 from triton_dist_tpu_torch.megakernel.engine import MegaKernelEngine
 from triton_dist_tpu_torch.serving.blocks import (
-    BlockManager, OutOfPagesError, PagedKVCache,
+    BlockManager, OutOfPagesError, PagedKVCache, kv_quant_spec,
 )
 from triton_dist_tpu_torch.serving.chunked import (
     ChunkedPrefill, MegaChunkedPrefill)
 from triton_dist_tpu_torch.serving.scheduler import (
     Request, RequestHandle, Scheduler,
 )
+from triton_dist_tpu_torch.serving.spec import NgramDraft, accept_greedy
 
 # MoE megakernel lane: decode ticks between hand-offs of the expert-load
 # EWMA to a dynamic-schedule engine, the EWMA share over the mean that
@@ -101,6 +109,12 @@ class ServingEngine:
     ``prefill_buckets`` must equal the engine's (its chunk builds are made
     at engine construction): ``None`` on both keeps the one-token prefill
     lane.
+
+    ``kv_dtype``: ``"bf16"`` keeps the pool at the engine's dtype;
+    ``"int8"``/``"fp8"`` quantize it per page. ``spec_k``: 0 (or 1) is
+    plain one-token decode, K >= 2 speculative decoding with an n-gram
+    draft of up to ``spec_ngram`` tokens. On the megakernel lane both
+    must equal the engine's (a mismatch raises).
     """
 
     def __init__(self, engine, *, num_slots: Optional[int] = None,
@@ -108,16 +122,44 @@ class ServingEngine:
                  num_pages: Optional[int] = None, max_queue: int = 64,
                  policy: str = "continuous", prefix_reuse: bool = False,
                  clock=time.monotonic,
-                 prefill_buckets: Optional[Sequence[int]] = None):
+                 prefill_buckets: Optional[Sequence[int]] = None,
+                 kv_dtype: str = "bf16", spec_k: int = 0,
+                 spec_ngram: int = 3):
         self.engine = engine
         self.cfg = cfg = engine.cfg
         self.max_len = engine.max_len
         self.device = engine.device
         self.mega = isinstance(engine, MegaKernelEngine)
+        kv_quant_spec(kv_dtype)            # validate the knob early
+        self.kv_dtype = kv_dtype
+        self.spec_k = int(spec_k)
+        if self.spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0, got {spec_k}")
+        if self.spec_k == 1:
+            self.spec_k = 0                # K = 1 is plain decode
+        self._draft = NgramDraft(spec_ngram)
         if prefill_buckets:
             prefill_buckets = tuple(sorted(set(
                 int(b) for b in prefill_buckets)))
         if self.mega:
+            # kv_dtype and spec_k are engine knobs on this lane (the pools,
+            # scale tables and verify build are made with the engine).
+            if kv_quant_spec(kv_dtype)[0] is None:
+                kv_dtype = "bf16"          # every unquantized spelling
+            if kv_dtype != engine.kv_dtype:
+                raise ValueError(
+                    f"megakernel kv_dtype mismatch: the engine stores "
+                    f"{engine.kv_dtype!r} pools but the serving layer was "
+                    f"asked for {kv_dtype!r}; construct MegaKernelEngine("
+                    f"kv_dtype={kv_dtype!r}, paged=True) and pass the same "
+                    "value here")
+            self.kv_dtype = kv_dtype
+            if self.spec_k != engine.spec_k:
+                raise ValueError(
+                    f"megakernel spec_k mismatch: the engine was built with "
+                    f"spec_k={engine.spec_k} but the serving layer was asked "
+                    f"for {self.spec_k}; construct MegaKernelEngine("
+                    "spec_k=K, paged=True) and pass the same K here")
             eng_buckets = engine.prefill_buckets
             if (prefill_buckets or None) != (eng_buckets or None):
                 raise ValueError(
@@ -149,21 +191,29 @@ class ServingEngine:
         self.p_max = self.max_len // page
         self.plan = cfg.kv_cache_plan(
             max_len=self.max_len, page=page, num_slots=num_slots,
-            dtype_bytes=engine.dtype.itemsize)
+            dtype_bytes=engine.dtype.itemsize, kv_dtype=self.kv_dtype)
         num_pages = num_pages or self.plan["num_pages"]
         self.manager = BlockManager(
             num_pages, page, self.p_max, prefix_reuse=prefix_reuse,
-            page_bytes=self.plan["page_bytes_per_rank"])
+            page_bytes=self.plan["page_bytes_per_rank"],
+            native_page_bytes=self.plan["native_page_bytes_per_rank"])
         self.cache = self.chunker = self.prefill_buckets = None
         if self.mega:
             if prefill_buckets:
                 self.prefill_buckets = prefill_buckets
                 self.chunker = MegaChunkedPrefill(engine)
         else:
+            if self.spec_k and not hasattr(engine.model,
+                                           "verify_step_paged"):
+                raise NotImplementedError(
+                    f"model {engine.model.__name__!r} has no "
+                    "verify_step_paged: speculative decoding needs the "
+                    "K-token verify contract")
             self.cache = PagedKVCache.empty(
                 cfg.num_hidden_layers, num_pages, page,
                 cfg.num_key_value_heads, cfg.head_dim, num_slots=num_slots,
-                p_max=self.p_max, device=self.device, dtype=engine.dtype)
+                p_max=self.p_max, device=self.device, dtype=engine.dtype,
+                kv_dtype=self.kv_dtype)
             if prefill_buckets:
                 self.prefill_buckets = prefill_buckets
                 self.chunker = ChunkedPrefill(engine, prefill_buckets)
@@ -189,6 +239,9 @@ class ServingEngine:
             "prefill_tokens": 0, "prefill_calls": 0, "prefill_chunks": 0,
             "admit_stalls": 0, "preemptions": 0, "decode_tokens": 0,
             "decode_time_s": 0.0, "prefill_time_s": 0.0,
+            "spec_drafted": 0, "spec_accepted": 0,
+            "spec_sampled_fallbacks": 0,
+            "greedy_ref_tokens": 0, "greedy_agree_tokens": 0,
         }
 
     # -- public API --------------------------------------------------
@@ -286,7 +339,40 @@ class ServingEngine:
         out["prefill_tokens_per_s"] = (
             c["prefill_tokens"] / c["prefill_time_s"]
             if c["prefill_time_s"] > 0 else None)
+        # Which storage the pools ride and what a resident token costs.
+        out["kv_dtype"] = self.kv_dtype
+        out["kv_bytes_per_token"] = self.plan["bytes_per_token"]
+        out["mk_kv_dtype"] = self.kv_dtype if self.mega else None
+        out["mk_spec"] = self.spec_k if self.mega else None
+        if self.spec_k:
+            drafted = c["spec_drafted"]
+            out["spec"] = {
+                "k": self.spec_k, "drafted": drafted,
+                "accepted": c["spec_accepted"],
+                "sampled_fallbacks": c["spec_sampled_fallbacks"],
+                "accept_rate": (c["spec_accepted"] / drafted
+                                if drafted else None),
+                "tokens_per_dispatch": (c["decode_tokens"]
+                                        / max(c["decode_dispatches"], 1)),
+            }
+        if c["greedy_ref_tokens"]:
+            out["greedy_agreement"] = (c["greedy_agree_tokens"]
+                                       / c["greedy_ref_tokens"])
         return out
+
+    def compare_greedy(self, pairs) -> float:
+        """Fold the greedy-token agreement of ``(got_tokens,
+        reference_tokens)`` pairs (a quantized run against a bf16-pool
+        run of the same prompts) into the counters, surfaced as
+        ``stats()["greedy_agreement"]``. Returns the running agreement."""
+        c = self.stats_counters
+        for got, want in pairs:
+            n = min(len(got), len(want))
+            c["greedy_ref_tokens"] += n
+            c["greedy_agree_tokens"] += sum(
+                1 for a, b in zip(got[:n], want[:n]) if a == b)
+        ref = c["greedy_ref_tokens"]
+        return c["greedy_agree_tokens"] / ref if ref else 1.0
 
     # -- admission / chunked prefill ---------------------------------
 
@@ -421,6 +507,8 @@ class ServingEngine:
     # -- decode ------------------------------------------------------
 
     def _decode_tick(self) -> int:
+        if self.spec_k:
+            return self._spec_tick()
         # Megakernel prefill-lane slots ride the decode launch; slots
         # mid-chunk-stream stay parked until their prompt is resident.
         active = [h for h in self.sched.running()
@@ -504,6 +592,173 @@ class ServingEngine:
         logits = self.engine.model.decode_step_paged(
             self.engine.params, toks, cache, self.cfg)
         return logits.cpu().numpy()
+
+    # -- the speculative tick (spec_k >= 2) ---------------------------
+
+    def _draft_slot(self, h: RequestHandle, kk: int):
+        """Account a running slot's candidate positions with the
+        allocator and draft its K candidates. Returns ``(draft, budget)``
+        (``budget``: how many candidates may commit and write real pages,
+        bounded by the request's remaining tokens), or None when the pool
+        ran dry and the request was preempted."""
+        slot = h.slot
+        base = int(self._lens[slot])
+        n_pre = max(1, min(kk, h.request.max_new_tokens - len(h.tokens)))
+        try:
+            for j in range(n_pre):
+                self.manager.append(slot, base + j)
+        except OutOfPagesError as e:
+            # Pool dry mid-draft: preempt; the resume replays the same
+            # history, so the draft replays too.
+            self._preempt(h, e)
+            return None
+        d = [int(h.tokens[-1])]
+        if h.request.temperature <= 0.0:
+            hist = list(h.request.prompt) + [int(t) for t in h.tokens]
+            d += self._draft.propose(hist, kk - 1)
+            # Only candidates that could commit count: accept_rate
+            # measures the draft, not the budget's clipping.
+            self.stats_counters["spec_drafted"] += n_pre - 1
+        else:
+            d += [d[-1]] * (kk - 1)        # sampled: commits one at most
+            self.stats_counters["spec_sampled_fallbacks"] += 1
+        return d, n_pre
+
+    def _commit_block(self, h: RequestHandle, d, logits_rows,
+                      budget: int) -> None:
+        """Greedy acceptance of one slot's verified block: commit the
+        accepted prefix (lengths, page accounting rolled back to it)
+        BEFORE emitting, since an emission may retire the request."""
+        slot, kk = h.slot, len(d)
+        h.decode_steps += 1
+        greedy = h.request.temperature <= 0.0
+        if greedy:
+            picks = [int(np.argmax(logits_rows[j])) for j in range(kk)]
+            m = accept_greedy(d, picks)
+        else:
+            m = 1
+        m = min(m, budget)
+        if greedy:
+            self.stats_counters["spec_accepted"] += m - 1
+        base = int(self._lens[slot])
+        self._lens[slot] = base + m
+        self.manager.truncate_to(slot, base + m)
+        self.stats_counters["decode_tokens"] += m
+        for j in range(m):
+            if h.done:
+                break
+            self._emit(h, picks[j] if greedy else self._pick(
+                logits_rows[j], h.request, len(h.tokens)))
+
+    def _spec_tick(self) -> int:
+        """One tick through the K-token verify dispatch: draft, one
+        fixed-shape dispatch, greedy acceptance, commit the accepted
+        prefix. Greedy tokens are those of the non-speculative loop;
+        sampled requests commit one token from position 0's logits."""
+        if self.mega:
+            return self._spec_tick_mega()
+        active = [h for h in self.sched.running() if h.status == "running"]
+        kk = self.spec_k
+        drafts, budget = {}, np.zeros((self.num_slots,), np.int32)
+        for h in active:
+            got = self._draft_slot(h, kk)
+            if got is not None:
+                drafts[h.slot], budget[h.slot] = got
+        active = [h for h in active if h.slot in drafts]
+        if not active:
+            return 0
+        tbl = np.zeros((self.num_slots, self.p_max), np.int32)
+        toks = np.zeros((self.num_slots, kk), np.int32)
+        for h in active:
+            tbl[h.slot] = self.manager.table_row(h.slot)
+            toks[h.slot] = drafts[h.slot]
+        t0 = time.perf_counter()
+        cache = self.cache
+        cache.block_table.copy_(torch.from_numpy(tbl))
+        cache.lens.copy_(torch.from_numpy(self._lens))
+        cache.live.copy_(torch.from_numpy(self._live))
+        logits = self.engine.model.verify_step_paged(
+            self.engine.params, torch.from_numpy(toks).to(self.device),
+            cache, self.cfg,
+            budget=torch.from_numpy(budget).to(self.device)).cpu().numpy()
+        c = self.stats_counters
+        c["decode_time_s"] += time.perf_counter() - t0
+        c["decode_dispatches"] += 1
+        for h in active:
+            self._commit_block(h, drafts[h.slot], logits[h.slot],
+                               int(budget[h.slot]))
+        return len(active)
+
+    def _spec_tick_mega(self) -> int:
+        """The megakernel's speculative tick: ONE Q-block verify launch
+        (:meth:`MegaKernelEngine.verify_step`). Running slots feed their K
+        candidates at per-row positions (over-budget rows at -1: the
+        kernel masks them, so they touch no page and no scale);
+        prefill-lane slots ride row (slot, 0) with the lane's next token,
+        rows 1..K-1 masked."""
+        kk = self.spec_k
+        active = [h for h in self.sched.running()
+                  if h.status == "running"
+                  or (self._lane and h.status == "prefill")]
+        drafts, budget = {}, np.zeros((self.num_slots,), np.int32)
+        pos = np.full((self.num_slots * kk,), -1, np.int32)
+        toks = np.zeros((self.num_slots, kk), np.int32)
+        keep = []
+        for h in active:
+            slot, base = h.slot, int(self._lens[h.slot])
+            if h.status == "prefill":
+                # Lane tokens land in pages alloc_prefill reserved.
+                toks[slot, 0] = h.lane[h.prompt_pos]
+                pos[slot * kk] = base
+                keep.append(h)
+                continue
+            got = self._draft_slot(h, kk)
+            if got is None:
+                continue
+            drafts[slot], budget[slot] = got
+            toks[slot] = drafts[slot]
+            pos[slot * kk:slot * kk + budget[slot]] = \
+                base + np.arange(budget[slot])
+            keep.append(h)
+        active = keep
+        if not active:
+            return 0
+        tbl = np.zeros((self.num_slots, self.p_max), np.int32)
+        for h in active:
+            tbl[h.slot] = self.manager.table_row(h.slot)
+        self.engine.block_table = tbl.reshape(-1)
+        moe = self.cfg.is_moe
+        if moe and self._mk_counts_base is None:
+            self._mk_counts_base = self.engine.expert_counts()
+        t0 = time.perf_counter()
+        logits = self.engine.verify_step(toks.reshape(-1), pos)
+        logits = logits.cpu().numpy()
+        c = self.stats_counters
+        c["decode_time_s"] += time.perf_counter() - t0
+        c["decode_dispatches"] += 1
+        if moe:
+            total = self.engine.expert_counts()
+            self._note_expert_counts(total - self._mk_counts_base)
+            self._mk_counts_base = total
+        self._maybe_rebalance()
+        for h in active:
+            slot = h.slot
+            if h.status == "prefill":
+                self._lens[slot] += 1
+                h.prompt_pos += 1
+                if h.prompt_pos < len(h.lane):
+                    continue
+                h.status = "running"       # the lane's last token
+                self.manager.commit_prefix(slot)
+                if h.tokens:
+                    continue               # a resumed lane knows its next
+                h.decode_steps += 1
+                c["decode_tokens"] += 1
+                self._emit(h, self._pick(logits[slot, 0], h.request, 0))
+                continue
+            self._commit_block(h, drafts[slot], logits[slot],
+                               int(budget[slot]))
+        return len(active)
 
     # -- expert-load telemetry + hot-expert rebalancing --------------
 
