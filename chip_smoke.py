@@ -227,6 +227,39 @@ Phases (any failure exits nonzero; nothing is caught):
    launches counted, the first two served tokens' logits within 0.1 of
    the plain quantized run. (Every plain run of phases 21-23 is fed the
    kernel run's tokens, so both compute each step on the same inputs.)
+24. The fused tensor-parallel GEMMs over 4 simulated ranks on the card
+   (rows 7, 10, 13, 14; every rank's thread blocks in one cooperative
+   launch) against their plain versions at Qwen3-8B tp = 4 shapes with
+   the engine's contexts: AG+GEMM for wq (N_loc 1024) and w_gate (3072)
+   over 2048 tokens with the gathered A returned (equal bit for bit),
+   GEMM+RS for wo (K_loc 1024) and w_down (3072), GEMM+AR in both
+   variants for wo and w_down at decode (M 4) and at a "fused_ar" prefill
+   (M 2048). Limit |got - want| <= 1e-2 + 2**-7 |want|: both sum in fp32
+   and round once to bf16, in other orders inside a rank's product, so an
+   output of order 1 may land one bf16 unit away. Each case then runs 50
+   launches in a row, every one within the limit (the flags persist
+   across calls by epoch; a stale flag or a missing fence shows as a
+   miss). Controls: a rank forwarding its own chunk in place of the one
+   it received (AG+GEMM), a running sum / peer partial dropped (GEMM+RS,
+   GEMM+AR) must fail the limit; a signal never sent must raise
+   CommTimeoutError within its bound (0.05 s a wait) instead of hanging,
+   and the next call be sound. Times (L2 flushed) against the bound, the
+   plain version, one library call computing the same function (a
+   ``torch.einsum``) and the non-overlapped composition (per rank
+   ``torch.cat`` then ``torch.matmul``; ``torch.matmul`` then a sum over
+   ranks, sliced per rank for GEMM+RS).
+25. The slice end to end: ``Engine(qwen3_8b, mesh=make_mesh(tp=4),
+   mode=m).serve`` of a (4, 512) batch for 64 tokens on phase 3's weights
+   (the ranks' shards are views: no second copy), m in "fused",
+   "fused_ar" (GEMM+AR "ll", then "one_shot") and "xla". Counts set to
+   zero around each serve: every "fused" prefill layer launched AG+GEMM
+   and GEMM+RS twice, every decode layer (and "fused_ar" prefill layer)
+   GEMM+AR twice, every prefill layer flash attention once, nothing
+   else. Prefill ms, decode ms a step and the device idle share
+   (torch.profiler); greedy agreement between the modes and with the
+   one-rank ``Engine(mode="fused").serve`` of phase 16. At 2 layers the prefill logits of "fused" and
+   "fused_ar" (both variants) within phase 4's 0.1 of the tp = 4 "xla"
+   run.
 
 The last lines of output: one JSON object with every kernel's numbers
 (the megakernel once per row mode, and once per MoE row mode), the
@@ -318,7 +351,7 @@ def build_kernels():
 
     t0 = time.perf_counter()
     cuda = ("paged_attention.cu", "megakernel.cu", "flash_attention.cu",
-            "group_gemm.cu")
+            "group_gemm.cu", "ag_gemm.cu", "gemm_rs.cu", "gemm_ar.cu")
     logs = build.build_all([*cuda, "megakernel_scheduler.cc"])
     print(f"[build] nvcc x{len(cuda)} + g++ in parallel "
           f"{time.perf_counter() - t0:.1f} s -> {build.BUILD_DIR}")
@@ -509,20 +542,24 @@ def serve_phase():
     profile_serving(eng, prompts, serve_kw)
     del srv
     dense_engine = engine_phase("dense", cfg, eng.params)
+    tp_engine = tp_engine_phase(cfg, eng.params)
     del eng
     torch.cuda.empty_cache()
-    return launches, st, dense_engine
+    return launches, st, dense_engine, tp_engine
 
 
 def launch_counters() -> dict:
     """Every kernel wrapper's launch counter, by the kernels line's key."""
     from triton_dist_tpu_torch.megakernel import builder as mkb
+    from triton_dist_tpu_torch.ops import ag_gemm, gemm_ar, gemm_rs
     from triton_dist_tpu_torch.ops import flash_attention as fa
     from triton_dist_tpu_torch.ops import group_gemm as gg
     from triton_dist_tpu_torch.ops import paged_flash_decode as pfd
     from triton_dist_tpu_torch.ops import paged_flash_qblock as pfq
 
     return {"decode": pfd.KERNEL, "qblock": pfq.KERNEL,
+            "ag_gemm": ag_gemm.KERNEL, "gemm_rs": gemm_rs.KERNEL,
+            "gemm_ar": gemm_ar.KERNEL,
             "decode-int8": pfd.KERNELS[torch.int8],
             "decode-fp8": pfd.KERNELS[torch.float8_e4m3fn],
             "qblock-int8": pfq.KERNELS[torch.int8],
@@ -533,20 +570,25 @@ def launch_counters() -> dict:
 
 def zero_counts() -> None:
     from triton_dist_tpu_torch.megakernel import builder as mkb
+    from triton_dist_tpu_torch.ops import gemm_ar
 
     for kernel in launch_counters().values():
         kernel.launches = 0
-    for mode in mkb.MODE_LAUNCHES:
-        mkb.MODE_LAUNCHES[mode] = 0
+    for counts in (mkb.MODE_LAUNCHES, gemm_ar.VARIANT_LAUNCHES):
+        for key in counts:
+            counts[key] = 0
 
 
 def read_counts() -> dict:
-    """Launches by kernel, and the megakernel's by row mode
-    (``mk_decode``, ``mk_prefill``, ``mk_chunk``)."""
+    """Launches by kernel, the megakernel's by row mode (``mk_decode``,
+    ``mk_prefill``, ``mk_chunk``, ...) and GEMM+AR's by variant
+    (``ar_ll``, ``ar_one_shot``)."""
     from triton_dist_tpu_torch.megakernel import builder as mkb
+    from triton_dist_tpu_torch.ops import gemm_ar
 
     out = {key: k.launches for key, k in launch_counters().items()}
     out.update({f"mk_{m}": n for m, n in mkb.MODE_LAUNCHES.items()})
+    out.update({f"ar_{v}": n for v, n in gemm_ar.VARIANT_LAUNCHES.items()})
     return out
 
 
@@ -3288,6 +3330,296 @@ def qwen3_32b_phase():
     return dict(launches=launches, err=err)
 
 
+# ---- Tensor-parallel dense serving over simulated ranks (phases 24-25) ---
+
+TP = 4
+TOL_TP = (1e-2, 2.0 ** -7)     # one bf16 unit: both sum in fp32, round once
+TP_REPEATS = 50
+TP_TIMEOUT_S = 0.05
+
+
+def tp_cases(mesh, ctxs):
+    """Phase 24's operands at Qwen3-8B tp = 4 shapes (bf16, seed 47): each
+    case's row key, label, kernel call, plain version, one library call
+    computing the same function (``torch.einsum``), the non-overlapped
+    composition and the bytes / operations of its bound."""
+    from triton_dist_tpu_torch.models import ModelConfig
+    from triton_dist_tpu_torch.ops import ag_gemm as ag
+    from triton_dist_tpu_torch.ops import gemm_ar as ar
+    from triton_dist_tpu_torch.ops import gemm_rs as rs
+    from triton_dist_tpu_torch.ops.tp_gemm import column_shards, row_shards
+
+    cfg = ModelConfig.qwen3_8b()
+    d, ff = cfg.hidden_size, cfg.intermediate_size
+    hq = cfg.num_attention_heads * cfg.head_dim
+    n, dev = TP, mesh.device
+    t = int(np.prod(ENGINE_IDS))                     # 2048 prefill tokens
+    g = torch.Generator(device=dev).manual_seed(47)
+    bf = dict(device=dev, dtype=torch.bfloat16)
+
+    def weight(out_f, in_f):
+        return torch.randn(out_f, in_f, generator=g, **bf) * in_f ** -0.5
+
+    def act(*shape):
+        return torch.randn(*shape, generator=g, **bf)
+
+    cases = []
+    x = act(n, t // n, d)                             # token-sharded
+    for name, out_f in (("wq", hq), ("w_gate", ff)):
+        b = column_shards(weight(out_f, d), n)
+        nl = out_f // n
+        cases.append(dict(
+            key="ag", label=f"ag_gemm {name} M {t} K {d} N_loc {nl}",
+            mod=ag, fault="wrong_chunk",
+            call=lambda b=b, **kw: ag.ag_gemm(x, b, ctxs.ag, return_ag=True,
+                                              **kw),
+            plain=lambda b=b: ag.ag_gemm_ref(x, b, return_ag=True),
+            library=lambda b=b: torch.einsum("cmk,rnk->rcmn", x, b),
+            comp=lambda b=b: [torch.matmul(torch.cat(list(x)), b[r].t())
+                              for r in range(n)],
+            nbytes=2 * (x.numel() + b.numel() + n * t * nl + n * t * d),
+            flops=2 * n * t * d * nl))
+    for name, k_full in (("wo", hq), ("w_down", ff)):
+        b = row_shards(weight(d, k_full), n)
+        a = act(n, t, k_full // n)
+        cases.append(dict(
+            key="rs", label=f"gemm_rs {name} M {t} K_loc {k_full // n} N {d}",
+            mod=rs, fault="drop_partial",
+            call=lambda a=a, b=b, **kw: rs.gemm_rs(a, b, ctxs.rs, **kw),
+            plain=lambda a=a, b=b: rs.gemm_rs_ref(a, b),
+            library=lambda a=a, b=b: torch.einsum("rmk,rnk->mn", a, b),
+            comp=lambda a=a, b=b: torch.matmul(a, b.transpose(1, 2)).sum(
+                0).view(n, -1, d),
+            nbytes=2 * (a.numel() + b.numel() + t * d),
+            flops=2 * t * k_full * d))
+    for m in (4, t):
+        for name, k_full in (("wo", hq), ("w_down", ff)):
+            b = row_shards(weight(d, k_full), n)
+            a = act(n, m, k_full // n)
+            for variant in ar.VARIANTS:
+                ctx = dataclasses.replace(ctxs.ar, variant=variant)
+                cases.append(dict(
+                    key=f"ar-{variant}",
+                    label=f"gemm_ar[{variant}] {name} M {m} K_loc "
+                          f"{k_full // n} N {d}",
+                    mod=ar, fault="drop_partial",
+                    call=lambda a=a, b=b, ctx=ctx, **kw: ar.gemm_ar(
+                        a, b, ctx, **kw),
+                    plain=lambda a=a, b=b: ar.gemm_ar_ref(a, b),
+                    library=lambda a=a, b=b: torch.einsum("rmk,rnk->mn", a,
+                                                          b),
+                    comp=lambda a=a, b=b: torch.matmul(
+                        a, b.transpose(1, 2)).sum(0),
+                    nbytes=2 * (a.numel() + b.numel() + n * m * d),
+                    flops=2 * m * k_full * d))
+    return cases
+
+
+def tp_kernel_phase():
+    """Phase 24: the four fused tensor-parallel kernels (rows 7, 10, 13,
+    14) against their plain versions at Qwen3-8B tp = 4 shapes, with the
+    engine's contexts (JAX's block knobs 256/256/512): AG+GEMM for wq and
+    w_gate with the gathered A returned, GEMM+RS for wo and w_down, GEMM+AR
+    in both variants for wo and w_down at decode (M 4) and at a fused_ar
+    prefill (M 2048). Each within TOL_TP, then TP_REPEATS launches in a
+    row, every one within it (flags persist across calls by epoch); a
+    planted fault (a rank forwarding its own chunk for the one it
+    received; a dropped running sum / peer partial) must fail it; a
+    signal never sent must raise CommTimeoutError within its bound, and
+    the next call be sound. Times (L2 flushed) against the bound, the
+    plain version, one library call and the non-overlapped composition.
+    Returns, by row key, the first case's numbers (wq, wo, decode wo)."""
+    from triton_dist_tpu_torch import make_mesh
+    from triton_dist_tpu_torch.models.dense import make_fwd_contexts
+    from triton_dist_tpu_torch.shmem import workspace as shmem
+
+    mesh = make_mesh(tp=TP)
+    ctxs = make_fwd_contexts(mesh)
+    out, errs = {}, {}
+    atol, rtol = TOL_TP
+    for c in tp_cases(mesh, ctxs):
+        label, key = c["label"], c["key"]
+        got = c["call"](check=True)
+        want = c["plain"]()
+        if key == "ag":
+            if not torch.equal(got[1], want[1].expand_as(got[1])):
+                fail(f"{label}: the gathered A differs from the ranks' "
+                     "chunks")
+            got, want = got[0], want[0]
+        errs[key] = max(errs.get(key, 0.0), check_close(label, got, want,
+                                                         TOL_TP))
+        misses = torch.zeros((), dtype=torch.int32, device=mesh.device)
+        for _ in range(TP_REPEATS):
+            r = c["call"]()
+            r = r[0] if key == "ag" else r
+            diff = (r.float() - want.float()).abs()
+            misses += (diff > atol + rtol * want.float().abs()).any().int()
+        shmem.check_errors(mesh.device, sync=True)
+        print(f"[{label}] {TP_REPEATS} launches in a row: {int(misses)} "
+              "outside the limit")
+        if int(misses):
+            fail(f"{label}: {int(misses)} of {TP_REPEATS} repeated launches "
+                 "disagree")
+        if key not in out:
+            bad = c["call"](fault=c["mod"].FAULTS[c["fault"]], check=True)
+            fault_control(f"{label} {c['fault']}",
+                          bad[0] if key == "ag" else bad, want, TOL_TP)
+            t0 = time.perf_counter()
+            try:
+                c["call"](fault=c["mod"].FAULTS["lost_signal"],
+                          timeout_s=TP_TIMEOUT_S, check=True)
+                fail(f"{label}: a signal never sent did not raise")
+            except shmem.CommTimeoutError as e:
+                print(f"[{label}] lost signal raised in "
+                      f"{time.perf_counter() - t0:.3f} s (bound "
+                      f"{TP_TIMEOUT_S} s a wait): {e}")
+            if time.perf_counter() - t0 > 5.0:
+                fail(f"{label}: the lost signal took too long to raise")
+            again = c["call"](check=True)
+            check_close(f"{label} after the timeout",
+                        again[0] if key == "ag" else again, want, TOL_TP)
+        k_ms = time_ms(c["call"])
+        p_ms = time_ms(c["plain"], reps=5)
+        y_ms = time_ms(c["library"])
+        c_ms = time_ms(c["comp"])
+        b_ms, b_by = bound(c["nbytes"], c["flops"])
+        print(f"[tp-kernel] {label}: kernel_ms {k_ms:.4f} plain_ms "
+              f"{p_ms:.4f} bound_ms {b_ms:.4f} ({b_by}; "
+              f"{c['nbytes'] / 1e6:.1f} MB, {c['flops'] / 1e9:.1f} GFLOP) "
+              f"library_ms (one torch.einsum) {y_ms:.4f} non-overlapped "
+              f"composition_ms {c_ms:.4f}; "
+              f"{c['flops'] / k_ms / 1e9:.1f} TFLOP/s")
+        if key not in out:
+            out[key] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                            bound_by=b_by, library_ms=y_ms, comp_ms=c_ms)
+    for key in out:
+        out[key]["err"] = errs[key]
+    shmem.release_all()
+    torch.cuda.empty_cache()
+    return out
+
+
+TP_RUNS = (("fused", "fused", "ll"), ("fused_ar", "fused_ar", "ll"),
+           ("fused_ar/one_shot", "fused_ar", "one_shot"),
+           ("xla", "xla", "ll"))
+
+
+def tp_want(mode, variant, layers, gen) -> dict:
+    """Exact launches of a tp = 4 ``serve`` of ``gen`` tokens: a prefill
+    layer launches flash attention once and, in "fused", AG+GEMM and
+    GEMM+RS twice each; in "fused_ar" GEMM+AR twice; a decode layer
+    GEMM+AR twice unless the mode is "xla"."""
+    ar_prefill = 2 * layers if mode == "fused_ar" else 0
+    ar_decode = 2 * layers * (gen - 1) if mode != "xla" else 0
+    ar = ar_prefill + ar_decode
+    fused = 2 * layers if mode == "fused" else 0
+    return {"flash": layers, "ag_gemm": fused, "gemm_rs": fused,
+            "gemm_ar": ar, f"ar_{variant}": ar}
+
+
+def tp_engine_phase(cfg, params):
+    """Phase 25: ``Engine(cfg, mesh=make_mesh(tp=4), mode=m).serve`` of a
+    (4, 512) batch for 64 tokens at full Qwen3-8B width and depth on
+    phase 3's weights (each rank's shard a view: no second copy), for m
+    in "fused", "fused_ar" (its GEMM+AR in each variant) and "xla".
+    Counts set to zero just before each serve and read just after: every
+    prefill layer of "fused" launched AG+GEMM and GEMM+RS twice, every
+    decode layer (and every "fused_ar" prefill layer) GEMM+AR twice.
+    Prefill and decode-step times with the device idle share; greedy
+    agreement between the modes and with the one-rank ``Engine.serve``
+    (phase 16's).
+    At 2 layers (fresh weights, seed 1) the prefill logits of "fused" and
+    "fused_ar" within TOL_LOGITS of the tp = 4 "xla" run (and tp = 1's,
+    printed beside)."""
+    from triton_dist_tpu_torch import Engine, make_mesh
+    from triton_dist_tpu_torch.shmem import workspace as shmem
+
+    mesh = make_mesh(tp=TP)
+    L, gen = cfg.num_hidden_layers, 64
+    rng = np.random.RandomState(3)
+    ids = rng.randint(0, cfg.vocab_size, ENGINE_IDS)
+    warm = rng.randint(0, cfg.vocab_size, (1, 64))
+    one = Engine(cfg, mode="fused", params=params, max_len=1024)
+    ref = one.serve(ids, gen_len=gen).cpu().numpy().tolist()
+    del one
+    runs = {}
+    for label, mode, variant in TP_RUNS:
+        eng = Engine(cfg, mesh=mesh, mode=mode, params=params, max_len=1024,
+                     ar_variant=variant)
+        eng.serve(warm, gen_len=2)
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = eng.serve(ids, gen_len=gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        print(f"[tp-engine {label}] Engine(tp={TP}).serve {ENGINE_IDS} + "
+              f"{gen} tokens in {wall:.2f} s; launches "
+              f"{ {k: v for k, v in counts.items() if v} }")
+        if tuple(toks.shape) != (4, gen) or not bool(
+                ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+            fail(f"tp engine {label}: {tuple(toks.shape)} tokens or ids "
+                 "out of range")
+        expect_launches(f"tp engine {label}", counts,
+                        {k: v for k, v in tp_want(mode, variant, L,
+                                                  gen).items() if v})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            logits, cache = eng.prefill(ids)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3 / 3
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        t0 = time.perf_counter()
+        for _ in range(8):
+            logits, cache = eng.decode(tok, cache)
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / 8
+        shmem.check_errors(mesh.device, sync=True)
+        print(f"[tp-engine {label}] {torch.cuda.get_device_name(0)}: prefill "
+              f"of {ENGINE_IDS} {prefill_ms:.1f} ms, decode step at 512 "
+              f"{decode_ms:.2f} ms")
+        prof_dec = profile_window(lambda: eng.decode(tok, cache), 1,
+                                  f"tp={TP} {label} Engine.decode step")
+        del logits, cache
+        prof = profile_window(lambda: eng.prefill(ids), 1,
+                              f"tp={TP} {label} Engine.prefill {ENGINE_IDS}")
+        runs[label] = dict(toks=toks.cpu().numpy().tolist(), counts=counts,
+                           prefill_ms=prefill_ms, decode_ms=decode_ms,
+                           prof=prof, prof_dec=prof_dec)
+        del eng
+        shmem.release_all()
+        torch.cuda.empty_cache()
+    for label, run in runs.items():
+        print(f"[tp-engine {label}] greedy agreement with tp=1 fused "
+              f"{agreement(run['toks'], ref):.3f}, with tp={TP} xla "
+              f"{agreement(run['toks'], runs['xla']['toks']):.3f}")
+
+    cfg2 = dataclasses.replace(cfg, num_hidden_layers=2)
+    base = Engine(cfg2, mesh=mesh, mode="xla", max_len=1024, seed=1)
+    want, _ = base.prefill(ids)
+    worst = 0.0
+    for label, mode, variant in TP_RUNS[:3] + (("tp=1 fused", None, "ll"),):
+        eng = (Engine(cfg2, mode="fused", params=base.params, max_len=1024)
+               if mode is None else
+               Engine(cfg2, mesh=mesh, mode=mode, params=base.params,
+                      max_len=1024, ar_variant=variant))
+        got, _ = eng.prefill(ids)
+        err = float((got - want).abs().max())
+        print(f"[tp-parity] 2 layers, {label} against tp={TP} xla: max "
+              f"|dlogit| {err:.4f} (tol {TOL_LOGITS}), logit std "
+              f"{float(want.std()):.3f}")
+        if not (bool(torch.isfinite(got).all()) and err <= TOL_LOGITS):
+            fail(f"tp parity {label}: {err}")
+        worst = max(worst, err)
+        del eng
+    del base
+    shmem.release_all()
+    torch.cuda.empty_cache()
+    return dict(runs=runs, parity=worst)
+
+
 def grid_blocks() -> int:
     from triton_dist_tpu_torch.megakernel import builder as mkb
 
@@ -3314,8 +3646,9 @@ def main():
     numbers["flash"] = flash_kernel_phase()
     numbers["group_gemm"] = group_gemm_kernel_phase()
     numbers.update(quant_kernel_phase())
+    numbers["tp"] = tp_kernel_phase()
     mk_quant_write_phase()
-    launches, layer_st, dense_engine = serve_phase()
+    launches, layer_st, dense_engine, tp_engine = serve_phase()
     parity_phase()
     mk = mk_serve_phase(layer_st)
     mk_parity_phase()
@@ -3444,6 +3777,27 @@ def main():
                 "max_abs_err": errs[key], "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": None})
+    # The fused tensor-parallel GEMMs (rows 7, 10, 13, 14): phase 24's
+    # times (wq, wo, decode wo), launches over phase 25's serves.
+    served = tp_engine["runs"].values()
+    for key, count, name, source, replaces in (
+            ("ag", "ag_gemm", "ag_gemm_kernel", "ag_gemm.cu",
+             "triton_dist_tpu/ops/ag_gemm.py:143"),
+            ("rs", "gemm_rs", "gemm_rs_kernel", "gemm_rs.cu",
+             "triton_dist_tpu/ops/gemm_rs.py:98"),
+            ("ar-one_shot", "ar_one_shot", "gemm_ar_kernel[one_shot]",
+             "gemm_ar.cu", "triton_dist_tpu/ops/gemm_ar.py:131"),
+            ("ar-ll", "ar_ll", "gemm_ar_kernel[ll]", "gemm_ar.cu",
+             "triton_dist_tpu/ops/gemm_ar.py:162")):
+        t = numbers["tp"][key]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"triton_dist_tpu_torch/csrc/{source}",
+            "replaces": replaces,
+            "launches": sum(run["counts"][count] for run in served),
+            "max_abs_err": t["err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -974,3 +974,184 @@ def test_megakernel_qblock_matches_plain(dev, kvd):
         expect[:, int(tab[r // kq][p // page]), p % page] = True
     if not quant:
         assert torch.equal(written, expect)
+
+
+# ---- The fused tensor-parallel GEMMs (rows 7, 10, 13, 14) -----------------
+#
+# Simulated ranks on the one card: every rank's blocks in one cooperative
+# launch. Both sides sum in fp32 and round to bf16 once, in other orders
+# inside a rank's product, so an output may land one bf16 unit away:
+# |got - want| <= 1e-2 + 2**-7 |want| (the outputs are of order 1). The
+# weight shards are views of one full weight: column shards for AG+GEMM,
+# strided column slices (row-parallel) for GEMM+RS and GEMM+AR.
+
+TP_TOL = (1e-2, 2.0 ** -7)
+
+
+def _tp_operands(dev, n, rows, k, cols, seed, *, row_parallel):
+    from triton_dist_tpu_torch.ops.tp_gemm import column_shards, row_shards
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bf = dict(device=dev, dtype=torch.bfloat16)
+    a = torch.randn(n, rows, k, generator=g, **bf)
+    if row_parallel:
+        w = torch.randn(cols, n * k, generator=g, **bf) * (n * k) ** -0.5
+        return a, row_shards(w, n)
+    w = torch.randn(n * cols, k, generator=g, **bf) * k ** -0.5
+    return a, column_shards(w, n)
+
+
+def _tp_ctx(op, n, **kw):
+    from triton_dist_tpu_torch.ops import ag_gemm, gemm_ar, gemm_rs
+    from triton_dist_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(tp=n)
+    make = {"ag": ag_gemm.create_ag_gemm_context,
+            "rs": gemm_rs.create_gemm_rs_context,
+            "ar": gemm_ar.create_gemm_ar_context}[op]
+    if op == "ar":
+        return make(mesh, block_n=8, block_k=8, **kw)
+    return make(mesh, block_m=1, block_n=8, block_k=8, **kw)
+
+
+@pytest.mark.parametrize("n,m_loc,k,n_loc", [
+    (4, 64, 256, 192), (2, 8, 64, 40), (4, 200, 136, 96), (3, 16, 512, 64),
+    (1, 24, 64, 64)])
+@pytest.mark.parametrize("return_ag", [False, True])
+def test_ag_gemm_kernel_matches_plain(dev, n, m_loc, k, n_loc, return_ag):
+    from triton_dist_tpu_torch.ops import ag_gemm as op
+
+    a, b = _tp_operands(dev, n, m_loc, k, n_loc, m_loc + k,
+                        row_parallel=False)
+    ctx = _tp_ctx("ag", n)
+    before = op.KERNEL.launches
+    got = op.ag_gemm(a, b, ctx, return_ag=return_ag, check=True)
+    assert op.KERNEL.launches == before + 1
+    want = op.ag_gemm_ref(a, b, return_ag=return_ag)
+    if return_ag:
+        assert torch.equal(got[1], want[1])
+        got, want = got[0], want[0]
+    assert got.shape == (n, n * m_loc, n_loc)
+    _assert_close(got, want, TP_TOL)
+
+
+@pytest.mark.parametrize("n,m_loc,k_loc,cols", [
+    (4, 96, 128, 320), (3, 8, 64, 72), (2, 130, 256, 128), (1, 16, 64, 64)])
+def test_gemm_rs_kernel_matches_plain(dev, n, m_loc, k_loc, cols):
+    from triton_dist_tpu_torch.ops import gemm_rs as op
+
+    a, b = _tp_operands(dev, n, n * m_loc, k_loc, cols, m_loc + cols,
+                        row_parallel=True)
+    before = op.KERNEL.launches
+    got = op.gemm_rs(a, b, _tp_ctx("rs", n), check=True)
+    assert op.KERNEL.launches == before + 1
+    assert got.shape == (n, m_loc, cols)
+    _assert_close(got, op.gemm_rs_ref(a, b), TP_TOL)
+
+
+@pytest.mark.parametrize("variant", ["ll", "one_shot"])
+@pytest.mark.parametrize("n,m,k_loc,cols", [
+    (4, 4, 256, 512), (4, 200, 128, 192), (2, 16, 64, 40), (3, 17, 72, 64)])
+def test_gemm_ar_kernel_matches_plain(dev, variant, n, m, k_loc, cols):
+    from triton_dist_tpu_torch.ops import gemm_ar as op
+
+    a, b = _tp_operands(dev, n, m, k_loc, cols, m + cols, row_parallel=True)
+    before = op.KERNEL.launches
+    got = op.gemm_ar(a, b, _tp_ctx("ar", n, variant=variant), check=True)
+    assert op.KERNEL.launches == before + 1
+    _assert_close(got, op.gemm_ar_ref(a, b), TP_TOL)
+
+
+def test_fused_gemms_repeat_without_a_miss(dev):
+    """Flags persist across calls (epochs): 30 back-to-back launches of
+    each kernel on fresh inputs, every one within the limit."""
+    from triton_dist_tpu_torch.ops import ag_gemm, gemm_ar, gemm_rs
+
+    for i in range(30):
+        a, b = _tp_operands(dev, 4, 128, 256, 256, i, row_parallel=False)
+        got = ag_gemm.ag_gemm(a, b, _tp_ctx("ag", 4))
+        _assert_close(got, ag_gemm.ag_gemm_ref(a, b), TP_TOL)
+        a, b = _tp_operands(dev, 4, 512, 128, 256, i, row_parallel=True)
+        _assert_close(gemm_rs.gemm_rs(a, b, _tp_ctx("rs", 4)),
+                      gemm_rs.gemm_rs_ref(a, b), TP_TOL)
+        a, b = _tp_operands(dev, 4, 4, 256, 512, i, row_parallel=True)
+        _assert_close(gemm_ar.gemm_ar(a, b, _tp_ctx("ar", 4)),
+                      gemm_ar.gemm_ar_ref(a, b), TP_TOL)
+
+
+@pytest.mark.parametrize("op_name,fault", [
+    ("ag_gemm", "wrong_chunk"), ("gemm_rs", "drop_partial"),
+    ("gemm_ar", "drop_partial")])
+def test_fused_gemm_limit_catches_a_planted_fault(dev, op_name, fault):
+    from triton_dist_tpu_torch.ops import ag_gemm, gemm_ar, gemm_rs
+
+    mod = {"ag_gemm": ag_gemm, "gemm_rs": gemm_rs, "gemm_ar": gemm_ar}[
+        op_name]
+    rows = {"ag_gemm": 128, "gemm_rs": 512, "gemm_ar": 4}[op_name]
+    a, b = _tp_operands(dev, 4, rows, 256, 256, 7,
+                        row_parallel=op_name != "ag_gemm")
+    ctx = _tp_ctx({"ag_gemm": "ag", "gemm_rs": "rs", "gemm_ar": "ar"}[
+        op_name], 4)
+    got = getattr(mod, op_name)(a, b, ctx, fault=mod.FAULTS[fault],
+                                check=True)
+    want = getattr(mod, op_name + "_ref")(a, b)
+    assert _violates(got, want, TP_TOL)
+
+
+@pytest.mark.parametrize("op_name", ["ag_gemm", "gemm_rs", "gemm_ar"])
+def test_fused_gemm_lost_signal_raises_within_its_bound(dev, op_name):
+    """A flag that is never set: the wait gives up at its bound, the
+    launch ends, and the wrapper raises naming the op and the waiting rank
+    (rank 1 or a rank downstream of it, whichever wait expires first);
+    the next call on the same workspace is sound."""
+    import time
+
+    from triton_dist_tpu_torch.ops import ag_gemm, gemm_ar, gemm_rs
+    from triton_dist_tpu_torch.shmem.workspace import CommTimeoutError
+
+    mod = {"ag_gemm": ag_gemm, "gemm_rs": gemm_rs, "gemm_ar": gemm_ar}[
+        op_name]
+    rows = {"ag_gemm": 64, "gemm_rs": 256, "gemm_ar": 4}[op_name]
+    a, b = _tp_operands(dev, 4, rows, 128, 128, 9,
+                        row_parallel=op_name != "ag_gemm")
+    ctx = _tp_ctx({"ag_gemm": "ag", "gemm_rs": "rs", "gemm_ar": "ar"}[
+        op_name], 4)
+    fn = getattr(mod, op_name)
+    t0 = time.perf_counter()
+    with pytest.raises(CommTimeoutError,
+                       match=rf"{op_name}.*rank [123] waited"):
+        fn(a, b, ctx, fault=mod.FAULTS["lost_signal"], timeout_s=0.05,
+           check=True)
+    assert time.perf_counter() - t0 < 5.0
+    _assert_close(fn(a, b, ctx, check=True),
+                  getattr(mod, op_name + "_ref")(a, b), TP_TOL)
+
+
+def test_tp_engine_launches_the_fused_kernels(dev):
+    """A 2-layer tp = 4 engine on the card: each prefill layer of
+    "fused" launches AG+GEMM and GEMM+RS twice, each decode layer GEMM+AR
+    twice, and the logits stay within 0.1 of the "xla" mode's."""
+    from triton_dist_tpu_torch import Engine, make_mesh
+    from triton_dist_tpu_torch.ops import ag_gemm, gemm_ar, gemm_rs
+
+    cfg = ModelConfig.tiny(vocab_size=512, hidden_size=256,
+                           intermediate_size=512, num_attention_heads=8,
+                           num_key_value_heads=4, head_dim=32)
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = dense.init_params(cfg, generator=g, device=dev)
+    ids = torch.randint(0, 512, (2, 64), generator=g, device=dev)
+    mesh = make_mesh(tp=4)
+    want, _ = Engine(cfg, mesh=mesh, mode="xla", params=params,
+                     max_len=80).prefill(ids)
+    for mode in ("fused", "fused_ar"):
+        eng = Engine(cfg, mesh=mesh, mode=mode, params=params, max_len=80)
+        before = [k.launches for k in (ag_gemm.KERNEL, gemm_rs.KERNEL,
+                                       gemm_ar.KERNEL)]
+        logits, cache = eng.prefill(ids)
+        eng.decode(torch.argmax(logits, -1), cache)
+        got = [k.launches - b for k, b in zip(
+            (ag_gemm.KERNEL, gemm_rs.KERNEL, gemm_ar.KERNEL), before)]
+        prefill = 2 * cfg.num_hidden_layers
+        assert got == ([prefill, prefill, prefill] if mode == "fused"
+                       else [0, 0, 2 * prefill])
+        _assert_close(logits, want, (0.1, 0.0))

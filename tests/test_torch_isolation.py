@@ -144,3 +144,23 @@ def test_wrappers_take_plain_version_only_on_cpu(mod, args, monkeypatch):
         op(*args("meta"))
     assert calls == [1], "a non-CPU tensor reached the plain version"
     assert mod.KERNEL.launches == before
+
+
+def test_tp_slice_modules_are_checked_and_need_cuda():
+    """The tensor-parallel slice's modules are among the sources checked
+    above; ``make_mesh()`` (and so a tp engine) needs the card unless
+    given ``device="cpu"``."""
+    from triton_dist_tpu_torch import make_mesh
+
+    names = {str(p.relative_to(ROOT)) for p in _sources()}
+    for mod in ("parallel/mesh.py", "lang/overlap.py", "shmem/workspace.py",
+                "ops/tp_gemm.py", "ops/ag_gemm.py", "ops/gemm_rs.py",
+                "ops/gemm_ar.py", "utils/device.py"):
+        assert f"triton_dist_tpu_torch/{mod}" in names
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_mesh(tp=4)
+    assert make_mesh(tp=4, device="cpu").tp == 4

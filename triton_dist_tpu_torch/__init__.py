@@ -8,9 +8,14 @@ by :mod:`triton_dist_tpu_torch.utils.build` on first launch.
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
 on CPU tensors every kernel wrapper takes its plain PyTorch version.
+``Engine(cfg, mesh=make_mesh(tp=n), mode="fused")`` runs n simulated
+tensor-parallel ranks on the one device (:mod:`triton_dist_tpu_torch.
+parallel.mesh`).
 """
 
 from triton_dist_tpu_torch.models import Engine, ModelConfig
+from triton_dist_tpu_torch.parallel.mesh import MeshContext, make_mesh
 from triton_dist_tpu_torch.serving import ServingEngine
 
-__all__ = ["Engine", "ModelConfig", "ServingEngine"]
+__all__ = ["Engine", "MeshContext", "ModelConfig", "ServingEngine",
+           "make_mesh"]

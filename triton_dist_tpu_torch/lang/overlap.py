@@ -1,0 +1,71 @@
+"""Rank-swizzled chunk schedules (counterpart of the schedule generator of
+``triton_dist_tpu/lang/overlap.py``: ``SWIZZLE_MODES``, ``chunk_at``,
+``step_of``, ``schedule`` and ``ring_chunk``).
+
+Pure index arithmetic on Python ints, equal to the JAX functions. The
+fused-GEMM kernels (``csrc/ag_gemm.cu``, ``csrc/gemm_rs.cu``) compute the
+same arithmetic in CUDA; the plain versions of the ops
+(:mod:`triton_dist_tpu_torch.ops`) walk these functions. The panel
+stager, stream planner and ring pumps of the JAX module drive TPU DMA
+semaphores and have no counterpart here.
+
+- ``"ag"`` (all-gather consumer): chunk ``(rank - step) % world``, the
+  local chunk first, then ring-arrival order.
+- ``"rs"`` (reduce-scatter producer): chunk ``(rank - step - 1) % world``,
+  so each chunk's running sum visits ranks in ring order and ends at its
+  owner.
+- ``"a2a"`` (all-to-all consumer): chunk ``(rank + step) % world``.
+- ``"identity"``: chunk ``step``.
+"""
+
+from __future__ import annotations
+
+SWIZZLE_MODES = ("ag", "rs", "a2a", "identity")
+
+
+def _check_mode(mode: str) -> None:
+    if mode not in SWIZZLE_MODES:
+        raise ValueError(f"unknown swizzle_mode {mode!r} "
+                         f"(expected one of {SWIZZLE_MODES})")
+
+
+def chunk_at(step: int, rank: int, world: int, mode: str) -> int:
+    """Chunk id computed at grid ``step`` by ``rank`` under ``mode``."""
+    _check_mode(mode)
+    if mode == "ag":
+        return (rank - step) % world
+    if mode == "rs":
+        return (rank - step - 1) % world
+    if mode == "a2a":
+        return (rank + step) % world
+    return step
+
+
+def step_of(chunk: int, rank: int, world: int, mode: str) -> int:
+    """Inverse of :func:`chunk_at`: the step at which ``rank`` computes
+    ``chunk``."""
+    _check_mode(mode)
+    if mode == "ag":
+        return (rank - chunk) % world
+    if mode == "rs":
+        return (rank - chunk - 1) % world
+    if mode == "a2a":
+        return (chunk - rank) % world
+    return chunk
+
+
+def schedule(rank: int, world: int, n_chunks: int, mode: str) -> tuple:
+    """The whole traversal order of ``rank``. ``n_chunks`` must equal
+    ``world`` for the ring modes; ``"identity"`` takes any count."""
+    _check_mode(mode)
+    if mode != "identity" and n_chunks != world:
+        raise ValueError(f"mode {mode!r} schedules exactly world="
+                         f"{world} chunks (got n_chunks={n_chunks})")
+    return tuple(chunk_at(s, rank, world, mode) for s in range(n_chunks))
+
+
+def ring_chunk(event: int, rank: int, world: int) -> int:
+    """Chunk delivered to ``rank`` by ring event ``event`` of a rightward
+    all-gather ring: 0 is the local chunk, event ``r >= 1`` the chunk that
+    left rank ``rank - r``."""
+    return (rank - event) % world

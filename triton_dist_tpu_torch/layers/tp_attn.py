@@ -1,13 +1,31 @@
 """Attention of one decoder layer (counterpart of
-``triton_dist_tpu/layers/tp_attn.py``: ``init``, ``sdpa``,
-``fwd_prefill``, ``decode_project``, ``decode_output``, ``fwd_decode``
-and the q/k norm + rope of ``_norm_rope``).
+``triton_dist_tpu/layers/tp_attn.py``: ``init``, ``sdpa``, ``_head_split``,
+``_project_qkv``, ``fwd_prefill``, ``decode_project``, ``decode_output``,
+``fwd_decode`` and the q/k norm + rope of ``_norm_rope``).
 
-The port runs at tp = 1, so every projection is one ``F.linear`` with no
-cross-shard collective: the JAX modes ``"xla"``, ``"fused"`` and
-``"fused_ar"`` compute the same function there (their one-rank
-``ag_gemm``/``gemm_rs``/``gemm_ar`` are plain products) and the port
-accepts the three names. A causal prefill attends through
+One rank (no mesh, or tp = 1): every projection is one ``F.linear`` with
+no cross-shard collective, and the modes ``"xla"``, ``"fused"`` and
+``"fused_ar"`` compute the same function (JAX's one-rank
+``ag_gemm``/``gemm_rs``/``gemm_ar`` are plain products).
+
+tp = n simulated ranks (:mod:`~triton_dist_tpu_torch.parallel.mesh`,
+the ``*_tp`` functions): heads are sharded contiguously by rank, as the
+JAX ``param_specs`` shard ``wq``/``wk``/``wv`` by columns and ``wo`` by
+rows; activations carry the rank as their leading dimension. The residual
+stream is token-sharded ``(n, T/n, d)`` in ``"xla"``/``"fused"`` and
+replicated ``(n, T, d)`` in ``"fused_ar"`` and decode. ``"fused"``
+projects Q through :func:`~triton_dist_tpu_torch.ops.ag_gemm.ag_gemm`
+(its gathered A feeds K and V) and O through
+:func:`~triton_dist_tpu_torch.ops.gemm_rs.gemm_rs`; ``"fused_ar"`` and
+every decode step's O go through
+:func:`~triton_dist_tpu_torch.ops.gemm_ar.gemm_ar`; ``"xla"`` sums the
+ranks' fp32 partials in plain PyTorch (JAX's XLA collectives). Rank r's
+heads are heads ``[r·H/n, (r+1)·H/n)`` of the whole model and its KV heads
+``[r·KV/n, (r+1)·KV/n)``, so attention over every rank's heads, stacked in
+rank order, is the tp = 1 attention: one flash-attention launch covers
+all ranks.
+
+A causal prefill attends through
 :func:`~triton_dist_tpu_torch.ops.flash_attention.flash_attention` (a
 CUDA kernel on the card at every shape). Linear weights are stored
 ``(out_features, in_features)``, the layout ``F.linear`` takes; the JAX
@@ -26,7 +44,12 @@ from torch import nn
 
 from triton_dist_tpu_torch.layers.norm import rms_norm
 from triton_dist_tpu_torch.layers.rope import apply_rope, rope_freqs
+from triton_dist_tpu_torch.ops.ag_gemm import ag_gemm
 from triton_dist_tpu_torch.ops.flash_attention import flash_attention
+from triton_dist_tpu_torch.ops.gemm_ar import gemm_ar
+from triton_dist_tpu_torch.ops.gemm_rs import gemm_rs
+from triton_dist_tpu_torch.ops.tp_gemm import (column_shards, mm_f32,
+                                               row_shards)
 
 MODES = ("xla", "fused", "fused_ar")
 
@@ -188,3 +211,132 @@ def fwd_decode(params: Attention, x: torch.Tensor, cfg,
                         device=x.device)
     o = sdpa(q, k_cache, v_cache, causal=False, kv_len=kv_len)
     return decode_output(params, o.reshape(b, -1)), (k_cache, v_cache)
+
+
+# ---- tp = n simulated ranks ------------------------------------------------
+
+def _head_split(cfg, n: int):
+    """Per-rank head counts; KV-head replication for n > KV heads is not
+    implemented (as in the JAX package), so fail loudly rather than
+    mis-reshape."""
+    if cfg.num_attention_heads % n:
+        raise ValueError(
+            f"num_attention_heads={cfg.num_attention_heads} not divisible "
+            f"by tp={n}")
+    if cfg.num_key_value_heads % n:
+        raise ValueError(
+            f"num_key_value_heads={cfg.num_key_value_heads} not divisible "
+            f"by tp={n} (KV-head replication unimplemented)")
+    return cfg.num_attention_heads // n, cfg.num_key_value_heads // n
+
+
+def _stack_heads(t: torch.Tensor, batch: int, seq: int,
+                 hd: int) -> torch.Tensor:
+    """(n, B·S, X_loc·hd), rank-major → (B, S, n·X_loc, hd): every rank's
+    heads side by side in rank order (the whole model's head order)."""
+    n = t.shape[0]
+    return (t.view(n, batch, seq, -1, hd).permute(1, 2, 0, 3, 4)
+            .reshape(batch, seq, -1, hd).contiguous())
+
+
+def _rank_heads(o: torch.Tensor, n: int) -> torch.Tensor:
+    """(B, S, H, hd) → (n, B·S, H/n·hd): rank r's heads of every token."""
+    b, s, h, hd = o.shape
+    return (o.reshape(b, s, n, (h // n) * hd).permute(2, 0, 1, 3)
+            .reshape(n, b * s, -1).contiguous())
+
+
+def reduce_scatter_plain(x: torch.Tensor, w: torch.Tensor,
+                         dtype) -> torch.Tensor:
+    """The ``"xla"`` row-parallel product: every rank's fp32 partial
+    ``x[r] @ w[r].T``, summed over ranks (rank order), token chunk r to
+    rank r, rounded to ``dtype``: (n, T, K_loc) → (n, T/n, N)."""
+    n = x.shape[0]
+    total = sum(mm_f32(x[r], w[r]) for r in range(n))
+    return total.view(n, -1, total.shape[-1]).to(dtype)
+
+
+def all_reduce_plain(x: torch.Tensor, w: torch.Tensor,
+                     dtype) -> torch.Tensor:
+    """The ``"xla"`` replicated row-parallel product: the fp32 sum over
+    ranks of ``x[r] @ w[r].T`` on every rank, rounded to ``dtype``:
+    (n, T, K_loc) → (n, T, N)."""
+    n = x.shape[0]
+    total = sum(mm_f32(x[r], w[r]) for r in range(n)).to(dtype)
+    return total.expand(n, *total.shape)
+
+
+def _project_qkv_tp(params: Attention, x: torch.Tensor, *, mode: str,
+                    ag_ctx):
+    """Every rank's Q, K and V, each (n, T, X_loc·hd). x: (n, T/n, d)
+    token-sharded (``"xla"``, ``"fused"``) or (n, T, d) replicated
+    (``"fused_ar"``)."""
+    n = x.shape[0]
+    wq, wk, wv = (column_shards(w, n) for w in (params.wq, params.wk,
+                                                params.wv))
+    if mode == "xla":
+        x_full = x.reshape(-1, x.shape[-1])    # the all-gather, rank order
+        q = torch.matmul(x_full, wq.transpose(1, 2))
+    elif mode == "fused":
+        q, x_full = ag_gemm(x, wq, ag_ctx, return_ag=True)
+    else:
+        x_full = x
+        q = torch.matmul(x, wq.transpose(1, 2))
+    k = torch.matmul(x_full, wk.transpose(1, 2))
+    v = torch.matmul(x_full, wv.transpose(1, 2))
+    return q, k, v
+
+
+def fwd_prefill_tp(params: Attention, x: torch.Tensor, cfg, *, batch: int,
+                   mode: str, ctxs):
+    """The prefill attention block at tp = n (``x.shape[0]``): QKV
+    (:func:`_project_qkv_tp`), q/k norm and rope at positions ``0..S-1``,
+    causal attention over the stacked heads (one :func:`sdpa`), then the
+    row-parallel O projection through ``mode``'s reduce. x: (n, T/n, d)
+    or, for ``"fused_ar"``, (n, T, d). Returns ``(y in x's layout, (k, v))``
+    with k/v (B, S, KV, hd), every rank's KV heads in rank order."""
+    check_mode(mode)
+    n, hd = x.shape[0], cfg.head_dim
+    _head_split(cfg, n)
+    q, k, v = _project_qkv_tp(params, x, mode=mode, ag_ctx=ctxs.ag)
+    seq = q.shape[1] // batch
+    q, k, v = (_stack_heads(t, batch, seq, hd) for t in (q, k, v))
+    positions = torch.arange(seq, device=x.device).expand(batch, seq)
+    q, k = _norm_rope(q, k, params, cfg, positions)
+    o = _rank_heads(sdpa(q, k, v, causal=True), n)
+    wo = row_shards(params.wo, n)
+    if mode == "xla":
+        y = reduce_scatter_plain(o, wo, x.dtype)
+    elif mode == "fused":
+        y = gemm_rs(o, wo, ctxs.rs)
+    else:
+        y = gemm_ar(o, wo, ctxs.ar)
+    return y, (k, v)
+
+
+def decode_project_tp(params: Attention, x: torch.Tensor, cfg,
+                      positions: torch.Tensor):
+    """:func:`decode_project` at tp = n: x (n, B, d) replicated; every
+    rank projects its heads. Returns q (B, 1, H, hd), k/v (B, 1, KV, hd),
+    the ranks' heads stacked in rank order."""
+    n, b = x.shape[:2]
+    hd = cfg.head_dim
+    _head_split(cfg, n)
+    q, k, v = (_stack_heads(torch.matmul(x, column_shards(w, n)
+                                         .transpose(1, 2)), b, 1, hd)
+               for w in (params.wq, params.wk, params.wv))
+    q, k = _norm_rope(q, k, params, cfg, positions.view(b, 1))
+    return q, k, v
+
+
+def decode_output_tp(params: Attention, o: torch.Tensor, *, n: int,
+                     mode: str, ar_ctx) -> torch.Tensor:
+    """:func:`decode_output` at tp = n: o (B, H·hd), every rank's heads
+    stacked → (n, B, d) on every rank, through
+    :func:`~triton_dist_tpu_torch.ops.gemm_ar.gemm_ar` unless ``mode`` is
+    ``"xla"``."""
+    o = o.view(o.shape[0], n, -1).transpose(0, 1).contiguous()
+    wo = row_shards(params.wo, n)
+    if mode == "xla":
+        return all_reduce_plain(o, wo, o.dtype)
+    return gemm_ar(o, wo, ar_ctx)

@@ -8,6 +8,13 @@ each linear weight as ``(in_features, out_features)`` and multiplies
 ``embed`` and ``lm_head`` are ``(vocab, d)`` on both sides, and the JAX
 logits are ``x @ lm_head.T``, so they carry over as they are.
 
+The same tensors serve every tp: at ``make_mesh(tp=n)`` rank r's shard of
+a column-parallel weight (``wq``/``wk``/``wv``/``w_gate``/``w_up``, and
+``lm_head`` by vocabulary rows) is rows ``[r·out/n, (r+1)·out/n)`` and of a
+row-parallel one (``wo``/``w_down``) columns ``[r·in/n, (r+1)·in/n)``, as
+the JAX ``param_specs`` shard them; both are views of the one tensor
+(:mod:`~triton_dist_tpu_torch.ops.tp_gemm`), never a second copy.
+
 For a MoE config the tree is ``qwen_moe.init_params``': each layer holds
 ``moe`` (``router (d, E)``, ``w_gate``/``w_up (E, d, f)``, ``w_down (E,
 f, d)``) in place of ``mlp``; each expert's matrix is transposed the same

@@ -1,16 +1,27 @@
 """Dense Qwen3-style LLM on one card (counterpart of
-``triton_dist_tpu/models/dense.py``: ``init_params``, the dense-cache
-``prefill``/``forward_tokens``/``decode_step`` and the paged
-``prefill_chunk_paged``/``decode_step_paged``/``verify_step_paged``).
+``triton_dist_tpu/models/dense.py``: ``init_params``,
+``make_fwd_contexts``, the dense-cache ``prefill``/``forward_tokens``/
+``decode_step`` and the paged ``prefill_chunk_paged``/
+``decode_step_paged``/``verify_step_paged``).
 
 The weights are an ``nn.Module`` tree (:class:`DenseLM`) whose names
 follow the JAX pytree's keys; the model functions take it as ``params``.
-With one card there is no mesh, so the JAX package's ``param_specs`` and
-``cache_specs`` have no counterpart and the three forward modes compute
-the same function (:mod:`~triton_dist_tpu_torch.layers.tp_attn`). The
-prefill attends through the flash-attention kernel wrapper, the paged
-steps through the paged kernel wrappers; each launches its CUDA kernel
-on a CUDA tensor and runs its plain version on a CPU tensor.
+Without a mesh (or at tp = 1) the three forward modes compute the same
+function (:mod:`~triton_dist_tpu_torch.layers.tp_attn`). With
+``mesh=make_mesh(tp=n)`` the dense-cache functions run n simulated
+tensor-parallel ranks on the one device: rank r's weight shards are
+views of the one full weight, as the JAX ``param_specs`` cut them
+(``lm_head`` by vocabulary rows), and its fused ops take the contexts of
+:func:`make_fwd_contexts`. The prefill's residual is token-sharded in
+``"xla"``/``"fused"`` (B·S divisible by n) and replicated in
+``"fused_ar"``; decode runs replicated, ``"fused_ar"`` unless the mode is
+``"xla"``. The KV cache keeps the global ``(layers, B, max_len, KV, hd)``
+layout: rank r owns KV heads ``[r·KV/n, (r+1)·KV/n)``, the JAX cache's
+global view. The paged steps are one rank only (the paged lanes at tp > 1
+are a ROADMAP.md item). The prefill attends through the flash-attention
+kernel wrapper, the paged steps through the paged kernel wrappers; each
+launches its CUDA kernel on a CUDA tensor and runs its plain version on a
+CPU tensor.
 """
 
 from __future__ import annotations
@@ -27,6 +38,10 @@ from triton_dist_tpu_torch.layers.norm import rms_norm
 from triton_dist_tpu_torch.layers.tp_attn import empty_param
 from triton_dist_tpu_torch.models.config import ModelConfig
 from triton_dist_tpu_torch.models.kv_cache import KVCache
+from triton_dist_tpu_torch.ops.ag_gemm import create_ag_gemm_context
+from triton_dist_tpu_torch.ops.gemm_ar import create_gemm_ar_context
+from triton_dist_tpu_torch.ops.gemm_rs import create_gemm_rs_context
+from triton_dist_tpu_torch.ops.tp_gemm import column_shards
 from triton_dist_tpu_torch.ops.paged_flash_decode import paged_flash_decode
 from triton_dist_tpu_torch.ops.paged_flash_qblock import paged_flash_qblock
 
@@ -96,11 +111,38 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
 
 @dataclasses.dataclass(frozen=True)
 class FwdContexts:
-    """The JAX per-layer fused-op contexts, reduced to what one card
-    reads: ``block_m``, the MoE row tile of the fused expert layout
-    (capped per call by ``ops.ag_moe.suggested_block_m``). Only the MoE
-    model's prefill reads it, so the dense functions do not take it."""
+    """The JAX per-layer fused-op contexts: ``ag``/``rs``/``ar`` of the
+    tensor-parallel dense path (:func:`make_fwd_contexts`), and
+    ``block_m``, the MoE row tile of the fused expert layout (capped per
+    call by ``ops.ag_moe.suggested_block_m``, read by the one-rank MoE
+    prefill)."""
+    ag: object = None
+    rs: object = None
+    ar: object = None
     block_m: int = 256
+
+
+def make_fwd_contexts(mesh, axis: str = "tp", block_m: int = 256,
+                      block_n: int = 256, block_k: int = 512,
+                      ar_variant: str = "ll") -> FwdContexts:
+    """The three fused-op contexts of ``mesh`` with JAX's block knobs.
+    ``ar_variant``: the GEMM+AR context's variant (JAX's contexts take its
+    default, ``"ll"``; its ``gemm_ar_tuned`` picks per shape, and the port
+    has no autotuner yet)."""
+    return FwdContexts(
+        ag=create_ag_gemm_context(mesh, axis, block_m, block_n, block_k),
+        rs=create_gemm_rs_context(mesh, axis, block_m, block_n, block_k),
+        ar=create_gemm_ar_context(mesh, axis, block_n, block_k,
+                                  variant=ar_variant),
+        block_m=block_m)
+
+
+def _tp_size(mesh, ffn_fn) -> int:
+    n = 1 if mesh is None else mesh.tp
+    if n > 1 and ffn_fn is not None:
+        raise ValueError("an FFN hook (the MoE model) at tp > 1 needs the "
+                         "EP/TP MoE kernels of ROADMAP.md queue A item 5")
+    return n
 
 
 def lm_head_logits(x: torch.Tensor, lm_head: torch.Tensor) -> torch.Tensor:
@@ -159,11 +201,67 @@ def _lm_head(params: DenseLM, x: torch.Tensor) -> torch.Tensor:
     return lm_head_logits(x, params.lm_head)
 
 
+# ---- tp = n simulated ranks ------------------------------------------------
+
+def _embed_tokens_tp(params: DenseLM, input_ids: torch.Tensor, *, mode: str,
+                     n: int) -> torch.Tensor:
+    """Slice before gather: in the token-sharded modes rank r embeds only
+    tokens ``[r·T/n, (r+1)·T/n)`` → (n, T/n, d); in ``"fused_ar"`` every
+    rank embeds every token → (n, T, d)."""
+    flat = input_ids.reshape(-1).long()
+    if mode in ("xla", "fused"):
+        if flat.shape[0] % n:
+            # A TypeError, as the JAX package's reshape raises for it.
+            raise TypeError(
+                f"cannot shard B*S={flat.shape[0]} tokens over tp={n}: mode "
+                f"{mode!r} shards the residual stream over tokens (B*S must "
+                f"be divisible by tp)")
+        return params.embed[flat.view(n, -1)]
+    x = params.embed[flat]
+    return x.expand(n, *x.shape).contiguous()
+
+
+def _forward_trunk_tp(params: DenseLM, input_ids: torch.Tensor,
+                      cfg: ModelConfig, *, mode: str, n: int, ctxs,
+                      cache: Optional[KVCache]):
+    """Embed → layers → final norm at tp = n, then the final all-gather
+    of the token-sharded modes. Returns ``(x, cache)``: x (B·S, d) after
+    the gather, or (n, B·S, d) replicated for ``"fused_ar"``."""
+    b = input_ids.shape[0]
+    x = _embed_tokens_tp(params, input_ids, mode=mode, n=n)
+    eps = cfg.rms_norm_eps
+    for li, layer in enumerate(params.layers):
+        h = rms_norm(x, layer.ln_attn, eps)
+        attn_out, kv = tp_attn.fwd_prefill_tp(layer.attn, h, cfg, batch=b,
+                                              mode=mode, ctxs=ctxs)
+        x = x + attn_out
+        h = rms_norm(x, layer.ln_mlp, eps)
+        x = x + tp_mlp.fwd_tp(layer.mlp, h, mode=mode, ctxs=ctxs)
+        if cache is not None:
+            cache.write_prefill(li, *kv)
+    x = rms_norm(x, params.ln_f, eps)
+    if mode in ("xla", "fused"):
+        x = x.reshape(-1, x.shape[-1])       # chunks in rank order
+    return x, cache
+
+
+def _lm_head_tp(params: DenseLM, x: torch.Tensor, n: int) -> torch.Tensor:
+    """Vocabulary-sharded head: rank r's logits of vocabulary rows
+    ``[r·V/n, (r+1)·V/n)`` from its copy of x ((n, M, d), or (M, d) that
+    every rank holds), gathered along the vocabulary → (M, V) fp32."""
+    heads = column_shards(params.lm_head, n)
+    return torch.cat([lm_head_logits(x if x.dim() == 2 else x[r], heads[r])
+                      for r in range(n)], dim=-1)
+
+
 def prefill(params: DenseLM, input_ids: torch.Tensor, cfg: ModelConfig, *,
-            mode: str = "xla", max_len: Optional[int] = None, ffn_fn=None):
+            mode: str = "xla", max_len: Optional[int] = None, ffn_fn=None,
+            mesh=None, ctxs: Optional[FwdContexts] = None):
     """Prefill of (B, S) token ids. Returns ``(logits (B, vocab) fp32 of
     the last position, KVCache)``, the cache ``max_len`` (default S)
-    positions long with the prompt written and ``length = S``."""
+    positions long with the prompt written and ``length = S``. ``mesh``
+    with tp > 1: n simulated ranks, fused ops from ``ctxs``."""
+    n = _tp_size(mesh, ffn_fn)
     b, s = input_ids.shape
     max_len = max_len or s
     if s > max_len:
@@ -172,6 +270,14 @@ def prefill(params: DenseLM, input_ids: torch.Tensor, cfg: ModelConfig, *,
                           cfg.num_key_value_heads, cfg.head_dim,
                           device=params.embed.device,
                           dtype=params.embed.dtype)
+    if n > 1:
+        tp_attn.check_mode(mode)
+        x, cache = _forward_trunk_tp(params, input_ids, cfg, mode=mode, n=n,
+                                     ctxs=ctxs, cache=cache)
+        cache.length = s
+        last = (x.view(b, s, -1)[:, -1] if x.dim() == 2
+                else x.view(n, b, s, -1)[:, :, -1])
+        return _lm_head_tp(params, last, n), cache
     x, cache = _forward_trunk(params, input_ids, cfg, mode=mode,
                               cache=cache, ffn_fn=ffn_fn)
     cache.length = s
@@ -180,24 +286,39 @@ def prefill(params: DenseLM, input_ids: torch.Tensor, cfg: ModelConfig, *,
 
 
 def forward_tokens(params: DenseLM, input_ids: torch.Tensor,
-                   cfg: ModelConfig, *, mode: str = "xla", ffn_fn=None):
+                   cfg: ModelConfig, *, mode: str = "xla", ffn_fn=None,
+                   mesh=None, ctxs: Optional[FwdContexts] = None):
     """Logits of every position, (B, S, vocab) fp32 (the training-loss
-    forward)."""
+    forward); ``mesh``/``ctxs`` as in :func:`prefill`."""
+    n = _tp_size(mesh, ffn_fn)
     b, s = input_ids.shape
+    if n > 1:
+        tp_attn.check_mode(mode)
+        x, _ = _forward_trunk_tp(params, input_ids, cfg, mode=mode, n=n,
+                                 ctxs=ctxs, cache=None)
+        return _lm_head_tp(params, x, n).view(b, s, cfg.vocab_size)
     x, _ = _forward_trunk(params, input_ids, cfg, mode=mode, cache=None,
                           ffn_fn=ffn_fn)
     return _lm_head(params, x).view(b, s, cfg.vocab_size)
 
 
 def decode_step(params: DenseLM, token_ids: torch.Tensor, cache: KVCache,
-                cfg: ModelConfig, *, mode: str = "xla", ffn_fn=None):
+                cfg: ModelConfig, *, mode: str = "xla", ffn_fn=None,
+                mesh=None, ctxs: Optional[FwdContexts] = None):
     """One decode step over a dense :class:`KVCache`. token_ids: (B,).
     Per layer: :func:`tp_attn.decode_project` at position
     ``cache.length``, :meth:`KVCache.append_decode` (in place), plain
     attention over the first ``length + 1`` positions, o-projection, FFN
     (``ffn_fn``, the MoE hook, or the MLP). Returns ``(logits (B, vocab)
-    fp32, cache)`` with ``length`` advanced by one."""
+    fp32, cache)`` with ``length`` advanced by one. ``mesh`` with tp > 1:
+    n simulated ranks on a replicated residual, the row-parallel products
+    through ``gemm_ar`` unless ``mode`` is ``"xla"`` (JAX's decode
+    regime)."""
     tp_attn.check_mode(mode)
+    n = _tp_size(mesh, ffn_fn)
+    if n > 1:
+        return _decode_step_tp(params, token_ids, cache, cfg, mode=mode,
+                               n=n, ctxs=ctxs)
     b = token_ids.shape[0]
     dev = token_ids.device
     x = params.embed[token_ids.long()]
@@ -215,6 +336,36 @@ def decode_step(params: DenseLM, token_ids: torch.Tensor, cache: KVCache,
         x = _layer_tail(layer, x, o, cfg, ffn_fn)
     x = rms_norm(x, params.ln_f, cfg.rms_norm_eps)
     return _lm_head(params, x), cache.advance()
+
+
+def _decode_step_tp(params: DenseLM, token_ids: torch.Tensor,
+                    cache: KVCache, cfg: ModelConfig, *, mode: str, n: int,
+                    ctxs) -> tuple:
+    """:func:`decode_step` at tp = n: the residual (n, B, d) replicated on
+    every rank, attention over the stacked heads of the global cache."""
+    b = token_ids.shape[0]
+    dec_mode = "xla" if mode == "xla" else "fused_ar"
+    x = params.embed[token_ids.long()]
+    x = x.expand(n, *x.shape).contiguous()
+    pos = cache.length
+    positions = torch.full((b,), pos, dtype=torch.int32,
+                           device=token_ids.device)
+    eps = cfg.rms_norm_eps
+    for li, layer in enumerate(params.layers):
+        h = rms_norm(x, layer.ln_attn, eps)
+        q, k_tok, v_tok = tp_attn.decode_project_tp(layer.attn, h, cfg,
+                                                    positions)
+        cache.append_decode(li, k_tok, v_tok)
+        o = tp_attn.sdpa(q, cache.k[li, :, :pos + 1],
+                         cache.v[li, :, :pos + 1], causal=False)
+        x = x + tp_attn.decode_output_tp(layer.attn, o.reshape(b, -1), n=n,
+                                         mode=dec_mode, ar_ctx=ctxs.ar)
+        h = rms_norm(x, layer.ln_mlp, eps)
+        x = x + tp_mlp.fwd_tp(layer.mlp, h, ctxs=ctxs,
+                              mode="xla_ar" if dec_mode == "xla"
+                              else "fused_ar")
+    x = rms_norm(x, params.ln_f, eps)
+    return _lm_head_tp(params, x, n), cache.advance()
 
 
 def prefill_chunk_paged(params: DenseLM, chunk_toks: torch.Tensor, cache,

@@ -1,14 +1,19 @@
 """Inference engine (counterpart of ``triton_dist_tpu/models/engine.py``).
 
 The engine carries the configuration, the model (dense Qwen3 or
-Qwen3-MoE) and its weights: :meth:`Engine.prefill`, :meth:`Engine.decode`
-and :meth:`Engine.serve` run the dense-cache loop, and
-:meth:`Engine.serving` hands the engine to the continuous-batching
-server. At one card the three forward modes compute the same function
-except for the MoE prefill, where ``mode="fused"`` runs the fused expert
-pipeline (the row-tile grouped GEMM kernel). The resilience knobs
-(``fallback``, ``probe``, ``timeout_s``) and the expert-parallel regime
-are not ported yet (ROADMAP.md).
+Qwen3-MoE), its weights and, optionally, a mesh: :meth:`Engine.prefill`,
+:meth:`Engine.decode` and :meth:`Engine.serve` run the dense-cache loop,
+and :meth:`Engine.serving` hands the engine to the continuous-batching
+server. Without a mesh (or at tp = 1) the three forward modes compute the
+same function except for the MoE prefill, where ``mode="fused"`` runs the
+fused expert pipeline (the row-tile grouped GEMM kernel). With
+``mesh=make_mesh(tp=n)`` a dense model runs n simulated tensor-parallel
+ranks on the one device (:mod:`~triton_dist_tpu_torch.models.dense`):
+``"fused"`` prefills through the AG+GEMM and GEMM+RS kernels,
+``"fused_ar"`` through GEMM+AR, and every non-``"xla"`` decode step
+through GEMM+AR. The resilience knobs (``fallback``, ``probe``,
+``timeout_s``) and the expert-parallel regime are not ported yet
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -18,29 +23,16 @@ from typing import Optional
 import numpy as np
 import torch
 
-from triton_dist_tpu_torch.layers.tp_attn import check_mode
+from triton_dist_tpu_torch.layers.tp_attn import _head_split, check_mode
 from triton_dist_tpu_torch.models import dense, qwen_moe
 from triton_dist_tpu_torch.models.config import ModelConfig
 from triton_dist_tpu_torch.models.kv_cache import KVCache
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the card. Raises when CUDA is asked for and absent:
-    only an explicit ``"cpu"`` runs the plain versions on the CPU."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "CUDA is not available: the port runs on the card by "
-                "default; pass device='cpu' to run the plain versions on "
-                "the CPU")
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
+from triton_dist_tpu_torch.shmem import workspace as shmem
+from triton_dist_tpu_torch.utils.device import resolve_device
 
 
 class Engine:
-    """One model on one device.
+    """One model on one device, at one rank or at ``mesh``'s tp ranks.
 
     ``model``: the model module, :mod:`~triton_dist_tpu_torch.models.dense`
     or :mod:`~triton_dist_tpu_torch.models.qwen_moe` (``None``: qwen_moe
@@ -54,13 +46,44 @@ class Engine:
     ``None`` to draw random weights on the device from a
     ``torch.Generator`` seeded with ``seed``. ``mode``: ``"xla"``,
     ``"fused"`` or ``"fused_ar"``; ``block_m``: the MoE row tile of the
-    fused expert layout (capped per prefill by ``suggested_block_m``)."""
+    fused expert layout (capped per prefill by ``suggested_block_m``).
 
-    def __init__(self, cfg: ModelConfig, *, mode: str = "xla", model=None,
-                 device=None, dtype: torch.dtype = torch.bfloat16,
+    ``mesh``: a :class:`~triton_dist_tpu_torch.parallel.mesh.MeshContext`
+    (``make_mesh(tp=n)``); ``None`` is one rank. At tp > 1 the engine runs
+    on the mesh's device (``device`` may name it again), takes a dense
+    config only (a MoE one needs ROADMAP.md queue A item 5), and
+    ``block_m``/``block_n``/``block_k`` are the JAX contexts' block knobs
+    (:func:`~triton_dist_tpu_torch.models.dense.make_fwd_contexts`: the
+    kernels keep their divisibility contract and pick their own tiles),
+    ``ar_variant`` the GEMM+AR variant (``"ll"`` or ``"one_shot"``).
+    The weights are not copied: each rank's shard is a view of the one
+    full weight."""
+
+    def __init__(self, cfg: ModelConfig, *, mesh=None, mode: str = "xla",
+                 model=None, device=None, dtype: torch.dtype = torch.bfloat16,
                  max_len: int = 512, params: Optional[dense.DenseLM] = None,
-                 seed: int = 0, block_m: int = 256):
+                 seed: int = 0, block_m: int = 256, block_n: int = 256,
+                 block_k: int = 512, ar_variant: str = "ll"):
         check_mode(mode)
+        self.mesh = mesh
+        self.tp = 1 if mesh is None else mesh.tp
+        if mesh is not None:
+            if device is not None and resolve_device(device) != mesh.device:
+                raise ValueError(f"device={device!r} is not the mesh's "
+                                 f"device {mesh.device}")
+            device = mesh.device
+        if self.tp > 1:
+            if cfg.is_moe or model is qwen_moe:
+                raise ValueError(
+                    "a MoE model at tp > 1 needs the expert-parallel and "
+                    "tensor-parallel MoE kernels (rows 19-21, ROADMAP.md "
+                    "queue A item 5); the port runs MoE at one rank")
+            _head_split(cfg, self.tp)
+            for name, size in (("vocab_size", cfg.vocab_size),
+                               ("intermediate_size", cfg.intermediate_size)):
+                if size % self.tp:
+                    raise ValueError(f"{name}={size} not divisible by "
+                                     f"tp={self.tp}")
         if model is None:
             model = qwen_moe if cfg.is_moe else dense
         if model is qwen_moe:
@@ -77,10 +100,18 @@ class Engine:
                              "models.dense and models.qwen_moe")
         self.model = model
         self.mode = mode
-        # The fused expert layout's row tile: only the MoE prefill reads it.
-        self._prefill_kw = (
-            {"ctxs": dense.FwdContexts(block_m=block_m)}
-            if model is qwen_moe else {})
+        if self.tp > 1:
+            ctxs = dense.make_fwd_contexts(mesh, "tp", block_m, block_n,
+                                           block_k, ar_variant)
+            self._prefill_kw = self._decode_kw = {"mesh": mesh,
+                                                  "ctxs": ctxs}
+        else:
+            # The fused expert layout's row tile: only the MoE prefill
+            # reads it.
+            self._prefill_kw = (
+                {"ctxs": dense.FwdContexts(block_m=block_m)}
+                if model is qwen_moe else {})
+            self._decode_kw = {}
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = dtype
@@ -119,7 +150,8 @@ class Engine:
             raise ValueError(
                 f"KV cache full ({self.max_len}); cannot decode further")
         return self.model.decode_step(self.params, self._ids(tokens), cache,
-                                      self.cfg, mode=self.mode)
+                                      self.cfg, mode=self.mode,
+                                      **self._decode_kw)
 
     def serve(self, input_ids, gen_len: int = 32, *,
               temperature: float = 0.0, top_k: int = 0,
@@ -130,7 +162,9 @@ class Engine:
         ``top_k`` most likely tokens when ``top_k > 0``, from a
         ``torch.Generator`` seeded by (seed, step) as the server's
         sampler: the samples do not reproduce JAX's ``jax.random``
-        bits."""
+        bits. At tp > 1 on the card it ends by waiting for the device and
+        raising :class:`~triton_dist_tpu_torch.shmem.workspace.
+        CommTimeoutError` if a fused op's wait timed out."""
         ids = self._ids(input_ids)
         s = ids.shape[1]
         if s + gen_len > self.max_len:
@@ -158,13 +192,21 @@ class Engine:
         for i in range(gen_len - 1):
             logits, cache = self.decode(out[-1], cache)
             out.append(pick(logits, i + 1))
+        if self.tp > 1 and self.device.type == "cuda":
+            shmem.check_errors(self.device, sync=True)
         return torch.stack(out, dim=1)
 
     def serving(self, **kw):
         """Wrap this engine in a continuous-batching
         :class:`~triton_dist_tpu_torch.serving.server.ServingEngine`
         (paged KV pool, request queue, streaming). Keyword args pass
-        through (num_slots, page, prefill_buckets, ...)."""
+        through (num_slots, page, prefill_buckets, ...). One rank only:
+        the paged lanes at tp > 1 are a ROADMAP.md queue A item."""
+        if self.tp > 1:
+            raise ValueError(
+                "serving() at tp > 1: the paged serving lanes run one rank "
+                "(tensor-parallel paged serving is ROADMAP.md queue A "
+                "item 8)")
         from triton_dist_tpu_torch.serving.server import ServingEngine
 
         return ServingEngine(self, **kw)

@@ -1,7 +1,11 @@
 """Dense KV cache (counterpart of ``triton_dist_tpu/models/kv_cache.py``).
 
-Layout ``(num_layers, batch, max_len, kv_heads, head_dim)``: at tp = 1 a
-rank holds every KV head. The JAX cache is immutable and its engine
+Layout ``(num_layers, batch, max_len, kv_heads, head_dim)``, the global
+one at every tp: at tp = 1 a rank holds every KV head; at tp = n
+simulated ranks (:mod:`~triton_dist_tpu_torch.parallel.mesh`) rank r owns
+KV heads ``[r·KV/n, (r+1)·KV/n)`` (``k[..., r·KV/n:(r+1)·KV/n, :]``), so
+the tensor equals the JAX cache's global view under its
+``cache_specs`` (KV heads sharded along ``tp``). The JAX cache is immutable and its engine
 donates it to each decode step; here every write lands IN PLACE and the
 methods return the cache itself, so a caller can keep JAX's
 ``cache = cache.append_decode(...)`` form. ``length`` is a host int (JAX

@@ -12,8 +12,9 @@ and a host source (``*.cc``, the megakernel scheduler) with
     g++ -O2 -fPIC -std=c++17 -shared
 
 into ``build/torch_kernels/`` at the root of the checkout (``.gitignore``
-lists ``build/``), under a name that carries a digest of the source and
-the flags, so an edited source is rebuilt and an unchanged one is not.
+lists ``build/``), under a name that carries a digest of the source, the
+flags and, for a CUDA source, every header in ``csrc/`` (``*.cuh``), so
+an edited source or header is rebuilt and an unchanged one is not.
 :func:`build_all` starts one compiler per source at once. Nothing here
 runs at import: the CPU tests import every module, and a machine without
 a card may have no ``nvcc``.
@@ -69,11 +70,14 @@ def _compiler(source: str) -> str:
 
 
 def library_path(source: str) -> pathlib.Path:
-    """Where ``csrc/<source>`` builds to (digest of source and flags)."""
+    """Where ``csrc/<source>`` builds to (digest of the source, the flags
+    and, for CUDA, the headers it may include)."""
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(_flags(source)).encode()).hexdigest()
-    return BUILD_DIR / f"lib{src.stem}-{digest[:16]}.so"
+    h = hashlib.sha256(src.read_bytes() + " ".join(_flags(source)).encode())
+    if source.endswith(".cu"):
+        for header in sorted(CSRC.glob("*.cuh")):
+            h.update(header.name.encode() + header.read_bytes())
+    return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(sources: Iterable[str]) -> Dict[str, str]:
@@ -125,6 +129,12 @@ def load(source: str) -> ctypes.CDLL:
             lib.tdt_cuda_error_string.restype = ctypes.c_char_p
         _LIBS[source] = lib
     return lib
+
+
+def loaded(source: str):
+    """The library of ``csrc/<source>`` if :func:`load` has loaded it,
+    else ``None`` (never builds)."""
+    return _LIBS.get(source)
 
 
 class CudaKernel:
