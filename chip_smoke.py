@@ -237,9 +237,12 @@ Phases (any failure exits nonzero; nothing is caught):
    (M 2048). Limit |got - want| <= 1e-2 + 2**-7 |want|: both sum in fp32
    and round once to bf16, in other orders inside a rank's product, so an
    output of order 1 may land one bf16 unit away. Each case then runs 50
-   launches in a row, every one within the limit (the flags persist
-   across calls by epoch; a stale flag or a missing fence shows as a
-   miss). Controls: a rank forwarding its own chunk in place of the one
+   launches in a row on three seeded activation sets taken in turn, so
+   that no launch has the inputs of the one before it, every one within
+   the limit of the plain version of its own set (the flags persist
+   across calls by epoch, and so do the receive and gather buffers: a
+   stale flag, a missing fence or a tile read before its data landed
+   meets another set's numbers and shows as a miss). Controls: a rank forwarding its own chunk in place of the one
    it received (AG+GEMM), a running sum / peer partial dropped (GEMM+RS,
    GEMM+AR) must fail the limit; a signal never sent must raise
    CommTimeoutError within its bound (0.05 s a wait) instead of hanging,
@@ -257,9 +260,14 @@ Phases (any failure exits nonzero; nothing is caught):
    GEMM+AR twice, every prefill layer flash attention once, nothing
    else. Prefill ms, decode ms a step and the device idle share
    (torch.profiler); greedy agreement between the modes and with the
-   one-rank ``Engine(mode="fused").serve`` of phase 16. At 2 layers the prefill logits of "fused" and
-   "fused_ar" (both variants) within phase 4's 0.1 of the tp = 4 "xla"
-   run.
+   one-rank ``Engine(mode="fused").serve`` of phase 16. The "one_shot"
+   engine hands the model the contexts with that GEMM+AR variant (JAX's
+   engine has no option for it either). At 2 layers the prefill logits
+   of "fused" and "fused_ar" (both variants) within phase 4's 0.1 of the
+   tp = 4 "xla" run; a signal never sent inside ``Engine.prefill`` (the
+   attention's GEMM+RS) and inside ``Engine.decode`` (its GEMM+AR) must
+   raise CommTimeoutError from that same call, and the engine's next
+   prefill and decode give the logits it gave before, within 0.01.
 
 The last lines of output: one JSON object with every kernel's numbers
 (the megakernel once per row mode, and once per MoE row mode), the
@@ -271,6 +279,7 @@ import contextlib
 import copy
 import ctypes
 import dataclasses
+import functools
 import json
 import math
 import subprocess
@@ -3335,14 +3344,16 @@ def qwen3_32b_phase():
 TP = 4
 TOL_TP = (1e-2, 2.0 ** -7)     # one bf16 unit: both sum in fp32, round once
 TP_REPEATS = 50
+TP_SETS = 3                    # activation sets the repeats take in turn
 TP_TIMEOUT_S = 0.05
 
 
 def tp_cases(mesh, ctxs):
     """Phase 24's operands at Qwen3-8B tp = 4 shapes (bf16, seed 47): each
-    case's row key, label, kernel call, plain version, one library call
-    computing the same function (``torch.einsum``), the non-overlapped
-    composition and the bytes / operations of its bound."""
+    case's row key, label, ``TP_SETS`` activation sets, and, as functions
+    of one set, the kernel call, the plain version, one library call
+    computing the same function (``torch.einsum``) and the non-overlapped
+    composition; then the bytes / operations of its bound."""
     from triton_dist_tpu_torch.models import ModelConfig
     from triton_dist_tpu_torch.ops import ag_gemm as ag
     from triton_dist_tpu_torch.ops import gemm_ar as ar
@@ -3360,57 +3371,58 @@ def tp_cases(mesh, ctxs):
     def weight(out_f, in_f):
         return torch.randn(out_f, in_f, generator=g, **bf) * in_f ** -0.5
 
-    def act(*shape):
-        return torch.randn(*shape, generator=g, **bf)
+    def acts(*shape):
+        return [torch.randn(*shape, generator=g, **bf)
+                for _ in range(TP_SETS)]
 
     cases = []
-    x = act(n, t // n, d)                             # token-sharded
+    xs = acts(n, t // n, d)                           # token-sharded
     for name, out_f in (("wq", hq), ("w_gate", ff)):
         b = column_shards(weight(out_f, d), n)
         nl = out_f // n
         cases.append(dict(
             key="ag", label=f"ag_gemm {name} M {t} K {d} N_loc {nl}",
-            mod=ag, fault="wrong_chunk",
-            call=lambda b=b, **kw: ag.ag_gemm(x, b, ctxs.ag, return_ag=True,
-                                              **kw),
-            plain=lambda b=b: ag.ag_gemm_ref(x, b, return_ag=True),
-            library=lambda b=b: torch.einsum("cmk,rnk->rcmn", x, b),
-            comp=lambda b=b: [torch.matmul(torch.cat(list(x)), b[r].t())
-                              for r in range(n)],
-            nbytes=2 * (x.numel() + b.numel() + n * t * nl + n * t * d),
+            mod=ag, fault="wrong_chunk", sets=xs,
+            call=lambda x, b=b, **kw: ag.ag_gemm(x, b, ctxs.ag,
+                                                 return_ag=True, **kw),
+            plain=lambda x, b=b: ag.ag_gemm_ref(x, b, return_ag=True),
+            library=lambda x, b=b: torch.einsum("cmk,rnk->rcmn", x, b),
+            comp=lambda x, b=b: [torch.matmul(torch.cat(list(x)), b[r].t())
+                                 for r in range(n)],
+            nbytes=2 * (xs[0].numel() + b.numel() + n * t * nl + n * t * d),
             flops=2 * n * t * d * nl))
     for name, k_full in (("wo", hq), ("w_down", ff)):
         b = row_shards(weight(d, k_full), n)
-        a = act(n, t, k_full // n)
+        sets = acts(n, t, k_full // n)
         cases.append(dict(
             key="rs", label=f"gemm_rs {name} M {t} K_loc {k_full // n} N {d}",
-            mod=rs, fault="drop_partial",
-            call=lambda a=a, b=b, **kw: rs.gemm_rs(a, b, ctxs.rs, **kw),
-            plain=lambda a=a, b=b: rs.gemm_rs_ref(a, b),
-            library=lambda a=a, b=b: torch.einsum("rmk,rnk->mn", a, b),
-            comp=lambda a=a, b=b: torch.matmul(a, b.transpose(1, 2)).sum(
+            mod=rs, fault="drop_partial", sets=sets,
+            call=lambda a, b=b, **kw: rs.gemm_rs(a, b, ctxs.rs, **kw),
+            plain=lambda a, b=b: rs.gemm_rs_ref(a, b),
+            library=lambda a, b=b: torch.einsum("rmk,rnk->mn", a, b),
+            comp=lambda a, b=b: torch.matmul(a, b.transpose(1, 2)).sum(
                 0).view(n, -1, d),
-            nbytes=2 * (a.numel() + b.numel() + t * d),
+            nbytes=2 * (sets[0].numel() + b.numel() + t * d),
             flops=2 * t * k_full * d))
     for m in (4, t):
         for name, k_full in (("wo", hq), ("w_down", ff)):
             b = row_shards(weight(d, k_full), n)
-            a = act(n, m, k_full // n)
+            sets = acts(n, m, k_full // n)
             for variant in ar.VARIANTS:
                 ctx = dataclasses.replace(ctxs.ar, variant=variant)
                 cases.append(dict(
                     key=f"ar-{variant}",
                     label=f"gemm_ar[{variant}] {name} M {m} K_loc "
                           f"{k_full // n} N {d}",
-                    mod=ar, fault="drop_partial",
-                    call=lambda a=a, b=b, ctx=ctx, **kw: ar.gemm_ar(
+                    mod=ar, fault="drop_partial", sets=sets,
+                    call=lambda a, b=b, ctx=ctx, **kw: ar.gemm_ar(
                         a, b, ctx, **kw),
-                    plain=lambda a=a, b=b: ar.gemm_ar_ref(a, b),
-                    library=lambda a=a, b=b: torch.einsum("rmk,rnk->mn", a,
-                                                          b),
-                    comp=lambda a=a, b=b: torch.matmul(
+                    plain=lambda a, b=b: ar.gemm_ar_ref(a, b),
+                    library=lambda a, b=b: torch.einsum("rmk,rnk->mn", a,
+                                                        b),
+                    comp=lambda a, b=b: torch.matmul(
                         a, b.transpose(1, 2)).sum(0),
-                    nbytes=2 * (a.numel() + b.numel() + n * m * d),
+                    nbytes=2 * (sets[0].numel() + b.numel() + n * m * d),
                     flops=2 * m * k_full * d))
     return cases
 
@@ -3422,13 +3434,17 @@ def tp_kernel_phase():
     w_gate with the gathered A returned, GEMM+RS for wo and w_down, GEMM+AR
     in both variants for wo and w_down at decode (M 4) and at a fused_ar
     prefill (M 2048). Each within TOL_TP, then TP_REPEATS launches in a
-    row, every one within it (flags persist across calls by epoch); a
-    planted fault (a rank forwarding its own chunk for the one it
-    received; a dropped running sum / peer partial) must fail it; a
-    signal never sent must raise CommTimeoutError within its bound, and
-    the next call be sound. Times (L2 flushed) against the bound, the
-    plain version, one library call and the non-overlapped composition.
-    Returns, by row key, the first case's numbers (wq, wo, decode wo)."""
+    row on the TP_SETS activation sets in turn, so that no launch has the
+    inputs of the one before it, each held against the plain version of
+    its own set (flags persist across calls by epoch, and so do the
+    receive and gather buffers: a stale flag or a read before the data
+    landed meets another set's numbers); a planted fault (a rank
+    forwarding its own chunk for the one it received; a dropped running
+    sum / peer partial) must fail it; a signal never sent must raise
+    CommTimeoutError within its bound, and the next call be sound. Times
+    (L2 flushed) against the bound, the plain version, one library call
+    and the non-overlapped composition. Returns, by row key, the first
+    case's numbers (wq, wo, decode wo)."""
     from triton_dist_tpu_torch import make_mesh
     from triton_dist_tpu_torch.models.dense import make_fwd_contexts
     from triton_dist_tpu_torch.shmem import workspace as shmem
@@ -3438,36 +3454,48 @@ def tp_kernel_phase():
     out, errs = {}, {}
     atol, rtol = TOL_TP
     for c in tp_cases(mesh, ctxs):
-        label, key = c["label"], c["key"]
-        got = c["call"](check=True)
-        want = c["plain"]()
+        label, key, sets = c["label"], c["key"], c["sets"]
+        x0 = sets[0]
+        wants = [c["plain"](x) for x in sets]
         if key == "ag":
-            if not torch.equal(got[1], want[1].expand_as(got[1])):
+            wants = [w[0] for w in wants]
+        got = c["call"](x0, check=True)
+        want = wants[0]
+        if key == "ag":
+            if not torch.equal(got[1], x0.reshape(-1, x0.shape[-1])
+                               .expand_as(got[1])):
                 fail(f"{label}: the gathered A differs from the ranks' "
                      "chunks")
-            got, want = got[0], want[0]
+            got = got[0]
         errs[key] = max(errs.get(key, 0.0), check_close(label, got, want,
                                                          TOL_TP))
         misses = torch.zeros((), dtype=torch.int32, device=mesh.device)
-        for _ in range(TP_REPEATS):
-            r = c["call"]()
-            r = r[0] if key == "ag" else r
-            diff = (r.float() - want.float()).abs()
-            misses += (diff > atol + rtol * want.float().abs()).any().int()
+        for k in range(TP_REPEATS):
+            j = (k + 1) % TP_SETS         # never the previous call's set
+            r = c["call"](sets[j])
+            if key == "ag":
+                misses += (r[1] != sets[j].reshape(-1, x0.shape[-1])
+                           ).any().int()
+                r = r[0]
+            diff = (r.float() - wants[j].float()).abs()
+            misses += (diff > atol + rtol * wants[j].float().abs()
+                       ).any().int()
         shmem.check_errors(mesh.device, sync=True)
-        print(f"[{label}] {TP_REPEATS} launches in a row: {int(misses)} "
-              "outside the limit")
+        print(f"[{label}] {TP_REPEATS} launches in a row on {TP_SETS} "
+              f"input sets in turn: {int(misses)} outside the limit")
         if int(misses):
             fail(f"{label}: {int(misses)} of {TP_REPEATS} repeated launches "
                  "disagree")
+        del wants
+        call0 = functools.partial(c["call"], x0)
         if key not in out:
-            bad = c["call"](fault=c["mod"].FAULTS[c["fault"]], check=True)
+            bad = call0(fault=c["mod"].FAULTS[c["fault"]], check=True)
             fault_control(f"{label} {c['fault']}",
                           bad[0] if key == "ag" else bad, want, TOL_TP)
             t0 = time.perf_counter()
             try:
-                c["call"](fault=c["mod"].FAULTS["lost_signal"],
-                          timeout_s=TP_TIMEOUT_S, check=True)
+                call0(fault=c["mod"].FAULTS["lost_signal"],
+                      timeout_s=TP_TIMEOUT_S, check=True)
                 fail(f"{label}: a signal never sent did not raise")
             except shmem.CommTimeoutError as e:
                 print(f"[{label}] lost signal raised in "
@@ -3475,13 +3503,13 @@ def tp_kernel_phase():
                       f"{TP_TIMEOUT_S} s a wait): {e}")
             if time.perf_counter() - t0 > 5.0:
                 fail(f"{label}: the lost signal took too long to raise")
-            again = c["call"](check=True)
+            again = call0(check=True)
             check_close(f"{label} after the timeout",
                         again[0] if key == "ag" else again, want, TOL_TP)
-        k_ms = time_ms(c["call"])
-        p_ms = time_ms(c["plain"], reps=5)
-        y_ms = time_ms(c["library"])
-        c_ms = time_ms(c["comp"])
+        k_ms = time_ms(call0)
+        p_ms = time_ms(functools.partial(c["plain"], x0), reps=5)
+        y_ms = time_ms(functools.partial(c["library"], x0))
+        c_ms = time_ms(functools.partial(c["comp"], x0))
         b_ms, b_by = bound(c["nbytes"], c["flops"])
         print(f"[tp-kernel] {label}: kernel_ms {k_ms:.4f} plain_ms "
               f"{p_ms:.4f} bound_ms {b_ms:.4f} ({b_by}; "
@@ -3517,11 +3545,71 @@ def tp_want(mode, variant, layers, gen) -> dict:
             "gemm_ar": ar, f"ar_{variant}": ar}
 
 
+def tp_engine(cfg, mesh, mode, variant, **kw):
+    """The tp = 4 ``Engine`` of ``mode``. GEMM+AR's ``"one_shot"`` context
+    (row 13) is no engine option, in the JAX package either, whose dense
+    model takes the caller's contexts: that engine's prefill and decode
+    hand the model (``dense.prefill``/``dense.decode_step``) the default
+    contexts with that GEMM+AR context in place of ``"ll"``."""
+    from triton_dist_tpu_torch import Engine
+    from triton_dist_tpu_torch.models import dense
+    from triton_dist_tpu_torch.ops.gemm_ar import create_gemm_ar_context
+
+    eng = Engine(cfg, mesh=mesh, mode=mode, **kw)
+    if variant != "ll":
+        ctxs = dataclasses.replace(
+            dense.make_fwd_contexts(mesh),
+            ar=create_gemm_ar_context(mesh, variant=variant))
+        eng._prefill_kw = eng._decode_kw = {"mesh": mesh, "ctxs": ctxs}
+    return eng
+
+
+def tp_lost_signal_raises(eng, ids):
+    """A signal never sent inside ``Engine.prefill`` (the attention's
+    GEMM+RS) and inside ``Engine.decode`` (its GEMM+AR) raises
+    CommTimeoutError from that same call; the engine's next steps are
+    sound (the same logits as before the faults)."""
+    from unittest import mock
+
+    from triton_dist_tpu_torch.layers import tp_attn
+    from triton_dist_tpu_torch.ops import gemm_ar, gemm_rs
+    from triton_dist_tpu_torch.shmem import workspace as shmem
+
+    logits, cache = eng.prefill(ids)
+    tok = torch.argmax(logits, -1)
+    want, _ = eng.decode(tok, cache)
+    for step, mod in (("prefill", gemm_rs), ("decode", gemm_ar)):
+        name = mod.__name__.rsplit(".", 1)[1]
+        _, cache = eng.prefill(ids)
+        lost = functools.partial(getattr(mod, name),
+                                 fault=mod.FAULTS["lost_signal"],
+                                 timeout_s=TP_TIMEOUT_S)
+        t0 = time.perf_counter()
+        with mock.patch.object(tp_attn, name, lost):
+            try:
+                if step == "prefill":
+                    eng.prefill(ids)
+                else:
+                    eng.decode(tok, cache)
+                fail(f"tp engine: a lost signal in {name} did not raise "
+                     f"from Engine.{step}")
+            except shmem.CommTimeoutError as e:
+                print(f"[tp-engine] a lost signal in {name} raised from "
+                      f"Engine.{step} in {time.perf_counter() - t0:.3f} s: "
+                      f"{e}")
+    logits2, cache = eng.prefill(ids)
+    got, _ = eng.decode(tok, cache)
+    check_close("tp engine prefill after the faults", logits2, logits,
+                (1e-2, 0.0))
+    check_close("tp engine decode after the faults", got, want, (1e-2, 0.0))
+
+
 def tp_engine_phase(cfg, params):
     """Phase 25: ``Engine(cfg, mesh=make_mesh(tp=4), mode=m).serve`` of a
     (4, 512) batch for 64 tokens at full Qwen3-8B width and depth on
     phase 3's weights (each rank's shard a view: no second copy), for m
-    in "fused", "fused_ar" (its GEMM+AR in each variant) and "xla".
+    in "fused", "fused_ar" (its GEMM+AR in each variant, :func:`tp_engine`)
+    and "xla".
     Counts set to zero just before each serve and read just after: every
     prefill layer of "fused" launched AG+GEMM and GEMM+RS twice, every
     decode layer (and every "fused_ar" prefill layer) GEMM+AR twice.
@@ -3530,7 +3618,7 @@ def tp_engine_phase(cfg, params):
     (phase 16's).
     At 2 layers (fresh weights, seed 1) the prefill logits of "fused" and
     "fused_ar" within TOL_LOGITS of the tp = 4 "xla" run (and tp = 1's,
-    printed beside)."""
+    printed beside), then :func:`tp_lost_signal_raises`."""
     from triton_dist_tpu_torch import Engine, make_mesh
     from triton_dist_tpu_torch.shmem import workspace as shmem
 
@@ -3544,8 +3632,8 @@ def tp_engine_phase(cfg, params):
     del one
     runs = {}
     for label, mode, variant in TP_RUNS:
-        eng = Engine(cfg, mesh=mesh, mode=mode, params=params, max_len=1024,
-                     ar_variant=variant)
+        eng = tp_engine(cfg, mesh, mode, variant, params=params,
+                        max_len=1024)
         eng.serve(warm, gen_len=2)
         zero_counts()
         torch.cuda.synchronize()
@@ -3603,8 +3691,8 @@ def tp_engine_phase(cfg, params):
     for label, mode, variant in TP_RUNS[:3] + (("tp=1 fused", None, "ll"),):
         eng = (Engine(cfg2, mode="fused", params=base.params, max_len=1024)
                if mode is None else
-               Engine(cfg2, mesh=mesh, mode=mode, params=base.params,
-                      max_len=1024, ar_variant=variant))
+               tp_engine(cfg2, mesh, mode, variant, params=base.params,
+                         max_len=1024))
         got, _ = eng.prefill(ids)
         err = float((got - want).abs().max())
         print(f"[tp-parity] 2 layers, {label} against tp={TP} xla: max "
@@ -3614,6 +3702,8 @@ def tp_engine_phase(cfg, params):
             fail(f"tp parity {label}: {err}")
         worst = max(worst, err)
         del eng
+    tp_lost_signal_raises(Engine(cfg2, mesh=mesh, mode="fused",
+                                 params=base.params, max_len=1024), ids)
     del base
     shmem.release_all()
     torch.cuda.empty_cache()

@@ -1155,3 +1155,45 @@ def test_tp_engine_launches_the_fused_kernels(dev):
         assert got == ([prefill, prefill, prefill] if mode == "fused"
                        else [0, 0, 2 * prefill])
         _assert_close(logits, want, (0.1, 0.0))
+
+
+@pytest.mark.parametrize("step,op_name", [("prefill", "gemm_rs"),
+                                          ("decode", "gemm_ar")])
+def test_tp_engine_step_raises_its_own_lost_signal(dev, monkeypatch, step,
+                                                   op_name):
+    """A signal never sent inside the attention's GEMM+RS (prefill) or
+    GEMM+AR (decode) of a tp = 4 engine raises CommTimeoutError from that
+    same Engine call; the engine's next steps give the logits it gave
+    before."""
+    import functools
+
+    from triton_dist_tpu_torch import Engine, make_mesh
+    from triton_dist_tpu_torch.layers import tp_attn
+    from triton_dist_tpu_torch.ops import gemm_ar, gemm_rs
+    from triton_dist_tpu_torch.shmem.workspace import CommTimeoutError
+
+    cfg = ModelConfig.tiny(vocab_size=512, hidden_size=256,
+                           intermediate_size=512, num_attention_heads=8,
+                           num_key_value_heads=4, head_dim=32)
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = dense.init_params(cfg, generator=g, device=dev)
+    ids = torch.randint(0, 512, (2, 64), generator=g, device=dev)
+    eng = Engine(cfg, mesh=make_mesh(tp=4), mode="fused", params=params,
+                 max_len=80)
+    logits, cache = eng.prefill(ids)
+    tok = torch.argmax(logits, -1)
+    want, _ = eng.decode(tok, cache)
+    _, cache = eng.prefill(ids)
+    mod = {"gemm_rs": gemm_rs, "gemm_ar": gemm_ar}[op_name]
+    with monkeypatch.context() as mp:
+        mp.setattr(tp_attn, op_name, functools.partial(
+            getattr(mod, op_name), fault=mod.FAULTS["lost_signal"],
+            timeout_s=0.05))
+        with pytest.raises(CommTimeoutError, match=op_name):
+            if step == "prefill":
+                eng.prefill(ids)
+            else:
+                eng.decode(tok, cache)
+    again, cache = eng.prefill(ids)
+    _assert_close(again, logits, (1e-2, 0.0))
+    _assert_close(eng.decode(tok, cache)[0], want, (1e-2, 0.0))

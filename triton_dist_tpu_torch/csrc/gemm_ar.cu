@@ -109,8 +109,7 @@ __device__ void reduce_item(const Params& P, int r, int i, int j) {
 }
 
 // No kMinBlocks cap: at 128 registers this kernel holds two prefill blocks
-// an SM already, so the cap would only add spills
-// (scripts/tp_gemm_launch_bounds_ab.py times both).
+// an SM already, so the cap would only add spills (PERF.md §6).
 template <class T>
 __global__ void __launch_bounds__(T::kThreads) gemm_ar_kernel(Params P) {
   extern __shared__ __align__(128) unsigned char smem[];

@@ -28,7 +28,7 @@
 // the data with L1-bypassing loads (ld.global.cg / cp.async.cg).
 //
 // A wait never hangs the run: past timeout_ns (%globaltimer) it records
-// (rank, step, slot) in host-mapped memory, stores the epoch into the
+// (rank, step, slot, epoch) in host-mapped memory, stores the epoch into the
 // workspace's abort word, and gives up; every other wait of the launch sees
 // the abort word and gives up at once, so the launch ends and the host
 // wrapper raises CommTimeoutError (there is no silent fallback: the record
@@ -70,7 +70,7 @@ __device__ __forceinline__ u64 globaltimer() {
 
 // What a launch needs to signal and wait: the workspace's flags and abort
 // word, this call's epoch, the wait bound and the host-mapped error record
-// [set, rank, step, slot].
+// [set, rank, step, slot, epoch low 32 bits, epoch high 32 bits].
 struct Sync {
   u64* flags;
   u64* abort;
@@ -116,6 +116,8 @@ __device__ inline bool signal_wait_until(const Sync& S, long long slot, int rank
           err[1] = rank;
           err[2] = step;
           err[3] = (int)slot;
+          err[4] = (int)(S.epoch & 0xffffffffu);
+          err[5] = (int)(S.epoch >> 32);
           __threadfence_system();
           err[0] = 1;
           __threadfence_system();
@@ -163,15 +165,16 @@ __device__ inline void remote_put(bf16* dst, long long ld_dst, const bf16* src, 
 
 // -- the host side: error record and cooperative launch ---------------------
 
-static int* g_err_host = nullptr;  // [set, rank, step, slot], host-mapped
+static const int kErrWords = 6;    // [set, rank, step, slot, epoch lo, hi]
+static int* g_err_host = nullptr;  // host-mapped
 static int* g_err_dev = nullptr;
 
 static cudaError_t ensure_error_record() {
   if (g_err_host != nullptr) return cudaSuccess;
-  cudaError_t e = cudaHostAlloc(reinterpret_cast<void**>(&g_err_host), 4 * sizeof(int),
+  cudaError_t e = cudaHostAlloc(reinterpret_cast<void**>(&g_err_host), kErrWords * sizeof(int),
                                 cudaHostAllocMapped);
   if (e != cudaSuccess) return e;
-  memset(g_err_host, 0, 4 * sizeof(int));
+  memset(g_err_host, 0, kErrWords * sizeof(int));
   return cudaHostGetDevicePointer(reinterpret_cast<void**>(&g_err_dev), g_err_host, 0);
 }
 
@@ -227,16 +230,17 @@ static cudaError_t cooperative_launch(const void* kernel, int threads, int smem,
 }  // namespace tdt
 
 // The record of the first wait that timed out since the last clear:
-// out = [set, rank, step, slot]; returns `set` (0: none).
+// out = [set, rank, step, slot, epoch lo, epoch hi] (the epoch names the
+// launch); returns `set` (0: none).
 extern "C" int tdt_shmem_error(int* out) {
   if (tdt::g_err_host == nullptr) return 0;
   const volatile int* e = tdt::g_err_host;
-  for (int i = 0; i < 4; ++i) out[i] = e[i];
+  for (int i = 0; i < tdt::kErrWords; ++i) out[i] = e[i];
   return out[0];
 }
 
 extern "C" void tdt_shmem_clear_error() {
-  if (tdt::g_err_host != nullptr) memset(tdt::g_err_host, 0, 4 * sizeof(int));
+  if (tdt::g_err_host != nullptr) memset(tdt::g_err_host, 0, tdt::kErrWords * sizeof(int));
 }
 
 extern "C" const char* tdt_cuda_error_string(int code) {

@@ -58,8 +58,7 @@ struct Tile {
   static constexpr int kSmem = kPipeBytes > kCBytes ? kPipeBytes : kCBytes;
   // Blocks an SM should hold (__launch_bounds__): two 256-thread blocks
   // cap registers at 128, which AG+GEMM and GEMM+RS take with a few spills
-  // and still run faster than one block at 168 registers
-  // (scripts/tp_gemm_launch_bounds_ab.py times both; PERF.md).
+  // and still run faster than one block at 168 registers (PERF.md §6).
   static constexpr int kMinBlocks = kThreads >= 256 ? 2 : 1;
 };
 

@@ -46,7 +46,7 @@ from triton_dist_tpu_torch.layers.norm import rms_norm
 from triton_dist_tpu_torch.layers.rope import apply_rope, rope_freqs
 from triton_dist_tpu_torch.ops.ag_gemm import ag_gemm
 from triton_dist_tpu_torch.ops.flash_attention import flash_attention
-from triton_dist_tpu_torch.ops.gemm_ar import gemm_ar
+from triton_dist_tpu_torch.ops.gemm_ar import gemm_ar, gemm_ar_ref
 from triton_dist_tpu_torch.ops.gemm_rs import gemm_rs
 from triton_dist_tpu_torch.ops.tp_gemm import (column_shards, mm_f32,
                                                row_shards)
@@ -256,16 +256,6 @@ def reduce_scatter_plain(x: torch.Tensor, w: torch.Tensor,
     return total.view(n, -1, total.shape[-1]).to(dtype)
 
 
-def all_reduce_plain(x: torch.Tensor, w: torch.Tensor,
-                     dtype) -> torch.Tensor:
-    """The ``"xla"`` replicated row-parallel product: the fp32 sum over
-    ranks of ``x[r] @ w[r].T`` on every rank, rounded to ``dtype``:
-    (n, T, K_loc) → (n, T, N)."""
-    n = x.shape[0]
-    total = sum(mm_f32(x[r], w[r]) for r in range(n)).to(dtype)
-    return total.expand(n, *total.shape)
-
-
 def _project_qkv_tp(params: Attention, x: torch.Tensor, *, mode: str,
                     ag_ctx):
     """Every rank's Q, K and V, each (n, T, X_loc·hd). x: (n, T/n, d)
@@ -338,5 +328,5 @@ def decode_output_tp(params: Attention, o: torch.Tensor, *, n: int,
     o = o.view(o.shape[0], n, -1).transpose(0, 1).contiguous()
     wo = row_shards(params.wo, n)
     if mode == "xla":
-        return all_reduce_plain(o, wo, o.dtype)
+        return gemm_ar_ref(o, wo)
     return gemm_ar(o, wo, ar_ctx)

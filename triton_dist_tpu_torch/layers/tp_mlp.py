@@ -21,11 +21,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from triton_dist_tpu_torch.layers.tp_attn import (all_reduce_plain,
-                                                  empty_param,
+from triton_dist_tpu_torch.layers.tp_attn import (empty_param,
                                                   reduce_scatter_plain)
 from triton_dist_tpu_torch.ops.ag_gemm import ag_gemm
-from triton_dist_tpu_torch.ops.gemm_ar import gemm_ar
+from triton_dist_tpu_torch.ops.gemm_ar import gemm_ar, gemm_ar_ref
 from triton_dist_tpu_torch.ops.gemm_rs import gemm_rs
 from triton_dist_tpu_torch.ops.tp_gemm import column_shards, row_shards
 
@@ -89,7 +88,7 @@ def fwd_tp(params: MLP, x: torch.Tensor, *, mode: str,
         h = _swiglu_ranks(x.reshape(-1, x.shape[-1]), wg, wu)
         return reduce_scatter_plain(h, wd, x.dtype)
     if mode == "xla_ar":
-        return all_reduce_plain(_swiglu_ranks(x, wg, wu), wd, x.dtype)
+        return gemm_ar_ref(_swiglu_ranks(x, wg, wu), wd)
     if mode == "fused":
         # One all-gather feeds both column products.
         g, x_full = ag_gemm(x, wg, ctxs.ag, return_ag=True)

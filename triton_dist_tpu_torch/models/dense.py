@@ -123,17 +123,13 @@ class FwdContexts:
 
 
 def make_fwd_contexts(mesh, axis: str = "tp", block_m: int = 256,
-                      block_n: int = 256, block_k: int = 512,
-                      ar_variant: str = "ll") -> FwdContexts:
-    """The three fused-op contexts of ``mesh`` with JAX's block knobs.
-    ``ar_variant``: the GEMM+AR context's variant (JAX's contexts take its
-    default, ``"ll"``; its ``gemm_ar_tuned`` picks per shape, and the port
-    has no autotuner yet)."""
+                      block_n: int = 256, block_k: int = 512) -> FwdContexts:
+    """The three fused-op contexts of ``mesh`` with JAX's block knobs and
+    JAX's default variants (GEMM+AR ``"ll"``)."""
     return FwdContexts(
         ag=create_ag_gemm_context(mesh, axis, block_m, block_n, block_k),
         rs=create_gemm_rs_context(mesh, axis, block_m, block_n, block_k),
-        ar=create_gemm_ar_context(mesh, axis, block_n, block_k,
-                                  variant=ar_variant),
+        ar=create_gemm_ar_context(mesh, axis, block_n, block_k),
         block_m=block_m)
 
 

@@ -54,8 +54,7 @@ class Engine:
     config only (a MoE one needs ROADMAP.md queue A item 5), and
     ``block_m``/``block_n``/``block_k`` are the JAX contexts' block knobs
     (:func:`~triton_dist_tpu_torch.models.dense.make_fwd_contexts`: the
-    kernels keep their divisibility contract and pick their own tiles),
-    ``ar_variant`` the GEMM+AR variant (``"ll"`` or ``"one_shot"``).
+    kernels keep their divisibility contract and pick their own tiles).
     The weights are not copied: each rank's shard is a view of the one
     full weight."""
 
@@ -63,7 +62,7 @@ class Engine:
                  model=None, device=None, dtype: torch.dtype = torch.bfloat16,
                  max_len: int = 512, params: Optional[dense.DenseLM] = None,
                  seed: int = 0, block_m: int = 256, block_n: int = 256,
-                 block_k: int = 512, ar_variant: str = "ll"):
+                 block_k: int = 512):
         check_mode(mode)
         self.mesh = mesh
         self.tp = 1 if mesh is None else mesh.tp
@@ -102,7 +101,7 @@ class Engine:
         self.mode = mode
         if self.tp > 1:
             ctxs = dense.make_fwd_contexts(mesh, "tp", block_m, block_n,
-                                           block_k, ar_variant)
+                                           block_k)
             self._prefill_kw = self._decode_kw = {"mesh": mesh,
                                                   "ctxs": ctxs}
         else:
@@ -133,25 +132,41 @@ class Engine:
             ids = torch.as_tensor(np.asarray(ids))
         return ids.to(self.device).long()
 
+    def _check_comm(self) -> None:
+        """At tp > 1 on the card: wait for the device, then raise
+        :class:`~triton_dist_tpu_torch.shmem.workspace.CommTimeoutError`
+        if a fused op's wait timed out (the call's logits would be
+        wrong)."""
+        if self.tp > 1 and self.device.type == "cuda":
+            shmem.check_errors(self.device, sync=True)
+
     @torch.no_grad()
     def prefill(self, input_ids):
         """(B, S) token ids → ``(logits (B, vocab) fp32 of the last
-        position, KVCache)``, the cache ``max_len`` long."""
-        return self.model.prefill(self.params, self._ids(input_ids),
-                                  self.cfg, mode=self.mode,
-                                  max_len=self.max_len, **self._prefill_kw)
+        position, KVCache)``, the cache ``max_len`` long. At tp > 1 on the
+        card it returns once the device has finished, and raises
+        ``CommTimeoutError`` if one of its fused ops' waits timed out."""
+        out = self.model.prefill(self.params, self._ids(input_ids),
+                                 self.cfg, mode=self.mode,
+                                 max_len=self.max_len, **self._prefill_kw)
+        self._check_comm()
+        return out
 
     @torch.no_grad()
     def decode(self, tokens, cache: KVCache):
         """One decode step: tokens (B,) → ``(logits (B, vocab), cache)``,
         the cache written in place. Raises ``ValueError`` once the cache
-        holds ``max_len`` tokens (its length is a host int: no sync)."""
+        holds ``max_len`` tokens (its length is a host int: no sync). At
+        tp > 1 on the card it checks its fused ops as :meth:`prefill`
+        does."""
         if cache.length >= self.max_len:
             raise ValueError(
                 f"KV cache full ({self.max_len}); cannot decode further")
-        return self.model.decode_step(self.params, self._ids(tokens), cache,
-                                      self.cfg, mode=self.mode,
-                                      **self._decode_kw)
+        out = self.model.decode_step(self.params, self._ids(tokens), cache,
+                                     self.cfg, mode=self.mode,
+                                     **self._decode_kw)
+        self._check_comm()
+        return out
 
     def serve(self, input_ids, gen_len: int = 32, *,
               temperature: float = 0.0, top_k: int = 0,
@@ -162,9 +177,8 @@ class Engine:
         ``top_k`` most likely tokens when ``top_k > 0``, from a
         ``torch.Generator`` seeded by (seed, step) as the server's
         sampler: the samples do not reproduce JAX's ``jax.random``
-        bits. At tp > 1 on the card it ends by waiting for the device and
-        raising :class:`~triton_dist_tpu_torch.shmem.workspace.
-        CommTimeoutError` if a fused op's wait timed out."""
+        bits. At tp > 1 on the card a timed-out wait raises from the
+        prefill or decode step it happened in."""
         ids = self._ids(input_ids)
         s = ids.shape[1]
         if s + gen_len > self.max_len:
@@ -192,8 +206,6 @@ class Engine:
         for i in range(gen_len - 1):
             logits, cache = self.decode(out[-1], cache)
             out.append(pick(logits, i + 1))
-        if self.tp > 1 and self.device.type == "cuda":
-            shmem.check_errors(self.device, sync=True)
         return torch.stack(out, dim=1)
 
     def serving(self, **kw):

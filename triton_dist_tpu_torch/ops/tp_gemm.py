@@ -94,9 +94,10 @@ def launch(kernel: CudaKernel, ws: shmem.Workspace, describe, *args,
     slot)`` names a flag slot of this launch."""
     if timeout_s <= 0:
         raise ValueError(f"timeout_s={timeout_s} must be positive")
-    shmem.check_errors(sources=(kernel.source,))
-    shmem.watch(kernel.source, describe)
-    kernel.launch(*args, ws.flags.data_ptr(), ws.abort_ptr, ws.next_epoch(),
+    shmem.check_errors(device, sources=(kernel.source,))
+    epoch = ws.next_epoch()
+    shmem.watch(kernel.source, epoch, describe)
+    kernel.launch(*args, ws.flags.data_ptr(), ws.abort_ptr, epoch,
                   int(timeout_s * 1e9), fault, device=device)
     if check:
         shmem.check_errors(device, sync=True, sources=(kernel.source,))

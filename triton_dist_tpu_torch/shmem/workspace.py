@@ -12,11 +12,12 @@ put into.
 The signals that order those puts are int64 flag words, one per (rank,
 slot), in a :class:`Workspace` that persists across calls and is cached
 by (op, the shapes its flags depend on, ranks, device). Every call takes a new **epoch**
-(:meth:`Workspace.next_epoch`); a signal stores the epoch with release
+(:meth:`Workspace.next_epoch`, one count shared by every workspace, so
+an epoch also names its launch); a signal stores the epoch with release
 semantics and a wait spins until ``flag >= epoch`` with acquire
 semantics (``csrc/shmem_device.cuh``). Flags are never cleared between
 calls: a flag written by call e holds e and cannot satisfy a wait of
-call e + 1. The epoch is an unsigned 64-bit count and cannot wrap (at a
+any later call. The epoch is an unsigned 64-bit count and cannot wrap (at a
 million calls a second it would take 584,000 years). This value-compare
 design takes the place of the TPU's per-call DMA-semaphore rendezvous.
 
@@ -25,17 +26,21 @@ launches on one stream, which the stream already orders, so no call can
 start while a peer is still inside the previous one.
 
 A wait is bounded (``timeout_s``). On expiry the kernel records (rank,
-step, slot) in host-mapped memory, raises the workspace's abort word (the
+step, slot, epoch) in host-mapped memory, raises the workspace's abort word (the
 epoch) so that every other wait of the launch gives up at once, and the
 launch runs to its end. :func:`check_errors` turns the record into a
 :class:`CommTimeoutError` naming the op, the rank and the slot; each op
 calls it before every launch (a record left by an earlier launch raises
 there) and, with ``check=True``, after synchronising on its own launch.
+``Engine.prefill`` and ``Engine.decode`` at tp > 1 call it after each
+step, so a timed-out wait raises from the step it happened in.
 """
 
 from __future__ import annotations
 
 import ctypes
+import itertools
+from collections import OrderedDict
 from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import torch
@@ -57,6 +62,9 @@ def symm_tensor(shape, dtype, n: int, device) -> torch.Tensor:
     return torch.empty((n, *shape), dtype=dtype, device=device)
 
 
+_EPOCHS = itertools.count(1)
+
+
 class Workspace:
     """The persistent part of one op's symmetric workspace: ``n_flags``
     flag words (int64, starting at 0) plus the abort word after them, and
@@ -68,12 +76,12 @@ class Workspace:
         self.flags = torch.zeros(n_flags + 1, dtype=torch.int64,
                                  device=device)
         self.data = data
-        self.epoch = 0
 
-    def next_epoch(self) -> int:
-        """The epoch of a new call (1, 2, ...)."""
-        self.epoch += 1
-        return self.epoch
+    @staticmethod
+    def next_epoch() -> int:
+        """The epoch of a new call: larger than every earlier call's, on
+        every workspace."""
+        return next(_EPOCHS)
 
     @property
     def abort_ptr(self) -> int:
@@ -104,35 +112,48 @@ def release_all() -> None:
     _CACHE.clear()
 
 
-# source -> describe(rank, step, slot) of its latest launch
-_WATCHED: Dict[str, Callable[[int, int, int], str]] = {}
+# (source, epoch) -> describe(rank, step, slot) of the latest launches
+_WATCHED: "OrderedDict[Tuple[str, int], Callable[[int, int, int], str]]" = \
+    OrderedDict()
+_WATCH_LIMIT = 4096
+_SOURCES: Dict[str, None] = {}    # every source launched, in order
 
 
-def watch(source: str, describe: Callable[[int, int, int], str]) -> None:
-    """Name the flag slots of ``source``'s latest launch for
-    :func:`check_errors`."""
-    _WATCHED[source] = describe
+def watch(source: str, epoch: int,
+          describe: Callable[[int, int, int], str]) -> None:
+    """Name the flag slots of ``source``'s launch at ``epoch`` for
+    :func:`check_errors` (the latest ``_WATCH_LIMIT`` launches are kept)."""
+    _SOURCES[source] = None
+    _WATCHED[(source, epoch)] = describe
+    if len(_WATCHED) > _WATCH_LIMIT:
+        _WATCHED.popitem(last=False)
 
 
 def check_errors(device=None, *, sync: bool = False,
                  sources: Optional[Iterable[str]] = None) -> None:
     """Raise :class:`CommTimeoutError` if a fused op's wait timed out.
     ``sync``: first wait for ``device``'s current stream, so that every
-    launch so far has ended. ``sources``: the kernel sources to look at
+    launch so far has ended (a record found without it waits there
+    before it is cleared). ``sources``: the kernel sources to look at
     (default: every one launched)."""
     if sync:
         torch.cuda.current_stream(device).synchronize()
-    for source in (list(_WATCHED) if sources is None else sources):
+    for source in (list(_SOURCES) if sources is None else sources):
         lib = build.loaded(source)
         if lib is None:
             continue
         read, clear = lib.tdt_shmem_error, lib.tdt_shmem_clear_error
         read.argtypes, read.restype = [ctypes.POINTER(ctypes.c_int)], ctypes.c_int
         clear.argtypes, clear.restype = [], None
-        rec = (ctypes.c_int * 4)()
+        rec = (ctypes.c_int * 6)()
         if read(rec):
+            # Let the launches still in flight end first, so that none of
+            # them records a timeout after the clear.
+            torch.cuda.current_stream(device).synchronize()
             clear()
+            epoch = (rec[4] & 0xFFFFFFFF) | (rec[5] & 0xFFFFFFFF) << 32
             describe = _WATCHED.get(
-                source, lambda r, s, f: f"{source}: rank {r}, step {s}, "
-                                        f"flag slot {f}")
+                (source, epoch),
+                lambda r, s, f: f"{source} (launch {epoch}): rank {r}, "
+                                f"step {s}, flag slot {f}")
             raise CommTimeoutError(describe(rec[1], rec[2], rec[3]))
