@@ -268,6 +268,47 @@ Phases (any failure exits nonzero; nothing is caught):
    attention's GEMM+RS) and inside ``Engine.decode`` (its GEMM+AR) must
    raise CommTimeoutError from that same call, and the engine's next
    prefill and decode give the logits it gave before, within 0.01.
+26. The tensor-parallel MoE kernels over 4 simulated ranks (rows 19, 20,
+   21) against their plain versions at Qwen3-30B-A3B tp = 4 shapes
+   (d 2048, F_loc 192, 128 experts, top-8, 512 tokens a rank routed by a
+   random router: row tile 32, 8,064 sorted rows a rank, about half of
+   them padding): AG + grouped GEMM over the (gate, up) shards, the
+   weighted combine + reduce-scatter, and the weighted combine +
+   all-reduce at 2048 and at 4 rows. Limit TOL_TP (phase 24's), then 50
+   launches in a row on three seeded input sets in turn, 0 misses;
+   planted faults (a wrong te_all entry and a chunk read one rank over
+   for row 19; a chunk read one rank over and a weight column off by
+   one for rows 20 and 21) must fail it; a signal never sent must raise
+   CommTimeoutError within its bound and the next call be sound. Times
+   (L2 flushed) against the bound (routed rows and the experts that own
+   one; each input read once), the plain version, one library call (a
+   ``torch._grouped_mm`` over the (rank, expert) groups of the routed
+   rows; a ``torch.einsum``) and the non-overlapped composition (the
+   gather as a copy, then the grouped GEMM over every rank; the fp32
+   combine, then the sum over ranks). Row 17's tensor-parallel form as
+   the fused prefill runs it, one launch over the 4 ranks on strided
+   shard views at the same layout (32,256 rows a rank): the down
+   projection (a random activation, every tile real, times ``w_down``'s
+   shards of row pitch f) and the gate/up pair (every rank's copy of the
+   gathered tokens times the ``w_gate``/``w_up`` shards), within one
+   bf16 unit (phase 15's limit), the same 50 repeats, and planted faults
+   (a rank stride of 0, a ``w_down`` row pitch of F_loc, a tile map
+   rolled by one) outside it; timed against its bound and one
+   ``torch._grouped_mm`` over the (rank, expert) groups.
+27. ``Engine(qwen3_moe_30b_a3b, mesh=make_mesh(tp=4), mode=m).serve`` of
+   a (4, 512) batch at full depth on phase 13's weights (shards are
+   views), m in "fused" (16 tokens), "fused_ar" and "xla" (8 tokens each,
+   cut because their plain-expert decode steps are the same host-bound
+   loop): launch counts exact (per "fused" prefill 48 of rows 19, 17
+   (the down projection, every rank in one launch) and 21, and of
+   AG+GEMM and GEMM+RS (attention); GEMM+AR once a decode layer), prefill
+   and decode-step times, idle share and torch.profiler split; the layer
+   entry point ``tp_moe.fwd_fused(epilogue="ar")`` over the 48 layers'
+   weights (row 20: 48 launches), its layer-0 result equal to the "rs"
+   epilogue's gathered within TOL_TP; and at 2 layers the prefill logits
+   of "fused" and "fused_ar" against tp = 4 "xla" within 0.15 on the
+   rows whose last position routes alike, every routing flip judged by
+   phase 11's near-tie rule.
 
 The last lines of output: one JSON object with every kernel's numbers
 (the megakernel once per row mode, and once per MoE row mode), the
@@ -360,7 +401,8 @@ def build_kernels():
 
     t0 = time.perf_counter()
     cuda = ("paged_attention.cu", "megakernel.cu", "flash_attention.cu",
-            "group_gemm.cu", "ag_gemm.cu", "gemm_rs.cu", "gemm_ar.cu")
+            "group_gemm.cu", "ag_gemm.cu", "gemm_rs.cu", "gemm_ar.cu",
+            "ag_moe.cu", "moe_reduce.cu")
     logs = build.build_all([*cuda, "megakernel_scheduler.cc"])
     print(f"[build] nvcc x{len(cuda)} + g++ in parallel "
           f"{time.perf_counter() - t0:.1f} s -> {build.BUILD_DIR}")
@@ -560,15 +602,17 @@ def serve_phase():
 def launch_counters() -> dict:
     """Every kernel wrapper's launch counter, by the kernels line's key."""
     from triton_dist_tpu_torch.megakernel import builder as mkb
-    from triton_dist_tpu_torch.ops import ag_gemm, gemm_ar, gemm_rs
+    from triton_dist_tpu_torch.ops import ag_gemm, ag_moe, gemm_ar, gemm_rs
     from triton_dist_tpu_torch.ops import flash_attention as fa
     from triton_dist_tpu_torch.ops import group_gemm as gg
+    from triton_dist_tpu_torch.ops import moe_reduce
     from triton_dist_tpu_torch.ops import paged_flash_decode as pfd
     from triton_dist_tpu_torch.ops import paged_flash_qblock as pfq
 
     return {"decode": pfd.KERNEL, "qblock": pfq.KERNEL,
             "ag_gemm": ag_gemm.KERNEL, "gemm_rs": gemm_rs.KERNEL,
-            "gemm_ar": gemm_ar.KERNEL,
+            "gemm_ar": gemm_ar.KERNEL, "ag_moe": ag_moe.KERNEL,
+            "moe_rs": moe_reduce.RS_KERNEL, "moe_ar": moe_reduce.AR_KERNEL,
             "decode-int8": pfd.KERNELS[torch.int8],
             "decode-fp8": pfd.KERNELS[torch.float8_e4m3fn],
             "qblock-int8": pfq.KERNELS[torch.int8],
@@ -634,7 +678,7 @@ def profile_window(step, ticks: int, label: str) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     fam = {"megakernel": 0.0, "attention": 0.0, "group_gemm": 0.0,
-           "gemm": 0.0, "other": 0.0}
+           "moe_tp": 0.0, "gemm": 0.0, "other": 0.0}
     kernels = [ev for ev in prof.key_averages()
                if ev.device_type == DeviceType.CUDA]
     for ev in kernels:
@@ -646,6 +690,8 @@ def profile_window(step, ticks: int, label: str) -> dict:
             fam["attention"] += t
         elif "group_gemm" in name:
             fam["group_gemm"] += t
+        elif "ag_moe" in name or "moe_reduce" in name:
+            fam["moe_tp"] += t
         elif any(k in name for k in ("gemm", "gemv", "xmma", "nvjet",
                                      "cutlass", "splitk")):
             fam["gemm"] += t
@@ -1376,7 +1422,7 @@ def mk_chunk_parity_phase():
 MOE_BUCKET = 128
 
 
-def judge_flips(label, rows, k, pairs) -> int:
+def judge_flips(label, rows, k, pairs, shown=None) -> int:
     """Routing flips against a reference run. ``rows`` maps a row's name
     to one ``(served ids, reference ids, served router logits (E,),
     reference router logits (E,))`` per layer. A row's first flipped
@@ -1385,7 +1431,8 @@ def judge_flips(label, rows, k, pairs) -> int:
     taken at the reference's k-th largest logit. A flip in a later layer
     of the same row follows from the first (its input carries another
     expert's output) and is printed. Fails on any other flip; returns the
-    number of flipped (row, layer) pairs among ``pairs``."""
+    number of flipped (row, layer) pairs among ``pairs``. ``shown``: print
+    at most that many flips (every one is judged)."""
     n = 0
     for name, layers in rows.items():
         first = None
@@ -1404,12 +1451,15 @@ def judge_flips(label, rows, k, pairs) -> int:
                     f"{sorted(r_ids - s_ids)}, served-only "
                     f"{sorted(s_ids - r_ids)}; reference gap {gap:.2f} bf16 "
                     f"units, router-logit drift {drift:.2f} units")
+            show = shown is None or n <= shown
             if first is not None:
-                print(f"{what}: follows the flip in layer {first}")
+                if show:
+                    print(f"{what}: follows the flip in layer {first}")
                 continue
             first = li
-            print(f"{what} (near-tie limit {TOL_MOE_TIE}): "
-                  f"{'near-tie' if gap <= TOL_MOE_TIE else 'NOT a near-tie'}")
+            if show or gap > TOL_MOE_TIE:
+                print(f"{what} (near-tie limit {TOL_MOE_TIE}): "
+                      f"{'near-tie' if gap <= TOL_MOE_TIE else 'NOT a near-tie'}")
             if gap > TOL_MOE_TIE:
                 fail(f"{label}: {name} routes away from the reference in "
                      f"layer {li} by {gap:.2f} bf16 units, no near-tie")
@@ -1885,9 +1935,10 @@ def moe_layer_serve_phase(held_before):
     del srv
     # Phase 16 on the same weights: a second copy of 61 GB would not fit.
     moe_engine = engine_phase("moe", cfg, eng.params)
+    tp_moe_engine = tp_moe_engine_phase(cfg, eng.params)
     del eng
     torch.cuda.empty_cache()
-    return moe_engine
+    return moe_engine, tp_moe_engine
 
 
 class RouteLog:
@@ -3509,7 +3560,8 @@ def tp_kernel_phase():
         k_ms = time_ms(call0)
         p_ms = time_ms(functools.partial(c["plain"], x0), reps=5)
         y_ms = time_ms(functools.partial(c["library"], x0))
-        c_ms = time_ms(functools.partial(c["comp"], x0))
+        c_ms = (time_ms(functools.partial(c["comp"], x0))
+                if c["comp"] is not None else None)
         b_ms, b_by = bound(c["nbytes"], c["flops"])
         print(f"[tp-kernel] {label}: kernel_ms {k_ms:.4f} plain_ms "
               f"{p_ms:.4f} bound_ms {b_ms:.4f} ({b_by}; "
@@ -3710,6 +3762,499 @@ def tp_engine_phase(cfg, params):
     return dict(runs=runs, parity=worst)
 
 
+# ---- Tensor-parallel Qwen3-MoE over simulated ranks (phases 26-27) -------
+
+TP_MOE_TOKENS = 512        # tokens a rank: ENGINE_IDS over TP ranks
+# Tokens a phase 27 serve generates: "fused" serves the full 16, the two
+# plain-expert modes 8 (their decode steps are the same plain SwiGLU,
+# host-bound; the cut keeps phases 26-27 near 200 s).
+TP_MOE_GEN = {"fused": 16, "fused_ar": 8, "xla": 8}
+
+
+def grouped_mm_call(x, w, offs):
+    """``torch._grouped_mm(x, w, offs=offs)`` as a yardstick, or None where
+    the card's torch has no such call or refuses the shapes."""
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        print("[tp-moe-kernel] library: no torch._grouped_mm")
+        return None
+    try:
+        fn(x, w, offs=offs)
+        torch.cuda.synchronize()
+    except (RuntimeError, TypeError) as e:
+        print(f"[tp-moe-kernel] library: torch._grouped_mm refused: {e}")
+        return None
+    return lambda *_: fn(x, w, offs=offs)
+
+
+def tp_moe_cases(mesh):
+    """Phase 26's operands at Qwen3-30B-A3B tp = 4 shapes (bf16, seed 53):
+    d 2048, F_loc 192, 128 experts, top-8, 512 tokens a rank. Each case:
+    its row key, label, ``TP_SETS`` input sets, the kernel call, the plain
+    version, one library call of the same function, the non-overlapped
+    composition, planted faults, and the bytes / operations of its bound
+    (the first set's data: routed rows and the experts that own one)."""
+    from types import SimpleNamespace
+
+    from triton_dist_tpu_torch.layers import tp_moe
+    from triton_dist_tpu_torch.layers.ep_moe import route
+    from triton_dist_tpu_torch.layers.norm import rms_norm
+    from triton_dist_tpu_torch.ops import ag_moe, moe_reduce
+    from triton_dist_tpu_torch.ops import group_gemm as gg
+
+    cfg = moe_cfg()
+    d, f = cfg.hidden_size, cfg.moe_intermediate_size
+    e, k = cfg.num_experts, cfg.num_experts_per_tok
+    n, dev, t_loc = TP, mesh.device, TP_MOE_TOKENS
+    t = n * t_loc
+    g = torch.Generator(device=dev).manual_seed(53)
+    bf = dict(device=dev, dtype=torch.bfloat16)
+    wg, wu = (torch.randn(e, f, d, generator=g, **bf) * d ** -0.5
+              for _ in range(2))
+    g17 = torch.Generator(device=dev).manual_seed(59)   # row 17's draws
+    wd = torch.randn(e, d, f, generator=g17, **bf) * f ** -0.5
+    router = torch.randn(e, d, generator=g, **bf) * d ** -0.5
+    sh = tp_moe.param_specs(SimpleNamespace(router=router, w_gate=wg,
+                                            w_up=wu, w_down=wd), n)
+    w = (sh["w_gate"], sh["w_up"])
+    fl = f // n
+    sets = []
+    for _ in range(TP_SETS):
+        x = rms_norm(torch.randn(t, d, generator=g, **bf),
+                     torch.ones(d, **bf))
+        ids, _ = route(router, x, k)
+        tm = ag_moe.suggested_block_m(t_loc, k, e, 256)
+        x_s, te, src = (torch.stack(v) for v in zip(*(
+            ag_moe.prepare_grouped_tokens(x.view(n, t_loc, d)[r],
+                                          ids.view(n, t_loc, k)[r], e, tm)
+            for r in range(n))))
+        sets.append(dict(x=x, ids=ids, x_s=x_s, te=te, tm=tm,
+                         used=ag_moe.tiles_used(src, tm)))
+    s0 = sets[0]
+    tm = s0["tm"]
+    if tm != 32 or s0["x_s"].shape[1] != 8064:
+        fail(f"tp-moe layout: tm {tm}, S_loc {s0['x_s'].shape[1]} (expected "
+             "32 and 8064)")
+    ctx = ag_moe.create_ag_moe_context(mesh, num_experts=e, block_m=tm)
+    # Library: one torch._grouped_mm over the (rank, expert) groups of the
+    # routed rows, sorted by expert across the chunks outside the timing.
+    flat = s0["ids"].reshape(-1).long()
+    order = torch.argsort(flat, stable=True)
+    rows = s0["x"].repeat_interleave(k, 0)[order]
+    counts = torch.bincount(flat, minlength=e)
+    w_gu = torch.cat(w, 2).reshape(n * e, 2 * fl, d).transpose(1, 2)
+    lib19 = grouped_mm_call(rows.repeat(n, 1), w_gu, torch.cumsum(
+        counts.repeat(n), 0).to(torch.int32))
+    real_tiles = [torch.arange(s0["te"].shape[1], device=dev)
+                  < s0["used"][c] for c in range(n)]
+    owned = torch.unique(torch.cat([s0["te"][c][real_tiles[c]]
+                                    for c in range(n)])).numel()
+    routed = t * k
+    bad_te = s0["te"].clone()
+    bad_te[1, 0] = (bad_te[1, 0] + 1) % e
+    cases = [dict(
+        key="ag_moe", label=f"ag_moe (row 19) S_loc {s0['x_s'].shape[1]} "
+                            f"tm {tm} d {d} 2F_loc {2 * fl}",
+        mod=ag_moe, sets=sets,
+        call=lambda s, **kw: ag_moe.ag_group_gemm(
+            s["x_s"], w, s["te"], ctx, used=s["used"], **kw),
+        plain=lambda s: ag_moe.ag_moe_ref(s["x_s"], w, s["te"]),
+        library=lib19,
+        comp=lambda s: gg.grouped_gemm_tiles(
+            s["x_s"].reshape(1, -1, d).expand(n, -1, -1).contiguous(), w,
+            s["te"].reshape(-1)),
+        faults=(("a wrong te_all entry", lambda: ag_moe.ag_group_gemm(
+            s0["x_s"], w, bad_te, ctx, used=s0["used"], check=True)),
+                ("a chunk read one rank over", lambda: ag_moe.ag_group_gemm(
+                    s0["x_s"], w, s0["te"], ctx, used=s0["used"],
+                    fault=ag_moe.FAULTS["wrong_chunk"], check=True))),
+        nbytes=2 * (routed * d + n * owned * 2 * fl * d
+                    + n * routed * 2 * fl),
+        flops=2 * n * routed * d * 2 * fl)]
+    cases += row17_tp_cases(sh, sets, s0, n, g17)
+    for key, rows_ in (("moe_rs", t), ("moe_ar", t), ("moe_ar", 4)):
+        ys = [torch.randn(n, rows_, k, d, generator=g, **bf)
+              for _ in range(TP_SETS)]
+        cw = torch.softmax(torch.randn(rows_, k, generator=g, device=dev),
+                           -1)
+        cw_n = cw.expand(n, rows_, k)
+        cw_bf = cw_n.to(torch.bfloat16)
+        fn = getattr(moe_reduce, f"moe_reduce_{key[-2:]}")
+        ref = getattr(moe_reduce, f"moe_reduce_{key[-2:]}_ref")
+        out_rows = rows_ // n if key == "moe_rs" else rows_
+        y0 = ys[0]
+        cases.append(dict(
+            key=key, label=f"moe_reduce_{key[-2:]} (row "
+                           f"{21 if key == 'moe_rs' else 20}) T {rows_} K {k} "
+                           f"d {d}", mod=moe_reduce, sets=ys,
+            call=lambda y, fn=fn, cw_n=cw_n, **kw: fn(y, cw_n, ctx=mesh,
+                                                      **kw),
+            plain=lambda y, ref=ref, cw_n=cw_n: ref(y, cw_n),
+            library=lambda y, cw_bf=cw_bf: torch.einsum("rtkd,rtk->td", y,
+                                                        cw_bf),
+            comp=lambda y, cw_n=cw_n, key=key: (
+                torch.einsum("rtkd,rtk->rtd", y.float(), cw_n).sum(0)
+                .view(n, -1, d) if key == "moe_rs" else
+                torch.einsum("rtkd,rtk->rtd", y.float(), cw_n).sum(0)
+            ).to(torch.bfloat16),
+            faults=tuple(
+                (what, lambda fn=fn, cw_n=cw_n, y0=y0, code=code: fn(
+                    y0, cw_n, ctx=mesh, fault=moe_reduce.FAULTS[code],
+                    check=True))
+                for what, code in (("a chunk read one rank over",
+                                    "wrong_chunk"),
+                                   ("a weight column off by one",
+                                    "wrong_weight"))),
+            nbytes=2 * y0.numel() + 4 * rows_ * k + 2 * n * out_rows * d,
+            flops=2 * n * rows_ * k * d))
+    return cases
+
+
+def row17_tp_cases(sh, sets, s0, n, gen):
+    """Row 17 in its tensor-parallel form, as the fused MoE prefill runs
+    it: one launch over every rank on the strided shard views of
+    :func:`tp_moe_cases` (``sh``), in the layout of row 19's output (S_full
+    = n·S_loc rows, tile map ``te_all`` flattened). The down projection
+    takes an activation (n, S_full, F_loc) (random in every row, padding
+    tiles too, so every tile's product is checked) times ``w_down``'s
+    shards, whose row pitch is f, not F_loc; the gate/up pair takes every
+    rank's copy of the gathered tokens times ``w_gate``/``w_up``'s shards,
+    whose expert stride is f·d. Planted faults: a rank stride of 0 (every
+    rank reads rank 0's shard), a row pitch of F_loc in place of f, a tile
+    map rolled by one. No communication: no lost signal."""
+    from triton_dist_tpu_torch.ops import group_gemm as gg
+
+    wdn = sh["w_down"]                                  # (n, E, d, F_loc)
+    w = (sh["w_gate"], sh["w_up"])                      # (n, E, F_loc, d)
+    _, e, d, fl = wdn.shape
+    dev, tm = wdn.device, s0["tm"]
+    s_full = n * s0["x_s"].shape[1]
+    down_sets = [dict(a=torch.randn(n, s_full, fl, generator=gen,
+                                    device=dev, dtype=torch.bfloat16),
+                      te=x["te"].reshape(-1)) for x in sets]
+    gu_sets = [dict(a=x["x_s"].reshape(1, s_full, d).expand(n, -1, -1)
+                    .contiguous(), te=x["te"].reshape(-1)) for x in sets]
+
+    def strided(t, **st):   # a view of t's storage with other strides
+        sts = list(t.stride())
+        for dim, v in st.items():
+            sts[int(dim[1:])] = v
+        return t.as_strided(t.shape, sts, t.storage_offset())
+
+    def library(a, wl, te):
+        """torch._grouped_mm over the (rank, expert) groups, every rank's
+        rows sorted by expert outside the timing: wl (n, E, in, out)."""
+        row_e = te.long().repeat_interleave(tm)
+        order = torch.argsort(row_e, stable=True)
+        counts = torch.bincount(row_e, minlength=e).repeat(n)
+        return grouped_mm_call(
+            a[:, order].reshape(n * s_full, -1),
+            wl.reshape(n * e, *wl.shape[2:]),
+            torch.cumsum(counts, 0).to(torch.int32))
+
+    te0 = down_sets[0]["te"]
+    owned_all = torch.unique(te0).numel()
+    real = torch.cat([torch.arange(s0["te"].shape[1], device=dev)
+                      < s0["used"][c] for c in range(n)])
+    owned = torch.unique(te0[real]).numel()
+    routed = s0["x"].shape[0] * s0["ids"].shape[1]
+    return [
+        dict(key="gg_down", label=f"group_gemm tp (row 17) down: {n} ranks "
+                                  f"x S_full {s_full} tm {tm} F_loc {fl} "
+                                  f"d {d}, w_down row pitch {wdn.stride(2)}",
+             mod=None, tol=TOL_GG, sets=down_sets,
+             call=lambda s: gg.grouped_gemm_tiles(s["a"], wdn, s["te"]),
+             plain=lambda s: gg.grouped_gemm_tiles_ref(s["a"], wdn, s["te"]),
+             library=library(down_sets[0]["a"],
+                             wdn.transpose(2, 3).contiguous(), te0),
+             comp=None,
+             faults=tuple((what, lambda wb=wb, te=te: gg.grouped_gemm_tiles(
+                 down_sets[0]["a"], wb, te)) for what, wb, te in (
+                     ("a rank stride of 0", strided(wdn, d0=0), te0),
+                     ("a w_down row pitch of F_loc", strided(wdn, d2=fl),
+                      te0),
+                     ("a tile map rolled by one", wdn,
+                      torch.roll(te0, 1)))),
+             nbytes=2 * (n * s_full * fl + n * owned_all * d * fl
+                         + n * s_full * d),
+             flops=2 * n * s_full * fl * d),
+        dict(key="gg_gate_up", label=f"group_gemm tp (row 17) gate/up: {n} "
+                                     f"ranks x S_full {s_full} tm {tm} d {d} "
+                                     f"2F_loc {2 * fl}, expert stride "
+                                     f"{w[0].stride(1)}",
+             mod=None, tol=TOL_GG, sets=gu_sets,
+             call=lambda s: gg.grouped_gemm_tiles(s["a"], w, s["te"]),
+             plain=lambda s: gg.grouped_gemm_tiles_ref(s["a"], w, s["te"]),
+             library=library(gu_sets[0]["a"],
+                             torch.cat(w, 2).transpose(2, 3).contiguous(),
+                             te0),
+             comp=None,
+             faults=tuple((what, lambda wb=wb, te=te: gg.grouped_gemm_tiles(
+                 gu_sets[0]["a"], wb, te)) for what, wb, te in (
+                     ("a rank stride of 0",
+                      tuple(strided(x, d0=0) for x in w), te0),
+                     ("a tile map rolled by one", w, torch.roll(te0, 1)))),
+             nbytes=2 * (n * routed * d + n * owned * 2 * fl * d
+                         + n * routed * 2 * fl),
+             flops=2 * n * routed * d * 2 * fl)]
+
+
+def tp_moe_kernel_phase():
+    """Phase 26: rows 19, 20 and 21 against their plain versions at
+    Qwen3-30B-A3B tp = 4 shapes (:func:`tp_moe_cases`; row 20 also at 4
+    rows), each within TOL_TP, and row 17's tensor-parallel form (the down
+    projection and the gate/up pair on strided rank shards,
+    :func:`row17_tp_cases`) within TOL_GG; then TP_REPEATS launches in a
+    row on the TP_SETS input sets in turn (each held against the plain
+    version of its own set: flags and buffers persist across calls by
+    epoch), the planted faults (a wrong te_all entry and a chunk read one
+    rank over for row 19; a chunk read one rank over and a weight column
+    off by one for rows 20 and 21; a rank stride of 0, a w_down row pitch
+    of F_loc and a rolled tile map for row 17) outside their limits, and
+    for rows 19-21 a signal never sent raising CommTimeoutError within its
+    bound and the next call sound. Times (L2 flushed) against the bound,
+    the plain version, one library call and, for rows 19-21, the
+    non-overlapped composition. Returns, by row key, the first case's
+    numbers (row 20 at 2048 rows)."""
+    from triton_dist_tpu_torch import make_mesh
+    from triton_dist_tpu_torch.shmem import workspace as shmem
+
+    t_phase = time.perf_counter()
+    mesh = make_mesh(tp=TP)
+    out = {}
+    for c in tp_moe_cases(mesh):
+        label, key, sets = c["label"], c["key"], c["sets"]
+        tol = c.get("tol", TOL_TP)
+        atol, rtol = tol
+        ck = {"check": True} if c["mod"] else {}    # row 17: no signals
+        wants = [c["plain"](x) for x in sets]
+        err = check_close(label, c["call"](sets[0], **ck), wants[0], tol)
+        misses = torch.zeros((), dtype=torch.int32, device=mesh.device)
+        for i in range(TP_REPEATS):
+            j = (i + 1) % TP_SETS         # never the previous call's set
+            diff = (c["call"](sets[j]).float() - wants[j].float()).abs()
+            misses += (diff > atol + rtol * wants[j].float().abs()
+                       ).any().int()
+        shmem.check_errors(mesh.device, sync=True)
+        print(f"[{label}] {TP_REPEATS} launches in a row on {TP_SETS} input "
+              f"sets in turn: {int(misses)} outside the limit")
+        if int(misses):
+            fail(f"{label}: {int(misses)} of {TP_REPEATS} repeated launches "
+                 "disagree")
+        want = wants[0]
+        del wants
+        for what, bad in c["faults"]:
+            fault_control(f"{label} {what}", bad(), want, tol)
+        if c["mod"]:
+            t0 = time.perf_counter()
+            try:
+                c["call"](sets[0], fault=c["mod"].FAULTS["lost_signal"],
+                          timeout_s=TP_TIMEOUT_S, check=True)
+                fail(f"{label}: a signal never sent did not raise")
+            except shmem.CommTimeoutError as e:
+                print(f"[{label}] lost signal raised in "
+                      f"{time.perf_counter() - t0:.3f} s (bound "
+                      f"{TP_TIMEOUT_S} s a wait): {e}")
+            if time.perf_counter() - t0 > 5.0:
+                fail(f"{label}: the lost signal took too long to raise")
+            check_close(f"{label} after the timeout",
+                        c["call"](sets[0], check=True), want, tol)
+        x0 = sets[0]
+        k_ms = time_ms(functools.partial(c["call"], x0))
+        p_ms = time_ms(functools.partial(c["plain"], x0), reps=3)
+        y_ms = (time_ms(functools.partial(c["library"], x0))
+                if c["library"] is not None else None)
+        c_ms = (time_ms(functools.partial(c["comp"], x0))
+                if c["comp"] is not None else None)
+        b_ms, b_by = bound(c["nbytes"], c["flops"])
+        print(f"[tp-moe-kernel] {label}: kernel_ms {k_ms:.4f} plain_ms "
+              f"{p_ms:.4f} bound_ms {b_ms:.4f} ({b_by}; "
+              f"{c['nbytes'] / 1e6:.1f} MB, {c['flops'] / 1e9:.2f} GFLOP) "
+              f"library_ms {y_ms} non-overlapped composition_ms {c_ms}; "
+              f"{c['flops'] / k_ms / 1e9:.1f} TFLOP/s, "
+              f"{c['nbytes'] / k_ms / 1e6:.1f} GB/s")
+        if key not in out:
+            out[key] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                            bound_by=b_by, library_ms=y_ms, comp_ms=c_ms,
+                            err=err)
+    shmem.release_all()
+    torch.cuda.empty_cache()
+    print(f"[tp-moe-kernel] phase 26 took {time.perf_counter() - t_phase:.1f} "
+          "s")
+    return out
+
+
+def tp_moe_want(mode, layers, gen) -> dict:
+    """Exact launches of a tp = 4 MoE ``serve`` of ``gen`` tokens: a
+    prefill layer launches flash attention once and, in "fused", AG+GEMM
+    and GEMM+RS once (the attention), AG+grouped GEMM (row 19), the
+    grouped GEMM (the down projection, every rank in one launch) and the
+    combine + reduce-scatter (row 21) once each; in "fused_ar" GEMM+AR
+    once; a decode layer GEMM+AR once unless the mode is "xla" (the
+    experts' decode is plain, JAX's ``fwd_ar``)."""
+    fused = layers if mode == "fused" else 0
+    ar = (layers if mode == "fused_ar" else 0) + (
+        layers * (gen - 1) if mode != "xla" else 0)
+    return {"flash": layers, "ag_gemm": fused, "gemm_rs": fused,
+            "ag_moe": fused, "group_gemm": fused, "moe_rs": fused,
+            "gemm_ar": ar, "ar_ll": ar}
+
+
+def tp_moe_engine_phase(cfg, params):
+    """Phase 27: ``Engine(qwen3_moe_30b_a3b, mesh=make_mesh(tp=4),
+    mode=m).serve`` of a (4, 512) batch at full width and depth on phase
+    13's weights (each rank's shard a view: no second 61 GB), for m in
+    "fused" (16 tokens), "fused_ar" and "xla" (8 tokens each:
+    ``TP_MOE_GEN``). Counts set to zero just before each serve and read
+    just after, exact (:func:`tp_moe_want`). Prefill and decode-step times
+    with the device idle share and a torch.profiler split. Then the layer
+    entry point ``tp_moe.fwd_fused(epilogue="ar")`` (row 20; JAX's
+    engine reaches it only through the layer) over every layer's MoE
+    weights on the same batch's normalised embeddings, counts set to
+    zero around it: one launch of rows 19, 17 and 20 a layer, and layer
+    0's result equal to the "rs" epilogue's gathered within TOL_TP. At 2
+    layers (fresh weights, seed 1) the prefill logits of "fused" and
+    "fused_ar" against the tp = 4 "xla" run: every routing flip judged by
+    ``judge_flips`` (a row's first flip a near-tie), and the rows whose
+    last position routes as "xla" in both layers within TOL_MK_SERVED."""
+    from triton_dist_tpu_torch import Engine, make_mesh
+    from triton_dist_tpu_torch.layers import tp_moe
+    from triton_dist_tpu_torch.layers.norm import rms_norm
+    from triton_dist_tpu_torch.shmem import workspace as shmem
+
+    t_phase = time.perf_counter()
+    mesh = make_mesh(tp=TP)
+    L = cfg.num_hidden_layers
+    rng = np.random.RandomState(5)
+    ids = rng.randint(0, cfg.vocab_size, ENGINE_IDS)
+    warm = rng.randint(0, cfg.vocab_size, (1, 64))
+    runs = {}
+    for mode, gen in TP_MOE_GEN.items():
+        eng = Engine(cfg, mesh=mesh, mode=mode, params=params,
+                     max_len=1024)
+        eng.serve(warm, gen_len=2)
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = eng.serve(ids, gen_len=gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        print(f"[tp-moe-engine {mode}] Engine(qwen3_moe_30b_a3b, tp={TP})"
+              f".serve {ENGINE_IDS} + {gen} tokens in {wall:.2f} s; "
+              f"launches { {k: v for k, v in counts.items() if v} }")
+        if tuple(toks.shape) != (4, gen) or not bool(
+                ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+            fail(f"tp moe engine {mode}: {tuple(toks.shape)} tokens or ids "
+                 "out of range")
+        expect_launches(f"tp moe engine {mode}", counts,
+                        {k: v for k, v in tp_moe_want(mode, L, gen).items()
+                         if v})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            logits, cache = eng.prefill(ids)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3 / 2
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            logits, cache = eng.decode(tok, cache)
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / 3
+        shmem.check_errors(mesh.device, sync=True)
+        print(f"[tp-moe-engine {mode}] {torch.cuda.get_device_name(0)}: "
+              f"prefill of {ENGINE_IDS} {prefill_ms:.1f} ms, decode step at "
+              f"512 {decode_ms:.2f} ms")
+        # The decode step is the same plain-expert loop in every mode:
+        # one profile, "fused"'s.
+        prof_dec = (profile_window(lambda: eng.decode(tok, cache), 1,
+                                   f"tp={TP} MoE {mode} Engine.decode step")
+                    if mode == "fused" else None)
+        del logits, cache
+        prof = profile_window(lambda: eng.prefill(ids), 1,
+                              f"tp={TP} MoE {mode} Engine.prefill "
+                              f"{ENGINE_IDS}")
+        runs[mode] = dict(toks=toks.cpu().numpy().tolist(), counts=counts,
+                          prefill_ms=prefill_ms, decode_ms=decode_ms,
+                          prof=prof, prof_dec=prof_dec)
+        del eng
+        shmem.release_all()
+        torch.cuda.empty_cache()
+    for mode, run in runs.items():
+        print(f"[tp-moe-engine {mode}] greedy agreement with tp={TP} xla "
+              f"{agreement(run['toks'], runs['xla']['toks']):.3f}")
+
+    # The layer entry point of row 20 over every layer's weights.
+    x = rms_norm(params.embed[torch.as_tensor(ids, device=mesh.device)
+                              .reshape(-1)], params.layers[0].ln_mlp,
+                 cfg.rms_norm_eps).view(TP, -1, cfg.hidden_size)
+    kw = dict(topk=cfg.num_experts_per_tok, num_experts=cfg.num_experts,
+              mesh_ctx=mesh, block_m=256)
+    rs0 = tp_moe.fwd_fused(params.layers[0].moe, x, epilogue="rs", **kw)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for li, layer in enumerate(params.layers):
+        got = tp_moe.fwd_fused(layer.moe, x, epilogue="ar", **kw)
+        if li == 0:
+            ar0 = got
+    torch.cuda.synchronize()
+    layer_counts = read_counts()
+    print(f"[tp-moe-layer] tp_moe.fwd_fused(epilogue='ar') over {L} layers "
+          f"in {time.perf_counter() - t0:.2f} s; launches "
+          f"{ {k: v for k, v in layer_counts.items() if v} }")
+    expect_launches("tp moe layer ar", layer_counts,
+                    {"ag_moe": L, "group_gemm": L, "moe_ar": L})
+    for r in range(TP):
+        check_close(f"tp moe layer 0: 'ar' rank {r} against 'rs' gathered",
+                    ar0[r], rs0.reshape(-1, cfg.hidden_size), TOL_TP)
+    del x, rs0, ar0, got
+    shmem.release_all()
+    torch.cuda.empty_cache()
+
+    cfg2 = dataclasses.replace(cfg, num_hidden_layers=2)
+    base = Engine(cfg2, mesh=mesh, mode="xla", max_len=1024, seed=1)
+    with RouteLog() as ref_log:
+        want, _ = base.prefill(ids)
+    b, s_len = ENGINE_IDS
+    worst = 0.0
+    for mode in ("fused", "fused_ar"):
+        eng = Engine(cfg2, mesh=mesh, mode=mode, params=base.params,
+                     max_len=1024)
+        with RouteLog() as log:
+            got, _ = eng.prefill(ids)
+        if len(log.calls) != 2 or len(ref_log.calls) != 2:
+            fail(f"tp moe parity {mode}: {len(log.calls)} / "
+                 f"{len(ref_log.calls)} router calls, expected 2")
+        rows = {f"token {i}": [
+            (set(log.calls[li][i].tolist()), set(ref_log.calls[li][i]
+                                                 .tolist()),
+             log.logits[li][i], ref_log.logits[li][i]) for li in range(2)]
+            for i in range(b * s_len)}
+        flips = judge_flips(f"tp-moe-parity {mode}", rows,
+                            cfg.num_experts_per_tok, 2 * b * s_len, shown=4)
+        held = [i for i in range(b) if all(
+            a == r for a, r, _, _ in rows[f"token {(i + 1) * s_len - 1}"])]
+        diff = (got - want).abs().max(-1).values
+        err = max((float(diff[i]) for i in held), default=0.0)
+        print(f"[tp-moe-parity] 2 layers, {mode} against tp={TP} xla: "
+              f"{flips} flipped (token, layer) pairs; rows {held} route as "
+              f"xla at their last position: max |dlogit| {err:.4f} (tol "
+              f"{TOL_MK_SERVED}), every row {float(diff.max()):.4f}, logit "
+              f"std {float(want.std()):.3f}")
+        if not (bool(torch.isfinite(got).all()) and err <= TOL_MK_SERVED):
+            fail(f"tp moe parity {mode}: {err}")
+        worst = max(worst, err)
+        del eng
+    del base
+    shmem.release_all()
+    torch.cuda.empty_cache()
+    print(f"[tp-moe-engine] phase 27 took {time.perf_counter() - t_phase:.1f} "
+          "s")
+    return dict(runs=runs, parity=worst, layer_counts=layer_counts)
+
+
 def grid_blocks() -> int:
     from triton_dist_tpu_torch.megakernel import builder as mkb
 
@@ -3737,6 +4282,7 @@ def main():
     numbers["group_gemm"] = group_gemm_kernel_phase()
     numbers.update(quant_kernel_phase())
     numbers["tp"] = tp_kernel_phase()
+    numbers["tp_moe"] = tp_moe_kernel_phase()
     mk_quant_write_phase()
     launches, layer_st, dense_engine, tp_engine = serve_phase()
     parity_phase()
@@ -3747,7 +4293,7 @@ def main():
     mk_chunk_parity_phase()
     moe = moe_kernel_phase()
     moe_serve = moe_mk_serve_phase()
-    moe_engine = moe_layer_serve_phase(moe_serve["held"])
+    moe_engine, tp_moe_engine = moe_layer_serve_phase(moe_serve["held"])
     moe_parity_phase()
     checkpoint_phase()
     q21 = quant_spec_serve_phase()
@@ -3888,6 +4434,39 @@ def main():
             "max_abs_err": t["err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    # The tensor-parallel MoE kernels (rows 19, 20, 21): phase 26's times
+    # (row 20 at 2048 rows), launches over phase 27's serves and, for row
+    # 20, its layer entry point.
+    served = [*tp_moe_engine["runs"].values(),
+              {"counts": tp_moe_engine["layer_counts"]}]
+    for key, name, replaces in (
+            ("ag_moe", "ag_moe_kernel", "triton_dist_tpu/ops/ag_moe.py:161"),
+            ("moe_ar", "moe_reduce_ar_kernel",
+             "triton_dist_tpu/ops/moe_reduce.py:42"),
+            ("moe_rs", "moe_reduce_rs_kernel",
+             "triton_dist_tpu/ops/moe_reduce.py:148")):
+        t = numbers["tp_moe"][key]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "triton_dist_tpu_torch/csrc/"
+                      f"{'ag_moe' if key == 'ag_moe' else 'moe_reduce'}.cu",
+            "replaces": replaces,
+            "launches": sum(run["counts"][key] for run in served),
+            "max_abs_err": t["err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    # Row 17's tensor-parallel form (every rank's down projection in one
+    # launch, on strided shards of w_down): phase 26's time, launches over
+    # phase 27's serves and row 20's layer entry point.
+    t = numbers["tp_moe"]["gg_down"]
+    rows.append({
+        "name": "group_gemm_tiles[tp]", "route": "cuda",
+        "source": "triton_dist_tpu_torch/csrc/group_gemm.cu",
+        "replaces": "triton_dist_tpu/ops/group_gemm.py:51",
+        "launches": sum(run["counts"]["group_gemm"] for run in served),
+        "max_abs_err": max(t["err"], numbers["tp_moe"]["gg_gate_up"]["err"]),
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

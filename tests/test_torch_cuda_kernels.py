@@ -67,6 +67,7 @@ import pathlib
 import subprocess
 import sys
 import textwrap
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -1197,3 +1198,297 @@ def test_tp_engine_step_raises_its_own_lost_signal(dev, monkeypatch, step,
     again, cache = eng.prefill(ids)
     _assert_close(again, logits, (1e-2, 0.0))
     _assert_close(eng.decode(tok, cache)[0], want, (1e-2, 0.0))
+
+
+# ---- Tensor-parallel MoE over simulated ranks (rows 19, 20, 21) ----------
+#
+# The weights of every rank are views of one (E, f, d) / (E, d, f) weight:
+# rank r's rows (gate, up) or columns (down) of every expert. The grouped
+# GEMMs sum in fp32 and round once, as their plain versions do, in another
+# order inside a product (GG_TOL); the combine epilogues sum fp32 partials
+# in the plain versions' order and round once (TP_TOL: an output of order
+# 1 may land one bf16 unit away).
+
+
+def _moe_ranks(dev, n, t_loc, k, e, d, f, block_m, seed):
+    """n ranks' sorted layouts of t_loc random tokens each (random top-k
+    experts) and one expert weight set: (x_s (n, S_loc, d), te (n, n_i),
+    row_src, tm, gate (E, f, d), up, down (E, d, f), ids, g)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bf = dict(device=dev, dtype=torch.bfloat16)
+    x = torch.randn(n, t_loc, d, generator=g, **bf)
+    logits = torch.randn(n, t_loc, e, generator=g, device=dev)
+    ids = torch.topk(logits, k, dim=-1).indices.to(torch.int32)
+    tm = ag_moe.suggested_block_m(t_loc, k, e, block_m)
+    x_s, te, src = (torch.stack(v) for v in zip(*(
+        ag_moe.prepare_grouped_tokens(x[r], ids[r], e, tm)
+        for r in range(n))))
+    gate, up = (torch.randn(e, f, d, generator=g, **bf) * d ** -0.5
+                for _ in range(2))
+    down = torch.randn(e, d, f, generator=g, **bf) * f ** -0.5
+    return x_s, te, src, tm, gate, up, down, g
+
+
+def _moe_ctx(n, e, tm):
+    from triton_dist_tpu_torch.parallel.mesh import make_mesh
+
+    return ag_moe.create_ag_moe_context(make_mesh(tp=n), num_experts=e,
+                                        block_m=tm)
+
+
+@pytest.mark.parametrize("n,t_loc,k,e,d,f,block_m", [
+    (4, 64, 8, 32, 256, 384, 256),       # tm 8 at tp 4: F_loc 96
+    (2, 40, 4, 16, 128, 128, 32),        # tm 32
+    (4, 300, 2, 8, 512, 512, 128),       # tm 64 (two row blocks a tile)
+    (3, 17, 2, 5, 64, 48, 16)])          # three ranks, F_loc 16
+def test_group_gemm_takes_strided_rank_shards(dev, n, t_loc, k, e, d, f,
+                                              block_m):
+    """Row 17 over n ranks in one launch, on the ranks' ffn shards as
+    views (expert stride f·d for gate/up, row pitch f for down): the same
+    as the plain version on contiguous copies of each shard."""
+    from triton_dist_tpu_torch.layers.tp_moe import param_specs
+
+    x_s, te, _, tm, gate, up, down, g = _moe_ranks(dev, n, t_loc, k, e, d, f,
+                                                   block_m, n + t_loc)
+    sh = param_specs(SimpleNamespace(router=None, w_gate=gate, w_up=up,
+                                     w_down=down), n)
+    assert not sh["w_down"].is_contiguous()
+    x_full = x_s.reshape(-1, d)
+    te_full = te.reshape(-1).contiguous()
+    xs = x_full.expand(n, *x_full.shape).contiguous()
+    before = group_gemm.KERNEL.launches
+    got = group_gemm.grouped_gemm_tiles(xs, (sh["w_gate"], sh["w_up"]),
+                                        te_full)
+    act = torch.randn(n, x_full.shape[0], f // n, generator=g, device=dev,
+                      dtype=torch.bfloat16)
+    got_down = group_gemm.grouped_gemm_tiles(act, sh["w_down"], te_full)
+    assert group_gemm.KERNEL.launches == before + 2
+    for r in range(n):
+        want = group_gemm.grouped_gemm_tiles_ref(
+            x_full, (sh["w_gate"][r].contiguous(),
+                     sh["w_up"][r].contiguous()), te_full)
+        _assert_close(got[r], want, GG_TOL)
+        _assert_close(got_down[r], group_gemm.grouped_gemm_tiles_ref(
+            act[r], sh["w_down"][r].contiguous(), te_full), GG_TOL)
+
+
+@pytest.mark.parametrize("n,t_loc,k,e,d,f,block_m", [
+    (4, 128, 8, 128, 256, 768, 256),     # Qwen3-30B-A3B's routing: tm 8
+    (4, 512, 8, 128, 256, 768, 256),     # tm 32, about half padding
+    (2, 300, 2, 8, 128, 256, 128),       # tm 64
+    (3, 20, 4, 6, 64, 96, 16),           # three ranks, tm 16
+    (4, 600, 4, 4, 128, 64, 512)])       # tm 512: eight row blocks a tile
+@pytest.mark.parametrize("skip_padding", [True, False])
+def test_ag_moe_kernel_matches_plain(dev, n, t_loc, k, e, d, f, block_m,
+                                     skip_padding):
+    from triton_dist_tpu_torch.layers.tp_moe import param_specs
+
+    x_s, te, src, tm, gate, up, down, _ = _moe_ranks(
+        dev, n, t_loc, k, e, d, f, block_m, t_loc + d)
+    sh = param_specs(SimpleNamespace(router=None, w_gate=gate, w_up=up,
+                                     w_down=down), n)
+    w = (sh["w_gate"], sh["w_up"])
+    used = ag_moe.tiles_used(src, tm) if skip_padding else None
+    before = ag_moe.KERNEL.launches
+    got = ag_moe.ag_group_gemm(x_s, w, te, _moe_ctx(n, e, tm), used=used,
+                               check=True)
+    assert ag_moe.KERNEL.launches == before + 1
+    assert got.shape == (n, n * x_s.shape[1], 2 * (f // n))
+    _assert_close(got, ag_moe.ag_moe_ref(x_s, w, te), GG_TOL)
+
+
+def _combine_inputs(dev, n, t, k, d, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    y = torch.randn(n, t, k, d, generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    w = torch.softmax(torch.randn(t, k, generator=g, device=dev), -1)
+    return y, w.expand(n, t, k)
+
+
+@pytest.mark.parametrize("n,t,k,d", [(4, 2048, 8, 256), (4, 4, 8, 2048),
+                                     (2, 24, 2, 40), (3, 33, 3, 520),
+                                     (1, 8, 2, 64)])
+def test_moe_reduce_kernels_match_plain(dev, n, t, k, d):
+    from triton_dist_tpu_torch.ops import moe_reduce as op
+
+    y, w = _combine_inputs(dev, n, t, k, d, t + d)
+    before = op.AR_KERNEL.launches
+    got = op.moe_reduce_ar(y, w, check=True)
+    assert op.AR_KERNEL.launches == before + 1
+    _assert_close(got, op.moe_reduce_ar_ref(y, w), TP_TOL)
+    if t % n == 0:
+        before = op.RS_KERNEL.launches
+        got = op.moe_reduce_rs(y, w, check=True)
+        assert op.RS_KERNEL.launches == before + 1
+        assert got.shape == (n, t // n, d)
+        _assert_close(got, op.moe_reduce_rs_ref(y, w), TP_TOL)
+
+
+def test_moe_kernels_repeat_without_a_miss(dev):
+    """Flags and buffers persist across calls (epochs): 20 launches of
+    each kernel in a row on fresh inputs, every one within its limit."""
+    from triton_dist_tpu_torch.ops import moe_reduce as op
+
+    for i in range(20):
+        x_s, te, src, tm, gate, up, _, _ = _moe_ranks(
+            dev, 4, 128, 8, 32, 256, 256, 256, i)
+        w = (gate.view(32, 4, 64, 256).transpose(0, 1),
+             up.view(32, 4, 64, 256).transpose(0, 1))
+        got = ag_moe.ag_group_gemm(x_s, w, te, _moe_ctx(4, 32, tm),
+                                   used=ag_moe.tiles_used(src, tm))
+        _assert_close(got, ag_moe.ag_moe_ref(x_s, w, te), GG_TOL)
+        y, cw = _combine_inputs(dev, 4, 256, 8, 512, i)
+        _assert_close(op.moe_reduce_rs(y, cw), op.moe_reduce_rs_ref(y, cw),
+                      TP_TOL)
+        _assert_close(op.moe_reduce_ar(y, cw), op.moe_reduce_ar_ref(y, cw),
+                      TP_TOL)
+
+
+@pytest.mark.parametrize("op_name,fault", [
+    ("ag_moe", "wrong_chunk"), ("ag_moe", "te"),
+    ("moe_reduce_rs", "wrong_chunk"), ("moe_reduce_rs", "wrong_weight"),
+    ("moe_reduce_ar", "wrong_chunk"), ("moe_reduce_ar", "wrong_weight")])
+def test_moe_kernel_limit_catches_a_planted_fault(dev, op_name, fault):
+    from triton_dist_tpu_torch.ops import moe_reduce as op
+
+    if op_name == "ag_moe":
+        x_s, te, src, tm, gate, up, _, _ = _moe_ranks(
+            dev, 4, 128, 8, 32, 256, 256, 256, 3)
+        w = (gate.view(32, 4, 64, 256).transpose(0, 1),
+             up.view(32, 4, 64, 256).transpose(0, 1))
+        bad_te = te.clone()
+        if fault == "te":
+            bad_te[1, 0] = (bad_te[1, 0] + 1) % 32
+        got = ag_moe.ag_group_gemm(
+            x_s, w, bad_te, _moe_ctx(4, 32, tm), check=True,
+            used=ag_moe.tiles_used(src, tm),
+            fault=ag_moe.FAULTS.get(fault, 0))
+        assert _violates(got, ag_moe.ag_moe_ref(x_s, w, te), GG_TOL)
+        return
+    y, w = _combine_inputs(dev, 4, 64, 8, 256, 5)
+    got = getattr(op, op_name)(y, w, fault=op.FAULTS[fault], check=True)
+    assert _violates(got, getattr(op, op_name + "_ref")(y, w), TP_TOL)
+
+
+@pytest.mark.parametrize("op_name", ["ag_moe", "moe_reduce_rs",
+                                     "moe_reduce_ar"])
+def test_moe_kernel_lost_signal_raises_within_its_bound(dev, op_name):
+    """A flag that is never set: the wait gives up at its bound and the
+    wrapper raises naming the op; the next call is sound."""
+    import time
+
+    from triton_dist_tpu_torch.ops import moe_reduce as op
+    from triton_dist_tpu_torch.shmem.workspace import CommTimeoutError
+
+    if op_name == "ag_moe":
+        x_s, te, src, tm, gate, up, _, _ = _moe_ranks(
+            dev, 4, 64, 8, 16, 128, 128, 256, 9)
+        w = (gate.view(16, 4, 32, 128).transpose(0, 1),
+             up.view(16, 4, 32, 128).transpose(0, 1))
+
+        def fn(**kw):
+            return ag_moe.ag_group_gemm(x_s, w, te, _moe_ctx(4, 16, tm),
+                                        used=ag_moe.tiles_used(src, tm),
+                                        **kw)
+
+        want, tol, name = ag_moe.ag_moe_ref(x_s, w, te), GG_TOL, "ag_group"
+    else:
+        y, cw = _combine_inputs(dev, 4, 64, 8, 256, 9)
+
+        def fn(**kw):
+            return getattr(op, op_name)(y, cw, **kw)
+
+        want, tol, name = getattr(op, op_name + "_ref")(y, cw), TP_TOL, op_name
+    t0 = time.perf_counter()
+    with pytest.raises(CommTimeoutError, match=rf"{name}.*rank [0-3]"):
+        fn(fault=2, timeout_s=0.05, check=True)
+    assert time.perf_counter() - t0 < 5.0
+    _assert_close(fn(check=True), want, tol)
+
+
+def _tp_moe(dev, seed=0, hidden=256):
+    from triton_dist_tpu_torch.layers import ep_moe
+
+    cfg = ModelConfig.tiny_moe(vocab_size=512, hidden_size=hidden,
+                               num_attention_heads=8, num_key_value_heads=4,
+                               head_dim=32, num_experts=16,
+                               num_experts_per_tok=4,
+                               moe_intermediate_size=128)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return cfg, ep_moe.init(cfg, generator=g, device=dev,
+                            dtype=torch.bfloat16), g
+
+
+@pytest.mark.parametrize("epilogue", ["rs", "ar"])
+def test_tp_moe_fused_layer_matches_its_plain_run(dev, epilogue):
+    """``fwd_fused`` over 4 ranks on the card (rows 19, 17, then 21 or 20)
+    against the same layer on CPU copies (every op's plain version, the
+    same bf16 rounding points): the products' fp32 sums run in other
+    orders, so a gate/up output may land one bf16 unit away and carry it
+    through the down product: two units of the output."""
+    import copy
+
+    from triton_dist_tpu_torch import make_mesh
+    from triton_dist_tpu_torch.layers import tp_moe
+
+    _, moe, g = _tp_moe(dev)
+    x = torch.randn(4, 32, 256, generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    kw = dict(topk=4, num_experts=16, epilogue=epilogue)
+    got = tp_moe.fwd_fused(moe, x, mesh_ctx=make_mesh(tp=4), **kw)
+    want = tp_moe.fwd_fused(copy.deepcopy(moe).cpu(), x.cpu(),
+                            mesh_ctx=make_mesh(tp=4, device="cpu"), **kw)
+    assert got.shape == want.shape == (
+        (4, 32, 256) if epilogue == "rs" else (4, 128, 256))
+    _assert_close(got, want.to(dev), (2e-2, 2.0 ** -6))
+
+
+def test_tp_moe_fused_never_syncs_the_host(dev):
+    from triton_dist_tpu_torch import make_mesh
+    from triton_dist_tpu_torch.layers import tp_moe
+    from triton_dist_tpu_torch.ops import moe_reduce
+
+    _, moe, g = _tp_moe(dev)
+    x = torch.randn(4, 32, 256, generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    kw = dict(topk=4, num_experts=16, mesh_ctx=make_mesh(tp=4))
+    want = tp_moe.fwd_fused(moe, x, **kw)        # builds and loads
+    torch.cuda.synchronize()
+    counts = [k.launches for k in (ag_moe.KERNEL, group_gemm.KERNEL,
+                                   moe_reduce.RS_KERNEL)]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tp_moe.fwd_fused(moe, x, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert [k.launches - c for k, c in zip(
+        (ag_moe.KERNEL, group_gemm.KERNEL, moe_reduce.RS_KERNEL),
+        counts)] == [1, 1, 1]
+    assert torch.equal(got, want)
+
+
+def test_tp_moe_engine_launches_the_moe_kernels(dev):
+    """A 2-layer tp = 4 MoE engine on the card: each "fused" prefill layer
+    launches AG+grouped GEMM, the grouped GEMM (the down projection, every
+    rank in one launch) and the combine + reduce-scatter once, no decode
+    layer any of them; "xla" and "fused_ar" none. Logits finite."""
+    from triton_dist_tpu_torch import Engine, make_mesh
+    from triton_dist_tpu_torch.models import qwen_moe
+    from triton_dist_tpu_torch.ops import moe_reduce
+
+    cfg, _, g = _tp_moe(dev)
+    params = qwen_moe.init_params(cfg, generator=g, device=dev)
+    ids = torch.randint(0, 512, (2, 64), generator=g, device=dev)
+    kernels = (ag_moe.KERNEL, group_gemm.KERNEL, moe_reduce.RS_KERNEL,
+               moe_reduce.AR_KERNEL)
+    for mode in ("fused", "fused_ar", "xla"):
+        eng = Engine(cfg, mesh=make_mesh(tp=4), mode=mode, params=params,
+                     max_len=80)
+        before = [k.launches for k in kernels]
+        logits, cache = eng.prefill(ids)
+        eng.decode(torch.argmax(logits, -1), cache)
+        got = [k.launches - b for k, b in zip(kernels, before)]
+        layers = cfg.num_hidden_layers
+        assert got == ([layers, layers, layers, 0] if mode == "fused"
+                       else [0, 0, 0, 0]), (mode, got)
+        assert logits.shape == (2, 512) and bool(torch.isfinite(logits).all())

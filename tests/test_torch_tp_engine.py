@@ -7,8 +7,8 @@ fused modes to its xla mode; its fused engine takes minutes on the CPU), on the
 same weights (``from_jax_params``). Prefill logits and the KV cache (the
 JAX cache's global view) within 1e-4, greedy tokens over 4 steps
 identical; tp = 2 and tp = 4 against the port's tp = 1; and the errors:
-heads that do not split, B·S not divisible by tp, MoE and ``serving()``
-at tp > 1."""
+heads that do not split, B·S not divisible by tp, the expert-parallel MoE
+regime and ``serving()`` at tp > 1."""
 
 import jax
 import jax.numpy as jnp
@@ -123,9 +123,12 @@ def test_fused_ar_takes_any_token_count(jax_run):
 
 
 def test_moe_at_tp_raises():
+    """A MoE model at tp > 1 runs its experts tensor-parallel
+    (``tests/test_torch_tp_moe.py``); the expert-parallel regime raises."""
     with pytest.raises(ValueError, match="queue A item 5"):
         Engine(ModelConfig.tiny_moe(num_experts=4),
-               mesh=make_mesh(tp=4, device="cpu"), dtype=torch.float32)
+               mesh=make_mesh(tp=4, device="cpu"), dtype=torch.float32,
+               moe_impl="ep")
 
 
 def test_serving_at_tp_raises(jax_run):

@@ -15,7 +15,13 @@
 // major from it, with no transposed copy. A second weight (E, f1, d) may
 // follow the first: columns [f0, f0 + f1) come from it. The MoE gate and up
 // projections run as one launch that way, with no concatenated copy of the
-// two weights.
+// two weights. Each weight is addressed by its own expert stride and row
+// stride (unit stride along d), so a tensor-parallel rank's ffn shard of
+// w_gate / w_up (rows [r * F, (r + 1) * F) of every expert) or of w_down
+// (columns [r * F, (r + 1) * F): a row pitch of f, not F) runs as the view
+// it is, with no copy. A third grid dimension runs n simulated ranks in one
+// launch (the tensor-parallel down projection): rank z reads x[z], writes
+// out[z] and takes its weight shard at a rank stride, with one tile map.
 //
 // What bounds it on the H100: bytes at small row counts, operations at
 // prefill. Per tile it reads one expert's (f, d) weight slice; over a
@@ -55,12 +61,24 @@ constexpr int kCLd = kBN + 4;         // padded fp32 rows of the epilogue
 
 // RB: rows per block in shared memory (16, 32 or 64); rv <= RB of them are
 // real rows of the tile. Warps split the (RB / 16) x 4 output fragments.
+// A weight's addressing: rank z, expert e, row c at p + z * rank + e * ex + c * row.
+// Weights and x are read through the read-only path (__ldg): the kernel
+// never writes them.
+struct W {
+  const bf16* p;
+  long long rank, ex;
+  int row;
+};
+
+// Five blocks an SM (registers capped at 96, no spills): the strided
+// addressing alone took 128 registers at 64 rows, four blocks an SM, and
+// ran 10 % slower than a contiguous-only kernel; at five it runs 6-8 %
+// faster than that kernel (PERF.md §6, row 17).
 template <int RB>
-__global__ void __launch_bounds__(kThreads)
-    group_gemm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
-                      const bf16* __restrict__ w1, const int* __restrict__ tile_expert,
-                      bf16* __restrict__ out, int d, int E, int f0, int f1, int tm,
-                      int rv) {
+__global__ void __launch_bounds__(kThreads, 5)
+    group_gemm_kernel(const bf16* __restrict__ x, W w0, W w1,
+                      const int* __restrict__ tile_expert, bf16* __restrict__ out, int S, int d,
+                      int E, int f0, int f1, int tm, int rv, int vec) {
   constexpr int FR = RB / 16;          // row fragments
   constexpr int WPR = kWarps / FR;     // warps per row fragment
   constexpr int CF = (kBN / 16) / WPR; // column fragments per warp
@@ -71,7 +89,10 @@ __global__ void __launch_bounds__(kThreads)
   const int N = f0 + f1;
   const long long r0 = (long long)blockIdx.x * rv;
   const int c0 = blockIdx.y * kBN;
+  const int z = blockIdx.z;
   const int e = tile_expert[r0 / tm];
+  x += (long long)z * S * d;
+  out += (long long)z * S * N;
   const int tid = threadIdx.x, warp = tid / 32;
   const int rf = warp / WPR, cf0 = (warp % WPR) * CF;
 
@@ -87,7 +108,9 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int j = 0; j < CF; ++j) wmma::fill_fragment(acc[j], 0.f);
 
-  const bool vec = d % 8 == 0;
+  // Expert e's rows of rank z's shards.
+  const bf16* b0 = w0.p + z * w0.rank + e * w0.ex;
+  const bf16* b1 = w1.p + z * w1.rank + e * w1.ex;
   for (int k0 = 0; k0 < d; k0 += kBK) {
     __syncthreads();                   // the last stage is consumed
     if (vec) {
@@ -95,7 +118,7 @@ __global__ void __launch_bounds__(kThreads)
         const int r = i / (kBK / 8), c8 = i % (kBK / 8), k = k0 + c8 * 8;
         uint4 a = make_uint4(0, 0, 0, 0);
         if (r < rv && k < d)
-          a = *reinterpret_cast<const uint4*>(x + (r0 + r) * d + k);
+          a = __ldg(reinterpret_cast<const uint4*>(x + (r0 + r) * d + k));
         *reinterpret_cast<uint4*>(As + r * kALd + c8 * 8) = a;
       }
       for (int i = tid; i < kBN * (kBK / 8); i += kThreads) {
@@ -103,9 +126,8 @@ __global__ void __launch_bounds__(kThreads)
         const int c = c0 + n;
         uint4 b = make_uint4(0, 0, 0, 0);
         if (k < d && c < N) {
-          const bf16* wr = c < f0 ? w0 + ((long long)e * f0 + c) * d
-                                  : w1 + ((long long)e * f1 + (c - f0)) * d;
-          b = *reinterpret_cast<const uint4*>(wr + k);
+          const bf16* wr = c < f0 ? b0 + c * w0.row : b1 + (c - f0) * w1.row;
+          b = __ldg(reinterpret_cast<const uint4*>(wr + k));
         }
         *reinterpret_cast<uint4*>(Bs + n * kBLd + c8 * 8) = b;
       }
@@ -113,14 +135,13 @@ __global__ void __launch_bounds__(kThreads)
       for (int i = tid; i < RB * kBK; i += kThreads) {
         const int r = i / kBK, k = k0 + i % kBK;
         As[r * kALd + i % kBK] =
-            (r < rv && k < d) ? x[(r0 + r) * d + k] : __float2bfloat16(0.f);
+            (r < rv && k < d) ? __ldg(x + (r0 + r) * d + k) : __float2bfloat16(0.f);
       }
       for (int i = tid; i < kBN * kBK; i += kThreads) {
         const int n = i / kBK, k = k0 + i % kBK, c = c0 + n;
         bf16 b = __float2bfloat16(0.f);
         if (k < d && c < N)
-          b = c < f0 ? w0[((long long)e * f0 + c) * d + k]
-                     : w1[((long long)e * f1 + (c - f0)) * d + k];
+          b = __ldg(c < f0 ? b0 + c * w0.row + k : b1 + (c - f0) * w1.row + k);
         Bs[n * kBLd + i % kBK] = b;
       }
     }
@@ -151,37 +172,51 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <int RB>
-cudaError_t launch(const void* x, const void* w0, const void* w1, const int* te,
-                   void* out, int S, int d, int E, int f0, int f1, int tm, int rv,
-                   cudaStream_t stream) {
-  const dim3 grid(S / rv, (f0 + f1 + kBN - 1) / kBN);
+cudaError_t launch(const void* x, W w0, W w1, const int* te, void* out, int n, int S, int d,
+                   int E, int f0, int f1, int tm, int rv, int vec, cudaStream_t stream) {
+  const dim3 grid(S / rv, (f0 + f1 + kBN - 1) / kBN, n);
   group_gemm_kernel<RB><<<grid, kThreads, 0, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w0),
-      static_cast<const bf16*>(w1), te, static_cast<bf16*>(out), d, E, f0, f1, tm, rv);
+      static_cast<const bf16*>(x), w0, w1, te, static_cast<bf16*>(out), S, d, E, f0, f1, tm,
+      rv, vec);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C interface for ctypes. x (S, d), w0 (E, f0, d), w1 (E, f1, d) or
-// null with f1 = 0, tile_expert (S / tm,) int32, out (S, f0 + f1); device
-// pointers on `device`, `stream` a cudaStream_t. tm must be at most 64 or a
-// multiple of 64. Returns a cudaError_t code (0 = launched).
+// Plain C interface for ctypes. x (n, S, d) contiguous; weight 0 of rank z,
+// expert e, row c (f0 rows of d) at w0 + z * w0_rank + e * w0_e + c * w0_row
+// elements, unit stride along d; weight 1 likewise (f1 rows), or null with
+// f1 = 0; tile_expert (S / tm,) int32, one map for every rank; out
+// (n, S, f0 + f1); device pointers on `device`, `stream` a cudaStream_t.
+// tm must be at most 64 or a multiple of 64. Rows load 16 bytes at a time
+// when d and every stride are multiples of 8 and both weights 16-byte
+// aligned, else one element at a time. Returns a cudaError_t code
+// (0 = launched).
 extern "C" int tdt_group_gemm_bf16(const void* x, const void* w0, const void* w1,
-                                   const void* tile_expert, void* out, int S, int d,
-                                   int E, int f0, int f1, int tm, int device,
+                                   const void* tile_expert, void* out, int n, int S, int d,
+                                   int E, int f0, int f1, int tm, long long w0_rank,
+                                   long long w0_e, long long w0_row, long long w1_rank,
+                                   long long w1_e, long long w1_row, int device,
                                    void* stream) {
-  if (S <= 0 || d <= 0 || E <= 0 || f0 <= 0 || f1 < 0 || tm <= 0 || S % tm != 0 ||
-      (tm > 64 && tm % 64 != 0) || (f1 > 0 && w1 == nullptr))
+  if (n <= 0 || S <= 0 || d <= 0 || E <= 0 || f0 <= 0 || f1 < 0 || tm <= 0 || S % tm != 0 ||
+      (tm > 64 && tm % 64 != 0) || (f1 > 0 && w1 == nullptr) || n > 65535)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int rv = tm < 64 ? tm : 64;
   const int* te = static_cast<const int*>(tile_expert);
+  if (w0_row > (1 << 30) || w1_row > (1 << 30)) return (int)cudaErrorInvalidValue;
+  const W a{static_cast<const bf16*>(w0), w0_rank, w0_e, (int)w0_row};
+  const W b = f1 > 0 ? W{static_cast<const bf16*>(w1), w1_rank, w1_e, (int)w1_row} : a;
+  const int vec = d % 8 == 0 && (w0_rank | w0_e | w0_row) % 8 == 0 &&
+                  (b.rank | b.ex | b.row) % 8 == 0 &&
+                  reinterpret_cast<uintptr_t>(a.p) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(b.p) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(x) % 16 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rv <= 16) return (int)launch<16>(x, w0, w1, te, out, S, d, E, f0, f1, tm, rv, s);
-  if (rv <= 32) return (int)launch<32>(x, w0, w1, te, out, S, d, E, f0, f1, tm, rv, s);
-  return (int)launch<64>(x, w0, w1, te, out, S, d, E, f0, f1, tm, rv, s);
+  if (rv <= 16) return (int)launch<16>(x, a, b, te, out, n, S, d, E, f0, f1, tm, rv, vec, s);
+  if (rv <= 32) return (int)launch<32>(x, a, b, te, out, n, S, d, E, f0, f1, tm, rv, vec, s);
+  return (int)launch<64>(x, a, b, te, out, n, S, d, E, f0, f1, tm, rv, vec, s);
 }
 
 extern "C" const char* tdt_cuda_error_string(int code) {

@@ -1,5 +1,5 @@
 // One output tile of a bf16 GEMM with fp32 sums, shared by the fused GEMM
-// kernels (ag_gemm.cu, gemm_rs.cu, gemm_ar.cu) on Hopper (sm_90a).
+// kernels (ag_gemm.cu, gemm_rs.cu, gemm_ar.cu, ag_moe.cu) on Hopper (sm_90a).
 //
 //   C (BM x BN, fp32, in shared memory) = A (BM x K) . B (BN x K)^T
 //
@@ -71,13 +71,22 @@ typedef Tile<16, 64, 16, 16, 4> SmallTile;
 // Whether a launch of `rows` rows a rank runs the decode tile.
 inline bool small_rows(int rows) { return rows <= SmallTile::BM; }
 
-// C = A (a_rows x K) . B (b_rows x K)^T into shared memory; rows past
-// a_rows / b_rows read as zeros. K a multiple of 8, rows 16-byte aligned.
-// Returns C (row pitch T::kCLd), readable by every thread of the block;
-// the caller must __syncthreads() before the next tile_mma overwrites it.
-template <class T>
-__device__ float* tile_mma(const bf16* A, long long lda, int a_rows, const bf16* B,
-                           long long ldb, int b_rows, int K, unsigned char* smem) {
+// The rows of a weight with one row pitch: row r at base + r * ld.
+struct StridedRows {
+  const bf16* base;
+  long long ld;
+  __device__ __forceinline__ const bf16* operator()(int r) const { return base + r * ld; }
+};
+
+// C = A (a_rows x K) . B (b_rows x K)^T into shared memory, B's row r at
+// b_row(r) (a functor: the MoE gate/up tiles take each row from one of two
+// weights); rows past a_rows / b_rows read as zeros. K a multiple of 8,
+// rows 16-byte aligned. Returns C (row pitch T::kCLd), readable by every
+// thread of the block; the caller must __syncthreads() before the next
+// tile_mma overwrites it.
+template <class T, class BRows>
+__device__ float* tile_mma_rows(const bf16* A, long long lda, int a_rows, BRows b_row,
+                                int b_rows, int K, unsigned char* smem) {
   using namespace nvcuda;
   bf16* stages = reinterpret_cast<bf16*>(smem);
   const int tid = threadIdx.x, warp = tid / 32;
@@ -94,7 +103,7 @@ __device__ float* tile_mma(const bf16* A, long long lda, int a_rows, const bf16*
       const int r = is_a ? row : row - T::BM;
       const bool ok = (is_a ? r < a_rows : r < b_rows) && k0 + c < K;
       const bf16* src = A;
-      if (ok) src = (is_a ? A + r * lda : B + r * ldb) + k0 + c;
+      if (ok) src = (is_a ? A + r * lda : b_row(r)) + k0 + c;
       cp_async16(dst + row * kLd + c, src, ok);
     }
   };
@@ -144,6 +153,13 @@ __device__ float* tile_mma(const bf16* A, long long lda, int a_rows, const bf16*
                               acc[i][j], T::kCLd, wmma::mem_row_major);
   __syncthreads();
   return C;
+}
+
+// tile_mma_rows with B (b_rows x K) of row pitch ldb.
+template <class T>
+__device__ float* tile_mma(const bf16* A, long long lda, int a_rows, const bf16* B,
+                           long long ldb, int b_rows, int K, unsigned char* smem) {
+  return tile_mma_rows<T>(A, lda, a_rows, StridedRows{B, ldb}, b_rows, K, smem);
 }
 
 // out[r][c] = bf16(C[r][c]) for r < rows, c < cols (row pitch ld).

@@ -3,8 +3,9 @@
 
 The expert-parallel dispatch/combine half of that module (the
 ``transport`` knobs, hot-expert replicas) spans ranks and is not ported
-yet (ROADMAP.md, queue A item 5). One card runs the tensor-parallel
-regime at one rank (:mod:`~triton_dist_tpu_torch.layers.tp_moe`).
+yet (ROADMAP.md, queue A item 5). The experts run the tensor-parallel
+regime (:mod:`~triton_dist_tpu_torch.layers.tp_moe`), at one rank or over
+simulated ranks.
 
 The JAX package stores ``router`` as ``(d, E)``, ``w_gate``/``w_up`` as
 ``(E, d, f)`` and ``w_down`` as ``(E, f, d)`` and multiplies ``x @ w``.

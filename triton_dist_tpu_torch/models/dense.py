@@ -133,12 +133,8 @@ def make_fwd_contexts(mesh, axis: str = "tp", block_m: int = 256,
         block_m=block_m)
 
 
-def _tp_size(mesh, ffn_fn) -> int:
-    n = 1 if mesh is None else mesh.tp
-    if n > 1 and ffn_fn is not None:
-        raise ValueError("an FFN hook (the MoE model) at tp > 1 needs the "
-                         "EP/TP MoE kernels of ROADMAP.md queue A item 5")
-    return n
+def _tp_size(mesh) -> int:
+    return 1 if mesh is None else mesh.tp
 
 
 def lm_head_logits(x: torch.Tensor, lm_head: torch.Tensor) -> torch.Tensor:
@@ -219,10 +215,13 @@ def _embed_tokens_tp(params: DenseLM, input_ids: torch.Tensor, *, mode: str,
 
 def _forward_trunk_tp(params: DenseLM, input_ids: torch.Tensor,
                       cfg: ModelConfig, *, mode: str, n: int, ctxs,
-                      cache: Optional[KVCache]):
+                      cache: Optional[KVCache], ffn_fn=None):
     """Embed → layers → final norm at tp = n, then the final all-gather
-    of the token-sharded modes. Returns ``(x, cache)``: x (B·S, d) after
-    the gather, or (n, B·S, d) replicated for ``"fused_ar"``."""
+    of the token-sharded modes. ``ffn_fn(layer, h)`` replaces the MLP (the
+    MoE model's hook) and sees what the MLP sees: the token-sharded (n,
+    B·S/n, d) in ``"xla"``/``"fused"``, the replicated (n, B·S, d) in
+    ``"fused_ar"``. Returns ``(x, cache)``: x (B·S, d) after the gather,
+    or (n, B·S, d) replicated for ``"fused_ar"``."""
     b = input_ids.shape[0]
     x = _embed_tokens_tp(params, input_ids, mode=mode, n=n)
     eps = cfg.rms_norm_eps
@@ -232,7 +231,8 @@ def _forward_trunk_tp(params: DenseLM, input_ids: torch.Tensor,
                                               mode=mode, ctxs=ctxs)
         x = x + attn_out
         h = rms_norm(x, layer.ln_mlp, eps)
-        x = x + tp_mlp.fwd_tp(layer.mlp, h, mode=mode, ctxs=ctxs)
+        x = x + (tp_mlp.fwd_tp(layer.mlp, h, mode=mode, ctxs=ctxs)
+                 if ffn_fn is None else ffn_fn(layer, h))
         if cache is not None:
             cache.write_prefill(li, *kv)
     x = rms_norm(x, params.ln_f, eps)
@@ -257,7 +257,7 @@ def prefill(params: DenseLM, input_ids: torch.Tensor, cfg: ModelConfig, *,
     the last position, KVCache)``, the cache ``max_len`` (default S)
     positions long with the prompt written and ``length = S``. ``mesh``
     with tp > 1: n simulated ranks, fused ops from ``ctxs``."""
-    n = _tp_size(mesh, ffn_fn)
+    n = _tp_size(mesh)
     b, s = input_ids.shape
     max_len = max_len or s
     if s > max_len:
@@ -269,7 +269,7 @@ def prefill(params: DenseLM, input_ids: torch.Tensor, cfg: ModelConfig, *,
     if n > 1:
         tp_attn.check_mode(mode)
         x, cache = _forward_trunk_tp(params, input_ids, cfg, mode=mode, n=n,
-                                     ctxs=ctxs, cache=cache)
+                                     ctxs=ctxs, cache=cache, ffn_fn=ffn_fn)
         cache.length = s
         last = (x.view(b, s, -1)[:, -1] if x.dim() == 2
                 else x.view(n, b, s, -1)[:, :, -1])
@@ -286,12 +286,12 @@ def forward_tokens(params: DenseLM, input_ids: torch.Tensor,
                    mesh=None, ctxs: Optional[FwdContexts] = None):
     """Logits of every position, (B, S, vocab) fp32 (the training-loss
     forward); ``mesh``/``ctxs`` as in :func:`prefill`."""
-    n = _tp_size(mesh, ffn_fn)
+    n = _tp_size(mesh)
     b, s = input_ids.shape
     if n > 1:
         tp_attn.check_mode(mode)
         x, _ = _forward_trunk_tp(params, input_ids, cfg, mode=mode, n=n,
-                                 ctxs=ctxs, cache=None)
+                                 ctxs=ctxs, cache=None, ffn_fn=ffn_fn)
         return _lm_head_tp(params, x, n).view(b, s, cfg.vocab_size)
     x, _ = _forward_trunk(params, input_ids, cfg, mode=mode, cache=None,
                           ffn_fn=ffn_fn)
@@ -311,10 +311,10 @@ def decode_step(params: DenseLM, token_ids: torch.Tensor, cache: KVCache,
     through ``gemm_ar`` unless ``mode`` is ``"xla"`` (JAX's decode
     regime)."""
     tp_attn.check_mode(mode)
-    n = _tp_size(mesh, ffn_fn)
+    n = _tp_size(mesh)
     if n > 1:
         return _decode_step_tp(params, token_ids, cache, cfg, mode=mode,
-                               n=n, ctxs=ctxs)
+                               n=n, ctxs=ctxs, ffn_fn=ffn_fn)
     b = token_ids.shape[0]
     dev = token_ids.device
     x = params.embed[token_ids.long()]
@@ -336,9 +336,10 @@ def decode_step(params: DenseLM, token_ids: torch.Tensor, cache: KVCache,
 
 def _decode_step_tp(params: DenseLM, token_ids: torch.Tensor,
                     cache: KVCache, cfg: ModelConfig, *, mode: str, n: int,
-                    ctxs) -> tuple:
+                    ctxs, ffn_fn=None) -> tuple:
     """:func:`decode_step` at tp = n: the residual (n, B, d) replicated on
-    every rank, attention over the stacked heads of the global cache."""
+    every rank, attention over the stacked heads of the global cache;
+    ``ffn_fn(layer, h)`` (the MoE hook) sees that replicated residual."""
     b = token_ids.shape[0]
     dec_mode = "xla" if mode == "xla" else "fused_ar"
     x = params.embed[token_ids.long()]
@@ -357,9 +358,10 @@ def _decode_step_tp(params: DenseLM, token_ids: torch.Tensor,
         x = x + tp_attn.decode_output_tp(layer.attn, o.reshape(b, -1), n=n,
                                          mode=dec_mode, ar_ctx=ctxs.ar)
         h = rms_norm(x, layer.ln_mlp, eps)
-        x = x + tp_mlp.fwd_tp(layer.mlp, h, ctxs=ctxs,
-                              mode="xla_ar" if dec_mode == "xla"
-                              else "fused_ar")
+        x = x + (tp_mlp.fwd_tp(layer.mlp, h, ctxs=ctxs,
+                               mode="xla_ar" if dec_mode == "xla"
+                               else "fused_ar")
+                 if ffn_fn is None else ffn_fn(layer, h))
     x = rms_norm(x, params.ln_f, eps)
     return _lm_head_tp(params, x, n), cache.advance()
 

@@ -7,12 +7,15 @@ and :meth:`Engine.serving` hands the engine to the continuous-batching
 server. Without a mesh (or at tp = 1) the three forward modes compute the
 same function except for the MoE prefill, where ``mode="fused"`` runs the
 fused expert pipeline (the row-tile grouped GEMM kernel). With
-``mesh=make_mesh(tp=n)`` a dense model runs n simulated tensor-parallel
+``mesh=make_mesh(tp=n)`` the model runs n simulated tensor-parallel
 ranks on the one device (:mod:`~triton_dist_tpu_torch.models.dense`):
 ``"fused"`` prefills through the AG+GEMM and GEMM+RS kernels,
 ``"fused_ar"`` through GEMM+AR, and every non-``"xla"`` decode step
-through GEMM+AR. The resilience knobs (``fallback``, ``probe``,
-``timeout_s``) and the expert-parallel regime are not ported yet
+through GEMM+AR; a MoE model's ``"fused"`` prefill runs its experts
+through the AG+grouped GEMM, the grouped GEMM and the fused combine +
+reduce-scatter kernels (:mod:`~triton_dist_tpu_torch.models.qwen_moe`).
+The resilience knobs (``fallback``, ``probe``, ``timeout_s``) and the
+expert-parallel regime (``moe_impl="ep"``) are not ported yet
 (ROADMAP.md).
 """
 
@@ -36,9 +39,10 @@ class Engine:
 
     ``model``: the model module, :mod:`~triton_dist_tpu_torch.models.dense`
     or :mod:`~triton_dist_tpu_torch.models.qwen_moe` (``None``: qwen_moe
-    for a MoE config, dense otherwise); a MoE model runs its experts in
-    the tensor-parallel regime at one rank, the only one ported (the
-    expert-parallel one is ROADMAP.md queue A item 5). ``params``: the model's weights
+    for a MoE config, dense otherwise). ``moe_impl``: a MoE model's
+    regime, JAX's knob: ``None`` is ``"tp"`` (tensor-parallel experts, the
+    one ported); ``"ep"`` raises (ROADMAP.md queue A item 5), and so does
+    any value for a dense model, as in JAX. ``params``: the model's weights
     (:class:`~triton_dist_tpu_torch.models.dense.DenseLM` or
     :class:`~triton_dist_tpu_torch.models.qwen_moe.MoELM`) on ``device``
     in ``dtype`` (for example from
@@ -50,19 +54,20 @@ class Engine:
 
     ``mesh``: a :class:`~triton_dist_tpu_torch.parallel.mesh.MeshContext`
     (``make_mesh(tp=n)``); ``None`` is one rank. At tp > 1 the engine runs
-    on the mesh's device (``device`` may name it again), takes a dense
-    config only (a MoE one needs ROADMAP.md queue A item 5), and
+    on the mesh's device (``device`` may name it again), and
     ``block_m``/``block_n``/``block_k`` are the JAX contexts' block knobs
     (:func:`~triton_dist_tpu_torch.models.dense.make_fwd_contexts`: the
-    kernels keep their divisibility contract and pick their own tiles).
+    kernels keep their divisibility contract and pick their own tiles;
+    ``block_m`` is also the MoE row tile, ``ctxs.ag.block_m`` as in JAX).
     The weights are not copied: each rank's shard is a view of the one
-    full weight."""
+    full weight (for Qwen3-30B-A3B, 61.1 GB in bf16, a copy would not
+    fit)."""
 
     def __init__(self, cfg: ModelConfig, *, mesh=None, mode: str = "xla",
                  model=None, device=None, dtype: torch.dtype = torch.bfloat16,
                  max_len: int = 512, params: Optional[dense.DenseLM] = None,
                  seed: int = 0, block_m: int = 256, block_n: int = 256,
-                 block_k: int = 512):
+                 block_k: int = 512, moe_impl: Optional[str] = None):
         check_mode(mode)
         self.mesh = mesh
         self.tp = 1 if mesh is None else mesh.tp
@@ -71,18 +76,6 @@ class Engine:
                 raise ValueError(f"device={device!r} is not the mesh's "
                                  f"device {mesh.device}")
             device = mesh.device
-        if self.tp > 1:
-            if cfg.is_moe or model is qwen_moe:
-                raise ValueError(
-                    "a MoE model at tp > 1 needs the expert-parallel and "
-                    "tensor-parallel MoE kernels (rows 19-21, ROADMAP.md "
-                    "queue A item 5); the port runs MoE at one rank")
-            _head_split(cfg, self.tp)
-            for name, size in (("vocab_size", cfg.vocab_size),
-                               ("intermediate_size", cfg.intermediate_size)):
-                if size % self.tp:
-                    raise ValueError(f"{name}={size} not divisible by "
-                                     f"tp={self.tp}")
         if model is None:
             model = qwen_moe if cfg.is_moe else dense
         if model is qwen_moe:
@@ -97,13 +90,40 @@ class Engine:
         else:
             raise ValueError(f"model {model!r}: the port serves "
                              "models.dense and models.qwen_moe")
+        # JAX's regime knob: a MoE model defaults to tensor-parallel
+        # experts, the one regime ported; a dense model takes none.
+        if model is qwen_moe:
+            moe_impl = moe_impl or "tp"
+            if moe_impl not in ("tp", "ep"):
+                raise ValueError(f"unknown moe_impl {moe_impl!r} (one of "
+                                 "('tp', 'ep'))")
+            if moe_impl == "ep":
+                raise ValueError(
+                    "moe_impl='ep' (the expert-parallel regime: "
+                    "ep_dispatch/ep_combine and their kernels) is not "
+                    "ported yet (ROADMAP.md queue A item 5)")
+        elif moe_impl is not None:
+            raise ValueError(
+                f"moe_impl={moe_impl!r} given, but model "
+                f"{getattr(model, '__name__', model)!r} is not a MoE "
+                "model (its param_specs takes no moe_impl)")
+        if self.tp > 1:
+            _head_split(cfg, self.tp)
+            ffn = (("moe_intermediate_size", cfg.moe_intermediate_size)
+                   if model is qwen_moe
+                   else ("intermediate_size", cfg.intermediate_size))
+            for name, size in (("vocab_size", cfg.vocab_size), ffn):
+                if size % self.tp:
+                    raise ValueError(f"{name}={size} not divisible by "
+                                     f"tp={self.tp}")
         self.model = model
         self.mode = mode
+        self.moe_impl = moe_impl
         if self.tp > 1:
             ctxs = dense.make_fwd_contexts(mesh, "tp", block_m, block_n,
                                            block_k)
-            self._prefill_kw = self._decode_kw = {"mesh": mesh,
-                                                  "ctxs": ctxs}
+            self._prefill_kw = {"mesh": mesh, "ctxs": ctxs}
+            self._decode_kw = dict(self._prefill_kw)
         else:
             # The fused expert layout's row tile: only the MoE prefill
             # reads it.

@@ -6,14 +6,21 @@
 
 The transformer trunk is :mod:`~triton_dist_tpu_torch.models.dense`'s,
 with the MoE block plugged into its ``ffn_fn`` hook: one trunk, two
-models. The experts run the tensor-parallel regime at one rank: a
-prefill in ``mode="fused"`` through
+models. The experts run the tensor-parallel regime (``moe_impl="tp"``),
+at one rank or, with ``mesh=make_mesh(tp=n)``, over n simulated ranks
+(the dense-cache functions; each rank's ffn shard a view of the one
+weight): a prefill in ``mode="fused"`` through
 :func:`~triton_dist_tpu_torch.layers.tp_moe.fwd_fused` (the row-tile
-grouped GEMM kernel), otherwise :func:`~triton_dist_tpu_torch.layers.
+grouped GEMM kernel; at tp > 1 also the AG+grouped GEMM and the fused
+reduce-scatter epilogue), otherwise :func:`~triton_dist_tpu_torch.layers.
 tp_moe.fwd`; decode and paged chunks through
-:func:`~triton_dist_tpu_torch.layers.tp_moe.fwd_ar`. The expert-parallel
-regime, the shared expert and the per-step expert counts of the layer
-path (``with_expert_counts``) are not ported yet (ROADMAP.md, queue A).
+:func:`~triton_dist_tpu_torch.layers.tp_moe.fwd_ar`. At tp > 1 a
+``"fused_ar"`` prefill's residual is replicated, where JAX's ``fwd``
+gathers n copies of it and computes each: the port computes one, through
+``fwd_ar``, the same values. The expert-parallel regime
+(``moe_impl="ep"``), the shared expert and the per-step expert counts of
+the layer path (``with_expert_counts``) are not ported yet (ROADMAP.md,
+queue A item 5).
 """
 
 from __future__ import annotations
@@ -103,17 +110,26 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
 
 def moe_ffn(moe: ep_moe.MoE, h: torch.Tensor, cfg: ModelConfig, *,
             mode: str, ctxs: dense.FwdContexts) -> torch.Tensor:
-    """One prefill MoE FFN block: ``mode="fused"`` runs the fused
-    pipeline (:func:`tp_moe.fwd_fused`, row tile ``ctxs.block_m``), the
-    other modes :func:`tp_moe.fwd`."""
+    """One prefill MoE FFN block in JAX's dispatch: ``mode="fused"`` runs
+    the fused pipeline (:func:`tp_moe.fwd_fused`; at tp > 1 over
+    ``ctxs.ag``'s mesh), the other modes :func:`tp_moe.fwd`. The row tile
+    is the fused context's (``ctxs.ag.block_m`` at tp > 1, as JAX's engine
+    sets it; ``ctxs.block_m`` at one rank). h: (t, d) at one rank; at tp =
+    n the residual the trunk holds, token-sharded (n, t/n, d), or
+    replicated (n, t, d) in ``"fused_ar"``, where :func:`tp_moe.fwd_ar`
+    gives the values of JAX's ``fwd`` on its n gathered copies."""
+    kw = dict(topk=cfg.num_experts_per_tok, num_experts=cfg.num_experts,
+              norm_topk_prob=cfg.norm_topk_prob)
+    ranks = h.dim() == 3
     if mode == "fused":
-        return tp_moe.fwd_fused(
-            moe, h, topk=cfg.num_experts_per_tok,
-            num_experts=cfg.num_experts, block_m=ctxs.block_m,
-            norm_topk_prob=cfg.norm_topk_prob)
-    return tp_moe.fwd(moe, h, topk=cfg.num_experts_per_tok,
-                      num_experts=cfg.num_experts,
-                      norm_topk_prob=cfg.norm_topk_prob)
+        if not ranks:
+            return tp_moe.fwd_fused(moe, h, block_m=ctxs.block_m, **kw)
+        return tp_moe.fwd_fused(moe, h, mesh_ctx=ctxs.ag.mesh,
+                                axis=ctxs.ag.axis, block_m=ctxs.ag.block_m,
+                                **kw)
+    if ranks and mode == "fused_ar":
+        return tp_moe.fwd_ar(moe, h, **kw)
+    return tp_moe.fwd(moe, h, **kw)
 
 
 def _moe_block(layer: MoEDecoderLayer, h: torch.Tensor, cfg: ModelConfig, *,
@@ -124,38 +140,42 @@ def _moe_block(layer: MoEDecoderLayer, h: torch.Tensor, cfg: ModelConfig, *,
 
 def prefill(params: MoELM, input_ids: torch.Tensor, cfg: ModelConfig, *,
             mode: str = "xla", ctxs: dense.FwdContexts = dense.FwdContexts(),
-            max_len: Optional[int] = None):
+            max_len: Optional[int] = None, mesh=None):
     """:func:`~triton_dist_tpu_torch.models.dense.prefill` with the MoE
-    block: ``(last-position logits (B, vocab), KVCache)``."""
+    block: ``(last-position logits (B, vocab), KVCache)``; ``mesh`` with
+    tp > 1: n simulated ranks, fused ops from ``ctxs``."""
     ffn = functools.partial(_moe_block, cfg=cfg, mode=mode, ctxs=ctxs)
     return dense.prefill(params, input_ids, cfg, mode=mode,
-                         max_len=max_len, ffn_fn=ffn)
+                         max_len=max_len, ffn_fn=ffn, mesh=mesh, ctxs=ctxs)
 
 
 def forward_tokens(params: MoELM, input_ids: torch.Tensor, cfg: ModelConfig,
                    *, mode: str = "xla",
-                   ctxs: dense.FwdContexts = dense.FwdContexts()
-                   ) -> torch.Tensor:
+                   ctxs: dense.FwdContexts = dense.FwdContexts(),
+                   mesh=None) -> torch.Tensor:
     """Logits of every position (B, S, vocab), the MoE block in the
-    trunk."""
+    trunk; ``mesh``/``ctxs`` as in :func:`prefill`."""
     ffn = functools.partial(_moe_block, cfg=cfg, mode=mode, ctxs=ctxs)
     return dense.forward_tokens(params, input_ids, cfg, mode=mode,
-                                ffn_fn=ffn)
+                                ffn_fn=ffn, mesh=mesh, ctxs=ctxs)
 
 
 def decode_step(params: MoELM, token_ids: torch.Tensor, cache,
-                cfg: ModelConfig, *, mode: str = "xla"):
+                cfg: ModelConfig, *, mode: str = "xla", mesh=None,
+                ctxs: Optional[dense.FwdContexts] = None):
     """:func:`~triton_dist_tpu_torch.models.dense.decode_step` with the
-    small-batch MoE FFN (:func:`tp_moe.fwd_ar`)."""
+    small-batch MoE FFN (:func:`tp_moe.fwd_ar`, on the replicated residual
+    at tp > 1)."""
     ffn = functools.partial(_moe_ffn_decode, cfg=cfg)
     return dense.decode_step(params, token_ids, cache, cfg, mode=mode,
-                             ffn_fn=ffn)
+                             ffn_fn=ffn, mesh=mesh, ctxs=ctxs)
 
 
 def moe_ffn_decode(moe: ep_moe.MoE, h: torch.Tensor,
                    cfg: ModelConfig) -> torch.Tensor:
     """Small-batch MoE FFN (decode rows, or a prefill chunk's rows): the
-    tensor-parallel experts through :func:`tp_moe.fwd_ar`."""
+    tensor-parallel experts through :func:`tp_moe.fwd_ar` (h (b, d), or
+    replicated (n, b, d) over n ranks)."""
     return tp_moe.fwd_ar(moe, h, topk=cfg.num_experts_per_tok,
                          num_experts=cfg.num_experts,
                          norm_topk_prob=cfg.norm_topk_prob)

@@ -14,9 +14,11 @@ Two forms, as in the JAX package:
   launches ``group_gemm_kernel`` (``csrc/group_gemm.cu``), which replaces
   the Pallas ``_gg_tiles_kernel``; on a CPU tensor it runs
   :func:`grouped_gemm_tiles_ref`, JAX's per-tile product. Nothing is read
-  on the host. JAX's ``block_n``/``block_k`` (VMEM tilings) have no
-  counterpart; ``grouped_gemm_tiles_tuned`` waits for the autotuner
-  (ROADMAP.md).
+  on the host. The weights may be strided views (a tensor-parallel rank's
+  ffn shard, :func:`~triton_dist_tpu_torch.layers.tp_moe.param_specs`),
+  and a leading rank dimension runs n simulated ranks in one launch.
+  JAX's ``block_n``/``block_k`` (VMEM tilings) have no counterpart;
+  ``grouped_gemm_tiles_tuned`` waits for the autotuner (ROADMAP.md).
 
 Expert weights are stored ``(E, out, in)`` (:mod:`~triton_dist_tpu_torch.
 layers.ep_moe`), the transpose of JAX's ``(E, in, out)``.
@@ -34,7 +36,8 @@ from triton_dist_tpu_torch.utils.build import CudaKernel
 
 # ``KERNEL.launches`` counts launches of the CUDA kernel.
 KERNEL = CudaKernel("group_gemm.cu", "tdt_group_gemm_bf16",
-                    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6)
+                    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                    + [ctypes.c_longlong] * 6)
 
 
 def sort_by_expert(tokens: torch.Tensor, expert_ids: torch.Tensor,
@@ -60,26 +63,42 @@ def _mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return F.linear(x.float(), w.float())
 
 
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """fp32 batched ``a @ b``: on the card bf16 products accumulate in
+    fp32 in one ``bmm``; elsewhere in fp32."""
+    if a.is_cuda and a.dtype != torch.float32:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
 def grouped_swiglu(x: torch.Tensor, w_gate: torch.Tensor,
                    w_up: torch.Tensor, w_down: torch.Tensor,
-                   group_sizes: torch.Tensor) -> torch.Tensor:
-    """Per-expert SwiGLU MLP over expert-sorted rows: rows of group e go
-    through ``w_gate[e]``, ``w_up[e]`` (E, f, d) and ``w_down[e]`` (E, d,
-    f). The gate and up products stay fp32, the activation rounds to
-    ``x.dtype`` and the down product returns in ``x.dtype``, as the JAX
-    version's ``ragged_dot`` calls. The segment sizes are read on the
-    host (one sync per call)."""
-    out = torch.zeros_like(x)
+                   group_sizes: torch.Tensor, ranks: int = 1) -> torch.Tensor:
+    """Per-expert SwiGLU MLP over expert-sorted rows (M, d): rows of group
+    e go through ``w_gate[e]``, ``w_up[e]`` (E, f, d) and ``w_down[e]``
+    (E, d, f). The gate and up products stay fp32, the activation rounds
+    to ``x.dtype`` and the down product returns in ``x.dtype``, as the JAX
+    version's ``ragged_dot`` calls. Returns (ranks, M, d): with ``ranks``
+    n, the ffn dimension is cut into n tensor-parallel shards and rank r's
+    partial is the down product over its shard (rows ``[r·F, (r+1)·F)`` of
+    ``w_gate``/``w_up``, the same columns of ``w_down``; F = f/n). Every
+    rank's products of one segment run together: gate/up over the whole
+    ffn dimension, down as one batched product. The segment sizes are
+    read on the host (one sync per call)."""
+    m, d = x.shape
+    fl = w_gate.shape[1] // ranks
+    out = x.new_zeros((ranks, m, d))
     start = 0
-    for e, n in enumerate(group_sizes.tolist()):
-        if n == 0:
+    for e, cnt in enumerate(group_sizes.tolist()):
+        if cnt == 0:
             continue
-        seg = x[start:start + n]
+        seg = x[start:start + cnt]
         g = _mm_f32(seg, w_gate[e])
         u = _mm_f32(seg, w_up[e])
-        h = (F.silu(g) * u).to(x.dtype)
-        out[start:start + n] = _mm_f32(h, w_down[e]).to(x.dtype)
-        start += n
+        h = (F.silu(g) * u).to(x.dtype).view(cnt, ranks, fl).transpose(0, 1)
+        wd = w_down[e].view(d, ranks, fl).permute(1, 2, 0)   # (n, F, d)
+        out[:, start:start + cnt] = _bmm_f32(h, wd).to(x.dtype)
+        start += cnt
     return out
 
 
@@ -101,15 +120,20 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor,
 Weights = Union[torch.Tensor, Sequence[torch.Tensor]]
 
 
-def _weights(w: Weights):
+def as_weights(w: Weights, ranks: bool = False):
+    """One or two weights (E, f, d) of one E and d, or with ``ranks`` (n,
+    E, f, d) of one n too."""
     ws = (w,) if isinstance(w, torch.Tensor) else tuple(w)
     if not 1 <= len(ws) <= 2:
         raise ValueError(f"one or two weights, got {len(ws)}")
-    e, _, d = ws[0].shape
+    lead = 2 if ranks else 1
     for t in ws:
-        if t.dim() != 3 or t.shape[0] != e or t.shape[2] != d:
+        if (t.dim() != lead + 2 or t.shape[:lead] != ws[0].shape[:lead]
+                or t.shape[-1] != ws[0].shape[-1]):
+            want = "(n, E, f, d)" if ranks else "(E, f, d)"
             raise ValueError(f"weights {[tuple(t.shape) for t in ws]} are "
-                             "not (E, f, d) of one E and d")
+                             f"not {want} of one "
+                             f"{'n, E' if ranks else 'E'} and d")
     return ws
 
 
@@ -122,13 +146,20 @@ def grouped_gemm_tiles(x_sorted: torch.Tensor, w: Weights,
     and up weights: columns ``[0, f0)`` from the first, ``[f0, f0 + f1)``
     from the second, with no concatenated copy); ``tile_expert``: (S //
     tm,) int32, the row tile ``tm`` inferred from it. Each output is an
-    fp32 sum rounded once to ``x_sorted.dtype``. Returns (S, sum of f)."""
-    ws = _weights(w)
-    s, d = x_sorted.shape
+    fp32 sum rounded once to ``x_sorted.dtype``. Returns (S, sum of f).
+
+    Simulated ranks: ``x_sorted`` (n, S, d) and weights (n, E, f, d), rank
+    r's shard at ``[r]`` (views: any expert and row stride, unit stride
+    along d), one ``tile_expert`` for every rank: returns (n, S, sum of f),
+    one launch."""
+    ranks = x_sorted.dim() == 3
+    ws = as_weights(w, ranks)
+    s, d = x_sorted.shape[-2:]
     n_tiles = tile_expert.shape[0]
-    if n_tiles == 0 or s % n_tiles or ws[0].shape[2] != d:
+    if (n_tiles == 0 or s % n_tiles or ws[0].shape[-1] != d
+            or (ranks and ws[0].shape[0] != x_sorted.shape[0])):
         raise ValueError(f"x_sorted {tuple(x_sorted.shape)}, {n_tiles} "
-                         f"tiles, weights (E, f, {ws[0].shape[2]})")
+                         f"tiles, weights {tuple(ws[0].shape)}")
     if x_sorted.device.type == "cpu":
         return grouped_gemm_tiles_ref(x_sorted, ws, tile_expert)
     tm = s // n_tiles
@@ -140,21 +171,30 @@ def grouped_gemm_tiles(x_sorted: torch.Tensor, w: Weights,
         if t.device != dev or t.dtype != torch.bfloat16:
             raise TypeError(f"expected bf16 tensors on {dev}, got {t.dtype} "
                             f"on {t.device}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("x_sorted and the weights must be contiguous "
-                             "and 16-byte aligned")
+    if not x_sorted.is_contiguous() or x_sorted.data_ptr() % 16:
+        raise ValueError("x_sorted must be contiguous and 16-byte aligned")
+    for t in ws:
+        if t.stride(-1) != 1 or t.data_ptr() % 16:
+            raise ValueError("the weights need unit stride along d and a "
+                             "16-byte aligned start")
     if (tile_expert.device != dev or tile_expert.dtype != torch.int32
             or not tile_expert.is_contiguous()):
         raise TypeError("tile_expert must be contiguous int32 on " + str(dev))
     if tm > 64 and tm % 64:
         raise ValueError(f"row tile {tm}: the kernel takes tiles of at most "
                          "64 rows or multiples of 64")
-    f0 = ws[0].shape[1]
-    f1 = ws[1].shape[1] if len(ws) == 2 else 0
-    out = x_sorted.new_empty((s, f0 + f1))
+    n = x_sorted.shape[0] if ranks else 1
+    f0 = ws[0].shape[-2]
+    f1 = ws[1].shape[-2] if len(ws) == 2 else 0
+
+    def strides(t):   # (rank, expert, row)
+        return (t.stride(0) if ranks else 0, t.stride(-3), t.stride(-2))
+
+    out = x_sorted.new_empty((*x_sorted.shape[:-1], f0 + f1))
     KERNEL.launch(x_sorted.data_ptr(), ws[0].data_ptr(),
                   ws[1].data_ptr() if f1 else None, tile_expert.data_ptr(),
-                  out.data_ptr(), s, d, ws[0].shape[0], f0, f1, tm,
+                  out.data_ptr(), n, s, d, ws[0].shape[-3], f0, f1, tm,
+                  *strides(ws[0]), *(strides(ws[1]) if f1 else (0, 0, 0)),
                   device=dev)
     return out
 
@@ -165,8 +205,15 @@ def grouped_gemm_tiles_ref(x_sorted: torch.Tensor, w: Weights,
     """Plain version, JAX's per-tile product: each row tile times its
     expert's weight in fp32, rounded once to ``x_sorted.dtype``. The
     weight gather runs ``tiles_per_step`` tiles at a time, so it never
-    holds every tile's weights at once."""
-    ws = _weights(w)
+    holds every tile's weights at once. Simulated ranks (a leading rank
+    dimension on ``x_sorted`` and the weights) run one after another."""
+    if x_sorted.dim() == 3:
+        ws = as_weights(w, True)
+        return torch.stack([
+            grouped_gemm_tiles_ref(x_sorted[r], [t[r] for t in ws],
+                                   tile_expert, tiles_per_step=tiles_per_step)
+            for r in range(x_sorted.shape[0])])
+    ws = as_weights(w)
     s, d = x_sorted.shape
     n_tiles = tile_expert.shape[0]
     tm = s // n_tiles
