@@ -134,8 +134,8 @@ Phases (any failure exits nonzero; nothing is caught):
 13. Serve the MoE layer lane: the megakernel engine freed (allocated
    memory must drop below a tenth), the same model and prompts through
    ``Engine(cfg).serving(num_slots=4, page=32, prefill_buckets=(128,
-   512))``; the paged decode kernel must launch 48 times per decode tick
-   and the Q-block kernel 48 times per chunk.
+   512))``, MOE_GEN (32) tokens each; the paged decode kernel must launch
+   48 times per decode tick and the Q-block kernel 48 times per chunk.
 14. MoE end to end at 2 layers: each prompt (700 and 60 tokens) served
    alone on both lanes; the first two tokens' logits against a plain
    forward of qwen_moe (whole prompt, dense K/V) within phase 7's 0.15
@@ -162,8 +162,9 @@ Phases (any failure exits nonzero; nothing is caught):
    ``Engine(cfg, mode="fused", max_len=2048).serve`` of a (4, 512) batch
    for 64 tokens, then monolithic serving (``serving(num_slots=4,
    page=32)``, no buckets) of the 1000/700/300/60-token prompts for 64
-   tokens each. Counts set to zero just before each run: every prefill
-   layer launched ``flash_attention`` once and, for MoE,
+   tokens each (MOE_GEN, 32, for Qwen3-30B-A3B, whose one-rank decode
+   steps are host-bound). Counts set to zero just before each run: every
+   prefill layer launched ``flash_attention`` once and, for MoE,
    ``group_gemm_tiles`` twice; monolithic decode ticks the paged decode
    kernel once per layer. Prefill and decode-step times, and a
    torch.profiler split of one prefill and one decode step.
@@ -294,7 +295,10 @@ Phases (any failure exits nonzero; nothing is caught):
    bf16 unit (phase 15's limit), the same 50 repeats, and planted faults
    (a rank stride of 0, a ``w_down`` row pitch of F_loc, a tile map
    rolled by one) outside it; timed against its bound and one
-   ``torch._grouped_mm`` over the (rank, expert) groups.
+   ``torch._grouped_mm`` over the (rank, expert) groups. The down
+   projection again with row 19's used-tile counts, as the fused prefill
+   runs it (each chunk's padded tail not multiplied, stored as zeros; a
+   count one short must fail the limit).
 27. ``Engine(qwen3_moe_30b_a3b, mesh=make_mesh(tp=4), mode=m).serve`` of
    a (4, 512) batch at full depth on phase 13's weights (shards are
    views), m in "fused" (16 tokens), "fused_ar" and "xla" (8 tokens each,
@@ -309,6 +313,42 @@ Phases (any failure exits nonzero; nothing is caught):
    of "fused" and "fused_ar" against tp = 4 "xla" within 0.15 on the
    rows whose last position routes alike, every routing flip judged by
    phase 11's near-tie rule.
+28. The expert-parallel kernels over 4 simulated ranks at Qwen3-30B-A3B
+   tp = 4 shapes (d 2048, 128 experts, top-8, 512 tokens a rank; distinct
+   data in every (source, destination) chunk): row 18's dense form (4 x 4
+   x C 2048 rows of bf16 tokens, and the int32 expert ids) and its ragged
+   form (the drop-free hop: 4,096 rows a rank under a random router, and
+   under the skew router that sends all 16,384 rows to rank 0), row 23
+   (4 x 4 x 32 x 2048, int8 and fp8 codes), each bit for bit against its
+   plain version, then 50 launches in a row on three input sets in turn
+   (row 23's steps alternating parity); row 17's per-rank form (the EP
+   experts' gate/up over the router's received rows, each rank its own
+   tile map and used-tile count) within TOL_GG. Planted faults caught: a
+   slot index off by one (row 18), a wrong parity and scales from the
+   wrong row (row 23), another rank's tile map and a used-tile count one
+   short (row 17). A signal never sent in rows 18 and 23 raises
+   CommTimeoutError within its bound, and the next call is sound. Times
+   (L2 flushed) against the byte bound (the rows that move, read once
+   and written once), the plain version and, for row 18's dense form,
+   ``x.transpose(0, 1).contiguous()`` (for row 17 one
+   ``torch._grouped_mm`` over the (rank, expert) groups of the real rows).
+29. ``Engine(qwen3_moe_30b_a3b, mesh=make_mesh(tp=4), mode="fused",
+   moe_impl="ep", ep_transport="ll").serve`` of a (4, 512) batch for 16
+   tokens at full depth on phase 13's weights (each rank's 32 experts a
+   view): launch counts exact (a prefill layer: row 18 ragged three
+   times, row 17 twice, flash, AG+GEMM and GEMM+RS once; a decode layer:
+   row 23 twice, row 17 twice, GEMM+AR once), prefill and decode-step
+   times, idle share and torch.profiler split. At 2 layers (seed 1)
+   against the tp = 4 "xla" MoE engine of phase 27: "fused" and "xla" EP
+   prefills (routing flips judged by phase 11's near-tie rule, rows
+   routed alike within 0.15), one decode step in each of "ar", "ragged"
+   and "ll" (rows routed alike within 0.15), the capped prefill
+   (``ep_capacity=2048``, row 18's dense form, drops printed), each with
+   exact launch counts;
+   the "ll" decode within TOL_EP_LL (0.15) of "ar" on the same cache;
+   and a signal never sent in row 18 (inside ``Engine.prefill``) and row
+   23 (inside ``Engine.decode``) raising CommTimeoutError from that call,
+   the next steps giving the same logits.
 
 The last lines of output: one JSON object with every kernel's numbers
 (the megakernel once per row mode, and once per MoE row mode), the
@@ -402,7 +442,7 @@ def build_kernels():
     t0 = time.perf_counter()
     cuda = ("paged_attention.cu", "megakernel.cu", "flash_attention.cu",
             "group_gemm.cu", "ag_gemm.cu", "gemm_rs.cu", "gemm_ar.cu",
-            "ag_moe.cu", "moe_reduce.cu")
+            "ag_moe.cu", "moe_reduce.cu", "all_to_all.cu", "ll_a2a.cu")
     logs = build.build_all([*cuda, "megakernel_scheduler.cc"])
     print(f"[build] nvcc x{len(cuda)} + g++ in parallel "
           f"{time.perf_counter() - t0:.1f} s -> {build.BUILD_DIR}")
@@ -606,10 +646,13 @@ def launch_counters() -> dict:
     from triton_dist_tpu_torch.ops import flash_attention as fa
     from triton_dist_tpu_torch.ops import group_gemm as gg
     from triton_dist_tpu_torch.ops import moe_reduce
+    from triton_dist_tpu_torch.ops import all_to_all as a2a
+    from triton_dist_tpu_torch.ops import low_latency as ll
     from triton_dist_tpu_torch.ops import paged_flash_decode as pfd
     from triton_dist_tpu_torch.ops import paged_flash_qblock as pfq
 
     return {"decode": pfd.KERNEL, "qblock": pfq.KERNEL,
+            "all_to_all": a2a.KERNEL, "ll_a2a": ll.KERNEL,
             "ag_gemm": ag_gemm.KERNEL, "gemm_rs": gemm_rs.KERNEL,
             "gemm_ar": gemm_ar.KERNEL, "ag_moe": ag_moe.KERNEL,
             "moe_rs": moe_reduce.RS_KERNEL, "moe_ar": moe_reduce.AR_KERNEL,
@@ -623,25 +666,30 @@ def launch_counters() -> dict:
 
 def zero_counts() -> None:
     from triton_dist_tpu_torch.megakernel import builder as mkb
+    from triton_dist_tpu_torch.ops import all_to_all as a2a
     from triton_dist_tpu_torch.ops import gemm_ar
 
     for kernel in launch_counters().values():
         kernel.launches = 0
-    for counts in (mkb.MODE_LAUNCHES, gemm_ar.VARIANT_LAUNCHES):
+    for counts in (mkb.MODE_LAUNCHES, gemm_ar.VARIANT_LAUNCHES,
+                   a2a.FORM_LAUNCHES):
         for key in counts:
             counts[key] = 0
 
 
 def read_counts() -> dict:
     """Launches by kernel, the megakernel's by row mode (``mk_decode``,
-    ``mk_prefill``, ``mk_chunk``, ...) and GEMM+AR's by variant
-    (``ar_ll``, ``ar_one_shot``)."""
+    ``mk_prefill``, ``mk_chunk``, ...), GEMM+AR's by variant (``ar_ll``,
+    ``ar_one_shot``) and the all-to-all's by form (``a2a_dense``,
+    ``a2a_ragged``)."""
     from triton_dist_tpu_torch.megakernel import builder as mkb
+    from triton_dist_tpu_torch.ops import all_to_all as a2a
     from triton_dist_tpu_torch.ops import gemm_ar
 
     out = {key: k.launches for key, k in launch_counters().items()}
     out.update({f"mk_{m}": n for m, n in mkb.MODE_LAUNCHES.items()})
     out.update({f"ar_{v}": n for v, n in gemm_ar.VARIANT_LAUNCHES.items()})
+    out.update({f"a2a_{f}": n for f, n in a2a.FORM_LAUNCHES.items()})
     return out
 
 
@@ -678,7 +726,7 @@ def profile_window(step, ticks: int, label: str) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     fam = {"megakernel": 0.0, "attention": 0.0, "group_gemm": 0.0,
-           "moe_tp": 0.0, "gemm": 0.0, "other": 0.0}
+           "moe_tp": 0.0, "ep_a2a": 0.0, "gemm": 0.0, "other": 0.0}
     kernels = [ev for ev in prof.key_averages()
                if ev.device_type == DeviceType.CUDA]
     for ev in kernels:
@@ -692,6 +740,8 @@ def profile_window(step, ticks: int, label: str) -> dict:
             fam["group_gemm"] += t
         elif "ag_moe" in name or "moe_reduce" in name:
             fam["moe_tp"] += t
+        elif "all_to_all" in name or "ll_a2a" in name:
+            fam["ep_a2a"] += t
         elif any(k in name for k in ("gemm", "gemv", "xmma", "nvjet",
                                      "cutlass", "splitk")):
             fam["gemm"] += t
@@ -1420,6 +1470,10 @@ def mk_chunk_parity_phase():
 # ---- Qwen3-MoE (phases 11-14) -------------------------------------------
 
 MOE_BUCKET = 128
+# Tokens a request gets on the one-rank Qwen3-30B-A3B layer lane and
+# dense-cache engine (phases 13 and 16): their decode steps are host-bound
+# (0.3-0.45 s each), so 32 tokens keep the whole run inside its limit.
+MOE_GEN = 32
 
 
 def judge_flips(label, rows, k, pairs, shown=None) -> int:
@@ -1906,7 +1960,7 @@ def moe_layer_serve_phase(held_before):
     srv = eng.serving(**serve_kw)
     zero_counts()
     t0 = time.perf_counter()
-    outs = srv.generate(prompts, max_new_tokens=64)
+    outs = srv.generate(prompts, max_new_tokens=MOE_GEN)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
@@ -1920,8 +1974,9 @@ def moe_layer_serve_phase(held_before):
           f"{st['prefill_tokens_per_s']:.1f} tokens/s over "
           f"{st['prefill_time_s']:.2f} s; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    if [len(o) for o in outs] != [64] * 4:
-        fail(f"requests did not finish with 64 tokens: {[len(o) for o in outs]}")
+    if [len(o) for o in outs] != [MOE_GEN] * 4:
+        fail(f"requests did not finish with {MOE_GEN} tokens: "
+             f"{[len(o) for o in outs]}")
     if not all(0 <= t < cfg.vocab_size for o in outs for t in o):
         fail("token id out of range")
     L = cfg.num_hidden_layers
@@ -1934,25 +1989,27 @@ def moe_layer_serve_phase(held_before):
              f"{st['prefill_chunks']} chunks")
     del srv
     # Phase 16 on the same weights: a second copy of 61 GB would not fit.
-    moe_engine = engine_phase("moe", cfg, eng.params)
+    moe_engine = engine_phase("moe", cfg, eng.params, gen=MOE_GEN)
     tp_moe_engine = tp_moe_engine_phase(cfg, eng.params)
+    ep_engine = ep_engine_phase(cfg, eng.params)
     del eng
     torch.cuda.empty_cache()
-    return moe_engine, tp_moe_engine
+    return moe_engine, tp_moe_engine, ep_engine
 
 
 class RouteLog:
     """Records the expert ids and the fp32 router logits of every
-    ``tp_moe.route`` call (the layer lane's and the plain forward's
-    router) while active."""
+    ``tp_moe.route`` and ``ep_moe.route`` call (the layer lane's, the
+    plain forward's and the expert-parallel layer's router) while
+    active."""
 
     def __init__(self):
         self.calls, self.logits = [], []
 
     def __enter__(self):
-        from triton_dist_tpu_torch.layers import tp_moe
+        from triton_dist_tpu_torch.layers import ep_moe, tp_moe
 
-        self._orig = orig = tp_moe.route
+        self._orig = orig = ep_moe.route   # tp_moe's is the same function
 
         def recording(router_w, x, *a, **kw):
             ids, w = orig(router_w, x, *a, **kw)
@@ -1960,13 +2017,13 @@ class RouteLog:
             self.logits.append((x.float() @ router_w.float().T).cpu().numpy())
             return ids, w
 
-        tp_moe.route = recording
+        tp_moe.route = ep_moe.route = recording
         return self
 
     def __exit__(self, *exc):
-        from triton_dist_tpu_torch.layers import tp_moe
+        from triton_dist_tpu_torch.layers import ep_moe, tp_moe
 
-        tp_moe.route = self._orig
+        tp_moe.route = ep_moe.route = self._orig
 
 
 def moe_parity_phase():
@@ -2254,13 +2311,14 @@ def group_gemm_kernel_phase():
     return out
 
 
-def engine_phase(label, cfg, params):
+def engine_phase(label, cfg, params, gen=64):
     """Phase 16: ``Engine(cfg, mode="fused").serve`` of a (4, 512) prompt
-    batch for 64 tokens and monolithic serving (``serving(num_slots=4,
-    page=32)``, no buckets) of the 1000/700/300/60-token prompts for 64
-    tokens each, on ``params`` at full depth. Every prefill layer must
-    launch the flash-attention kernel once and, for MoE, the grouped GEMM
-    twice; monolithic decode ticks run the paged decode kernel."""
+    batch for ``gen`` tokens and monolithic serving (``serving(
+    num_slots=4, page=32)``, no buckets) of the 1000/700/300/60-token
+    prompts for ``gen`` tokens each, on ``params`` at full depth. Every
+    prefill layer must launch the flash-attention kernel once and, for
+    MoE, the grouped GEMM twice; monolithic decode ticks run the paged
+    decode kernel."""
     from triton_dist_tpu_torch import Engine
 
     eng = Engine(cfg, mode="fused", params=params, device="cuda",
@@ -2273,13 +2331,13 @@ def engine_phase(label, cfg, params):
     zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    toks = eng.serve(ids, gen_len=64)
+    toks = eng.serve(ids, gen_len=gen)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     n = read_counts()
-    print(f"[{label}-engine] Engine.serve {ENGINE_IDS} + 64 tokens in "
+    print(f"[{label}-engine] Engine.serve {ENGINE_IDS} + {gen} tokens in "
           f"{wall:.2f} s; kernel launches {n}")
-    if tuple(toks.shape) != (4, 64) or not bool(
+    if tuple(toks.shape) != (4, gen) or not bool(
             ((toks >= 0) & (toks < cfg.vocab_size)).all()):
         fail(f"Engine.serve gave {tuple(toks.shape)} tokens or ids out of "
              "range")
@@ -2317,7 +2375,7 @@ def engine_phase(label, cfg, params):
                for m in (1000, 700, 300, 60)]
     zero_counts()
     t0 = time.perf_counter()
-    outs = srv.generate(prompts, max_new_tokens=64)
+    outs = srv.generate(prompts, max_new_tokens=gen)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     m = read_counts()
@@ -2328,7 +2386,7 @@ def engine_phase(label, cfg, params):
           f"{st['tokens_per_s']:.1f} tokens/s, prefill "
           f"{st['prefill_tokens_per_s']:.1f} tokens/s; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    if [len(o) for o in outs] != [64] * 4 or st["prefill_calls"] != 4:
+    if [len(o) for o in outs] != [gen] * 4 or st["prefill_calls"] != 4:
         fail(f"monolithic serving: {[len(o) for o in outs]} tokens, "
              f"{st['prefill_calls']} prefill calls")
     if (m["flash"] != L * 4 or m["group_gemm"] != gg_per * L * 4
@@ -3931,7 +3989,7 @@ def row17_tp_cases(sh, sets, s0, n, gen):
     s_full = n * s0["x_s"].shape[1]
     down_sets = [dict(a=torch.randn(n, s_full, fl, generator=gen,
                                     device=dev, dtype=torch.bfloat16),
-                      te=x["te"].reshape(-1)) for x in sets]
+                      te=x["te"].reshape(-1), used=x["used"]) for x in sets]
     gu_sets = [dict(a=x["x_s"].reshape(1, s_full, d).expand(n, -1, -1)
                     .contiguous(), te=x["te"].reshape(-1)) for x in sets]
 
@@ -3978,6 +4036,26 @@ def row17_tp_cases(sh, sets, s0, n, gen):
              nbytes=2 * (n * s_full * fl + n * owned_all * d * fl
                          + n * s_full * d),
              flops=2 * n * s_full * fl * d),
+        dict(key="gg_down_used", label=f"group_gemm tp (row 17) down as "
+                                       f"the fused prefill runs it: row 19's "
+                                       f"used-tile counts "
+                                       f"{s0['used'].tolist()} of "
+                                       f"{s0['te'].shape[1]} a chunk",
+             mod=None, tol=TOL_GG, sets=down_sets,
+             call=lambda s: gg.grouped_gemm_tiles(s["a"], wdn, s["te"],
+                                                  used=s["used"]),
+             plain=lambda s: gg.grouped_gemm_tiles_ref(s["a"], wdn, s["te"],
+                                                       used=s["used"]),
+             library=library(down_sets[0]["a"],
+                             wdn.transpose(2, 3).contiguous(), te0),
+             comp=None,
+             faults=(("a used-tile count one short",
+                      lambda: gg.grouped_gemm_tiles(
+                          down_sets[0]["a"], wdn, te0,
+                          used=(s0["used"] - 1).clamp(min=0))),),
+             nbytes=2 * (n * int(s0["used"].sum()) * tm * fl
+                         + n * owned * d * fl + n * s_full * d),
+             flops=2 * n * int(s0["used"].sum()) * tm * fl * d),
         dict(key="gg_gate_up", label=f"group_gemm tp (row 17) gate/up: {n} "
                                      f"ranks x S_full {s_full} tm {tm} d {d} "
                                      f"2F_loc {2 * fl}, expert stride "
@@ -4255,6 +4333,579 @@ def tp_moe_engine_phase(cfg, params):
     return dict(runs=runs, parity=worst, layer_counts=layer_counts)
 
 
+EP_CAP = 2048             # phase 28's dense chunk rows; phase 29's capacity
+EP_DECODE_ROWS = 32       # a decode batch of 4 slots x top-8
+EP_GEN = 16               # tokens phase 29's full-depth serve generates
+# Phase 29's "ll" decode against "ar" on the same cache: the int8 wire
+# moves each exchanged row by up to half a code (absmax / 254 of its row)
+# twice a layer; 0.15 is phase 14's served-logits limit.
+TOL_EP_LL = 0.15
+
+
+def ep_kernel_cases(mesh):
+    """Phase 28's operands at Qwen3-30B-A3B tp = 4 shapes (bf16, d 2048,
+    seed 61): each case its key, label, ``TP_SETS`` input sets (distinct
+    data in every (source, destination) chunk), the kernel call, its plain
+    version, the kernel alone on a preallocated output for the timing
+    where the call allocates, one library call or None, planted faults,
+    a lost-signal call or None, the comparison (``exact``: bit for bit),
+    and the bytes / operations of its bound (this run's data: the rows
+    that move)."""
+    from types import SimpleNamespace
+
+    from triton_dist_tpu_torch.layers import ep_moe
+    from triton_dist_tpu_torch.layers.norm import rms_norm
+    from triton_dist_tpu_torch.ops import ag_moe, ep_a2a
+    from triton_dist_tpu_torch.ops import all_to_all as a2a
+    from triton_dist_tpu_torch.ops import group_gemm as gg
+    from triton_dist_tpu_torch.ops import low_latency as ll
+
+    cfg = moe_cfg()
+    d, f = cfg.hidden_size, cfg.moe_intermediate_size
+    e, k = cfg.num_experts, cfg.num_experts_per_tok
+    n, dev, t_loc = TP, mesh.device, TP_MOE_TOKENS
+    e_loc = e // n
+    g = torch.Generator(device=dev).manual_seed(61)
+    bf = dict(device=dev, dtype=torch.bfloat16)
+    kw = dict(ctx=mesh, axis="tp")
+
+    def distinct(shape, dtype=torch.bfloat16):
+        if dtype == torch.int32:       # below 2**24: exact in fp32 too
+            return torch.randint(-2 ** 23, 2 ** 23, shape, generator=g,
+                                 device=dev, dtype=dtype)
+        return torch.randn(shape, generator=g, device=dev, dtype=dtype)
+
+    cases = []
+    # Row 18, dense: the capped dispatch's tokens and expert ids.
+    for key, tail, dtype in (("a2a_dense", (d,), torch.bfloat16),
+                             ("a2a_dense_ids", (1,), torch.int32)):
+        sets = [distinct((n, n, EP_CAP, *tail), dtype)
+                for _ in range(TP_SETS)]
+        x0 = sets[0]
+        cases.append(dict(
+            key=key, label=f"all_to_all dense (row 18) {n} ranks x {n} peers "
+                           f"x C {EP_CAP} x {tail[0]} {str(dtype)[6:]}",
+            sets=sets, exact=True,
+            call=lambda x, **kw_: a2a.all_to_all(x, **kw, **kw_),
+            plain=a2a.all_to_all_ref, timed=None,
+            library=lambda x: x.transpose(0, 1).contiguous(),
+            faults=(("a slot index off by one", lambda x0=x0: a2a.all_to_all(
+                x0, fault=a2a.FAULTS["slot_off_by_one"], check=True,
+                **kw)),),
+            lost=lambda x0=x0, **kw_: a2a.all_to_all(
+                x0, fault=a2a.FAULTS["lost_signal"], **kw, **kw_),
+            nbytes=2 * x0.numel() * x0.element_size(), flops=0))
+
+    # Row 18, ragged: 512 tokens a rank x top-8 under a random router of
+    # the model's init scale, and under the skew router (every assignment
+    # on rank 0's experts: the +g/-g pair of tests/test_ep_serving.py).
+    router = torch.randn(e, d, generator=g, **bf) * d ** -0.5
+    skew = torch.zeros(e, d, **bf)
+    skew[0] = torch.randn(d, generator=g, **bf)
+    skew[1] = -skew[0]
+    r_rows = n * t_loc * k
+    ragged = {}
+    for key, rw in (("a2a_ragged", router), ("a2a_ragged_skew", skew)):
+        sets = []
+        for _ in range(TP_SETS):
+            x = rms_norm(torch.randn(n * t_loc, d, generator=g, **bf),
+                         torch.ones(d, **bf))
+            ids, _ = ep_moe.route(rw, x, k)
+            ids = ids.view(n, t_loc * k)
+            st, mats = ep_a2a.exchange_plan((ids // e_loc).to(torch.int32))
+            rows = x.view(n, t_loc, d).repeat_interleave(k, 1)
+            op = rows[torch.arange(n, device=dev)[:, None], st.perm]
+            sets.append(dict(x=x, ids=ids, op=op.contiguous(), mats=mats,
+                             st=st, buf=torch.zeros(n, r_rows, d, **bf)))
+        s0 = sets[0]
+        moved = int(s0["mats"][1].sum())
+        if key == "a2a_ragged_skew" and int(s0["mats"][1][:, 1:].sum()):
+            fail("the skew router sent rows past rank 0")
+        ragged[key] = sets
+        cases.append(dict(
+            key=key, label=f"all_to_all ragged (row 18) {n} ranks x "
+                           f"{t_loc * k} rows x {d} bf16, {moved} moved, "
+                           + ("every row to rank 0" if "skew" in key
+                              else "router"),
+            sets=sets, exact=True,
+            call=lambda s, **kw_: a2a.ragged_all_to_all(
+                s["op"], torch.zeros_like(s["buf"]), *s["mats"], **kw,
+                **kw_),
+            plain=lambda s: a2a.ragged_all_to_all_ref(
+                s["op"], torch.zeros_like(s["buf"]), *s["mats"]),
+            timed=lambda s: a2a.ragged_all_to_all(s["op"], s["buf"],
+                                                  *s["mats"], **kw),
+            library=None,
+            # The fault moves rank 0's chunk for rank 1, which the skew
+            # router leaves empty: the router sets carry it.
+            faults=() if "skew" in key else (
+                ("a slot index off by one",
+                 lambda s0=s0: a2a.ragged_all_to_all(
+                     s0["op"], torch.zeros_like(s0["buf"]), *s0["mats"],
+                     fault=a2a.FAULTS["slot_off_by_one"], check=True,
+                     **kw)),),
+            lost=lambda s0=s0, **kw_: a2a.ragged_all_to_all(
+                s0["op"], torch.zeros_like(s0["buf"]), *s0["mats"],
+                fault=a2a.FAULTS["lost_signal"], **kw, **kw_),
+            nbytes=2 * moved * d * 2 + 3 * 4 * n * n, flops=0))
+
+    # Row 23: a decode batch (4 slots x top-8 rows to every peer), int8 and
+    # fp8, the steps alternating parity.
+    for wire in (torch.int8, torch.float8_e4m3fn):
+        name = "int8" if wire == torch.int8 else "fp8"
+        sets = [distinct((n, n, EP_DECODE_ROWS, d)) for _ in range(TP_SETS)]
+        x0 = sets[0]
+        stale = distinct((n, n, EP_DECODE_ROWS, d))
+
+        def wrong_parity(x0=x0, stale=stale, wire=wire):
+            # Other codes in the parity-0 slot: a put to the other parity
+            # leaves the receiver reading them.
+            ll.ll_a2a(stale, step=0, wire_dtype=wire, **kw)
+            return ll.ll_a2a(x0, step=0, wire_dtype=wire, check=True,
+                             fault=ll.FAULTS["wrong_parity"], **kw)
+
+        cases.append(dict(
+            key=f"ll_{name}", label=f"ll_a2a (row 23) {name} {n} ranks x {n} "
+                                    f"peers x {EP_DECODE_ROWS} x {d}",
+            sets=sets, exact=True, step=True,
+            call=lambda x, step=0, wire=wire, **kw_: ll.ll_a2a(
+                x, step=step, wire_dtype=wire, **kw, **kw_),
+            plain=lambda x, wire=wire: ll.ll_a2a_ref(x, wire), timed=None,
+            library=None,
+            faults=(("a wrong parity", wrong_parity),
+                    ("scales from the wrong row",
+                     lambda x0=x0, wire=wire: ll.ll_a2a(
+                         x0, wire_dtype=wire, check=True,
+                         fault=ll.FAULTS["wrong_scale_row"], **kw))),
+            lost=lambda x0=x0, wire=wire, **kw_: ll.ll_a2a(
+                x0, wire_dtype=wire, fault=ll.FAULTS["lost_signal"], **kw,
+                **kw_),
+            nbytes=2 * x0.numel() * 2, flops=0))
+
+    # Row 17's per-rank form: each rank's received rows of the router sets
+    # (drop-free envelope n·T·K) in the row-tile layout, every rank's own
+    # tile map and used-tile count, the experts' slices of one weight.
+    wg, wu = (torch.randn(e, f, d, generator=g, **bf) * d ** -0.5
+              for _ in range(2))
+    sh = ep_moe.param_specs(SimpleNamespace(router=router, w_gate=wg,
+                                            w_up=wu, w_down=wg), n)
+    w = (sh["w_gate"], sh["w_up"])
+    tm = ag_moe.suggested_block_m(t_loc * k, 1, e_loc, 256)
+    gsets = []
+    for s in ragged["a2a_ragged"]:
+        (rows, loc), _ = ep_a2a.ragged_exchange(
+            (s["x"].view(n, t_loc, d).repeat_interleave(k, 1),
+             (s["ids"] % e_loc).to(torch.int32)),
+            (s["ids"] // e_loc).to(torch.int32), (0, -1), **kw)
+        x_s, te, src = ag_moe.prepare_expert_rows(rows, loc, e_loc, tm)
+        gsets.append(dict(x_s=x_s, te=te, used=ag_moe.tiles_used(src, tm)[
+            :, None].contiguous(), real=int((loc >= 0).sum())))
+    g0 = gsets[0]
+    real_tiles = torch.arange(g0["te"].shape[1], device=dev)[None] < g0[
+        "used"]
+    owned = sum(torch.unique(g0["te"][r][real_tiles[r]]).numel()
+                for r in range(n))
+    # Library: one torch._grouped_mm over the (rank, expert) groups of the
+    # real rows, sorted outside the timing.
+    row_e = g0["te"].long().repeat_interleave(tm, 1)             # (n, S)
+    real_rows = g0["x_s"].abs().sum(-1) > 0
+    gid = torch.where(real_rows, row_e + e_loc * torch.arange(
+        n, device=dev)[:, None], n * e_loc).reshape(-1)
+    order = torch.argsort(gid, stable=True)
+    counts = torch.bincount(gid, minlength=n * e_loc + 1)[:n * e_loc]
+    lib = grouped_mm_call(
+        g0["x_s"].reshape(-1, d)[order][:int(counts.sum())],
+        torch.cat(w, 2).reshape(n * e_loc, 2 * f, d).transpose(1, 2),
+        torch.cumsum(counts, 0).to(torch.int32))
+    bad_te = torch.roll(g0["te"], 1, 0).contiguous()
+    cut = (g0["used"] - 1).clamp(min=0)
+    cases.append(dict(
+        key="gg_ep", label=f"group_gemm ep (row 17) gate/up: {n} ranks x S "
+                           f"{g0['x_s'].shape[1]} tm {tm} d {d} 2f {2 * f}, "
+                           f"per-rank maps, {g0['real']} real rows, used "
+                           f"tiles {g0['used'].flatten().tolist()}",
+        sets=gsets, exact=False, tol=TOL_GG,
+        call=lambda s: gg.grouped_gemm_tiles(s["x_s"], w, s["te"],
+                                             used=s["used"]),
+        plain=lambda s: gg.grouped_gemm_tiles_ref(s["x_s"], w, s["te"],
+                                                  used=s["used"]),
+        timed=None, library=lib,
+        faults=(("a rank's tile map from the next rank",
+                 lambda: gg.grouped_gemm_tiles(g0["x_s"], w, bad_te,
+                                               used=g0["used"])),
+                ("a used-tile count one short",
+                 lambda: gg.grouped_gemm_tiles(g0["x_s"], w, g0["te"],
+                                               used=cut))),
+        lost=None,
+        nbytes=2 * (g0["real"] * d + owned * 2 * f * d
+                    + g0["x_s"].shape[0] * g0["x_s"].shape[1] * 2 * f),
+        flops=2 * g0["real"] * d * 2 * f))
+    return cases
+
+
+def ep_kernel_phase():
+    """Phase 28: rows 18 (dense: the capped dispatch's tokens and expert
+    ids; ragged: the drop-free hop under a random router and the skew
+    router) and 23 (int8 and fp8, the decode batch) against their plain
+    versions at Qwen3-30B-A3B tp = 4 shapes, bit for bit, and row 17's
+    per-rank form (the EP experts' gate/up over the router's received rows)
+    within TOL_GG; then TP_REPEATS launches in a row on the TP_SETS input
+    sets in turn (row 23's steps alternating parity), each held to the
+    plain version of its own set; the planted faults (a slot index off by
+    one; a wrong parity and scales from the wrong row; another rank's tile
+    map and a used-tile count one short) caught; a signal never sent in
+    each of rows 18 and 23 raising CommTimeoutError within its bound and
+    the next call sound. Times (L2 flushed) against the byte bound, the
+    plain version and the library call. Returns, by key, each case's
+    numbers."""
+    from triton_dist_tpu_torch import make_mesh
+    from triton_dist_tpu_torch.shmem import workspace as shmem
+
+    t_phase = time.perf_counter()
+    mesh = make_mesh(tp=TP)
+    out = {}
+    for c in ep_kernel_cases(mesh):
+        label, sets = c["label"], c["sets"]
+        tol = c.get("tol", (0.0, 0.0))
+        ck = {"check": True} if c["lost"] is not None else {}
+
+        def misses(got, want):
+            if c["exact"]:
+                return (got != want).any().int()
+            diff = (got.float() - want.float()).abs()
+            return (diff > tol[0] + tol[1] * want.float().abs()).any().int()
+
+        wants = [c["plain"](x) for x in sets]
+        got = c["call"](sets[0], **ck)
+        if c["exact"]:
+            n_bad = int((got != wants[0]).sum())
+            print(f"[{label}] bit for bit against the plain version: "
+                  f"{n_bad} elements differ")
+            if n_bad:
+                fail(f"{label}: the kernel disagrees with its plain version")
+            err = 0.0
+        else:
+            err = check_close(label, got, wants[0], tol)
+        bad = torch.zeros((), dtype=torch.int32, device=mesh.device)
+        for i in range(TP_REPEATS):
+            j = (i + 1) % TP_SETS         # never the previous call's set
+            step = {"step": i} if c.get("step") else {}
+            bad += misses(c["call"](sets[j], **step), wants[j])
+        shmem.check_errors(mesh.device, sync=True)
+        print(f"[{label}] {TP_REPEATS} launches in a row on {TP_SETS} input "
+              f"sets in turn: {int(bad)} disagree")
+        if int(bad):
+            fail(f"{label}: {int(bad)} of {TP_REPEATS} repeated launches "
+                 "disagree")
+        want = wants[0]
+        del wants
+        for what, fn in c["faults"]:
+            fault_control(f"{label} {what}", fn(), want, tol)
+        if c["lost"] is not None:
+            t0 = time.perf_counter()
+            try:
+                c["lost"](timeout_s=TP_TIMEOUT_S, check=True)
+                fail(f"{label}: a signal never sent did not raise")
+            except shmem.CommTimeoutError as e:
+                print(f"[{label}] lost signal raised in "
+                      f"{time.perf_counter() - t0:.3f} s (bound "
+                      f"{TP_TIMEOUT_S} s a wait): {e}")
+            if time.perf_counter() - t0 > 5.0:
+                fail(f"{label}: the lost signal took too long to raise")
+            again = c["call"](sets[0], check=True)
+            if misses(again, want):
+                fail(f"{label}: the call after the timeout disagrees")
+        x0 = sets[0]
+        k_ms = time_ms(functools.partial(c["timed"] or c["call"], x0))
+        p_ms = time_ms(functools.partial(c["plain"], x0), reps=3)
+        y_ms = (time_ms(functools.partial(c["library"], x0))
+                if c["library"] is not None else None)
+        b_ms, b_by = bound(c["nbytes"], c["flops"])
+        print(f"[ep-kernel] {label}: kernel_ms {k_ms:.4f} plain_ms "
+              f"{p_ms:.4f} bound_ms {b_ms:.5f} ({b_by}; "
+              f"{c['nbytes'] / 1e6:.2f} MB, {c['flops'] / 1e9:.2f} GFLOP) "
+              f"library_ms {y_ms}; {c['nbytes'] / k_ms / 1e6:.1f} GB/s")
+        out[c["key"]] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                             bound_by=b_by, library_ms=y_ms, err=err)
+        del c, x0, sets
+    shmem.release_all()
+    torch.cuda.empty_cache()
+    print(f"[ep-kernel] phase 28 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def ep_want(layers, *, mode="fused", prefill=True, decode_steps=0,
+            transport="ll", capped=False) -> dict:
+    """Exact launches of an expert-parallel tp = 4 run: a prefill layer
+    launches flash attention once, in "fused" AG+GEMM and GEMM+RS once
+    (the attention), row 18 three times (tokens and expert ids out, the
+    outputs back; ragged, or dense when ``capped``) and row 17 twice
+    (gate/up, down); a decode layer GEMM+AR once unless the mode is "xla"
+    (the attention), and per ``transport``: "ll" row 23 twice and row 17
+    twice, "ragged" row 18 (ragged) three times and row 17 twice, "ar"
+    nothing (JAX's einsums)."""
+    pre = layers if prefill else 0
+    dec = layers * decode_steps
+    a2a_pre = "a2a_dense" if capped else "a2a_ragged"
+    want = {"flash": pre, "group_gemm": 2 * pre,
+            a2a_pre: 3 * pre, "all_to_all": 3 * pre}
+    if mode == "fused":
+        want.update(ag_gemm=pre, gemm_rs=pre)
+    if mode != "xla":
+        want.update(gemm_ar=dec, ar_ll=dec)
+    if transport == "ll":
+        want.update(ll_a2a=2 * dec)
+    if transport in ("ll", "ragged"):
+        want["group_gemm"] += 2 * dec
+    if transport == "ragged":
+        want["all_to_all"] += 3 * dec
+        want["a2a_ragged"] = want.get("a2a_ragged", 0) + 3 * dec
+    return {k: v for k, v in want.items() if v}
+
+
+def ep_lost_signal_raises(eng, ids):
+    """A signal never sent inside ``Engine.prefill`` (row 18's ragged hop)
+    and inside ``Engine.decode`` (row 23) raises CommTimeoutError from that
+    same call; the engine's next steps give the logits they gave before."""
+    from unittest import mock
+
+    from triton_dist_tpu_torch.layers import ep_moe
+    from triton_dist_tpu_torch.ops import all_to_all as a2a
+    from triton_dist_tpu_torch.ops import ep_a2a
+    from triton_dist_tpu_torch.ops import low_latency as ll
+    from triton_dist_tpu_torch.shmem import workspace as shmem
+
+    logits, cache = eng.prefill(ids)
+    tok = torch.argmax(logits, -1)
+    want, _ = eng.decode(tok, cache)
+    for step, mod, where, name in (
+            ("prefill", a2a, ep_a2a, "ragged_all_to_all"),
+            ("decode", ll, ep_moe, "ll_a2a")):
+        _, cache = eng.prefill(ids)
+        lost = functools.partial(getattr(mod, name),
+                                 fault=mod.FAULTS["lost_signal"],
+                                 timeout_s=TP_TIMEOUT_S)
+        t0 = time.perf_counter()
+        with mock.patch.object(where, name, lost):
+            try:
+                if step == "prefill":
+                    eng.prefill(ids)
+                else:
+                    eng.decode(tok, cache)
+                fail(f"ep engine: a lost signal in {name} did not raise "
+                     f"from Engine.{step}")
+            except shmem.CommTimeoutError as e:
+                print(f"[ep-engine] a lost signal in {name} raised from "
+                      f"Engine.{step} in {time.perf_counter() - t0:.3f} s: "
+                      f"{e}")
+    logits2, cache = eng.prefill(ids)
+    got, _ = eng.decode(tok, cache)
+    check_close("ep engine prefill after the faults", logits2, logits,
+                (1e-2, 0.0))
+    check_close("ep engine decode after the faults", got, want, (1e-2, 0.0))
+
+
+def routed_rows(log, ref_log, names, calls):
+    """judge_flips' rows: ``names[i]`` → one (ids, reference ids, logits,
+    reference logits) per router call index in ``calls``, row i."""
+    return {name: [(set(log.calls[c][i].tolist()),
+                    set(ref_log.calls[c][i].tolist()), log.logits[c][i],
+                    ref_log.logits[c][i]) for c in calls]
+            for i, name in enumerate(names)}
+
+
+def ep_engine_phase(cfg, params):
+    """Phase 29: ``Engine(qwen3_moe_30b_a3b, mesh=make_mesh(tp=4),
+    mode="fused", moe_impl="ep", ep_transport="ll").serve`` of a (4, 512)
+    batch for EP_GEN tokens at full width and depth on phase 13's weights
+    (each rank's experts a view: no second copy). Counts set to zero just
+    before the serve and read just after, exact (:func:`ep_want`). Prefill
+    and decode-step times, the idle share and a torch.profiler split of
+    both. Then at 2 layers (fresh weights, seed 1), against the tp = 4
+    "xla" MoE engine (tensor-parallel experts): the prefill logits of
+    "fused" and "xla" EP engines (routing flips judged by
+    ``judge_flips``; rows whose last position routes alike within
+    TOL_MK_SERVED), one decode step in each of "ar",
+    "ragged" and "ll" (rows routed alike within TOL_MK_SERVED), the capped
+    prefill (``ep_capacity=EP_CAP``, its drops printed), each with exact
+    launch counts; the "ll" decode against "ar" on the same cache within
+    TOL_EP_LL; and a lost signal in rows 18 and 23 raising from the engine
+    step it happened in."""
+    from unittest import mock
+
+    from triton_dist_tpu_torch import Engine, make_mesh
+    from triton_dist_tpu_torch.layers import ep_moe
+    from triton_dist_tpu_torch.shmem import workspace as shmem
+
+    t_phase = time.perf_counter()
+    mesh = make_mesh(tp=TP)
+    L = cfg.num_hidden_layers
+    rng = np.random.RandomState(5)
+    ids = rng.randint(0, cfg.vocab_size, ENGINE_IDS)
+    warm = rng.randint(0, cfg.vocab_size, (1, 64))
+    eng = Engine(cfg, mesh=mesh, mode="fused", params=params, max_len=1024,
+                 moe_impl="ep", ep_transport="ll")
+    eng.serve(warm, gen_len=2)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = eng.serve(ids, gen_len=EP_GEN)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    print(f"[ep-engine] Engine(qwen3_moe_30b_a3b, tp={TP}, mode=fused, "
+          f"moe_impl=ep, ep_transport=ll).serve {ENGINE_IDS} + {EP_GEN} "
+          f"tokens in {wall:.2f} s; launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    if tuple(toks.shape) != (4, EP_GEN) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        fail(f"ep engine: {tuple(toks.shape)} tokens or ids out of range")
+    expect_launches("ep engine fused ll", counts,
+                    ep_want(L, decode_steps=EP_GEN - 1))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        logits, cache = eng.prefill(ids)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3 / 2
+    tok = torch.argmax(logits, -1).to(torch.int32)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        logits, cache = eng.decode(tok, cache)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / 3
+    shmem.check_errors(mesh.device, sync=True)
+    print(f"[ep-engine] {torch.cuda.get_device_name(0)}: prefill of "
+          f"{ENGINE_IDS} {prefill_ms:.1f} ms, decode step at 512 "
+          f"{decode_ms:.2f} ms")
+    prof_dec = profile_window(lambda: eng.decode(tok, cache), 1,
+                              f"tp={TP} EP ll Engine.decode step")
+    del logits, cache
+    prof = profile_window(lambda: eng.prefill(ids), 1,
+                          f"tp={TP} EP fused Engine.prefill {ENGINE_IDS}")
+    run = dict(toks=toks.cpu().numpy().tolist(), counts=counts,
+               prefill_ms=prefill_ms, decode_ms=decode_ms, prof=prof,
+               prof_dec=prof_dec)
+    del eng
+    shmem.release_all()
+    torch.cuda.empty_cache()
+
+    # 2 layers against the tensor-parallel "xla" MoE engine.
+    cfg2 = dataclasses.replace(cfg, num_hidden_layers=2)
+    base = Engine(cfg2, mesh=mesh, mode="xla", max_len=1024, seed=1)
+    b, s_len = ENGINE_IDS
+    names = [f"token {i}" for i in range(b * s_len)]
+    with RouteLog() as ref_log:
+        want, ref_cache = base.prefill(ids)
+    tok = torch.argmax(want, -1).to(torch.int32)
+    with RouteLog() as ref_dec:
+        want_step, _ = base.decode(tok, ref_cache)
+    del ref_cache
+    worst = 0.0
+    kw = dict(mesh=mesh, params=base.params, max_len=1024, moe_impl="ep")
+
+    def held_err(label, got, ref, log, rlog, calls, rows):
+        """Rows whose routing in ``calls`` matches the reference's: their
+        max |dlogit| (at most TOL_MK_SERVED)."""
+        same = [i for i in range(rows) if all(
+            set(log.calls[c][i].tolist()) == set(rlog.calls[c][i].tolist())
+            for c in calls)]
+        diff = (got - ref).abs().max(-1).values
+        err = max((float(diff[i]) for i in same), default=0.0)
+        print(f"[ep-parity] {label}: rows {same} route as the reference: "
+              f"max |dlogit| {err:.4f} (tol {TOL_MK_SERVED}), every row "
+              f"{float(diff.max()):.4f}, logit std {float(ref.std()):.3f}")
+        if not (bool(torch.isfinite(got).all()) and err <= TOL_MK_SERVED):
+            fail(f"ep parity {label}: {err}")
+        return err
+
+    for mode in ("fused", "xla"):
+        for transport in ("ar", "ragged", "ll"):
+            e2 = Engine(cfg2, mode=mode, ep_transport=transport, **kw)
+            zero_counts()
+            with RouteLog() as log:
+                got, cache = e2.prefill(ids)
+            with RouteLog() as dlog:
+                step, _ = e2.decode(tok, cache)
+            torch.cuda.synchronize()
+            label = f"{mode} {transport}"
+            expect_launches(f"ep 2-layer {label}", read_counts(),
+                            ep_want(2, mode=mode, decode_steps=1,
+                                    transport=transport))
+            if transport == "ar":      # the prefill is the same for all three
+                flips = judge_flips(
+                    f"ep-parity {mode}", routed_rows(log, ref_log, names,
+                                                     (0, 1)),
+                    cfg.num_experts_per_tok, 2 * b * s_len, shown=4)
+                print(f"[ep-parity] {mode}: {flips} flipped (token, layer) "
+                      "pairs")
+                last = [(i + 1) * s_len - 1 for i in range(b)]
+                log.calls = [c[last] for c in log.calls]
+                rl = copy.copy(ref_log)
+                rl.calls = [c[last] for c in ref_log.calls]
+                worst = max(worst, held_err(f"{mode} prefill", got, want,
+                                            log, rl, (0, 1), b))
+            worst = max(worst, held_err(f"{label} decode step", step,
+                                        want_step, dlog, ref_dec, (0, 1),
+                                        b))
+            del e2, cache
+    # "ll" against "ar" on one cache.
+    e_ar = Engine(cfg2, mode="fused", ep_transport="ar", **kw)
+    e_ll = Engine(cfg2, mode="fused", ep_transport="ll", **kw)
+    _, cache = e_ar.prefill(ids)
+    cache2 = copy.deepcopy(cache)
+    with RouteLog() as log_ar:
+        s_ar, _ = e_ar.decode(tok, cache)
+    with RouteLog() as log_ll:
+        s_ll, _ = e_ll.decode(tok, cache2)
+    same = [i for i in range(b) if all(
+        set(log_ar.calls[c][i].tolist()) == set(log_ll.calls[c][i].tolist())
+        for c in (0, 1))]
+    gap = (s_ll - s_ar).abs().max(-1).values
+    ll_gap = max((float(gap[i]) for i in same), default=0.0)
+    print(f"[ep-parity] fused ll against ar on the same cache: rows {same} "
+          f"route alike: max |dlogit| {ll_gap:.4f} (tol {TOL_EP_LL}), every "
+          f"row {[round(float(v), 4) for v in gap]}")
+    if not (bool(torch.isfinite(s_ll).all()) and ll_gap <= TOL_EP_LL):
+        fail(f"ep ll decode: {ll_gap} from ar on the same cache")
+    del e_ar, cache, cache2
+    # The capped prefill: row 18's dense form.
+    dropped = []
+    orig_dispatch = ep_moe.ep_dispatch
+
+    def counting(*a, **k):
+        out = orig_dispatch(*a, **k)
+        dropped.append(int(out[2].num_dropped.sum()))
+        return out
+
+    e_cap = Engine(cfg2, mode="fused", ep_capacity=EP_CAP, **kw)
+    zero_counts()
+    with mock.patch.object(ep_moe, "ep_dispatch", counting), \
+            RouteLog() as log:
+        got, _ = e_cap.prefill(ids)
+    torch.cuda.synchronize()
+    cap_counts = read_counts()
+    expect_launches("ep 2-layer capped prefill", cap_counts,
+                    ep_want(2, capped=True))
+    print(f"[ep-parity] capped prefill (ep_capacity={EP_CAP}): dropped "
+          f"assignments by layer {dropped}")
+    last = [(i + 1) * s_len - 1 for i in range(b)]
+    log.calls = [c[last] for c in log.calls]
+    rl = copy.copy(ref_log)
+    rl.calls = [c[last] for c in ref_log.calls]
+    worst = max(worst, held_err("fused capped prefill", got, want, log, rl,
+                                (0, 1), b))
+    del e_cap
+    ep_lost_signal_raises(Engine(cfg2, mode="fused", ep_transport="ll", **kw),
+                          ids)
+    del base
+    shmem.release_all()
+    torch.cuda.empty_cache()
+    print(f"[ep-engine] phase 29 took {time.perf_counter() - t_phase:.1f} s")
+    return dict(run=run, parity=worst, ll_gap=ll_gap, dropped=dropped,
+                dense=cap_counts["a2a_dense"])
+
+
 def grid_blocks() -> int:
     from triton_dist_tpu_torch.megakernel import builder as mkb
 
@@ -4283,6 +4934,7 @@ def main():
     numbers.update(quant_kernel_phase())
     numbers["tp"] = tp_kernel_phase()
     numbers["tp_moe"] = tp_moe_kernel_phase()
+    numbers["ep"] = ep_kernel_phase()
     mk_quant_write_phase()
     launches, layer_st, dense_engine, tp_engine = serve_phase()
     parity_phase()
@@ -4293,7 +4945,8 @@ def main():
     mk_chunk_parity_phase()
     moe = moe_kernel_phase()
     moe_serve = moe_mk_serve_phase()
-    moe_engine, tp_moe_engine = moe_layer_serve_phase(moe_serve["held"])
+    moe_engine, tp_moe_engine, ep_engine = moe_layer_serve_phase(
+        moe_serve["held"])
     moe_parity_phase()
     checkpoint_phase()
     q21 = quant_spec_serve_phase()
@@ -4456,9 +5109,10 @@ def main():
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     # Row 17's tensor-parallel form (every rank's down projection in one
-    # launch, on strided shards of w_down): phase 26's time, launches over
+    # launch, on strided shards of w_down, skipping each chunk's padded
+    # tail by row 19's used-tile counts): phase 26's time, launches over
     # phase 27's serves and row 20's layer entry point.
-    t = numbers["tp_moe"]["gg_down"]
+    t = numbers["tp_moe"]["gg_down_used"]
     rows.append({
         "name": "group_gemm_tiles[tp]", "route": "cuda",
         "source": "triton_dist_tpu_torch/csrc/group_gemm.cu",
@@ -4467,6 +5121,31 @@ def main():
         "max_abs_err": max(t["err"], numbers["tp_moe"]["gg_gate_up"]["err"]),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    # The expert-parallel kernels: phase 28's times (row 18's dense form
+    # on the tokens, its ragged form under the router, row 23 with int8
+    # codes as the engine runs it, row 17's per-rank gate/up); launches
+    # over phase 29's full-depth serve, and for the dense form (capped
+    # dispatch only) over its 2-layer capped prefill.
+    ep_counts = ep_engine["run"]["counts"]
+    for key, name, source, replaces, launches_ in (
+            ("a2a_dense", "all_to_all_kernel[dense]", "all_to_all.cu",
+             "triton_dist_tpu/ops/all_to_all.py:33", ep_engine["dense"]),
+            ("a2a_ragged", "all_to_all_kernel[ragged]", "all_to_all.cu",
+             "triton_dist_tpu/ops/all_to_all.py:33",
+             ep_counts["a2a_ragged"]),
+            ("ll_int8", "ll_a2a_kernel", "ll_a2a.cu",
+             "triton_dist_tpu/ops/low_latency.py:290", ep_counts["ll_a2a"]),
+            ("gg_ep", "group_gemm_tiles[ep]", "group_gemm.cu",
+             "triton_dist_tpu/ops/group_gemm.py:51",
+             ep_counts["group_gemm"])):
+        t = numbers["ep"][key]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"triton_dist_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches_,
+            "max_abs_err": t["err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -61,7 +61,19 @@ combine weight by about 1 % and may swap a near-tied 8th and 9th
 expert, which is no fault), with counters equal; against the
 free-running plain run the (layer, row) pairs whose expert set differs
 are counted, at most 15 % of them (at least 2), as in
-``chip_smoke.py``."""
+``chip_smoke.py``.
+
+The expert-parallel slice (at the end): row 18's dense form at odd
+chunk sizes and element types (bf16, int32, fp32, 6-byte rows), its
+ragged form under ``ragged_exchange`` / ``ragged_return`` (random
+destinations, a cutting envelope, every row to rank 0) and row 23 (int8
+and fp8, odd row counts and widths, parities 0, 1, 0), each bit for bit
+against its plain version, 20 launches in a row, planted faults (a slot
+off by one, a wrong parity, scales from the wrong row) and lost signals;
+row 17 with per-rank tile maps and used-tile counts within one bf16
+unit; a 2-layer tp = 4 EP engine's exact launches per transport, its
+logits within 0.1 of the same engine on CPU copies; and the EP layer and
+its "ll" decode never syncing the host."""
 
 import pathlib
 import subprocess
@@ -1492,3 +1504,275 @@ def test_tp_moe_engine_launches_the_moe_kernels(dev):
         assert got == ([layers, layers, layers, 0] if mode == "fused"
                        else [0, 0, 0, 0]), (mode, got)
         assert logits.shape == (2, 512) and bool(torch.isfinite(logits).all())
+
+
+# ---- the expert-parallel slice: rows 18, 23 and row 17's per-rank form ----
+
+def _a2a_mesh(n):
+    from triton_dist_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(tp=n)
+
+
+def _a2a_rows(dev, n, c, tail, dtype, seed):
+    """(n, n, c, *tail) with a distinct value in every (sender, receiver)
+    chunk and row."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if dtype == torch.int32:
+        return torch.randint(-2 ** 30, 2 ** 30, (n, n, c, *tail),
+                             generator=g, device=dev, dtype=dtype)
+    return torch.randn(n, n, c, *tail, generator=g, device=dev,
+                       dtype=torch.float32).to(dtype)
+
+
+@pytest.mark.parametrize("tail,dtype", [
+    ((24,), torch.bfloat16), ((1,), torch.int32), ((40,), torch.float32),
+    ((2048,), torch.bfloat16),
+    ((3,), torch.bfloat16)])                 # 6-byte rows: byte copies
+@pytest.mark.parametrize("c", [1, 7, 33])
+@pytest.mark.parametrize("n", [2, 3, 4])
+def test_all_to_all_kernel_matches_plain(dev, n, c, tail, dtype):
+    """Row 18, dense form: bit for bit the transpose over the ranks."""
+    from triton_dist_tpu_torch.ops import all_to_all as a2a
+
+    x = _a2a_rows(dev, n, c, tail, dtype, n * c)
+    before = a2a.KERNEL.launches
+    got = a2a.all_to_all(x, ctx=_a2a_mesh(n), axis="tp", check=True)
+    assert a2a.KERNEL.launches == before + 1
+    assert torch.equal(got, a2a.all_to_all_ref(x))
+
+
+@pytest.mark.parametrize("n,t,k,d,recv_rows,skew", [
+    (4, 37, 8, 64, None, False), (4, 37, 8, 64, None, True),
+    (4, 37, 8, 64, 300, True), (4, 5, 8, 2048, 100, False),
+    (3, 11, 2, 24, 9, False), (3, 1, 1, 8, None, True),
+    (2, 64, 4, 2048, None, False), (2, 64, 4, 2048, 129, False)])
+def test_ragged_all_to_all_kernel_matches_plain(dev, n, t, k, d, recv_rows,
+                                                skew):
+    """Row 18's ragged form under ``ragged_exchange`` / ``ragged_return``
+    (drop-free, a cutting envelope, every row to rank 0): the kernel's
+    hops against the plain emulation on the same device, bit for bit."""
+    from triton_dist_tpu_torch.ops import all_to_all as a2a
+    from triton_dist_tpu_torch.ops import ep_a2a
+
+    g = torch.Generator(device=dev).manual_seed(t + d)
+    mesh = _a2a_mesh(n)
+    dst = (torch.zeros(n, t * k, dtype=torch.int32, device=dev) if skew
+           else torch.randint(-1, n, (n, t * k), generator=g, device=dev,
+                              dtype=torch.int32))
+    rows = torch.randn(n, t * k, d, generator=g, device=dev,
+                       dtype=torch.bfloat16)
+    ids = torch.randint(0, 99, (n, t * k), generator=g, device=dev,
+                        dtype=torch.int32)
+    outs = {}
+    for impl in ("pallas", "xla"):
+        before = a2a.KERNEL.launches
+        (r, i), st = ep_a2a.ragged_exchange((rows, ids), dst, (0, -1),
+                                            recv_rows, ctx=mesh, axis="tp",
+                                            impl=impl)
+        back = ep_a2a.ragged_return(r, st, out_rows=t * k, ctx=mesh,
+                                    axis="tp", impl=impl)
+        outs[impl] = (r, i, back)
+        assert a2a.KERNEL.launches - before == (3 if impl == "pallas" else 0)
+    for got, want in zip(outs["pallas"], outs["xla"]):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("wire", [torch.int8, torch.float8_e4m3fn])
+@pytest.mark.parametrize("n,c,d", [(4, 32, 2048), (3, 5, 136), (2, 9, 8),
+                                   (4, 1, 264)])
+def test_ll_a2a_kernel_matches_plain(dev, n, c, d, wire):
+    """Row 23, two steps back to back (parities 0 and 1), then the same
+    parity again: bit for bit the plain version (quantize, transpose,
+    dequantize), zero rows included."""
+    from triton_dist_tpu_torch.ops import low_latency as ll
+
+    mesh = _a2a_mesh(n)
+    for step in range(3):
+        x = _a2a_rows(dev, n, c, (d,), torch.bfloat16, 10 * step + n)
+        x[0, 0, 0] = 0
+        before = ll.KERNEL.launches
+        got = ll.ll_a2a(x, ctx=mesh, axis="tp", step=step, wire_dtype=wire,
+                        check=True)
+        assert ll.KERNEL.launches == before + 1
+        assert torch.equal(got, ll.ll_a2a_ref(x, wire))
+
+
+def test_a2a_kernels_repeat_without_a_miss(dev):
+    """Flags and inbound slots persist across calls (epochs): 20 launches
+    of each form in a row on fresh inputs, each bit for bit."""
+    from triton_dist_tpu_torch.ops import all_to_all as a2a
+    from triton_dist_tpu_torch.ops import low_latency as ll
+
+    mesh = _a2a_mesh(4)
+    for i in range(20):
+        x = _a2a_rows(dev, 4, 16, (256,), torch.bfloat16, i)
+        assert torch.equal(a2a.all_to_all(x, ctx=mesh, axis="tp"),
+                           a2a.all_to_all_ref(x))
+        assert torch.equal(ll.ll_a2a(x, ctx=mesh, axis="tp", step=i),
+                           ll.ll_a2a_ref(x))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("op_name,fault", [
+    ("all_to_all", "slot_off_by_one"), ("ll_a2a", "wrong_parity"),
+    ("ll_a2a", "wrong_scale_row")])
+def test_a2a_planted_fault_is_caught(dev, op_name, fault):
+    from triton_dist_tpu_torch.ops import all_to_all as a2a
+    from triton_dist_tpu_torch.ops import low_latency as ll
+
+    mesh = _a2a_mesh(4)
+    x = _a2a_rows(dev, 4, 16, (256,), torch.bfloat16, 107)
+    if op_name == "all_to_all":
+        got = a2a.all_to_all(x, ctx=mesh, axis="tp", check=True,
+                             fault=a2a.FAULTS[fault])
+        want = a2a.all_to_all_ref(x)
+    else:
+        # Other codes in the parity-0 slot, where a faulted put is missed.
+        ll.ll_a2a(x.flip(2), ctx=mesh, axis="tp", step=0)
+        got = ll.ll_a2a(x, ctx=mesh, axis="tp", step=0, check=True,
+                        fault=ll.FAULTS[fault])
+        want = ll.ll_a2a_ref(x)
+    assert not torch.equal(got[1, 0], want[1, 0])
+
+
+@pytest.mark.parametrize("op_name", ["all_to_all", "ragged", "ll_a2a"])
+def test_a2a_lost_signal_raises_within_its_bound(dev, op_name):
+    """A signal never sent: the receiver's wait gives up at its bound,
+    the wrapper raises naming the op, and the next call is sound."""
+    import time
+
+    from triton_dist_tpu_torch.ops import all_to_all as a2a
+    from triton_dist_tpu_torch.ops import low_latency as ll
+    from triton_dist_tpu_torch.shmem.workspace import CommTimeoutError
+
+    mesh = _a2a_mesh(4)
+    x = _a2a_rows(dev, 4, 8, (128,), torch.bfloat16, 11)
+    if op_name == "all_to_all":
+        def fn(**kw):
+            return a2a.all_to_all(x, ctx=mesh, axis="tp", **kw)
+        want, name = a2a.all_to_all_ref(x), "all_to_all"
+    elif op_name == "ragged":
+        m = torch.tensor([[0, 8, 16, 24]] * 4, dtype=torch.int32,
+                         device=dev)
+        s = torch.full((4, 4), 8, dtype=torch.int32, device=dev)
+        rows = x.reshape(4, 32, 128)
+
+        def fn(**kw):
+            out = torch.zeros_like(rows)
+            return a2a.ragged_all_to_all(rows, out, m, s, m.t().contiguous(),
+                                         ctx=mesh, axis="tp", **kw)
+        want, name = a2a.all_to_all_ref(x).reshape(4, 32, 128), "ragged"
+    else:
+        def fn(**kw):
+            return ll.ll_a2a(x, ctx=mesh, axis="tp", **kw)
+        want, name = ll.ll_a2a_ref(x), "ll_a2a"
+    t0 = time.perf_counter()
+    with pytest.raises(CommTimeoutError, match=rf"{name}.*rank 1"):
+        fn(fault=2, timeout_s=0.05, check=True)
+    assert time.perf_counter() - t0 < 5.0
+    assert torch.equal(fn(check=True), want)
+
+
+def test_group_gemm_per_rank_maps_and_used_tiles(dev):
+    """Row 17 with each rank's own tile map and used-tile count (the
+    expert-parallel experts: the rank's slice of the one weight at a rank
+    stride of e_loc·f·d), and with per-chunk counts shared by the ranks
+    (the tensor-parallel down projection): the plain version's values,
+    zeros past each count."""
+    g = torch.Generator(device=dev).manual_seed(17)
+    n, e_loc, tiles, tm, f, d = 4, 3, 12, 8, 96, 136
+    bf = dict(device=dev, dtype=torch.bfloat16)
+    w = torch.randn(n * e_loc, f, d, generator=g, **bf).view(n, e_loc, f, d)
+    x = torch.randn(n, tiles * tm, d, generator=g, **bf)
+    te = torch.randint(0, e_loc, (n, tiles), generator=g, device=dev,
+                       dtype=torch.int32)
+    used = torch.tensor([[12], [5], [0], [1]], dtype=torch.int32, device=dev)
+    shared = torch.tensor([3, 0, 2], dtype=torch.int32, device=dev)
+    for te_, used_ in ((te, used), (te[1].contiguous(), shared)):
+        got = group_gemm.grouped_gemm_tiles(x, w, te_, used=used_)
+        _assert_close(got, group_gemm.grouped_gemm_tiles_ref(
+            x, w, te_, used=used_), GG_TOL)
+        assert not got[2].any() if used_ is used else True
+
+
+def _ep_engine_cfg():
+    return ModelConfig.tiny_moe(vocab_size=512, hidden_size=256,
+                                num_attention_heads=8, num_key_value_heads=4,
+                                head_dim=32, num_experts=16,
+                                num_experts_per_tok=4,
+                                moe_intermediate_size=128)
+
+
+@pytest.mark.parametrize("transport,capacity", [("ll", None),
+                                                ("ragged", None),
+                                                ("ar", 64)])
+def test_ep_engine_launches_the_ep_kernels(dev, transport, capacity):
+    """A 2-layer tp = 4 EP engine on the card: a prefill layer launches
+    row 18 three times (tokens and expert ids out, outputs back) and row
+    17 twice (gate/up, down); an "ll" decode layer row 23 twice and row 17
+    twice, a "ragged" one row 18 three times and row 17 twice, an "ar" one
+    nothing; logits finite and within 0.1 of the same engine on CPU
+    copies of the weights."""
+    import copy
+
+    from triton_dist_tpu_torch import Engine, make_mesh
+    from triton_dist_tpu_torch.models import qwen_moe
+    from triton_dist_tpu_torch.ops import all_to_all as a2a
+    from triton_dist_tpu_torch.ops import low_latency as ll
+
+    cfg = _ep_engine_cfg()
+    g = torch.Generator(device=dev).manual_seed(3)
+    params = qwen_moe.init_params(cfg, generator=g, device=dev)
+    ids = torch.randint(0, 512, (2, 64), generator=g, device=dev)
+    kernels = (a2a.KERNEL, ll.KERNEL, group_gemm.KERNEL)
+    kw = dict(mode="fused", max_len=80, moe_impl="ep",
+              ep_transport=transport, ep_capacity=capacity)
+    eng = Engine(cfg, mesh=make_mesh(tp=4), params=params, **kw)
+    before = [k.launches for k in kernels]
+    logits, cache = eng.prefill(ids)
+    layers = cfg.num_hidden_layers
+    assert [k.launches - b for k, b in zip(kernels, before)] == [
+        3 * layers, 0, 2 * layers]
+    before = [k.launches for k in kernels]
+    step, _ = eng.decode(torch.argmax(logits, -1), cache)
+    want = {"ll": [0, 2, 2], "ragged": [3, 0, 2], "ar": [0, 0, 0]}[transport]
+    assert [k.launches - b for k, b in zip(kernels, before)] == [
+        v * layers for v in want]
+    cpu = Engine(cfg, mesh=make_mesh(tp=4, device="cpu"),
+                 params=copy.deepcopy(params).cpu(), **kw)
+    want_logits, want_cache = cpu.prefill(ids.cpu())
+    want_step, _ = cpu.decode(torch.argmax(want_logits, -1), want_cache)
+    for got, ref in ((logits, want_logits), (step, want_step)):
+        assert bool(torch.isfinite(got).all())
+        assert float((got.cpu() - ref).abs().max()) < 0.1
+
+
+def test_ep_layer_never_syncs_the_host(dev):
+    """``ep_moe.fwd`` (drop-free) and the "ll" decode: device ops and
+    kernel launches only."""
+    from triton_dist_tpu_torch import make_mesh
+    from triton_dist_tpu_torch.layers import ep_moe
+    from triton_dist_tpu_torch.ops.ep_a2a import create_ep_context
+
+    cfg = _ep_engine_cfg()
+    g = torch.Generator(device=dev).manual_seed(4)
+    moe = ep_moe.init(cfg, generator=g, device=dev)
+    ctx = create_ep_context(make_mesh(tp=4), num_experts=16, topk=4,
+                            axis="tp")
+    x = torch.randn(4, 32, 256, generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    xd = x[:, :4].contiguous()
+    xd[1:] = xd[0]
+    runs = (lambda: ep_moe.fwd(moe, x, ctx, topk=4),
+            lambda: ep_moe.fwd_decode(moe, xd, topk=4, axis="tp",
+                                      transport="ll", ep_ctx=ctx, layer=1))
+    wants = [fn() for fn in runs]                    # builds and loads
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gots = [fn() for fn in runs]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for got, want in zip(gots, wants):
+        assert torch.equal(got, want)

@@ -164,3 +164,19 @@ def test_tp_slice_modules_are_checked_and_need_cuda():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make_mesh(tp=4)
     assert make_mesh(tp=4, device="cpu").tp == 4
+
+
+def test_ep_slice_modules_are_checked():
+    """The expert-parallel slice's modules are among the sources checked
+    above, and an EP engine, like every engine, needs the card unless
+    given ``device="cpu"``."""
+    names = {str(p.relative_to(ROOT)) for p in _sources()}
+    for mod in ("ops/all_to_all.py", "ops/low_latency.py", "ops/ep_a2a.py",
+                "layers/ep_moe.py"):
+        assert f"triton_dist_tpu_torch/{mod}" in names
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    cfg = ModelConfig.tiny_moe(num_experts=8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Engine(cfg, moe_impl="ep")
+    Engine(cfg, device="cpu", dtype=torch.float32, moe_impl="ep")

@@ -300,10 +300,12 @@ def test_tp_moe_engine_matches_one_rank(jax_run, n):
 
 
 def test_moe_impl_errors(jax_run):
-    """``"ep"`` is not ported; a dense model takes no ``moe_impl`` (JAX's
-    message); the ffn dimension must split over the ranks."""
+    """``"ep"`` over a hierarchical ``ep_axis`` is not ported (queue A item
+    5); a dense model takes no ``moe_impl`` (JAX's message); the ffn
+    dimension must split over the ranks."""
     with pytest.raises(ValueError, match="queue A item 5"):
-        _engine(jax_run["params"], 4, "fused", moe_impl="ep")
+        _engine(jax_run["params"], 4, "fused", moe_impl="ep",
+                ep_axis=("dcn", "tp"))
     with pytest.raises(ValueError, match="unknown moe_impl"):
         _engine(jax_run["params"], 4, "fused", moe_impl="bogus")
     with pytest.raises(ValueError, match=r"moe_impl='tp' given, but model "

@@ -20,8 +20,22 @@
 // w_gate / w_up (rows [r * F, (r + 1) * F) of every expert) or of w_down
 // (columns [r * F, (r + 1) * F): a row pitch of f, not F) runs as the view
 // it is, with no copy. A third grid dimension runs n simulated ranks in one
-// launch (the tensor-parallel down projection): rank z reads x[z], writes
-// out[z] and takes its weight shard at a rank stride, with one tile map.
+// launch: rank z reads x[z], writes out[z] and takes its weight shard at a
+// rank stride, with one tile map for every rank (the tensor-parallel down
+// projection) or a map of its own (te_rank apart: the expert-parallel
+// experts, where each rank received other rows). The weight may be every
+// rank's expert slice of the one weight, e_loc experts a rank, at a rank
+// stride of e_loc * f * d.
+//
+// Used tiles: with a `used` count, the map's tiles are cut into equal chunks
+// of chunk_tiles tiles, and tile t of rank z is computed only while
+// t % chunk_tiles < used[z * used_rank + t / chunk_tiles]; the tiles past it
+// hold only the zero rows of a padded tail and store zeros, as ag_moe_kernel
+// does. The tensor-parallel down projection passes row 19's per-chunk counts
+// (one for every rank); the expert-parallel experts pass each rank's count of
+// the tiles its received rows fill (one chunk a rank), so the grid skips the
+// tail of the drop-free receive envelope (n * T * K rows a rank, a quarter
+// of them real at tp = 4).
 //
 // What bounds it on the H100: bytes at small row counts, operations at
 // prefill. Per tile it reads one expert's (f, d) weight slice; over a
@@ -77,8 +91,10 @@ struct W {
 template <int RB>
 __global__ void __launch_bounds__(kThreads, 5)
     group_gemm_kernel(const bf16* __restrict__ x, W w0, W w1,
-                      const int* __restrict__ tile_expert, bf16* __restrict__ out, int S, int d,
-                      int E, int f0, int f1, int tm, int rv, int vec) {
+                      const int* __restrict__ tile_expert, long long te_rank,
+                      const int* __restrict__ used, int used_rank, int chunk_tiles,
+                      bf16* __restrict__ out, int S, int d, int E, int f0, int f1, int tm, int rv,
+                      int vec) {
   constexpr int FR = RB / 16;          // row fragments
   constexpr int WPR = kWarps / FR;     // warps per row fragment
   constexpr int CF = (kBN / 16) / WPR; // column fragments per warp
@@ -90,11 +106,21 @@ __global__ void __launch_bounds__(kThreads, 5)
   const long long r0 = (long long)blockIdx.x * rv;
   const int c0 = blockIdx.y * kBN;
   const int z = blockIdx.z;
-  const int e = tile_expert[r0 / tm];
+  const int tile = (int)(r0 / tm);
+  const int e = tile_expert[z * te_rank + tile];
   x += (long long)z * S * d;
   out += (long long)z * S * N;
   const int tid = threadIdx.x, warp = tid / 32;
   const int rf = warp / WPR, cf0 = (warp % WPR) * CF;
+
+  if (used != nullptr &&
+      tile % chunk_tiles >= used[(long long)z * used_rank + tile / chunk_tiles]) {
+    for (int i = tid; i < rv * kBN; i += kThreads) {   // a padded tail tile
+      const int r = i / kBN, c = c0 + i % kBN;
+      if (c < N) out[(r0 + r) * N + c] = __float2bfloat16(0.f);
+    }
+    return;
+  }
 
   if (e < 0 || e >= E) {               // a corrupt map: make it visible
     for (int i = tid; i < rv * kBN; i += kThreads) {
@@ -171,13 +197,20 @@ __global__ void __launch_bounds__(kThreads, 5)
   }
 }
 
+struct Map {
+  const int* te;
+  long long te_rank;
+  const int* used;
+  int used_rank, chunk_tiles;
+};
+
 template <int RB>
-cudaError_t launch(const void* x, W w0, W w1, const int* te, void* out, int n, int S, int d,
-                   int E, int f0, int f1, int tm, int rv, int vec, cudaStream_t stream) {
+cudaError_t launch(const void* x, W w0, W w1, Map m, void* out, int n, int S, int d, int E, int f0,
+                   int f1, int tm, int rv, int vec, cudaStream_t stream) {
   const dim3 grid(S / rv, (f0 + f1 + kBN - 1) / kBN, n);
   group_gemm_kernel<RB><<<grid, kThreads, 0, stream>>>(
-      static_cast<const bf16*>(x), w0, w1, te, static_cast<bf16*>(out), S, d, E, f0, f1, tm,
-      rv, vec);
+      static_cast<const bf16*>(x), w0, w1, m.te, m.te_rank, m.used, m.used_rank, m.chunk_tiles,
+      static_cast<bf16*>(out), S, d, E, f0, f1, tm, rv, vec);
   return cudaGetLastError();
 }
 
@@ -186,20 +219,25 @@ cudaError_t launch(const void* x, W w0, W w1, const int* te, void* out, int n, i
 // Plain C interface for ctypes. x (n, S, d) contiguous; weight 0 of rank z,
 // expert e, row c (f0 rows of d) at w0 + z * w0_rank + e * w0_e + c * w0_row
 // elements, unit stride along d; weight 1 likewise (f1 rows), or null with
-// f1 = 0; tile_expert (S / tm,) int32, one map for every rank; out
+// f1 = 0; tile_expert: rank z's map of S / tm int32 at tile_expert + z *
+// te_rank (te_rank 0: one map for every rank); used: null, or rank z's
+// counts at used + z * used_rank (used_rank 0: one set for every rank), one
+// per chunk of chunk_tiles tiles (chunk_tiles divides S / tm); out
 // (n, S, f0 + f1); device pointers on `device`, `stream` a cudaStream_t.
 // tm must be at most 64 or a multiple of 64. Rows load 16 bytes at a time
 // when d and every stride are multiples of 8 and both weights 16-byte
 // aligned, else one element at a time. Returns a cudaError_t code
 // (0 = launched).
 extern "C" int tdt_group_gemm_bf16(const void* x, const void* w0, const void* w1,
-                                   const void* tile_expert, void* out, int n, int S, int d,
-                                   int E, int f0, int f1, int tm, long long w0_rank,
+                                   const void* tile_expert, long long te_rank, const void* used,
+                                   int used_rank, int chunk_tiles, void* out, int n, int S,
+                                   int d, int E, int f0, int f1, int tm, long long w0_rank,
                                    long long w0_e, long long w0_row, long long w1_rank,
                                    long long w1_e, long long w1_row, int device,
                                    void* stream) {
   if (n <= 0 || S <= 0 || d <= 0 || E <= 0 || f0 <= 0 || f1 < 0 || tm <= 0 || S % tm != 0 ||
-      (tm > 64 && tm % 64 != 0) || (f1 > 0 && w1 == nullptr) || n > 65535)
+      (tm > 64 && tm % 64 != 0) || (f1 > 0 && w1 == nullptr) || n > 65535 || te_rank < 0 ||
+      used_rank < 0 || chunk_tiles <= 0 || (S / tm) % chunk_tiles != 0)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -213,10 +251,11 @@ extern "C" int tdt_group_gemm_bf16(const void* x, const void* w0, const void* w1
                   reinterpret_cast<uintptr_t>(a.p) % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(b.p) % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const Map m{te, te_rank, static_cast<const int*>(used), used_rank, chunk_tiles};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rv <= 16) return (int)launch<16>(x, a, b, te, out, n, S, d, E, f0, f1, tm, rv, vec, s);
-  if (rv <= 32) return (int)launch<32>(x, a, b, te, out, n, S, d, E, f0, f1, tm, rv, vec, s);
-  return (int)launch<64>(x, a, b, te, out, n, S, d, E, f0, f1, tm, rv, vec, s);
+  if (rv <= 16) return (int)launch<16>(x, a, b, m, out, n, S, d, E, f0, f1, tm, rv, vec, s);
+  if (rv <= 32) return (int)launch<32>(x, a, b, m, out, n, S, d, E, f0, f1, tm, rv, vec, s);
+  return (int)launch<64>(x, a, b, m, out, n, S, d, E, f0, f1, tm, rv, vec, s);
 }
 
 extern "C" const char* tdt_cuda_error_string(int code) {

@@ -1,6 +1,7 @@
-// Device half of the symmetric-memory protocol that the fused GEMM kernels
-// (ag_gemm.cu, gemm_rs.cu, gemm_ar.cu) run between simulated ranks on one
-// Hopper card (sm_90a). Counterpart of the parts of
+// Device half of the symmetric-memory protocol that the multi-rank kernels
+// (the fused GEMMs ag_gemm.cu, gemm_rs.cu, gemm_ar.cu, ag_moe.cu and
+// moe_reduce.cu; the all-to-alls all_to_all.cu and ll_a2a.cu) run between
+// simulated ranks on one Hopper card (sm_90a). Counterpart of the parts of
 // triton_dist_tpu/lang/shmem_device.py those kernels use:
 //
 //   remote_put            :125  copy rows into a peer rank's slice

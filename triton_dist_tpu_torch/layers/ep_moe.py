@@ -1,11 +1,35 @@
-"""MoE expert weights and the Qwen3-MoE router (counterpart of the
-``init`` and ``route`` of ``triton_dist_tpu/layers/ep_moe.py``).
+"""Expert-parallel MoE layer (counterpart of
+``triton_dist_tpu/layers/ep_moe.py``: ``init``, ``param_specs``,
+``route``, ``fwd``, ``fwd_decode`` with its transports,
+``resolve_transport`` and ``DECODE_TRANSPORTS``), and the MoE weights and
+router the tensor-parallel regime (:mod:`~triton_dist_tpu_torch.layers.
+tp_moe`) shares.
 
-The expert-parallel dispatch/combine half of that module (the
-``transport`` knobs, hot-expert replicas) spans ranks and is not ported
-yet (ROADMAP.md, queue A item 5). The experts run the tensor-parallel
-regime (:mod:`~triton_dist_tpu_torch.layers.tp_moe`), at one rank or over
-simulated ranks.
+Over n simulated ranks (:mod:`~triton_dist_tpu_torch.parallel.mesh`; the
+activations carry the rank as their leading dimension) rank r owns
+experts ``[r·E/n, (r+1)·E/n)``: its shards are contiguous views of the one
+weight at a rank stride of ``E/n`` experts (:func:`param_specs`), never a
+copy. :func:`fwd` (prefill) routes each rank's own rows, dispatches them
+to the experts' owners (:func:`~triton_dist_tpu_torch.ops.ep_a2a.
+ep_dispatch`), runs every rank's grouped SwiGLU over what it received
+(:func:`expert_swiglu`) and combines back at the source
+(:func:`~triton_dist_tpu_torch.ops.ep_a2a.ep_combine`). :func:`fwd_decode`
+takes the replicated decode batch and one of JAX's transports: ``"ar"``
+(every rank's local experts over the whole batch, then a sum over ranks),
+``"ragged"`` (the exact-splits round trip), ``"ll"`` (the count-free
+fixed-slot exchange through the quantizing all-to-all, row 23, at step
+parities ``2·layer`` and ``2·layer + 1``) or ``"auto"``.
+
+JAX runs the experts' grouped SwiGLU as ``ragged_dot``; the port runs it
+as row 17 (:func:`~triton_dist_tpu_torch.ops.group_gemm.
+grouped_gemm_tiles`) in the row-tile layout of :func:`~triton_dist_tpu_
+torch.ops.ag_moe.prepare_expert_rows`: one launch over every rank for
+gate/up, one for down, each rank with its own tile map and count of used
+tiles, no host read. Not ported yet: hot-expert replicas (the server sets
+them, ROADMAP.md queue A item 8), ``"ll2d"`` and the hierarchical
+``fwd_2d`` (a two-axis simulated mesh, queue A item 5), ``fwd_fused``
+(rows 25-26, queue A item 5), ``tune_transport`` (the tune cache, queue A
+item 4) and the shared expert.
 
 The JAX package stores ``router`` as ``(d, E)``, ``w_gate``/``w_up`` as
 ``(E, d, f)`` and ``w_down`` as ``(E, f, d)`` and multiplies ``x @ w``.
@@ -17,11 +41,23 @@ The port stores each as ``(out_features, in_features)``, the layout
 
 from __future__ import annotations
 
+from typing import Dict, Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from triton_dist_tpu_torch.layers.tp_attn import empty_param
+from triton_dist_tpu_torch.ops.ag_moe import (
+    prepare_expert_rows, suggested_block_m, tiles_used)
+from triton_dist_tpu_torch.ops.ep_a2a import EPContext, ep_combine, ep_dispatch
+from triton_dist_tpu_torch.ops.group_gemm import grouped_gemm_tiles
+from triton_dist_tpu_torch.ops.low_latency import ll_a2a
+
+DECODE_TRANSPORTS = ("ar", "ragged", "ll", "ll2d", "auto")
+# The largest row tile of the decode transports' expert layout (a decode
+# batch routes a few rows to each expert; suggested_block_m shrinks it).
+DECODE_BLOCK_M = 64
 
 
 class MoE(nn.Module):
@@ -69,3 +105,217 @@ def route(router_w: torch.Tensor, x: torch.Tensor, topk: int, *,
     if norm_topk_prob:
         topk_w = topk_w / topk_w.sum(dim=-1, keepdim=True)
     return topk_ids.to(torch.int32), topk_w
+
+
+def param_specs(params: MoE, n: int) -> Dict[str, torch.Tensor]:
+    """The ranks' expert shards as JAX's ``param_specs`` cut them (experts
+    sharded over the axis), as views of the one weight: ``router``
+    replicated (E, d); ``w_gate``, ``w_up`` (n, E/n, f, d), ``w_down``
+    (n, E/n, d, f), rank r's experts ``[r·E/n, (r+1)·E/n)``."""
+    e = params.w_gate.shape[0]
+    if e % n:
+        raise ValueError(f"num_experts={e} not divisible by ep={n}")
+
+    def shards(w):
+        return w.view(n, e // n, *w.shape[1:])
+
+    return {"router": params.router, "w_gate": shards(params.w_gate),
+            "w_up": shards(params.w_up), "w_down": shards(params.w_down)}
+
+
+def expert_swiglu(shards: Dict[str, torch.Tensor], rows: torch.Tensor,
+                  expert_ids: torch.Tensor, *, block_m: int) -> torch.Tensor:
+    """Every rank's grouped SwiGLU over the rows it received: rows (n, R,
+    d), expert_ids (n, R) local expert or -1 (an empty row) → (n, R, d),
+    zero on empty rows (JAX's ``sort_by_expert`` + ``grouped_swiglu`` +
+    unsort). The rows are laid out expert-major in ``block_m`` tiles
+    (:func:`~triton_dist_tpu_torch.ops.ag_moe.prepare_expert_rows`), then
+    gate/up is one row 17 launch over both weights and every rank, SwiGLU
+    in fp32 rounded to the rows' dtype, and down a second launch; each
+    skips its rank's tiles past the last real row."""
+    n, r_rows, d = rows.shape
+    wg, wu, wd = shards["w_gate"], shards["w_up"], shards["w_down"]
+    f = wg.shape[2]
+    x_s, te, src = prepare_expert_rows(rows, expert_ids, wg.shape[1], block_m)
+    used = tiles_used(src, block_m)[:, None]                 # (n, 1)
+    h = grouped_gemm_tiles(x_s, (wg, wu), te, used=used)     # (n, S, 2f)
+    act = (F.silu(h[..., :f].float()) * h[..., f:].float()).to(rows.dtype)
+    y = grouped_gemm_tiles(act, wd, te, used=used)          # (n, S, d)
+    base = torch.arange(n, device=rows.device)[:, None] * r_rows
+    dst = torch.where(src >= 0, base + src, n * r_rows).reshape(-1)
+    return rows.new_zeros((n * r_rows + 1, d)).index_copy_(
+        0, dst, y.reshape(-1, d))[:-1].view(n, r_rows, d)
+
+
+def _ranks(x: torch.Tensor, ctx: Optional[EPContext]):
+    """(t, d) at one rank → (1, t, d); checks the rank count against the
+    context's axis."""
+    x = x[None] if x.dim() == 2 else x
+    if ctx is not None and ctx.mesh.size(ctx.axis) != x.shape[0]:
+        raise ValueError(f"x {tuple(x.shape)}: the EP context's {ctx.axis!r} "
+                         f"axis has {ctx.mesh.size(ctx.axis)} ranks")
+    return x
+
+
+def fwd(params: MoE, x: torch.Tensor, ep_ctx: EPContext, *, topk: int,
+        norm_topk_prob: bool = True, block_m: int = 256) -> torch.Tensor:
+    """Prefill-path EP MoE: x (n, t, d), every rank's own rows (at one rank
+    (t, d)) → the same shape. Route, :func:`ep_dispatch`, every rank's
+    :func:`expert_swiglu` over its received rows (row tile ``block_m``,
+    capped by ``suggested_block_m`` for the t·K rows a rank sends),
+    :func:`ep_combine` with the top-k weights in fp32."""
+    xr = _ranks(x, ep_ctx)
+    n, t, d = xr.shape
+    ids, w = route(params.router, xr.reshape(n * t, d), topk,
+                   norm_topk_prob=norm_topk_prob)
+    ids, w = ids.view(n, t, topk), w.view(n, t, topk)
+    recv_tok, recv_exp, state = ep_dispatch(xr, ids, ep_ctx)
+    e_loc = ep_ctx.experts_per_rank
+    y = expert_swiglu(param_specs(params, n), recv_tok, recv_exp,
+                      block_m=suggested_block_m(t * topk, 1, e_loc, block_m))
+    out = ep_combine(y, state, w, ep_ctx)
+    return out[0] if x.dim() == 2 else out
+
+
+def resolve_transport(transport: str, *, ctx, batch: int, hidden: int,
+                      dtype, topk: int) -> str:
+    """JAX's host-side resolution of the decode ``transport`` knob:
+    explicit values pass through; ``"auto"`` is ``"ll"`` on a flat
+    :class:`EPContext` and ``"ar"`` without one. JAX first looks up a
+    tuned winner for (mesh, batch, hidden, dtype); the port has no tune
+    cache yet (``tune.py``, ROADMAP.md queue A item 4), so ``"auto"`` takes
+    JAX's untuned default."""
+    del batch, hidden, dtype, topk          # the tune cache's key
+    if transport != "auto":
+        return transport
+    if ctx is None or not isinstance(ctx, EPContext):
+        return "ar"
+    return "ll"
+
+
+def fwd_decode(params: MoE, x: torch.Tensor, *, topk: int, axis="ep",
+               norm_topk_prob: bool = True, transport: str = "ar",
+               ep_ctx: Optional[EPContext] = None, replicas=None,
+               layer: int = 0) -> torch.Tensor:
+    """Replicated-token EP decode: x (n, B, d), the same batch on every
+    rank (at one rank (B, d)) → the same on every rank. ``transport`` is
+    JAX's knob (module docstring); ``"ragged"`` and ``"ll"`` need a flat
+    ``ep_ctx``; ``layer`` keys the ``"ll"`` step parities (``2·layer``,
+    ``2·layer + 1``). ``axis`` names the ranks' axis; a hierarchical
+    (tuple) axis, ``"ll2d"`` and ``replicas`` raise (ROADMAP.md queue A
+    items 5 and 8). JAX's ``counts`` (per-expert load telemetry for the
+    server) waits with ``with_expert_counts`` (queue A item 5)."""
+    if isinstance(axis, (tuple, list)):
+        raise ValueError(f"axis={tuple(axis)}: hierarchical expert sharding "
+                         "needs a two-axis simulated mesh (ROADMAP.md queue A "
+                         "item 5)")
+    xr = _ranks(x, ep_ctx)
+    n, b, d = xr.shape
+    # Every rank routes the same rows: route rank 0's copy once.
+    ids, w = route(params.router, xr[0], topk, norm_topk_prob=norm_topk_prob)
+    if transport == "auto":
+        transport = resolve_transport("auto", ctx=ep_ctx, batch=b, hidden=d,
+                                      dtype=x.dtype, topk=topk)
+    if transport not in ("ar", "ragged", "ll", "ll2d"):
+        raise ValueError(f"transport must be one of {DECODE_TRANSPORTS}, "
+                         f"got {transport!r}")
+    if transport == "ll2d":
+        raise ValueError(
+            "transport='ll2d' needs a hierarchical EP2DContext "
+            "(create_ep2d_context) — flat meshes ride 'll'; the port has no "
+            "two-axis simulated mesh yet (ROADMAP.md queue A item 5)")
+    if transport == "ar":
+        out = _fwd_decode_ar(params, xr, ids, w)
+    else:
+        if ep_ctx is None or not isinstance(ep_ctx, EPContext):
+            raise ValueError(
+                f"transport={transport!r} needs a flat EPContext "
+                "(hierarchical 2D meshes ride transport='ll2d')")
+        if transport == "ragged":
+            out = _fwd_decode_ragged(params, xr, ids, w, ctx=ep_ctx)
+        else:
+            out = _fwd_decode_ll(params, xr, ids, w, ctx=ep_ctx,
+                                 replicas=replicas, layer=layer)
+    return out[0] if x.dim() == 2 else out
+
+
+def _fwd_decode_ar(params: MoE, x: torch.Tensor, ids: torch.Tensor,
+                   w: torch.Tensor) -> torch.Tensor:
+    """``"ar"``: every rank runs each of its local experts over the whole
+    batch (one batched product over the (rank, expert) pairs: the weights'
+    views, no copy), weights each expert's output by the combine mass the
+    batch routed to it, and the ranks' fp32 partials are summed in rank
+    order (JAX's psum)."""
+    n, b, d = x.shape
+    sh = param_specs(params, n)
+    e_loc, f = sh["w_gate"].shape[1:3]
+    ge = (torch.arange(n, device=x.device)[:, None] * e_loc
+          + torch.arange(e_loc, device=x.device))              # (n, e_loc)
+    sel = ids[None, :, :, None] == ge[:, None, None, :]        # (n, B, K, e)
+    w_be = torch.einsum("bk,nbke->nbe", w.float(), sel.float())
+    xe = x[:, None].expand(n, e_loc, b, d).reshape(n * e_loc, b, d)
+    g = torch.bmm(xe, sh["w_gate"].reshape(n * e_loc, f, d).transpose(1, 2))
+    u = torch.bmm(xe, sh["w_up"].reshape(n * e_loc, f, d).transpose(1, 2))
+    act = (F.silu(g.float()) * u.float()).to(x.dtype)
+    y = torch.bmm(act, sh["w_down"].reshape(n * e_loc, d, f).transpose(1, 2))
+    out = torch.einsum("nebd,nbe->nbd", y.view(n, e_loc, b, d).float(), w_be)
+    return out.sum(0).to(x.dtype).expand(n, b, d)
+
+
+def _fwd_decode_ragged(params: MoE, x: torch.Tensor, ids: torch.Tensor,
+                       w: torch.Tensor, *, ctx: EPContext) -> torch.Tensor:
+    """``"ragged"``: every rank dispatches the (replicated) batch's
+    assignments, owners run their grouped SwiGLU, the combine returns each
+    rank its own copies: the output is replicated without a reduce."""
+    n, b, _ = x.shape
+    k = ids.shape[1]
+    ids_n = ids.expand(n, b, k).contiguous()
+    recv_tok, recv_exp, state = ep_dispatch(x, ids_n, ctx)
+    y = expert_swiglu(param_specs(params, n), recv_tok, recv_exp,
+                      block_m=suggested_block_m(b * k, 1,
+                                                ctx.experts_per_rank,
+                                                DECODE_BLOCK_M))
+    return ep_combine(y, state, w.expand(n, b, k), ctx)
+
+
+def _fwd_decode_ll(params: MoE, x: torch.Tensor, ids: torch.Tensor,
+                   w: torch.Tensor, *, ctx: EPContext, replicas=None,
+                   layer: int = 0) -> torch.Tensor:
+    """``"ll"``: the count-free fixed-slot exchange. Assignment ``j = t·K +
+    k`` owns slot j of a (n, B·K, d) wire buffer: its owner's chunk holds
+    the token there, every other chunk a zero row. The exchange is
+    :func:`~triton_dist_tpu_torch.ops.low_latency.ll_a2a` (row 23, int8
+    codes unless the context's ``wire_dtype`` picks fp8) at step
+    ``2·layer``; each rank takes the chunk addressed through itself (every
+    sender staged the same slots), runs its grouped SwiGLU on its own
+    slots, and broadcasts its rows back through the same exchange at step
+    ``2·layer + 1``; each assignment's output is read from its owner's
+    chunk and combined in fp32."""
+    if replicas is not None:
+        raise ValueError(
+            "hot-expert replicas on the 'll' transport are not ported yet: "
+            "the server sets them (ROADMAP.md queue A item 8)")
+    mesh, axis = ctx.mesh, ctx.axis
+    n, b, d = x.shape
+    k = ids.shape[1]
+    e_loc = ctx.experts_per_rank
+    wire = ctx.wire_dtype if ctx.wire_dtype is not None else torch.int8
+    flat_e = ids.reshape(-1).long()                           # (BK,)
+    dest = flat_e // e_loc
+    slots = torch.arange(b * k, device=x.device)
+    send = x.new_zeros((n, n, b * k, d))
+    send[:, dest, slots] = x.repeat_interleave(k, dim=1)
+    recv = ll_a2a(send, ctx=mesh, axis=axis, step=2 * layer,
+                  wire_dtype=wire)                            # (n, n, BK, d)
+    ranks = torch.arange(n, device=x.device)
+    tok = recv[ranks, ranks]                                  # (n, BK, d)
+    mine = dest[None] == ranks[:, None]
+    loc = torch.where(mine, (flat_e % e_loc)[None], -1).to(torch.int32)
+    y = expert_swiglu(param_specs(params, n), tok, loc,
+                      block_m=suggested_block_m(b * k, 1, e_loc,
+                                                DECODE_BLOCK_M))
+    back = ll_a2a(y[:, None].expand(n, n, b * k, d).contiguous(), ctx=mesh,
+                  axis=axis, step=2 * layer + 1, wire_dtype=wire)
+    gathered = back[ranks[:, None], dest[None], slots[None]]  # (n, BK, d)
+    return torch.einsum("nbkd,bk->nbd", gathered.view(n, b, k, d).float(),
+                        w.float()).to(x.dtype)

@@ -25,7 +25,8 @@ layout, the gathered routing metadata (plain, JAX's XLA gathers of a few
 KB), the fused all-gather + gate/up grouped GEMM
 (:func:`~triton_dist_tpu_torch.ops.ag_moe.ag_group_gemm`, row 19),
 SwiGLU, the down projection in the sorted layout (row 17, every rank in
-one launch), the un-sort, then the ``"rs"`` (row 21) or ``"ar"`` (row 20)
+one launch, skipping each chunk's padded tail by row 19's used-tile
+counts), the un-sort, then the ``"rs"`` (row 21) or ``"ar"`` (row 20)
 epilogue.
 
 The plain per-rank SwiGLU reads the segment sizes on the host once per
@@ -179,11 +180,14 @@ def fwd_fused(params: MoE, x: torch.Tensor, *, topk: int, num_experts: int,
                                 block_m=block_m)
     # The stacked maps are every rank's te_all; one gather serves the
     # gate/up GEMM's tiles ((n, tiles)) and the down projection's (flat).
+    # The per-chunk used-tile counts let both skip each chunk's padded tail.
+    used = tiles_used(row_src, block_m)
     h = ag_group_gemm(x_s, (shards["w_gate"], shards["w_up"]), te, ctx,
-                      te_all=te, used=tiles_used(row_src, block_m))
+                      te_all=te, used=used)
     act = (F.silu(h[..., :f_loc].float()) * h[..., f_loc:].float()).to(
         x.dtype)                                       # (n, S_full, F)
-    y_sorted = grouped_gemm_tiles(act, shards["w_down"], te.reshape(-1))
+    y_sorted = grouped_gemm_tiles(act, shards["w_down"], te.reshape(-1),
+                                  used=used)
     y = _unsort(y_sorted, row_src, t_loc, topk)     # (n, n·t_loc, K, d)
     w_full = topk_w.contiguous().expand(n, *topk_w.shape)   # gathered, fp32
     if epilogue == "ar":

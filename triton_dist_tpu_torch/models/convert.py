@@ -18,7 +18,11 @@ the JAX ``param_specs`` shard them; both are views of the one tensor
 For a MoE config the tree is ``qwen_moe.init_params``': each layer holds
 ``moe`` (``router (d, E)``, ``w_gate``/``w_up (E, d, f)``, ``w_down (E,
 f, d)``) in place of ``mlp``; each expert's matrix is transposed the same
-way (:func:`_experts`).
+way (:func:`_experts`). The expert-parallel regime (``Engine(...,
+moe_impl="ep")``) takes the same tree, as JAX's engine does: rank r's
+experts ``[r·E/n, (r+1)·E/n)`` are a view of each expert weight
+(:func:`~triton_dist_tpu_torch.layers.ep_moe.param_specs`); only the views
+differ from the tensor-parallel regime's.
 """
 
 from __future__ import annotations

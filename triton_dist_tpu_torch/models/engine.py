@@ -14,9 +14,15 @@ ranks on the one device (:mod:`~triton_dist_tpu_torch.models.dense`):
 through GEMM+AR; a MoE model's ``"fused"`` prefill runs its experts
 through the AG+grouped GEMM, the grouped GEMM and the fused combine +
 reduce-scatter kernels (:mod:`~triton_dist_tpu_torch.models.qwen_moe`).
-The resilience knobs (``fallback``, ``probe``, ``timeout_s``) and the
-expert-parallel regime (``moe_impl="ep"``) are not ported yet
-(ROADMAP.md).
+With ``moe_impl="ep"`` a MoE model's experts are sharded by expert over
+the same ranks (JAX's engine builds its ``EPContext`` over the ``tp``
+axis): every prefill layer dispatches and combines through the
+all-to-all kernel (drop-free: its ragged form; ``ep_capacity``: its dense
+form) and runs the experts through the grouped GEMM kernel, and decode
+takes ``ep_transport`` (``"ll"``: the quantizing all-to-all kernel twice a
+layer). The resilience knobs (``fallback``, ``probe``, ``timeout_s``), a
+hierarchical ``ep_axis`` (queue A item 5) and EP on the paged serving
+lanes (queue A item 8) are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -26,10 +32,13 @@ from typing import Optional
 import numpy as np
 import torch
 
+from triton_dist_tpu_torch.layers.ep_moe import DECODE_TRANSPORTS
 from triton_dist_tpu_torch.layers.tp_attn import _head_split, check_mode
 from triton_dist_tpu_torch.models import dense, qwen_moe
 from triton_dist_tpu_torch.models.config import ModelConfig
 from triton_dist_tpu_torch.models.kv_cache import KVCache
+from triton_dist_tpu_torch.ops.ep_a2a import create_ep_context
+from triton_dist_tpu_torch.parallel.mesh import make_mesh
 from triton_dist_tpu_torch.shmem import workspace as shmem
 from triton_dist_tpu_torch.utils.device import resolve_device
 
@@ -40,9 +49,15 @@ class Engine:
     ``model``: the model module, :mod:`~triton_dist_tpu_torch.models.dense`
     or :mod:`~triton_dist_tpu_torch.models.qwen_moe` (``None``: qwen_moe
     for a MoE config, dense otherwise). ``moe_impl``: a MoE model's
-    regime, JAX's knob: ``None`` is ``"tp"`` (tensor-parallel experts, the
-    one ported); ``"ep"`` raises (ROADMAP.md queue A item 5), and so does
-    any value for a dense model, as in JAX. ``params``: the model's weights
+    regime, JAX's knob: ``None`` is ``"tp"`` (tensor-parallel experts);
+    ``"ep"`` shards the experts by expert over the mesh's ``tp`` ranks
+    (``self.ep_ctx``, JAX's ``EPContext``); any value for a dense model
+    raises, as in JAX. The EP knobs, with JAX's checks: ``ep_capacity``
+    (None: the drop-free dispatch; C: C rows per (source, destination)
+    pair, overflow dropped and counted), ``ep_transport`` (the decode
+    transport, one of ``DECODE_TRANSPORTS``, ``self.ep_transport``; None is
+    ``"ar"``), ``ep_axis`` (None or ``"tp"``; a hierarchical tuple raises,
+    ROADMAP.md queue A item 5). ``params``: the model's weights
     (:class:`~triton_dist_tpu_torch.models.dense.DenseLM` or
     :class:`~triton_dist_tpu_torch.models.qwen_moe.MoELM`) on ``device``
     in ``dtype`` (for example from
@@ -67,7 +82,9 @@ class Engine:
                  model=None, device=None, dtype: torch.dtype = torch.bfloat16,
                  max_len: int = 512, params: Optional[dense.DenseLM] = None,
                  seed: int = 0, block_m: int = 256, block_n: int = 256,
-                 block_k: int = 512, moe_impl: Optional[str] = None):
+                 block_k: int = 512, moe_impl: Optional[str] = None,
+                 ep_capacity: Optional[int] = None,
+                 ep_transport: Optional[str] = None, ep_axis=None):
         check_mode(mode)
         self.mesh = mesh
         self.tp = 1 if mesh is None else mesh.tp
@@ -97,11 +114,24 @@ class Engine:
             if moe_impl not in ("tp", "ep"):
                 raise ValueError(f"unknown moe_impl {moe_impl!r} (one of "
                                  "('tp', 'ep'))")
-            if moe_impl == "ep":
+            if ep_transport is not None:
+                if ep_transport not in DECODE_TRANSPORTS:
+                    raise ValueError(f"ep_transport={ep_transport!r} not in "
+                                     f"{DECODE_TRANSPORTS}")
+                if moe_impl != "ep":
+                    raise ValueError(
+                        "ep_transport is an EP decode knob; it needs "
+                        f"moe_impl='ep' (got {moe_impl!r})")
+            if isinstance(ep_axis, (tuple, list)):
                 raise ValueError(
-                    "moe_impl='ep' (the expert-parallel regime: "
-                    "ep_dispatch/ep_combine and their kernels) is not "
-                    "ported yet (ROADMAP.md queue A item 5)")
+                    f"ep_axis={tuple(ep_axis)}: the hierarchical EP dispatch "
+                    "needs a two-axis simulated mesh (ROADMAP.md queue A "
+                    "item 5)")
+            if ep_axis not in (None, "tp"):
+                raise ValueError(
+                    f"ep_axis={ep_axis!r}: the port's experts shard over "
+                    "the mesh's tp ranks (None or 'tp'); a mesh with an ep "
+                    "axis of its own is ROADMAP.md queue A item 5")
         elif moe_impl is not None:
             raise ValueError(
                 f"moe_impl={moe_impl!r} given, but model "
@@ -119,6 +149,7 @@ class Engine:
         self.model = model
         self.mode = mode
         self.moe_impl = moe_impl
+        self.device = resolve_device(device)
         if self.tp > 1:
             ctxs = dense.make_fwd_contexts(mesh, "tp", block_m, block_n,
                                            block_k)
@@ -131,8 +162,18 @@ class Engine:
                 {"ctxs": dense.FwdContexts(block_m=block_m)}
                 if model is qwen_moe else {})
             self._decode_kw = {}
+        # JAX's EPContext over the tp axis (one rank without a mesh).
+        self.ep_ctx = None
+        self.ep_transport = ep_transport if moe_impl == "ep" else None
+        if moe_impl == "ep":
+            self.ep_ctx = create_ep_context(
+                mesh if mesh is not None else make_mesh(device=self.device),
+                num_experts=cfg.num_experts, topk=cfg.num_experts_per_tok,
+                capacity=ep_capacity, axis="tp")
+            ep_kw = {"moe_impl": "ep", "ep_ctx": self.ep_ctx}
+            self._prefill_kw.update(ep_kw)
+            self._decode_kw.update(ep_kw, transport=ep_transport)
         self.cfg = cfg
-        self.device = resolve_device(device)
         self.dtype = dtype
         self.max_len = max_len
         if params is None:
@@ -232,13 +273,19 @@ class Engine:
         """Wrap this engine in a continuous-batching
         :class:`~triton_dist_tpu_torch.serving.server.ServingEngine`
         (paged KV pool, request queue, streaming). Keyword args pass
-        through (num_slots, page, prefill_buckets, ...). One rank only:
-        the paged lanes at tp > 1 are a ROADMAP.md queue A item."""
+        through (num_slots, page, prefill_buckets, ...). One rank and the
+        tensor-parallel experts only: the paged lanes at tp > 1 and the
+        expert-parallel regime there are ROADMAP.md queue A item 8."""
         if self.tp > 1:
             raise ValueError(
                 "serving() at tp > 1: the paged serving lanes run one rank "
                 "(tensor-parallel paged serving is ROADMAP.md queue A "
                 "item 8)")
+        if self.moe_impl == "ep":
+            raise ValueError(
+                "serving() with moe_impl='ep': the paged serving lanes run "
+                "the tensor-parallel experts (the server's EP knobs are "
+                "ROADMAP.md queue A item 8)")
         from triton_dist_tpu_torch.serving.server import ServingEngine
 
         return ServingEngine(self, **kw)

@@ -6,21 +6,32 @@
 
 The transformer trunk is :mod:`~triton_dist_tpu_torch.models.dense`'s,
 with the MoE block plugged into its ``ffn_fn`` hook: one trunk, two
-models. The experts run the tensor-parallel regime (``moe_impl="tp"``),
-at one rank or, with ``mesh=make_mesh(tp=n)``, over n simulated ranks
-(the dense-cache functions; each rank's ffn shard a view of the one
-weight): a prefill in ``mode="fused"`` through
-:func:`~triton_dist_tpu_torch.layers.tp_moe.fwd_fused` (the row-tile
-grouped GEMM kernel; at tp > 1 also the AG+grouped GEMM and the fused
-reduce-scatter epilogue), otherwise :func:`~triton_dist_tpu_torch.layers.
-tp_moe.fwd`; decode and paged chunks through
-:func:`~triton_dist_tpu_torch.layers.tp_moe.fwd_ar`. At tp > 1 a
-``"fused_ar"`` prefill's residual is replicated, where JAX's ``fwd``
-gathers n copies of it and computes each: the port computes one, through
-``fwd_ar``, the same values. The expert-parallel regime
-(``moe_impl="ep"``), the shared expert and the per-step expert counts of
-the layer path (``with_expert_counts``) are not ported yet (ROADMAP.md,
-queue A item 5).
+models. Two regimes, JAX's ``moe_impl``:
+
+- ``"tp"``: the tensor-parallel experts, at one rank or, with
+  ``mesh=make_mesh(tp=n)``, over n simulated ranks (the dense-cache
+  functions; each rank's ffn shard a view of the one weight): a prefill in
+  ``mode="fused"`` through :func:`~triton_dist_tpu_torch.layers.tp_moe.
+  fwd_fused` (the row-tile grouped GEMM kernel; at tp > 1 also the
+  AG+grouped GEMM and the fused reduce-scatter epilogue), otherwise
+  :func:`~triton_dist_tpu_torch.layers.tp_moe.fwd`; decode and paged
+  chunks through :func:`~triton_dist_tpu_torch.layers.tp_moe.fwd_ar`. At
+  tp > 1 a ``"fused_ar"`` prefill's residual is replicated, where JAX's
+  ``fwd`` gathers n copies of it and computes each: the port computes one,
+  through ``fwd_ar``, the same values.
+- ``"ep"``: the experts sharded by expert over the same ranks (an
+  ``ep_ctx`` over the ``tp`` axis, as JAX's engine builds it), the
+  dense-cache functions only: the prefill's FFN through
+  :func:`~triton_dist_tpu_torch.layers.ep_moe.fwd` on the rows each rank
+  holds (token-sharded (n, t/n, d) in ``"xla"``/``"fused"``, replicated
+  (n, t, d) in ``"fused_ar"``, where every owner receives n copies, as in
+  JAX), decode through :func:`~triton_dist_tpu_torch.layers.ep_moe.
+  fwd_decode` with the ``transport`` knob (the ``"ll"`` parities keyed by
+  the layer index).
+
+Not ported yet: the shared expert and the per-step expert counts of the
+layer path (``with_expert_counts``, ROADMAP.md queue A item 5), and the
+expert-parallel regime on the paged lanes (queue A item 8).
 """
 
 from __future__ import annotations
@@ -108,16 +119,33 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
     return model
 
 
+def param_specs(params: MoELM, n: int, *, moe_impl: str = "tp"):
+    """Every layer's expert shards over n ranks in the ``moe_impl`` regime,
+    as views of the one weight (JAX's ``param_specs`` cuts, no copy):
+    :func:`tp_moe.param_specs` (ffn rows/columns) or
+    :func:`ep_moe.param_specs` (experts). Attention's shards are the dense
+    model's (:mod:`~triton_dist_tpu_torch.ops.tp_gemm`)."""
+    specs = tp_moe.param_specs if moe_impl == "tp" else ep_moe.param_specs
+    return [specs(layer.moe, n) for layer in params.layers]
+
+
 def moe_ffn(moe: ep_moe.MoE, h: torch.Tensor, cfg: ModelConfig, *,
-            mode: str, ctxs: dense.FwdContexts) -> torch.Tensor:
-    """One prefill MoE FFN block in JAX's dispatch: ``mode="fused"`` runs
-    the fused pipeline (:func:`tp_moe.fwd_fused`; at tp > 1 over
+            mode: str, ctxs: dense.FwdContexts, moe_impl: str = "tp",
+            ep_ctx=None) -> torch.Tensor:
+    """One prefill MoE FFN block in JAX's dispatch. ``moe_impl="ep"``: the
+    expert-parallel layer over ``ep_ctx`` on the rows each rank holds, in
+    every mode (row tile ``ctxs.block_m``). ``"tp"``: ``mode="fused"``
+    runs the fused pipeline (:func:`tp_moe.fwd_fused`; at tp > 1 over
     ``ctxs.ag``'s mesh), the other modes :func:`tp_moe.fwd`. The row tile
     is the fused context's (``ctxs.ag.block_m`` at tp > 1, as JAX's engine
     sets it; ``ctxs.block_m`` at one rank). h: (t, d) at one rank; at tp =
     n the residual the trunk holds, token-sharded (n, t/n, d), or
     replicated (n, t, d) in ``"fused_ar"``, where :func:`tp_moe.fwd_ar`
     gives the values of JAX's ``fwd`` on its n gathered copies."""
+    if moe_impl == "ep":
+        return ep_moe.fwd(moe, h, ep_ctx, topk=cfg.num_experts_per_tok,
+                          norm_topk_prob=cfg.norm_topk_prob,
+                          block_m=ctxs.block_m)
     kw = dict(topk=cfg.num_experts_per_tok, num_experts=cfg.num_experts,
               norm_topk_prob=cfg.norm_topk_prob)
     ranks = h.dim() == 3
@@ -133,18 +161,23 @@ def moe_ffn(moe: ep_moe.MoE, h: torch.Tensor, cfg: ModelConfig, *,
 
 
 def _moe_block(layer: MoEDecoderLayer, h: torch.Tensor, cfg: ModelConfig, *,
-               mode: str, ctxs: dense.FwdContexts) -> torch.Tensor:
+               mode: str, ctxs: dense.FwdContexts, moe_impl: str = "tp",
+               ep_ctx=None) -> torch.Tensor:
     """The dense trunk's ``ffn_fn`` hook form of :func:`moe_ffn`."""
-    return moe_ffn(layer.moe, h, cfg, mode=mode, ctxs=ctxs)
+    return moe_ffn(layer.moe, h, cfg, mode=mode, ctxs=ctxs,
+                   moe_impl=moe_impl, ep_ctx=ep_ctx)
 
 
 def prefill(params: MoELM, input_ids: torch.Tensor, cfg: ModelConfig, *,
             mode: str = "xla", ctxs: dense.FwdContexts = dense.FwdContexts(),
-            max_len: Optional[int] = None, mesh=None):
+            max_len: Optional[int] = None, mesh=None, moe_impl: str = "tp",
+            ep_ctx=None):
     """:func:`~triton_dist_tpu_torch.models.dense.prefill` with the MoE
     block: ``(last-position logits (B, vocab), KVCache)``; ``mesh`` with
-    tp > 1: n simulated ranks, fused ops from ``ctxs``."""
-    ffn = functools.partial(_moe_block, cfg=cfg, mode=mode, ctxs=ctxs)
+    tp > 1: n simulated ranks, fused ops from ``ctxs``; ``moe_impl`` /
+    ``ep_ctx``: the experts' regime (:func:`moe_ffn`)."""
+    ffn = functools.partial(_moe_block, cfg=cfg, mode=mode, ctxs=ctxs,
+                            moe_impl=moe_impl, ep_ctx=ep_ctx)
     return dense.prefill(params, input_ids, cfg, mode=mode,
                          max_len=max_len, ffn_fn=ffn, mesh=mesh, ctxs=ctxs)
 
@@ -152,39 +185,65 @@ def prefill(params: MoELM, input_ids: torch.Tensor, cfg: ModelConfig, *,
 def forward_tokens(params: MoELM, input_ids: torch.Tensor, cfg: ModelConfig,
                    *, mode: str = "xla",
                    ctxs: dense.FwdContexts = dense.FwdContexts(),
-                   mesh=None) -> torch.Tensor:
+                   mesh=None, moe_impl: str = "tp",
+                   ep_ctx=None) -> torch.Tensor:
     """Logits of every position (B, S, vocab), the MoE block in the
-    trunk; ``mesh``/``ctxs`` as in :func:`prefill`."""
-    ffn = functools.partial(_moe_block, cfg=cfg, mode=mode, ctxs=ctxs)
+    trunk; ``mesh``/``ctxs``/``moe_impl``/``ep_ctx`` as in
+    :func:`prefill`."""
+    ffn = functools.partial(_moe_block, cfg=cfg, mode=mode, ctxs=ctxs,
+                            moe_impl=moe_impl, ep_ctx=ep_ctx)
     return dense.forward_tokens(params, input_ids, cfg, mode=mode,
                                 ffn_fn=ffn, mesh=mesh, ctxs=ctxs)
 
 
 def decode_step(params: MoELM, token_ids: torch.Tensor, cache,
                 cfg: ModelConfig, *, mode: str = "xla", mesh=None,
-                ctxs: Optional[dense.FwdContexts] = None):
+                ctxs: Optional[dense.FwdContexts] = None,
+                moe_impl: str = "tp", ep_ctx=None,
+                transport: Optional[str] = None):
     """:func:`~triton_dist_tpu_torch.models.dense.decode_step` with the
-    small-batch MoE FFN (:func:`tp_moe.fwd_ar`, on the replicated residual
-    at tp > 1)."""
-    ffn = functools.partial(_moe_ffn_decode, cfg=cfg)
+    small-batch MoE FFN (:func:`moe_ffn_decode`, on the replicated residual
+    at tp > 1; the layer index keys the ``"ll"`` parities)."""
+    ffn = functools.partial(_moe_ffn_decode, cfg=cfg, moe_impl=moe_impl,
+                            ep_ctx=ep_ctx, transport=transport,
+                            _layer_cursor=[0])
     return dense.decode_step(params, token_ids, cache, cfg, mode=mode,
                              ffn_fn=ffn, mesh=mesh, ctxs=ctxs)
 
 
-def moe_ffn_decode(moe: ep_moe.MoE, h: torch.Tensor,
-                   cfg: ModelConfig) -> torch.Tensor:
+def moe_ffn_decode(moe: ep_moe.MoE, h: torch.Tensor, cfg: ModelConfig, *,
+                   moe_impl: str = "tp", ep_ctx=None,
+                   transport: Optional[str] = None,
+                   layer: int = 0) -> torch.Tensor:
     """Small-batch MoE FFN (decode rows, or a prefill chunk's rows): the
     tensor-parallel experts through :func:`tp_moe.fwd_ar` (h (b, d), or
-    replicated (n, b, d) over n ranks)."""
+    replicated (n, b, d) over n ranks); the expert-parallel ones through
+    :func:`ep_moe.fwd_decode` over ``ep_ctx`` with ``transport`` (None is
+    ``"ar"``, as in JAX) at layer ``layer``."""
+    if moe_impl == "ep":
+        return ep_moe.fwd_decode(moe, h, topk=cfg.num_experts_per_tok,
+                                 axis=ep_ctx.axis if ep_ctx else "tp",
+                                 norm_topk_prob=cfg.norm_topk_prob,
+                                 transport=transport or "ar", ep_ctx=ep_ctx,
+                                 layer=layer)
     return tp_moe.fwd_ar(moe, h, topk=cfg.num_experts_per_tok,
                          num_experts=cfg.num_experts,
                          norm_topk_prob=cfg.norm_topk_prob)
 
 
 def _moe_ffn_decode(layer: MoEDecoderLayer, h: torch.Tensor,
-                    cfg: ModelConfig) -> torch.Tensor:
-    """The dense trunk's ``ffn_fn`` hook form (receives the layer)."""
-    return moe_ffn_decode(layer.moe, h, cfg)
+                    cfg: ModelConfig, *, moe_impl: str = "tp", ep_ctx=None,
+                    transport: Optional[str] = None,
+                    _layer_cursor=None) -> torch.Tensor:
+    """The dense trunk's ``ffn_fn`` hook form (receives the layer).
+    ``_layer_cursor`` (a one-element list) counts the trunk's in-order
+    calls: the layer index, as JAX's hook keeps it."""
+    li = 0
+    if _layer_cursor is not None:
+        li = _layer_cursor[0]
+        _layer_cursor[0] += 1
+    return moe_ffn_decode(layer.moe, h, cfg, moe_impl=moe_impl,
+                          ep_ctx=ep_ctx, transport=transport, layer=li)
 
 
 def prefill_chunk_paged(params: MoELM, chunk_toks: torch.Tensor, cache,

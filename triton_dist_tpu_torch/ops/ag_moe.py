@@ -1,7 +1,9 @@
 """Expert-major token layout and the fused all-gather + grouped GEMM
 (counterpart of ``triton_dist_tpu/ops/ag_moe.py``: ``AGMoEContext``,
 ``create_ag_moe_context``, ``padded_rows``, ``suggested_block_m``,
-``prepare_grouped_tokens``, ``ag_moe_ref`` and ``ag_group_gemm``).
+``prepare_grouped_tokens``, ``ag_moe_ref`` and ``ag_group_gemm``), and
+the same layout for the expert-parallel experts' received rows
+(:func:`prepare_expert_rows`, every rank at once).
 
 Each rank's top-k-replicated tokens are sorted expert-major with every
 expert's segment padded to the row tile ``block_m``, so tile i belongs to
@@ -132,6 +134,58 @@ def prepare_grouped_tokens(x: torch.Tensor, topk_ids: torch.Tensor,
     tile_expert = torch.searchsorted(bounds, starts, right=True)
     tile_expert = torch.clamp(tile_expert, max=e - 1).to(torch.int32)
     return x_sorted, tile_expert, row_src
+
+
+def prepare_expert_rows(rows: torch.Tensor, expert_ids: torch.Tensor,
+                        num_experts: int, block_m: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Every rank's received rows in :func:`prepare_grouped_tokens`' layout,
+    for the expert-parallel experts.
+
+    rows (n, R, d): rank r's rows; expert_ids (n, R): each row's local
+    expert in ``[0, num_experts)``, or -1 for an empty row (it is left
+    out). Returns ``(x_sorted (n, S, d), tile_expert (n, S // block_m)
+    int32, row_src (n, S) int32)`` with S = :func:`padded_rows` (R, 1,
+    num_experts, block_m): rank r's rows sorted expert-major (stable) in
+    ``block_m``-aligned segments, each rank's own tile map (tiles past the
+    last used row map to the last expert), and each sorted row's source
+    row in ``[0, R)`` or -1 for padding (a zero row). All ranks at once,
+    device ops of fixed shape: nothing is read on the host."""
+    n, r_rows, d = rows.shape
+    e, tm = num_experts, block_m
+    dev = rows.device
+    s_pad = padded_rows(r_rows, 1, e, tm)
+    ids = torch.where(expert_ids < 0, e, expert_ids).long()     # (n, R)
+    key = (ids + (e + 1) * torch.arange(n, device=dev)[:, None]).reshape(-1)
+    counts = torch.zeros(n * (e + 1), dtype=torch.long, device=dev
+                         ).scatter_add_(0, key, torch.ones_like(key))
+    counts = counts.view(n, e + 1)[:, :e]
+    pad_counts = (counts + tm - 1) // tm * tm
+    bounds = torch.cumsum(pad_counts, 1)                         # (n, E)
+    seg_off = bounds - pad_counts
+    # Rank within the (rank, expert) run: position in the stable sorted
+    # order less the start of that run.
+    order = torch.argsort(key, stable=True)
+    sorted_key = key[order]
+    run_start = torch.searchsorted(
+        sorted_key, torch.arange(n * (e + 1), device=dev))
+    within = torch.empty_like(key).scatter_(
+        0, order, torch.arange(n * r_rows, device=dev) - run_start[sorted_key])
+    rank = torch.arange(n, device=dev).repeat_interleave(r_rows)
+    flat_ids = ids.reshape(-1)
+    dest = torch.where(
+        flat_ids < e,
+        rank * s_pad + seg_off[rank, flat_ids.clamp(max=e - 1)] + within,
+        n * s_pad)                                   # empty rows: dropped
+    x_sorted = rows.new_zeros((n * s_pad + 1, d)).index_copy_(
+        0, dest, rows.reshape(n * r_rows, d))[:-1].view(n, s_pad, d)
+    src = torch.arange(r_rows, dtype=torch.int32, device=dev).repeat(n)
+    row_src = torch.full((n * s_pad + 1,), -1, dtype=torch.int32,
+                         device=dev).index_copy_(0, dest, src)[:-1]
+    starts = (torch.arange(s_pad // tm, device=dev) * tm).expand(n, -1)
+    tile_expert = torch.searchsorted(bounds, starts.contiguous(), right=True)
+    tile_expert = torch.clamp(tile_expert, max=e - 1).to(torch.int32)
+    return x_sorted, tile_expert, row_src.view(n, s_pad)
 
 
 def tiles_used(row_src: torch.Tensor, block_m: int) -> torch.Tensor:

@@ -16,9 +16,12 @@ Two forms, as in the JAX package:
   :func:`grouped_gemm_tiles_ref`, JAX's per-tile product. Nothing is read
   on the host. The weights may be strided views (a tensor-parallel rank's
   ffn shard, :func:`~triton_dist_tpu_torch.layers.tp_moe.param_specs`),
-  and a leading rank dimension runs n simulated ranks in one launch.
-  JAX's ``block_n``/``block_k`` (VMEM tilings) have no counterpart;
-  ``grouped_gemm_tiles_tuned`` waits for the autotuner (ROADMAP.md).
+  and a leading rank dimension runs n simulated ranks in one launch, with
+  one tile map for every rank or a map of each rank's own, and optionally
+  each rank's count of the tiles that hold a real row (the rest store
+  zeros without being multiplied). JAX's ``block_n``/``block_k`` (VMEM
+  tilings) have no counterpart; ``grouped_gemm_tiles_tuned`` waits for the
+  autotuner (ROADMAP.md).
 
 Expert weights are stored ``(E, out, in)`` (:mod:`~triton_dist_tpu_torch.
 layers.ep_moe`), the transpose of JAX's ``(E, in, out)``.
@@ -27,7 +30,7 @@ layers.ep_moe`), the transpose of JAX's ``(E, in, out)``.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Union
+from typing import Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
@@ -36,7 +39,9 @@ from triton_dist_tpu_torch.utils.build import CudaKernel
 
 # ``KERNEL.launches`` counts launches of the CUDA kernel.
 KERNEL = CudaKernel("group_gemm.cu", "tdt_group_gemm_bf16",
-                    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                    [ctypes.c_void_p] * 4 + [ctypes.c_longlong]
+                    + [ctypes.c_void_p] + [ctypes.c_int] * 2
+                    + [ctypes.c_void_p] + [ctypes.c_int] * 7
                     + [ctypes.c_longlong] * 6)
 
 
@@ -137,8 +142,31 @@ def as_weights(w: Weights, ranks: bool = False):
     return ws
 
 
+def _tile_maps(tile_expert: torch.Tensor, used, ranks: int):
+    """Check the tile map and the used counts of :func:`grouped_gemm_tiles`
+    (``ranks`` 0: one rank); returns ``(tiles, chunks)``."""
+    per_rank = tile_expert.dim() == 2
+    if tile_expert.dim() not in (1, 2) or (per_rank and (
+            not ranks or tile_expert.shape[0] != ranks)):
+        raise ValueError(f"tile_expert {tuple(tile_expert.shape)}: expected "
+                         f"(tiles,) or, with {ranks} ranks, (n, tiles)")
+    tiles = tile_expert.shape[-1]
+    if used is None:
+        return tiles, 1
+    if used.dim() not in (1, 2) or (used.dim() == 2 and (
+            not ranks or used.shape[0] != ranks)):
+        raise ValueError(f"used {tuple(used.shape)}: expected (chunks,) or, "
+                         f"with {ranks} ranks, (n, chunks)")
+    chunks = used.shape[-1]
+    if chunks == 0 or tiles % chunks:
+        raise ValueError(f"{chunks} used counts do not cut {tiles} tiles into "
+                         "equal chunks")
+    return tiles, chunks
+
+
 def grouped_gemm_tiles(x_sorted: torch.Tensor, w: Weights,
-                       tile_expert: torch.Tensor) -> torch.Tensor:
+                       tile_expert: torch.Tensor,
+                       used: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Grouped GEMM over a row-tile-aligned expert-major layout.
 
     ``x_sorted``: (S, d), every row tile owned by one expert; ``w``: (E, f,
@@ -149,19 +177,28 @@ def grouped_gemm_tiles(x_sorted: torch.Tensor, w: Weights,
     fp32 sum rounded once to ``x_sorted.dtype``. Returns (S, sum of f).
 
     Simulated ranks: ``x_sorted`` (n, S, d) and weights (n, E, f, d), rank
-    r's shard at ``[r]`` (views: any expert and row stride, unit stride
-    along d), one ``tile_expert`` for every rank: returns (n, S, sum of f),
-    one launch."""
+    r's shard at ``[r]`` (views: any rank, expert and row stride, unit
+    stride along d), ``tile_expert`` one map (S // tm,) for every rank or
+    (n, S // tm), each rank's own: returns (n, S, sum of f), one launch.
+
+    ``used`` (int32): the map's tiles cut into ``chunks`` equal chunks,
+    the leading tiles of each chunk that hold a real row, (chunks,) or,
+    with ranks, (n, chunks) per rank; a tile past its chunk's count is
+    not multiplied and its rows are zeros (the sorted layout's all-padding
+    tail, whose product is zero)."""
     ranks = x_sorted.dim() == 3
     ws = as_weights(w, ranks)
     s, d = x_sorted.shape[-2:]
-    n_tiles = tile_expert.shape[0]
+    n = x_sorted.shape[0] if ranks else 1
+    n_tiles, chunks = _tile_maps(tile_expert, used, n if ranks else 0)
     if (n_tiles == 0 or s % n_tiles or ws[0].shape[-1] != d
-            or (ranks and ws[0].shape[0] != x_sorted.shape[0])):
+            or (ranks and ws[0].shape[0] != n)):
         raise ValueError(f"x_sorted {tuple(x_sorted.shape)}, {n_tiles} "
                          f"tiles, weights {tuple(ws[0].shape)}")
     if x_sorted.device.type == "cpu":
-        return grouped_gemm_tiles_ref(x_sorted, ws, tile_expert)
+        if used is None:
+            return grouped_gemm_tiles_ref(x_sorted, ws, tile_expert)
+        return grouped_gemm_tiles_ref(x_sorted, ws, tile_expert, used=used)
     tm = s // n_tiles
     dev = x_sorted.device
     if dev.type != "cuda":
@@ -177,13 +214,13 @@ def grouped_gemm_tiles(x_sorted: torch.Tensor, w: Weights,
         if t.stride(-1) != 1 or t.data_ptr() % 16:
             raise ValueError("the weights need unit stride along d and a "
                              "16-byte aligned start")
-    if (tile_expert.device != dev or tile_expert.dtype != torch.int32
-            or not tile_expert.is_contiguous()):
-        raise TypeError("tile_expert must be contiguous int32 on " + str(dev))
+    for name, t in (("tile_expert", tile_expert), ("used", used)):
+        if t is not None and (t.device != dev or t.dtype != torch.int32
+                              or not t.is_contiguous()):
+            raise TypeError(f"{name} must be contiguous int32 on {dev}")
     if tm > 64 and tm % 64:
         raise ValueError(f"row tile {tm}: the kernel takes tiles of at most "
                          "64 rows or multiples of 64")
-    n = x_sorted.shape[0] if ranks else 1
     f0 = ws[0].shape[-2]
     f1 = ws[1].shape[-2] if len(ws) == 2 else 0
 
@@ -193,25 +230,35 @@ def grouped_gemm_tiles(x_sorted: torch.Tensor, w: Weights,
     out = x_sorted.new_empty((*x_sorted.shape[:-1], f0 + f1))
     KERNEL.launch(x_sorted.data_ptr(), ws[0].data_ptr(),
                   ws[1].data_ptr() if f1 else None, tile_expert.data_ptr(),
-                  out.data_ptr(), n, s, d, ws[0].shape[-3], f0, f1, tm,
-                  *strides(ws[0]), *(strides(ws[1]) if f1 else (0, 0, 0)),
-                  device=dev)
+                  n_tiles if tile_expert.dim() == 2 else 0,
+                  None if used is None else used.data_ptr(),
+                  chunks if used is not None and used.dim() == 2 else 0,
+                  n_tiles // chunks, out.data_ptr(), n, s, d,
+                  ws[0].shape[-3], f0, f1, tm, *strides(ws[0]),
+                  *(strides(ws[1]) if f1 else (0, 0, 0)), device=dev)
     return out
 
 
 def grouped_gemm_tiles_ref(x_sorted: torch.Tensor, w: Weights,
                            tile_expert: torch.Tensor, *,
+                           used: Optional[torch.Tensor] = None,
                            tiles_per_step: int = 16) -> torch.Tensor:
     """Plain version, JAX's per-tile product: each row tile times its
-    expert's weight in fp32, rounded once to ``x_sorted.dtype``. The
-    weight gather runs ``tiles_per_step`` tiles at a time, so it never
-    holds every tile's weights at once. Simulated ranks (a leading rank
-    dimension on ``x_sorted`` and the weights) run one after another."""
+    expert's weight in fp32, rounded once to ``x_sorted.dtype``; tiles past
+    their chunk's ``used`` count are zeros. The weight gather runs
+    ``tiles_per_step`` tiles at a time, so it never holds every tile's
+    weights at once. Simulated ranks (a leading rank dimension on
+    ``x_sorted`` and the weights) run one after another."""
     if x_sorted.dim() == 3:
         ws = as_weights(w, True)
+
+        def mine(t, r):
+            return None if t is None else t[r] if t.dim() == 2 else t
+
         return torch.stack([
             grouped_gemm_tiles_ref(x_sorted[r], [t[r] for t in ws],
-                                   tile_expert, tiles_per_step=tiles_per_step)
+                                   mine(tile_expert, r), used=mine(used, r),
+                                   tiles_per_step=tiles_per_step)
             for r in range(x_sorted.shape[0])])
     ws = as_weights(w)
     s, d = x_sorted.shape
@@ -225,4 +272,8 @@ def grouped_gemm_tiles_ref(x_sorted: torch.Tensor, w: Weights,
         a = tiles[sl].float()
         out[sl] = torch.cat([torch.bmm(a, t[te[sl]].float().transpose(1, 2))
                              for t in ws], dim=-1).to(out.dtype)
+    if used is not None:
+        per = n_tiles // used.shape[0]
+        idx = torch.arange(n_tiles, device=used.device)
+        out[idx % per >= used.long()[idx // per]] = 0
     return out.reshape(s, -1)

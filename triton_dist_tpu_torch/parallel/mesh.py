@@ -9,9 +9,12 @@ each fused op is one kernel launch in which every rank's thread blocks
 run the JAX kernel's put → signal → wait protocol against each other
 through a symmetric workspace (:mod:`triton_dist_tpu_torch.shmem`). Each
 rank computes only its own shard, so the results are the real tp = n
-results. The canonical axes are kept; only ``tp`` may exceed 1 (the
-expert- and sequence-parallel regimes are ROADMAP.md queue A items 5 and
-6, data and pipeline parallelism have no port yet).
+results. The canonical axes are kept; only ``tp`` may exceed 1. The
+expert-parallel regime runs over the ``tp`` ranks (``Engine(...,
+moe_impl="ep")``, as JAX's engine builds its ``EPContext`` over its ``tp``
+axis); a mesh with an ``ep`` axis of its own (a two-axis simulated mesh)
+is ROADMAP.md queue A item 5, sequence parallelism item 6, and data and
+pipeline parallelism have no port yet.
 """
 
 from __future__ import annotations
@@ -25,8 +28,9 @@ from triton_dist_tpu_torch.utils.device import resolve_device
 AXIS_ORDER = ("dp", "pp", "ep", "sp", "tp")
 _NOT_PORTED = {"dp": "data parallelism is not ported",
                "pp": "pipeline parallelism is not ported",
-               "ep": "the expert-parallel regime is ROADMAP.md queue A "
-                     "item 5",
+               "ep": "the expert-parallel regime runs over the tp axis, "
+                     "Engine(moe_impl='ep'); an ep axis of its own is "
+                     "ROADMAP.md queue A item 5",
                "sp": "sequence parallelism is ROADMAP.md queue A item 6"}
 
 

@@ -33,8 +33,9 @@ lane a MoE engine routes inside the kernel and counts every routed
 ["expert_load"]``) and, every ``REBALANCE_EVERY`` ticks, hands a changed
 hot-expert set to a dynamic-schedule engine's claim priorities
 (:meth:`MegaKernelEngine.set_expert_load`). The expert-parallel decode
-transports and hot-expert replicas are not ported (ROADMAP.md, queue A
-item 5).
+transports run on the dense-cache ``Engine(moe_impl="ep")`` only; the
+server's EP knobs and hot-expert replicas are not ported (ROADMAP.md,
+queue A item 8).
 
 On the layer lane, ``prefill_buckets=None`` (the default) admits each
 prompt monolithically: one dense-cache :meth:`Engine.prefill` of the

@@ -67,15 +67,18 @@ _EPOCHS = itertools.count(1)
 
 class Workspace:
     """The persistent part of one op's symmetric workspace: ``n_flags``
-    flag words (int64, starting at 0) plus the abort word after them, and
-    an optional persistent data buffer (``data``)."""
+    flag words (int64, starting at 0) plus the abort word after them, an
+    optional persistent data buffer (``data``) and optional named ones
+    (``buffers``: the low-latency all-to-all's inbound codes and scales)."""
 
     def __init__(self, n_flags: int, device,
-                 data: Optional[torch.Tensor] = None):
+                 data: Optional[torch.Tensor] = None,
+                 buffers: Optional[Dict[str, torch.Tensor]] = None):
         self.n_flags = n_flags
         self.flags = torch.zeros(n_flags + 1, dtype=torch.int64,
                                  device=device)
         self.data = data
+        self.buffers = buffers or {}
 
     @staticmethod
     def next_epoch() -> int:
@@ -92,17 +95,21 @@ _CACHE: Dict[Tuple, Workspace] = {}
 
 
 def workspace(op: str, key: Tuple, *, n: int, n_flags: int, device,
-              data_shape=None, data_dtype=torch.float32) -> Workspace:
+              data_shape=None, data_dtype=torch.float32,
+              buffers: Optional[Dict[str, Tuple]] = None) -> Workspace:
     """The cached :class:`Workspace` of ``op`` at ``key`` (the shapes its
     flags and data depend on) on ``device``, made on first use. ``data_shape``:
     the persistent per-rank data buffer, allocated by :func:`symm_tensor`
-    as ``(n, *data_shape)``."""
+    as ``(n, *data_shape)``; ``buffers``: more of them by name, each
+    ``name: (shape, dtype)``."""
     ck = (op, key, n, str(device))
     ws = _CACHE.get(ck)
     if ws is None:
         data = (symm_tensor(data_shape, data_dtype, n, device)
                 if data_shape is not None else None)
-        ws = _CACHE[ck] = Workspace(n_flags, device, data)
+        named = {name: symm_tensor(shape, dtype, n, device)
+                 for name, (shape, dtype) in (buffers or {}).items()}
+        ws = _CACHE[ck] = Workspace(n_flags, device, data, named)
     return ws
 
 
