@@ -349,6 +349,37 @@ Phases (any failure exits nonzero; nothing is caught):
    and a signal never sent in row 18 (inside ``Engine.prefill``) and row
    23 (inside ``Engine.decode``) raising CommTimeoutError from that call,
    the next steps giving the same logits.
+30. The hierarchical (outer x inner) kernels over a 2 x 2 simulated mesh
+   (``make_mesh(dp=2, tp=2)``, rank r = o·2 + i) at Qwen3-8B shapes:
+   row 9 (AG+GEMM, wq and w_gate, gathered A returned) and row 12
+   (GEMM+RS, wo and w_down) over a (4, 512) prefill, within TOL_TP of
+   their plain versions, which walk the same 2D schedule; rows 1, 4 and
+   5 at the shapes of the engine's outer hop (the "fused_ar" prefill's
+   TWO_SHOT all-reduce of (2048, 4096) a rank: its ring reduce-scatter
+   and its ring all-gather of (1024, 4096) chunks; a decode step's
+   one-shot all-reduce of (4, 4096)), bit for bit. Each then TP_REPEATS
+   launches on TP_SETS input sets in turn. On each hop (inner "tp",
+   outer "dp"): a planted wrong chunk / dropped partial caught, a signal
+   never sent raising CommTimeoutError naming the hop. Rows 9 and 12
+   count their puts by hop on the device: 8 inner and 4 outer over the
+   four ranks, JAX's hierarchical schedule (a flat ring of four makes 12
+   over one kind of link). Times against the bound, the plain version
+   and one library call (rows 9, 12 also the non-overlapped composition).
+31. ``Engine(qwen3_8b, mesh=make_mesh(dp=2, tp=2), axis=("dp", "tp"),
+   mode=m)`` at full depth on phase 3's weights, m in "fused",
+   "fused_ar" and "xla": a (4, 512) prefill and 4 decode steps with
+   exact launch counts (a "fused" prefill layer: rows 9 and 12 twice
+   each; a "fused_ar" one: GEMM+AR ("ll") and rows 4 and 1 twice each; a
+   decode layer: GEMM+AR and row 5 twice each); prefill and decode-step
+   times; the prefill and first decode step logits against the flat
+   ``make_mesh(tp=4)`` engine of the same mode on the same weights, and
+   the flat engine's fused modes against its "xla" mode, within
+   TOL_LOGITS_DEEP = 0.16 (random bf16 weights amplify one-unit roundings
+   over 36 layers: those gaps read 0.109-0.132 on an H100 80GB HBM3 at
+   700 W); at 2 layers, phase 25's
+   rule: each mode within TOL_LOGITS of the flat engine of the same mode
+   and of the flat "xla" one; a signal never sent on the outer hop
+   raising from ``Engine.prefill`` (row 12) and ``Engine.decode`` (row 5).
 
 The last lines of output: one JSON object with every kernel's numbers
 (the megakernel once per row mode, and once per MoE row mode), the
@@ -442,7 +473,8 @@ def build_kernels():
     t0 = time.perf_counter()
     cuda = ("paged_attention.cu", "megakernel.cu", "flash_attention.cu",
             "group_gemm.cu", "ag_gemm.cu", "gemm_rs.cu", "gemm_ar.cu",
-            "ag_moe.cu", "moe_reduce.cu", "all_to_all.cu", "ll_a2a.cu")
+            "ag_moe.cu", "moe_reduce.cu", "all_to_all.cu", "ll_a2a.cu",
+            "collectives.cu")
     logs = build.build_all([*cuda, "megakernel_scheduler.cc"])
     print(f"[build] nvcc x{len(cuda)} + g++ in parallel "
           f"{time.perf_counter() - t0:.1f} s -> {build.BUILD_DIR}")
@@ -634,15 +666,17 @@ def serve_phase():
     del srv
     dense_engine = engine_phase("dense", cfg, eng.params)
     tp_engine = tp_engine_phase(cfg, eng.params)
+    tp2d_engine = tp2d_engine_phase(cfg, eng.params)
     del eng
     torch.cuda.empty_cache()
-    return launches, st, dense_engine, tp_engine
+    return launches, st, dense_engine, tp_engine, tp2d_engine
 
 
 def launch_counters() -> dict:
     """Every kernel wrapper's launch counter, by the kernels line's key."""
     from triton_dist_tpu_torch.megakernel import builder as mkb
     from triton_dist_tpu_torch.ops import ag_gemm, ag_moe, gemm_ar, gemm_rs
+    from triton_dist_tpu_torch.ops import allgather, allreduce, reduce_scatter
     from triton_dist_tpu_torch.ops import flash_attention as fa
     from triton_dist_tpu_torch.ops import group_gemm as gg
     from triton_dist_tpu_torch.ops import moe_reduce
@@ -661,7 +695,10 @@ def launch_counters() -> dict:
             "qblock-int8": pfq.KERNELS[torch.int8],
             "qblock-fp8": pfq.KERNELS[torch.float8_e4m3fn],
             "megakernel": mkb.KERNEL, "flash": fa.KERNEL,
-            "group_gemm": gg.KERNEL}
+            "group_gemm": gg.KERNEL, "ag_gemm_2d": ag_gemm.KERNEL_2D,
+            "gemm_rs_2d": gemm_rs.KERNEL_2D, "all_gather": allgather.KERNEL,
+            "reduce_scatter": reduce_scatter.KERNEL,
+            "all_reduce": allreduce.KERNEL}
 
 
 def zero_counts() -> None:
@@ -3820,6 +3857,467 @@ def tp_engine_phase(cfg, params):
     return dict(runs=runs, parity=worst)
 
 
+# ---- Hierarchical tensor parallelism over a 2 x 2 mesh (phases 30-31) ----
+
+AX2D = ("dp", "tp")            # make_mesh(dp=2, tp=2): outer x inner
+TP2D = (2, 2)
+TOL_EXACT = (0.0, 0.0)         # rows 1, 4, 5: the plain version's own sums
+TP2D_DECODE = 4                # decode steps phase 31 counts and times
+# Phase 31's limit at 36 layers on the logits of the 2 x 2 engine against
+# the flat tp = 4 engine of its mode, and of the flat engine's fused modes
+# against its "xla" mode. Random bf16 weights amplify one-unit roundings
+# over 36 layers: on an H100 80GB HBM3 at 700 W three calls read the same
+# 0.1121 / 0.1321 ("fused", prefill / first step) and 0.1288 / 0.1206
+# ("fused_ar") for the former and 0.1090 for the latter (PERF.md §6).
+TOL_LOGITS_DEEP = 0.16
+
+
+def tp2d_cases(mesh, ctxs):
+    """Phase 30's operands at Qwen3-8B shapes over 2 x 2 ranks (bf16, seed
+    48): rows 9 and 12 at phase 24's shapes (a (4, 512) prefill, 512
+    tokens a rank), and rows 1, 4 and 5 at the shapes the engine gives
+    them on the outer hop: the ``"fused_ar"`` prefill's TWO_SHOT
+    all-reduce of (2048, 4096) a rank (its reduce-scatter, then its
+    all-gather of (1024, 4096) chunks), and a decode step's one-shot
+    all-reduce of (4, 4096). Each case: ``TP_SETS`` activation sets, the
+    kernel call, its plain version and one library call (rows 9, 12: one
+    ``torch.einsum`` and the non-overlapped composition, as rows 7 and
+    10; rows 1, 4, 5: the one PyTorch call on the stacked tensor), its
+    limit, its two hops (call keywords, the wrong-data fault, the
+    lost-signal fault, the hop's name) and the bytes / operations of its
+    bound."""
+    from triton_dist_tpu_torch.models import ModelConfig
+    from triton_dist_tpu_torch.ops import ag_gemm as ag
+    from triton_dist_tpu_torch.ops import allgather as agm
+    from triton_dist_tpu_torch.ops import allreduce as arm
+    from triton_dist_tpu_torch.ops import gemm_rs as rs
+    from triton_dist_tpu_torch.ops import reduce_scatter as rsm
+    from triton_dist_tpu_torch.ops.tp_gemm import column_shards, row_shards
+
+    cfg = ModelConfig.qwen3_8b()
+    d, ff = cfg.hidden_size, cfg.intermediate_size
+    hq = cfg.num_attention_heads * cfg.head_dim
+    n_o, n_in = TP2D
+    n, dev = n_o * n_in, mesh.device
+    t = int(np.prod(ENGINE_IDS))                     # 2048 prefill tokens
+    g = torch.Generator(device=dev).manual_seed(48)
+    bf = dict(device=dev, dtype=torch.bfloat16)
+
+    def weight(out_f, in_f):
+        return torch.randn(out_f, in_f, generator=g, **bf) * in_f ** -0.5
+
+    def acts(*shape):
+        return [torch.randn(*shape, generator=g, **bf)
+                for _ in range(TP_SETS)]
+
+    def fused_hops(mod):
+        return [({}, mod.FAULTS_2D[f"wrong_chunk_{h}"],
+                 mod.FAULTS_2D[f"lost_signal_{h}"], f"{h} hop")
+                for h in ("inner", "outer")]
+
+    coll_hops = [({"axis": "tp"}, 1, 2, "inner hop"),
+                 ({"axis": "dp"}, 1, 2, "outer hop")]
+    cases = []
+    xs = acts(n, t // n, d)                           # token-sharded
+    for name, out_f in (("wq", hq), ("w_gate", ff)):
+        b = column_shards(weight(out_f, d), n)
+        nl = out_f // n
+        cases.append(dict(
+            key="ag2d", label=f"ag_gemm 2d (row 9) {name} M {t} K {d} "
+                              f"N_loc {nl}", sets=xs, tol=TOL_TP, puts=True,
+            hops=fused_hops(ag),
+            call=lambda x, b=b, **kw: ag.ag_gemm(x, b, ctxs.ag,
+                                                 return_ag=True, **kw)[0],
+            plain=lambda x, b=b, **kw: ag.ag_gemm_ref(x, b),
+            library=lambda x, b=b: torch.einsum("cmk,rnk->rcmn", x, b),
+            comp=lambda x, b=b: [torch.matmul(torch.cat(list(x)), b[r].t())
+                                 for r in range(n)],
+            nbytes=2 * (xs[0].numel() + b.numel() + n * t * nl + n * t * d),
+            flops=2 * n * t * d * nl))
+    for name, k_full in (("wo", hq), ("w_down", ff)):
+        b = row_shards(weight(d, k_full), n)
+        sets = acts(n, t, k_full // n)
+        cases.append(dict(
+            key="rs2d", label=f"gemm_rs 2d (row 12) {name} M {t} K_loc "
+                              f"{k_full // n} N {d}", sets=sets, tol=TOL_TP,
+            puts=True, hops=fused_hops(rs),
+            call=lambda a, b=b, **kw: rs.gemm_rs(a, b, ctxs.rs, **kw),
+            plain=lambda a, b=b, **kw: rs.gemm_rs_2d_ref(a, b, *TP2D),
+            library=lambda a, b=b: torch.einsum("rmk,rnk->mn", a, b),
+            comp=lambda a, b=b: torch.matmul(a, b.transpose(1, 2)).sum(
+                0).view(n, -1, d),
+            nbytes=2 * (sets[0].numel() + b.numel() + t * d),
+            flops=2 * t * k_full * d))
+    # Rows 1, 4, 5: a set already stacks all n ranks' buffers, so each
+    # bound reads it once and writes the stacked output once.
+    c = t // n_o                                      # 1024-row chunks
+    x1 = acts(n, c, d)
+    cases.append(dict(
+        key="all_gather", label=f"all_gather ring (row 1) over dp, "
+                                f"{n} x ({c}, {d})", sets=x1, tol=TOL_EXACT,
+        puts=False, hops=coll_hops,
+        call=lambda x, axis="dp", **kw: agm.all_gather(x, ctx=mesh,
+                                                       axis=axis, **kw),
+        plain=lambda x, axis="dp": agm.all_gather_ref(x, ctx=mesh,
+                                                      axis=axis),
+        library=lambda x: x.view(1, n_o, n_in, c, d).permute(
+            0, 2, 1, 3, 4).unsqueeze(1).expand(1, n_o, n_in, n_o, c,
+                                               d).contiguous(),
+        comp=None, nbytes=2 * (1 + n_o) * x1[0].numel(), flops=0))
+    x4 = acts(n, t, d)
+    cases.append(dict(
+        key="reduce_scatter", label=f"reduce_scatter ring (row 4) over dp, "
+                                    f"{n} x ({t}, {d})", sets=x4,
+        tol=TOL_EXACT, puts=False, hops=coll_hops,
+        call=lambda x, axis="dp", **kw: rsm.reduce_scatter(
+            x, ctx=mesh, axis=axis, **kw),
+        plain=lambda x, axis="dp": rsm.reduce_scatter_ref(x, ctx=mesh,
+                                                          axis=axis),
+        library=lambda x: x.view(1, n_o, n_in, n_o, c, d).sum(1),
+        comp=None, nbytes=2 * (x4[0].numel() + x4[0].numel() // n_o),
+        flops=0))
+    x5 = acts(n, ENGINE_IDS[0], d)
+    cases.append(dict(
+        key="all_reduce", label=f"all_reduce one_shot (row 5) over dp, "
+                                f"{n} x ({ENGINE_IDS[0]}, {d})", sets=x5,
+        tol=TOL_EXACT, puts=False, hops=coll_hops,
+        call=lambda x, axis="dp", **kw: arm.all_reduce(x, ctx=mesh,
+                                                       axis=axis, **kw),
+        plain=lambda x, axis="dp": arm.all_reduce_ref(x, ctx=mesh,
+                                                      axis=axis),
+        library=lambda x: x.view(1, n_o, n_in, -1, d).sum(1),
+        comp=None, nbytes=2 * 2 * x5[0].numel(), flops=0))
+    return cases
+
+
+def tp2d_kernel_phase():
+    """Phase 30: the hierarchical kernels (rows 9, 12) and the collectives
+    (rows 1, 4, 5) against their plain versions over a 2 x 2 simulated
+    mesh (:func:`tp2d_cases`). Each within its limit (rows 9, 12 TOL_TP,
+    one bf16 unit: both sum in fp32 and round once; rows 1, 4, 5 bit for
+    bit: row 1 is a copy, row 4's plain version rounds each hop's sum as
+    the ring does, row 5's sums the group in the kernel's position
+    order), then TP_REPEATS launches on the TP_SETS sets in turn, each
+    held against its own set's plain version. On each hop, inner (tp) and
+    outer (dp): a planted wrong chunk / dropped partial must fail the
+    limit, and a signal never sent must raise CommTimeoutError naming
+    that hop within its bound, the next call sound. Rows 9 and 12 count
+    their puts by hop on the device: JAX's schedule makes each rank
+    n_o·(n_in - 1) = 2 inner puts and n_o - 1 = 1 outer put (8 and 4 over
+    the four ranks; a flat ring of 4 would make 3 a rank over one kind of
+    link). Times (L2 flushed) against the bound, the plain version and
+    the library call. Returns, by key, the first case's numbers."""
+    from triton_dist_tpu_torch import make_mesh
+    from triton_dist_tpu_torch.models.dense import make_fwd_contexts
+    from triton_dist_tpu_torch.shmem import workspace as shmem
+
+    t_phase = time.perf_counter()
+    mesh = make_mesh(dp=TP2D[0], tp=TP2D[1])
+    ctxs = make_fwd_contexts(mesh, AX2D)
+    n_o, n_in = TP2D
+    want_puts = [n_o * n_in * n_o * (n_in - 1), n_o * n_in * (n_o - 1)]
+    out, errs = {}, {}
+    for c in tp2d_cases(mesh, ctxs):
+        label, key, sets, tol = c["label"], c["key"], c["sets"], c["tol"]
+        atol, rtol = tol
+        x0 = sets[0]
+        wants = [c["plain"](x) for x in sets]
+        want = wants[0]
+        if c["puts"]:
+            puts = torch.zeros(2, dtype=torch.int64, device=mesh.device)
+            got = c["call"](x0, check=True, puts=puts)
+            print(f"[{label}] chunk puts by hop (inner, outer) "
+                  f"{puts.tolist()}, JAX's schedule {want_puts}")
+            if puts.tolist() != want_puts:
+                fail(f"{label}: puts by hop {puts.tolist()} are not JAX's "
+                     f"hierarchical schedule's {want_puts}")
+        else:
+            got = c["call"](x0, check=True)
+        errs[key] = max(errs.get(key, 0.0), check_close(label, got, want,
+                                                         tol))
+        misses = torch.zeros((), dtype=torch.int32, device=mesh.device)
+        for k in range(TP_REPEATS):
+            j = (k + 1) % TP_SETS         # never the previous call's set
+            diff = (c["call"](sets[j]).float() - wants[j].float()).abs()
+            misses += (diff > atol + rtol * wants[j].float().abs()
+                       ).any().int()
+        shmem.check_errors(mesh.device, sync=True)
+        print(f"[{label}] {TP_REPEATS} launches in a row on {TP_SETS} "
+              f"input sets in turn: {int(misses)} outside the limit")
+        if int(misses):
+            fail(f"{label}: {int(misses)} of {TP_REPEATS} repeated launches "
+                 "disagree")
+        del wants
+        if key not in out:
+            for kw, wrong, lost, hop in c["hops"]:
+                want_h = c["plain"](x0, **kw)
+                fault_control(f"{label} wrong data on the {hop}",
+                              c["call"](x0, fault=wrong, check=True, **kw),
+                              want_h, tol)
+                t0 = time.perf_counter()
+                try:
+                    c["call"](x0, fault=lost, timeout_s=TP_TIMEOUT_S,
+                              check=True, **kw)
+                    fail(f"{label}: a signal never sent on the {hop} did "
+                         "not raise")
+                except shmem.CommTimeoutError as e:
+                    print(f"[{label}] lost signal on the {hop} raised in "
+                          f"{time.perf_counter() - t0:.3f} s: {e}")
+                    if hop not in str(e):
+                        fail(f"{label}: the timeout does not name the {hop}")
+                if time.perf_counter() - t0 > 5.0:
+                    fail(f"{label}: the lost signal took too long to raise")
+                check_close(f"{label} on the {hop} after the timeout",
+                            c["call"](x0, check=True, **kw), want_h, tol)
+        call0 = functools.partial(c["call"], x0)
+        k_ms = time_ms(call0)
+        p_ms = time_ms(functools.partial(c["plain"], x0), reps=5)
+        y_ms = time_ms(functools.partial(c["library"], x0))
+        c_ms = (time_ms(functools.partial(c["comp"], x0))
+                if c["comp"] is not None else None)
+        b_ms, b_by = bound(c["nbytes"], c["flops"])
+        comp = (f" non-overlapped composition_ms {c_ms:.4f}"
+                if c_ms is not None else "")
+        print(f"[tp2d-kernel] {label}: kernel_ms {k_ms:.4f} plain_ms "
+              f"{p_ms:.4f} bound_ms {b_ms:.4f} ({b_by}; "
+              f"{c['nbytes'] / 1e6:.1f} MB, {c['flops'] / 1e9:.1f} GFLOP) "
+              f"library_ms {y_ms:.4f}{comp}")
+        if key not in out:
+            out[key] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                            bound_by=b_by, library_ms=y_ms, comp_ms=c_ms)
+    for key in out:
+        out[key]["err"] = errs[key]
+    shmem.release_all()
+    torch.cuda.empty_cache()
+    print(f"[tp2d-kernel] phase 30 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def tp2d_want(mode, layers, prefill: bool) -> dict:
+    """Exact launches of one 2 x 2 prefill (``prefill``) or decode step:
+    a prefill layer launches flash attention once and, in "fused", rows 9
+    and 12 twice each; in "fused_ar" GEMM+AR ("ll", row 14) twice and,
+    for its outer TWO_SHOT all-reduces, rows 4 and 1 twice each; a decode
+    layer GEMM+AR and row 5 twice each unless the mode is "xla"."""
+    if prefill:
+        want = {"flash": layers}
+        if mode == "fused":
+            want.update(ag_gemm_2d=2 * layers, gemm_rs_2d=2 * layers)
+        elif mode == "fused_ar":
+            want.update(gemm_ar=2 * layers, ar_ll=2 * layers,
+                        reduce_scatter=2 * layers, all_gather=2 * layers)
+        return want
+    if mode == "xla":
+        return {}
+    return {"gemm_ar": 2 * layers, "ar_ll": 2 * layers,
+            "all_reduce": 2 * layers}
+
+
+def tp2d_engine_phase(cfg, params):
+    """Phase 31: ``Engine(cfg, mesh=make_mesh(dp=2, tp=2), axis=("dp",
+    "tp"), mode=m)`` at full Qwen3-8B width and depth on phase 3's weights
+    (each rank's shard a view: rank r = o·2 + i holds the shard of the
+    flat tp = 4 engine's rank r), for m in "fused", "fused_ar" and "xla":
+    a (4, 512) prefill, then TP2D_DECODE greedy decode steps, counts set
+    to zero just before each and read just after, exact
+    (:func:`tp2d_want`); prefill and decode-step times, the device idle
+    share of a decode step. The prefill logits and the first decode
+    step's (the same tokens fed to both) within TOL_LOGITS_DEEP of the
+    flat ``make_mesh(tp=4)`` engine of the same mode on the same weights,
+    the greedy tokens of both printed; the flat engine's own fused modes
+    within TOL_LOGITS_DEEP of its "xla" mode. At 2
+    layers (fresh weights, seed 1), phase 25's rule: every 2 x 2 mode's
+    prefill and first decode step within TOL_LOGITS of the flat engine of
+    the same mode and of the flat "xla" engine. Then a signal never sent
+    on the outer hop inside ``Engine.prefill`` (row 12, "fused") and
+    inside ``Engine.decode`` (row 5) raises CommTimeoutError from that
+    call, naming the outer hop; the next steps are sound."""
+    from unittest import mock
+
+    from triton_dist_tpu_torch import Engine, make_mesh
+    from triton_dist_tpu_torch.layers import tp_attn
+    from triton_dist_tpu_torch.ops import allreduce as arm
+    from triton_dist_tpu_torch.ops import gemm_rs as rs
+    from triton_dist_tpu_torch.shmem import workspace as shmem
+
+    t_phase = time.perf_counter()
+    mesh = make_mesh(dp=TP2D[0], tp=TP2D[1])
+    flat = make_mesh(tp=TP)
+    L = cfg.num_hidden_layers
+    rng = np.random.RandomState(3)
+    ids = rng.randint(0, cfg.vocab_size, ENGINE_IDS)
+    warm = rng.randint(0, cfg.vocab_size, (1, 64))
+    # The flat engine of every mode first: the 2 x 2 engine is held to
+    # its logits, and its own gap between a fused mode and "xla" is the
+    # yardstick at full depth (random bf16 weights amplify one-unit
+    # roundings over 36 layers). Every compared decode step is fed the
+    # same tokens, the flat "xla" prefill's greedy ones.
+    flat_runs = {}
+    for mode in ("xla", "fused", "fused_ar"):
+        fe = Engine(cfg, mesh=flat, mode=mode, params=params, max_len=1024)
+        f_logits, f_cache = fe.prefill(ids)
+        if mode == "xla":
+            tok = torch.argmax(f_logits, -1)
+        flat_runs[mode] = (f_logits, fe.decode(tok, f_cache)[0])
+        del fe, f_cache
+    drift = max(float((flat_runs[m][k] - flat_runs["xla"][k]).abs().max())
+                for m in ("fused", "fused_ar") for k in (0, 1))
+    # The 2 x 2 engine differs from the flat one of its mode by the same
+    # kind of one-unit roundings (row 12 adds in another fp32 order; GEMM+AR
+    # rounds to bf16 between its inner and outer hop, as JAX's does).
+    limit = TOL_LOGITS_DEEP
+    print(f"[tp2d-engine] at {L} layers the flat tp={TP} engine's fused "
+          f"modes stray up to {drift:.4f} from its xla mode (prefill and "
+          f"first decode step logits; limit {limit}); the 2x2 engine's "
+          f"limit against the flat engine of its mode: {limit}")
+    if not drift <= limit:
+        fail(f"tp2d engine: the flat tp={TP} engine's fused modes stray "
+             f"{drift:.4f} from its xla mode at {L} layers (limit {limit})")
+    runs = {}
+    for mode in ("fused", "fused_ar", "xla"):
+        eng = Engine(cfg, mesh=mesh, axis=AX2D, mode=mode, params=params,
+                     max_len=1024)
+        eng.serve(warm, gen_len=2)
+        zero_counts()
+        logits, cache = eng.prefill(ids)
+        counts_p = read_counts()
+        expect_launches(f"tp2d engine {mode} prefill", counts_p,
+                        tp2d_want(mode, L, True))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            eng.prefill(ids)
+        prefill_ms = (time.perf_counter() - t0) * 1e3 / 2
+        prof_p = profile_window(lambda: eng.prefill(ids), 1,
+                                f"2x2 {mode} Engine.prefill {ENGINE_IDS}")
+        toks = [tok]
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for k in range(TP2D_DECODE):
+            step, cache = eng.decode(toks[-1], cache)
+            if k == 0:
+                step0 = step
+            toks.append(torch.argmax(step, -1))
+        decode_ms = (time.perf_counter() - t0) * 1e3 / TP2D_DECODE
+        counts_d = read_counts()
+        want_d = {k: v * TP2D_DECODE for k, v in
+                  tp2d_want(mode, L, False).items()}
+        if mode == "xla":
+            if any(counts_d.values()):
+                fail(f"tp2d engine xla decode launched {counts_d}")
+        else:
+            expect_launches(f"tp2d engine {mode} decode", counts_d, want_d)
+        print(f"[tp2d-engine {mode}] Engine(dp=2, tp=2, axis={AX2D}) "
+              f"prefill {ENGINE_IDS} {prefill_ms:.1f} ms, decode step "
+              f"{decode_ms:.2f} ms; launches prefill "
+              f"{ {k: v for k, v in counts_p.items() if v} }, "
+              f"{TP2D_DECODE} decode steps "
+              f"{ {k: v for k, v in counts_d.items() if v} }")
+        prof = profile_window(lambda: eng.decode(toks[-1], cache), 1,
+                              f"2x2 {mode} Engine.decode step")
+        f_logits, f_step = flat_runs[mode]
+        gaps = (float((logits - f_logits).abs().max()),
+                float((step0 - f_step).abs().max()))
+        mine = torch.stack([torch.argmax(logits, -1), toks[1]], 1)
+        theirs = torch.stack([tok if mode == "xla" else
+                              torch.argmax(f_logits, -1),
+                              torch.argmax(f_step, -1)], 1)
+        agree = float((mine == theirs).float().mean())
+        print(f"[tp2d-engine {mode}] at {L} layers against the flat tp={TP} "
+              f"engine: prefill max |dlogit| {gaps[0]:.4f}, first decode "
+              f"step {gaps[1]:.4f} (limit {limit:.4f}), logit std "
+              f"{float(f_logits.std()):.3f}; greedy tokens (prefill, first "
+              f"step) 2x2 {mine.tolist()}, flat {theirs.tolist()} "
+              f"(agreement {agree:.3f})")
+        if not (bool(torch.isfinite(logits).all())
+                and bool(torch.isfinite(step0).all())
+                and max(gaps) <= limit):
+            fail(f"tp2d engine {mode}: logits {gaps} off the flat engine's")
+        runs[mode] = dict(prefill=counts_p, decode=counts_d,
+                          prefill_ms=prefill_ms, decode_ms=decode_ms,
+                          idle=prof["idle_share"],
+                          prefill_idle=prof_p["idle_share"], gaps=gaps,
+                          agree=agree)
+        del cache
+        if mode == "fused":
+            want_logits = logits
+            lost_eng = eng
+        else:
+            del eng
+        shmem.release_all()
+        torch.cuda.empty_cache()
+    del flat_runs
+    # Phase 25's rule: at 2 layers (fresh weights, seed 1) every 2 x 2 mode
+    # within TOL_LOGITS of the flat engine of the same mode and of its xla
+    # mode, prefill and first decode step.
+    cfg2 = dataclasses.replace(cfg, num_hidden_layers=2)
+    base = Engine(cfg2, mesh=flat, mode="xla", max_len=1024, seed=1)
+    b_logits, b_cache = base.prefill(ids)
+    tok = torch.argmax(b_logits, -1)
+    b_step, _ = base.decode(tok, b_cache)
+    worst = 0.0
+    for mode in ("fused", "fused_ar", "xla"):
+        e2 = Engine(cfg2, mesh=mesh, axis=AX2D, mode=mode,
+                    params=base.params, max_len=1024)
+        f2 = Engine(cfg2, mesh=flat, mode=mode, params=base.params,
+                    max_len=1024)
+        got, c2 = e2.prefill(ids)
+        got_step, _ = e2.decode(tok, c2)
+        want, fc2 = f2.prefill(ids)
+        want_step, _ = f2.decode(tok, fc2)
+        errs = [float((a - b).abs().max()) for a, b in (
+            (got, want), (got_step, want_step), (got, b_logits),
+            (got_step, b_step))]
+        print(f"[tp2d-parity] 2 layers, 2x2 {mode}: max |dlogit| against "
+              f"the flat {mode} engine prefill {errs[0]:.4f}, decode "
+              f"{errs[1]:.4f}; against the flat xla engine {errs[2]:.4f}, "
+              f"{errs[3]:.4f} (tol {TOL_LOGITS}), logit std "
+              f"{float(want.std()):.3f}")
+        if not (bool(torch.isfinite(got).all()) and max(errs) <= TOL_LOGITS):
+            fail(f"tp2d parity {mode}: {errs}")
+        worst = max(worst, *errs)
+        del e2, f2, c2, fc2
+    del base, b_cache
+    shmem.release_all()
+    torch.cuda.empty_cache()
+    def lost(fn, fault):
+        return lambda *a, **kw: fn(*a, **{**kw, "fault": fault,
+                                          "timeout_s": TP_TIMEOUT_S})
+
+    eng = lost_eng
+    for step, where, fn in (
+            ("prefill", (tp_attn, "gemm_rs"),
+             lost(rs.gemm_rs, rs.FAULTS_2D["lost_signal_outer"])),
+            ("decode", (arm, "all_reduce"),
+             lost(arm.all_reduce, arm.FAULTS["lost_signal"]))):
+        _, cache = eng.prefill(ids)
+        t0 = time.perf_counter()
+        with mock.patch.object(*where, fn):
+            try:
+                if step == "prefill":
+                    eng.prefill(ids)
+                else:
+                    eng.decode(tok, cache)
+                fail(f"tp2d engine: a lost outer-hop signal did not raise "
+                     f"from Engine.{step}")
+            except shmem.CommTimeoutError as e:
+                print(f"[tp2d-engine] a lost outer-hop signal in "
+                      f"{where[1]} raised from Engine.{step} in "
+                      f"{time.perf_counter() - t0:.3f} s: {e}")
+                if "outer hop" not in str(e):
+                    fail("tp2d engine: the timeout does not name the outer "
+                         "hop")
+    again, _ = eng.prefill(ids)
+    check_close("tp2d engine prefill after the faults", again, want_logits,
+                (1e-2, 0.0))
+    del eng, lost_eng
+    shmem.release_all()
+    torch.cuda.empty_cache()
+    print(f"[tp2d-engine] phase 31 took {time.perf_counter() - t_phase:.1f} s")
+    return dict(runs=runs, parity=worst)
+
+
 # ---- Tensor-parallel Qwen3-MoE over simulated ranks (phases 26-27) -------
 
 TP_MOE_TOKENS = 512        # tokens a rank: ENGINE_IDS over TP ranks
@@ -4935,8 +5433,9 @@ def main():
     numbers["tp"] = tp_kernel_phase()
     numbers["tp_moe"] = tp_moe_kernel_phase()
     numbers["ep"] = ep_kernel_phase()
+    numbers["tp2d"] = tp2d_kernel_phase()
     mk_quant_write_phase()
-    launches, layer_st, dense_engine, tp_engine = serve_phase()
+    launches, layer_st, dense_engine, tp_engine, tp2d_engine = serve_phase()
     parity_phase()
     mk = mk_serve_phase(layer_st)
     mk_parity_phase()
@@ -5143,6 +5642,31 @@ def main():
             "name": name, "route": "cuda",
             "source": f"triton_dist_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": launches_,
+            "max_abs_err": t["err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    # The hierarchical kernels and the collectives (rows 9, 12, 1, 4, 5):
+    # phase 30's times (wq, wo; rows 1, 4, 5 at the outer hop's shapes),
+    # launches over phase 31's prefills and decode steps.
+    served = tp2d_engine["runs"].values()
+    for key, count, name, source, replaces in (
+            ("ag2d", "ag_gemm_2d", "ag_gemm_2d_kernel", "ag_gemm.cu",
+             "triton_dist_tpu/ops/ag_gemm.py:588"),
+            ("rs2d", "gemm_rs_2d", "gemm_rs_2d_kernel", "gemm_rs.cu",
+             "triton_dist_tpu/ops/gemm_rs.py:307"),
+            ("all_gather", "all_gather", "all_gather_kernel",
+             "collectives.cu", "triton_dist_tpu/ops/allgather.py:49"),
+            ("reduce_scatter", "reduce_scatter", "reduce_scatter_kernel",
+             "collectives.cu", "triton_dist_tpu/ops/reduce_scatter.py:32"),
+            ("all_reduce", "all_reduce", "all_reduce_kernel",
+             "collectives.cu", "triton_dist_tpu/ops/allreduce.py:50")):
+        t = numbers["tp2d"][key]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"triton_dist_tpu_torch/csrc/{source}",
+            "replaces": replaces,
+            "launches": sum(run[part][count] for run in served
+                            for part in ("prefill", "decode")),
             "max_abs_err": t["err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})

@@ -1776,3 +1776,99 @@ def test_ep_layer_never_syncs_the_host(dev):
         torch.cuda.set_sync_debug_mode(0)
     for got, want in zip(gots, wants):
         assert torch.equal(got, want)
+
+
+# ---- hierarchical (outer x inner) tensor parallelism (rows 1, 4, 5, 9, 12)
+
+def test_collective_kernels_match_plain_on_both_axes(dev):
+    """Rows 1, 4 and 5 over each axis of a 2 x 2 and a 4 x 2 mesh, at odd
+    chunk sizes (a piece not filling its 8 KiB): bit for bit against their
+    plain versions (the ring and the fixed position order are the same
+    sums), ten launches in a row on alternating inputs; a planted wrong
+    chunk or dropped partial shows, and a lost signal raises naming its
+    hop, the next call sound."""
+    from triton_dist_tpu_torch import make_mesh
+    from triton_dist_tpu_torch.ops import allgather as agm
+    from triton_dist_tpu_torch.ops import allreduce as arm
+    from triton_dist_tpu_torch.ops import reduce_scatter as rsm
+    from triton_dist_tpu_torch.shmem.workspace import CommTimeoutError
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    for dp, tp in ((2, 2), (4, 2)):
+        mesh = make_mesh(dp=dp, tp=tp)
+        r = dp * tp
+        for axis in ("dp", "tp"):
+            n = mesh.size(axis)
+            for op, ref, shape in (
+                    (agm.all_gather, agm.all_gather_ref, (r, 3, 1096)),
+                    (rsm.reduce_scatter, rsm.reduce_scatter_ref,
+                     (r, 3 * n, 1096)),
+                    (arm.all_reduce, arm.all_reduce_ref, (r, 4, 4104))):
+                xs = [torch.randn(*shape, generator=g, device=dev,
+                                  dtype=torch.bfloat16) for _ in range(2)]
+                wants = [ref(x, ctx=mesh, axis=axis) for x in xs]
+                for k in range(10):
+                    got = op(xs[k % 2], ctx=mesh, axis=axis)
+                    assert torch.equal(got, wants[k % 2]), (op, axis, k)
+                bad = op(xs[0], ctx=mesh, axis=axis, fault=1, check=True)
+                assert not torch.equal(bad, wants[0]), (op, axis)
+                hop = "outer" if axis == "dp" else "inner"
+                with pytest.raises(CommTimeoutError,
+                                   match=rf"axis '{axis}' \({hop} hop\)"):
+                    op(xs[0], ctx=mesh, axis=axis, fault=2, timeout_s=0.05,
+                       check=True)
+                assert torch.equal(op(xs[0], ctx=mesh, axis=axis,
+                                      check=True), wants[0])
+
+
+def test_hierarchical_fused_gemms_match_plain(dev):
+    """Rows 9 and 12 on 2 x 2 and 2 x 4 meshes, decode and prefill tiles,
+    within one bf16 unit of their plain versions (row 9's gathered A bit
+    for bit); JAX's per-hop put counts (each rank n_o·(n_in - 1) inner
+    puts and n_o - 1 outer ones, a flat ring would make n - 1 of one
+    kind); every planted fault caught on each hop, a lost outer-hop signal
+    raising and naming that hop."""
+    from triton_dist_tpu_torch import make_mesh
+    from triton_dist_tpu_torch.ops import ag_gemm as ag
+    from triton_dist_tpu_torch.ops import gemm_rs as rs
+    from triton_dist_tpu_torch.ops.tp_gemm import column_shards, row_shards
+    from triton_dist_tpu_torch.shmem.workspace import CommTimeoutError
+
+    g = torch.Generator(device=dev).manual_seed(22)
+    bf = dict(device=dev, dtype=torch.bfloat16)
+    tol = (1e-2, 2.0 ** -7)
+    for (n_o, n_in), m_loc, k in (((2, 2), 8, 256), ((2, 2), 160, 512),
+                                  ((2, 4), 136, 256)):
+        mesh = make_mesh(dp=n_o, tp=n_in)
+        n = n_o * n_in
+        want_puts = [n * n_o * (n_in - 1), n * (n_o - 1)]
+        a = torch.randn(n, m_loc, k, generator=g, **bf)
+        b = column_shards(torch.randn(n * 72, k, generator=g, **bf)
+                          * k ** -0.5, n)
+        ctx = ag.create_ag_gemm_context(mesh, ("dp", "tp"))
+        puts = torch.zeros(2, dtype=torch.int64, device=dev)
+        out, ga = ag.ag_gemm(a, b, ctx, return_ag=True, puts=puts, check=True)
+        want = ag.ag_gemm_ref(a, b)
+        _assert_close(out, want, tol)
+        assert torch.equal(ga, a.reshape(-1, k).expand_as(ga))
+        assert puts.tolist() == want_puts
+        a2 = torch.randn(n, n * m_loc, k, generator=g, **bf)
+        b2 = row_shards(torch.randn(200, n * k, generator=g, **bf)
+                        * (n * k) ** -0.5, n)
+        ctx2 = rs.create_gemm_rs_context(mesh, ("dp", "tp"))
+        puts.zero_()
+        got = rs.gemm_rs(a2, b2, ctx2, puts=puts, check=True)
+        want2 = rs.gemm_rs_2d_ref(a2, b2, n_o, n_in)
+        _assert_close(got, want2, tol)
+        assert puts.tolist() == want_puts
+        for mod, fn, args, w in ((ag, ag.ag_gemm, (a, b, ctx), want),
+                                 (rs, rs.gemm_rs, (a2, b2, ctx2), want2)):
+            for hop in ("inner", "outer"):
+                bad = fn(*args, fault=mod.FAULTS_2D[f"wrong_chunk_{hop}"],
+                         check=True)
+                err = (bad.float() - w.float()).abs()
+                assert bool((err > tol[0] + tol[1] * w.float().abs()).any())
+                with pytest.raises(CommTimeoutError, match=f"{hop} hop"):
+                    fn(*args, fault=mod.FAULTS_2D[f"lost_signal_{hop}"],
+                       timeout_s=0.05, check=True)
+                _assert_close(fn(*args, check=True), w, tol)

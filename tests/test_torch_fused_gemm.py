@@ -12,7 +12,8 @@ column slices, both views). fp32 results agree within 1e-5 relative (sums
 in other orders); the bf16 case within 1e-2 + 2**-7 |want| (one bf16 unit
 of last place: both round an fp32 sum once). The block-size errors are
 the JAX ones, message for message; unported variants and swizzle modes
-raise, naming ROADMAP.md queue B."""
+raise, naming ROADMAP.md queue B, and so do the tuple axes the
+hierarchical forms cannot take."""
 
 import jax
 import jax.numpy as jnp
@@ -181,17 +182,39 @@ def test_unknown_variants_raise_as_jax(jmesh, mesh, jax_make, port_make, kw):
                       lambda: port_make(mesh, **kw))
 
 
-@pytest.mark.parametrize("make,kw", [
-    (ag_gemm.create_ag_gemm_context, dict(variant="pipelined")),
-    (ag_gemm.create_ag_gemm_context, dict(swizzle_mode="identity")),
-    (ag_gemm.create_ag_gemm_context, dict(axis=("dp", "tp"))),
-    (gemm_rs.create_gemm_rs_context, dict(swizzle_mode="identity")),
-    (gemm_rs.create_gemm_rs_context, dict(axis=("dp", "tp"))),
-    (gemm_ar.create_gemm_ar_context, dict(axis=("dp", "tp")))],
+def _on_2x2(make):
+    """``make`` over a 2 x 2 (dp x tp) mesh, whatever mesh it is given."""
+    return lambda mesh, **kw: make(make_mesh(dp=2, tp=2, device="cpu"), **kw)
+
+
+def _gemm_rs_2d(mesh, m):
+    ctx = gemm_rs.create_gemm_rs_context(mesh, ("dp", "tp"), block_m=2,
+                                         block_n=16)
+    return gemm_rs.gemm_rs(torch.zeros(N, m, 8), torch.zeros(N, 16, 8), ctx)
+
+
+@pytest.mark.parametrize("make,kw,match", [
+    (ag_gemm.create_ag_gemm_context, dict(variant="pipelined"),
+     "ROADMAP.md queue B"),
+    (ag_gemm.create_ag_gemm_context, dict(swizzle_mode="identity"),
+     "ROADMAP.md queue B"),
+    (_on_2x2(ag_gemm.create_ag_gemm_context), dict(axis=("tp", "dp")),
+     "the outer one first"),
+    (gemm_rs.create_gemm_rs_context, dict(swizzle_mode="identity"),
+     "ROADMAP.md queue B"),
+    (_on_2x2(_gemm_rs_2d), dict(m=6), "M=6 not divisible by axis size 4"),
+    (_on_2x2(gemm_ar.create_gemm_ar_context), dict(axis=("tp", "tp")),
+     "two different mesh axes")],
     ids=["ag-pipelined", "ag-identity", "ag-2d", "rs-identity", "rs-2d",
          "ar-2d"])
-def test_unported_forms_raise(mesh, make, kw):
-    with pytest.raises(ValueError, match="ROADMAP.md queue B"):
+def test_unported_forms_raise(mesh, make, kw, match):
+    """Unported variants and swizzle modes raise, naming queue B. The
+    hierarchical forms themselves are ported (``tests/test_torch_tp2d.py``);
+    what a tuple axis alone rules out raises too: an (outer, inner) pair
+    out of the mesh's order (the ranks are stacked outer-major over it) or
+    naming one axis twice, and an M that divides by each axis size (2) but
+    not by their product (4)."""
+    with pytest.raises(ValueError, match=match):
         make(mesh, **kw)
 
 

@@ -143,8 +143,13 @@ def test_device_must_be_the_mesh_device(jax_run):
         _engine(jax_run["params"], 4, "xla", device="meta")
 
 
-@pytest.mark.parametrize("axis,item", [("ep", "item 5"), ("sp", "item 6"),
-                                       ("dp", "dp"), ("pp", "pp")])
+@pytest.mark.parametrize("axis,item", [
+    ("ep", "item 5"), ("sp", "item 6"),
+    pytest.param("dp", "data-parallel replicas", id="dp-dp"), ("pp", "pp")])
 def test_unported_mesh_axes_raise(axis, item):
+    """A dp axis makes a two-axis mesh (``tests/test_torch_tp2d.py``); an
+    engine sharding over its tp axis alone would hold data-parallel
+    replicas, which are not ported."""
     with pytest.raises(ValueError, match=item):
-        make_mesh(tp=2, device="cpu", **{axis: 2})
+        mesh = make_mesh(tp=2, device="cpu", **{axis: 2})
+        Engine(ModelConfig.tiny(**KW), mesh=mesh, dtype=torch.float32)

@@ -10,7 +10,9 @@ Entry points run on the card unless the caller passes ``device="cpu"``;
 on CPU tensors every kernel wrapper takes its plain PyTorch version.
 ``Engine(cfg, mesh=make_mesh(tp=n), mode="fused")`` runs n simulated
 tensor-parallel ranks on the one device (:mod:`triton_dist_tpu_torch.
-parallel.mesh`).
+parallel.mesh`); ``Engine(cfg, mesh=make_mesh(dp=2, tp=2), axis=("dp",
+"tp"))`` shards over both axes of a two-axis mesh (the hierarchical
+forms).
 """
 
 from triton_dist_tpu_torch.models import Engine, ModelConfig

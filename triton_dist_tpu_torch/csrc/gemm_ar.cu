@@ -21,6 +21,14 @@
 //             column block j (the JAX kernel's one-tile lag; the lag goes by
 //             the kernel's column block, not JAX's block_n).
 //
+// The ranks may be part of a larger mesh (parallel/mesh.py): R ranks in all,
+// the reduction running over an axis of size n whose neighbours lie st flat
+// ranks apart, in each group of ranks that share their other coordinates.
+// The hierarchical GEMM+AR (ops/gemm_ar.py, JAX :237-247) runs this kernel
+// over the inner axis of an (outer x inner) mesh, every group in one
+// launch, then the one-shot all-reduce (collectives.cu) over the outer one.
+// "Rank" below is a flat rank r, "slot" a position in r's group.
+//
 // Work items, in the order every block walks them (each waits only on a
 // lower-numbered item, see shmem_device.cuh): compute items (column block,
 // rank, row block) and reduce items, interleaved as above.
@@ -42,12 +50,12 @@ using namespace tdt;
 enum Fault { kNoFault = 0, kDropPartial = 1, kLostSignal = 2 };
 
 struct Params {
-  const bf16* a;        // (n, M, k_loc)
+  const bf16* a;        // (R, M, k_loc)
   const bf16* b;        // rank r's shard at b + r * b_rank, rows ldb apart
-  bf16* out;            // (n, M, N)
-  float* gather;        // (n, n, M, N): gather[dst][src]
+  bf16* out;            // (R, M, N)
+  float* gather;        // (R, n, M, N): gather[dst rank][src slot]
   long long b_rank, ldb;
-  int n, M, N, k_loc, n_rb, n_cb, ll, fault;
+  int R, n, st, M, N, k_loc, n_rb, n_cb, ll, fault;
   Sync sync;
 };
 
@@ -59,7 +67,8 @@ __device__ __forceinline__ float* slot_of(const Params& P, int dst, int src) {
   return P.gather + ((long long)dst * P.n + src) * P.M * P.N;
 }
 
-// Rank r's partial of tile (i, j), pushed to every rank's slot r.
+// Rank r's partial of tile (i, j), pushed to slot me of every rank of its
+// group.
 template <class T>
 __device__ void compute_item(const Params& P, int r, int i, int j, unsigned char* smem) {
   const int rows = min(T::BM, P.M - i * T::BM);
@@ -68,11 +77,13 @@ __device__ void compute_item(const Params& P, int r, int i, int j, unsigned char
                                P.b + r * P.b_rank + (long long)j * T::BN * P.ldb, P.ldb, cols,
                                P.k_loc, smem);
   const long long off = (long long)i * T::BM * P.N + (long long)j * T::BN;
+  const int me = axis_pos(r, P.n, P.st);
   for (int e = threadIdx.x; e < T::BM * T::BN; e += T::kThreads) {
     const int row = e / T::BN, col = e % T::BN;
     if (row < rows && col < cols) {
       const float v = C[row * T::kCLd + col];
-      for (int p = 0; p < P.n; ++p) slot_of(P, p, r)[off + (long long)row * P.N + col] = v;
+      for (int p = 0; p < P.n; ++p)
+        slot_of(P, axis_peer(r, p, P.n, P.st), me)[off + (long long)row * P.N + col] = v;
     }
   }
   fence();
@@ -81,7 +92,7 @@ __device__ void compute_item(const Params& P, int r, int i, int j, unsigned char
     const int t = i * P.n_cb + j;
     for (int p = 0; p < P.n; ++p) {
       if (P.fault == kLostSignal && r == 0 && p == 1 % P.n && t == 0) continue;
-      signal_op(P.sync, flag_of(P, p, r, t));
+      signal_op(P.sync, flag_of(P, axis_peer(r, p, P.n, P.st), me, t));
     }
   }
 }
@@ -94,7 +105,7 @@ __device__ void reduce_item(const Params& P, int r, int i, int j) {
   const int rows = min(T::BM, P.M - i * T::BM);
   const int cols = min(T::BN, P.N - j * T::BN);
   const long long off = (long long)i * T::BM * P.N + (long long)j * T::BN;
-  const int dropped = P.fault == kDropPartial ? (r + 1) % P.n : -1;
+  const int dropped = P.fault == kDropPartial ? (axis_pos(r, P.n, P.st) + 1) % P.n : -1;
   bf16* o = P.out + (long long)r * P.M * P.N + off;
   for (int e = threadIdx.x; e < T::BM * T::BN; e += T::kThreads) {
     const int row = e / T::BN, col = e % T::BN;
@@ -113,9 +124,9 @@ __device__ void reduce_item(const Params& P, int r, int i, int j) {
 template <class T>
 __global__ void __launch_bounds__(T::kThreads) gemm_ar_kernel(Params P) {
   extern __shared__ __align__(128) unsigned char smem[];
-  // One column block's items: n ranks x n_rb row blocks, computes or
+  // One column block's items: R ranks x n_rb row blocks, computes or
   // reduces alike.
-  const long long col = (long long)P.n * P.n_rb;
+  const long long col = (long long)P.R * P.n_rb;
   const long long total = 2 * col * P.n_cb;
   for (long long item = blockIdx.x; item < total; item += gridDim.x) {
     // ll: group g < n_cb holds column block g's computes then column block
@@ -158,7 +169,7 @@ template <class T>
 cudaError_t launch(Params& P, int device, cudaStream_t s) {
   P.n_rb = (P.M + T::BM - 1) / T::BM;
   P.n_cb = (P.N + T::BN - 1) / T::BN;
-  const long long items = 2LL * P.n * P.n_rb * P.n_cb;
+  const long long items = 2LL * P.R * P.n_rb * P.n_cb;
   void* args[] = {&P};
   return cooperative_launch(reinterpret_cast<const void*>(gemm_ar_kernel<T>), T::kThreads,
                             T::kSmem, items, args, device, s);
@@ -166,22 +177,23 @@ cudaError_t launch(Params& P, int device, cudaStream_t s) {
 
 }  // namespace
 
-// Plain C interface for ctypes. a (n, M, k_loc) contiguous; rank r's weight
+// Plain C interface for ctypes. a (R, M, k_loc) contiguous; rank r's weight
 // shard (N, k_loc) at b + r * b_rank elements with row pitch ldb; out
-// (n, M, N); gather (n, n, M, N) fp32; flags: the workspace's
-// n * n * n_rb * n_cb flag words (tiles of tdt_tp_tile) then its abort
+// (R, M, N); gather (R, n, M, N) fp32; the reduction over an axis of size n
+// and stride st (R a multiple of n * st); flags: the workspace's
+// R * n * n_rb * n_cb flag words (tiles of tdt_tp_tile) then its abort
 // word; k_loc a multiple of 8; ll: 1 for the "ll" variant, 0 for
 // "one_shot". epoch: this call's (>= 1); timeout_ns bounds every wait;
-// fault: 0, or a planted fault (1: every rank's reduce drops slot r + 1,
-// 2: rank 0's first tile never signals rank 1). Returns a cudaError_t code
-// (0 = launched).
+// fault: 0, or a planted fault (1: every rank's reduce drops slot me + 1,
+// 2: rank 0's first tile never signals its group's slot 1). Returns a
+// cudaError_t code (0 = launched).
 extern "C" int tdt_gemm_ar_bf16(const void* a, const void* b, void* out, void* gather,
-                                long long b_rank, long long ldb, int n, int M, int N,
-                                int k_loc, int ll, void* flags, void* abort_word,
+                                long long b_rank, long long ldb, int R, int n, int st, int M,
+                                int N, int k_loc, int ll, void* flags, void* abort_word,
                                 unsigned long long epoch, unsigned long long timeout_ns,
                                 int fault, int device, void* stream) {
-  if (n < 1 || M < 1 || N < 1 || k_loc < 8 || k_loc % 8 || ldb % 8 || b_rank % 8 ||
-      epoch == 0 || timeout_ns == 0)
+  if (R < 1 || n < 1 || st < 1 || R % (n * st) || M < 1 || N < 1 || k_loc < 8 || k_loc % 8 ||
+      ldb % 8 || b_rank % 8 || epoch == 0 || timeout_ns == 0)
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e == cudaSuccess) e = ensure_error_record();
@@ -193,7 +205,9 @@ extern "C" int tdt_gemm_ar_bf16(const void* a, const void* b, void* out, void* g
   P.gather = static_cast<float*>(gather);
   P.b_rank = b_rank;
   P.ldb = ldb;
+  P.R = R;
   P.n = n;
+  P.st = st;
   P.M = M;
   P.N = N;
   P.k_loc = k_loc;

@@ -27,6 +27,24 @@
 // of fp32 sums per rank. First design: the tile GEMM of tile_gemm.cuh, the
 // add and the put in its epilogue (PERF.md).
 
+//
+// gemm_rs_2d_kernel replaces _gemm_rs_2d_kernel (:307), the hierarchical
+// form over an (outer x inner) mesh of R = n_o * n_in ranks, rank
+// r = o * n_in + i, with the flat result (rank r ends with chunk r's sum).
+// Step q = t * n_in + s (lang/overlap.py rs_2d_step): super-step t
+// ring-reduces, through the GEMM as the flat ring does, the chunks bound for
+// outer group o_dst = (o + n_o - 1 - t) mod n_o, inner chunk
+// (i - s - 1) mod n_in. At s < n_in - 1 the running sum goes to the inner
+// neighbour (o, i + 1); at s = n_in - 1 it is the group sum of chunk
+// o_dst * n_in + i, which crosses the outer hop once, to rank (o_dst, i)'s
+// outer slot t, except in the last super-step, where o_dst = o: the rank
+// then adds the n_o - 1 group sums it received, in slot order, and writes
+// its output. So a rank makes n_o * (n_in - 1) inner puts and n_o - 1 outer
+// puts of a group sum, and the host checks those counts (`puts`). The inner
+// hop's flags come first in the workspace, the outer hop's after them, each
+// per (receiving rank, slot, tile). Work items: (step, rank, row block,
+// column block); every wait is on a lower step's item.
+
 #include "shmem_device.cuh"
 #include "tile_gemm.cuh"
 
@@ -121,7 +139,190 @@ cudaError_t launch(Params& P, int device, cudaStream_t s) {
                             T::kSmem, items, args, device, s);
 }
 
+// -- the hierarchical form ------------------------------------------------
+
+enum Fault2D {
+  kWrongChunkInner = 1,   // inner puts carry the sum of another chunk's rows
+  kLostSignalInner = 2,   // rank 0's first inner put never signalled
+  kWrongChunkOuter = 3,   // outer puts carry the sum of another chunk's rows
+  kLostSignalOuter = 4,   // rank 0's first outer put never signalled
+};
+
+struct Params2D {
+  const bf16* a;        // (R, R * m_loc, k_loc)
+  const bf16* b;        // rank r's shard at b + r * b_rank, rows ldb apart
+  bf16* out;            // (R, m_loc, N)
+  float* irecv;         // (R, max(n_o * (n_in - 1), 1), m_loc, N)
+  float* orecv;         // (R, n_o - 1, m_loc, N)
+  unsigned long long* puts;   // [inner, outer] group-sum puts, or null
+  long long b_rank, ldb;
+  int n_o, n_in, m_loc, N, k_loc, n_rb, n_cb, fault;
+  Sync sync;
+};
+
+__device__ __forceinline__ long long tiles_2d(const Params2D& P) {
+  return (long long)P.n_rb * P.n_cb;
+}
+
+__device__ __forceinline__ long long inner_flag(const Params2D& P, int r, int u, long long tile) {
+  return ((long long)r * P.n_o * (P.n_in - 1) + u) * tiles_2d(P) + tile;
+}
+
+__device__ __forceinline__ long long outer_flag(const Params2D& P, int r, int h, long long tile) {
+  const long long inner = (long long)P.n_o * P.n_in * P.n_o * (P.n_in - 1) * tiles_2d(P);
+  return inner + ((long long)r * (P.n_o - 1) + h) * tiles_2d(P) + tile;
+}
+
+__device__ __forceinline__ float* islot(const Params2D& P, int r, int u) {
+  return P.irecv + ((long long)r * max(P.n_o * (P.n_in - 1), 1) + u) * P.m_loc * P.N;
+}
+
+__device__ __forceinline__ float* oslot(const Params2D& P, int r, int h) {
+  return P.orecv + ((long long)r * (P.n_o - 1) + h) * P.m_loc * P.N;
+}
+
+template <class T>
+__device__ void tile_item_2d(const Params2D& P, int q, int r, int i, int j, unsigned char* smem) {
+  const Coord2 me = coords_of(r, P.n_in);
+  const int t = q / P.n_in, s = q % P.n_in, R = P.n_o * P.n_in;
+  const int o_dst = (me.o + P.n_o - 1 - t) % P.n_o;
+  const int chunk = o_dst * P.n_in + ((me.i - s - 1) % P.n_in + P.n_in) % P.n_in;
+  const bool inner_put = s < P.n_in - 1, outer_put = !inner_put && t < P.n_o - 1;
+  const bool wrong = (inner_put && P.fault == kWrongChunkInner) ||
+                     (outer_put && P.fault == kWrongChunkOuter);
+  const int rows = min(T::BM, P.m_loc - i * T::BM);
+  const int cols = min(T::BN, P.N - j * T::BN);
+  const long long tile = (long long)i * P.n_cb + j;
+  const bf16* A = P.a + ((long long)r * R * P.m_loc +
+                         (long long)((wrong ? chunk + 1 : chunk) % R) * P.m_loc + i * T::BM) *
+                            P.k_loc;
+  float* C = tile_mma<T>(A, P.k_loc, rows, P.b + r * P.b_rank + (long long)j * T::BN * P.ldb,
+                         P.ldb, cols, P.k_loc, smem);
+  const long long off = (long long)i * T::BM * P.N + (long long)j * T::BN;
+  const float* in = nullptr;
+  if (s > 0) {
+    const int u = t * (P.n_in - 1) + s - 1;
+    wait_arrivals(P.sync, inner_flag(P, r, u, tile), 0, 1, r, q);
+    in = islot(P, r, u) + off;
+  }
+  if (inner_put || outer_put) {
+    const int dst = inner_put ? rank_of(me.o, (me.i + 1) % P.n_in, P.n_in)
+                              : rank_of(o_dst, me.i, P.n_in);
+    float* d = (inner_put ? islot(P, dst, t * (P.n_in - 1) + s) : oslot(P, dst, t)) + off;
+    for (int e = threadIdx.x; e < T::BM * T::BN; e += T::kThreads) {
+      const int row = e / T::BN, col = e % T::BN;
+      if (row < rows && col < cols) {
+        float v = C[row * T::kCLd + col];
+        if (in != nullptr) v += __ldcg(in + (long long)row * P.N + col);
+        d[(long long)row * P.N + col] = v;
+      }
+    }
+    if (tile == 0 && threadIdx.x == 0 && P.puts != nullptr) atomicAdd(P.puts + !inner_put, 1ULL);
+    const bool lost = r == 0 && tile == 0 &&
+                      ((inner_put && q == 0 && P.fault == kLostSignalInner) ||
+                       (outer_put && t == 0 && P.fault == kLostSignalOuter));
+    if (lost) {
+      __syncthreads();
+    } else {
+      signal_block(P.sync, inner_put ? inner_flag(P, dst, t * (P.n_in - 1) + s, tile)
+                                     : outer_flag(P, dst, t, tile));
+    }
+  } else {
+    // The rank's own chunk: the n_o - 1 group sums that crossed the outer
+    // hop, added in slot order after the inner ring's sum.
+    if (P.n_o > 1 && threadIdx.x == 0) {
+      for (int h = 0; h < P.n_o - 1; ++h) signal_wait_until(P.sync, outer_flag(P, r, h, tile), r, q);
+      fence();
+    }
+    __syncthreads();
+    bf16* o = P.out + (long long)r * P.m_loc * P.N + off;
+    for (int e = threadIdx.x; e < T::BM * T::BN; e += T::kThreads) {
+      const int row = e / T::BN, col = e % T::BN;
+      if (row < rows && col < cols) {
+        const long long x = (long long)row * P.N + col;
+        float v = C[row * T::kCLd + col];
+        if (in != nullptr) v += __ldcg(in + x);
+        for (int h = 0; h < P.n_o - 1; ++h) v += __ldcg(oslot(P, r, h) + off + x);
+        o[x] = __float2bfloat16(v);
+      }
+    }
+  }
+  __syncthreads();   // C is read before the next item reuses shared memory
+}
+
+template <class T>
+__global__ void __launch_bounds__(T::kThreads, T::kMinBlocks) gemm_rs_2d_kernel(Params2D P) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int R = P.n_o * P.n_in;
+  const long long per_rank = tiles_2d(P), per_step = per_rank * R;
+  const long long total = per_step * R;
+  for (long long item = blockIdx.x; item < total; item += gridDim.x) {
+    const int q = (int)(item / per_step);
+    const long long rem = item % per_step;
+    const int r = (int)(rem / per_rank);
+    const long long t = rem % per_rank;
+    tile_item_2d<T>(P, q, r, (int)(t / P.n_cb), (int)(t % P.n_cb), smem);
+  }
+}
+
+template <class T>
+cudaError_t launch_2d(Params2D& P, int device, cudaStream_t s) {
+  P.n_rb = (P.m_loc + T::BM - 1) / T::BM;
+  P.n_cb = (P.N + T::BN - 1) / T::BN;
+  const long long R = (long long)P.n_o * P.n_in;
+  const long long items = R * R * P.n_rb * P.n_cb;
+  void* args[] = {&P};
+  return cooperative_launch(reinterpret_cast<const void*>(gemm_rs_2d_kernel<T>), T::kThreads,
+                            T::kSmem, items, args, device, s);
+}
+
 }  // namespace
+
+// Plain C interface of the hierarchical form: as tdt_gemm_rs_bf16 over
+// R = n_o * n_in ranks (a (R, R * m_loc, k_loc), out (R, m_loc, N)); irecv
+// (R, max(n_o * (n_in - 1), 1), m_loc, N) and orecv (R, n_o - 1, m_loc, N)
+// fp32 receive slots of the two hops; flags: the workspace's inner-hop flags
+// R * n_o * (n_in - 1) * n_rb * n_cb, then its outer-hop flags
+// R * (n_o - 1) * n_rb * n_cb, then its abort word; puts: two uint64
+// counters [inner, outer] that every group-sum put adds one to, or null;
+// fault: 0 or a Fault2D. n_o >= 2, n_in >= 1. Returns a cudaError_t code
+// (0 = launched).
+extern "C" int tdt_gemm_rs_2d_bf16(const void* a, const void* b, void* out, void* irecv,
+                                   void* orecv, void* puts, long long b_rank, long long ldb,
+                                   int n_o, int n_in, int m_loc, int N, int k_loc, void* flags,
+                                   void* abort_word, unsigned long long epoch,
+                                   unsigned long long timeout_ns, int fault, int device,
+                                   void* stream) {
+  if (n_o < 2 || n_in < 1 || m_loc < 1 || N < 1 || k_loc < 8 || k_loc % 8 || ldb % 8 ||
+      b_rank % 8 || epoch == 0 || timeout_ns == 0)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaSetDevice(device);
+  if (e == cudaSuccess) e = ensure_error_record();
+  if (e != cudaSuccess) return (int)e;
+  Params2D P;
+  P.a = static_cast<const bf16*>(a);
+  P.b = static_cast<const bf16*>(b);
+  P.out = static_cast<bf16*>(out);
+  P.irecv = static_cast<float*>(irecv);
+  P.orecv = static_cast<float*>(orecv);
+  P.puts = static_cast<unsigned long long*>(puts);
+  P.b_rank = b_rank;
+  P.ldb = ldb;
+  P.n_o = n_o;
+  P.n_in = n_in;
+  P.m_loc = m_loc;
+  P.N = N;
+  P.k_loc = k_loc;
+  P.fault = fault;
+  P.sync.flags = static_cast<u64*>(flags);
+  P.sync.abort = static_cast<u64*>(abort_word);
+  P.sync.err = g_err_dev;
+  P.sync.epoch = epoch;
+  P.sync.timeout_ns = timeout_ns;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (small_rows(m_loc)) return (int)launch_2d<SmallTile>(P, device, s);
+  return (int)launch_2d<BigTile>(P, device, s);
+}
 
 // Plain C interface for ctypes. a (n, n * m_loc, k_loc) contiguous; rank r's
 // weight shard (N, k_loc) at b + r * b_rank elements with row pitch ldb; out

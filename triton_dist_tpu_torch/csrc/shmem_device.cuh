@@ -1,6 +1,7 @@
 // Device half of the symmetric-memory protocol that the multi-rank kernels
 // (the fused GEMMs ag_gemm.cu, gemm_rs.cu, gemm_ar.cu, ag_moe.cu and
-// moe_reduce.cu; the all-to-alls all_to_all.cu and ll_a2a.cu) run between
+// moe_reduce.cu; the all-to-alls all_to_all.cu and ll_a2a.cu; the ring and
+// one-shot collectives collectives.cu) run between
 // simulated ranks on one Hopper card (sm_90a). Counterpart of the parts of
 // triton_dist_tpu/lang/shmem_device.py those kernels use:
 //
@@ -22,7 +23,10 @@
 // Flags are 64-bit words of a persistent workspace
 // (triton_dist_tpu_torch/shmem/workspace.py). Every call has a new epoch: a
 // signal stores it, a wait compares flag >= epoch, and flags are never
-// cleared, so a flag of call e cannot satisfy a wait of call e + 1. Memory
+// cleared, so a flag of call e cannot satisfy a wait of call e + 1. A kernel
+// whose puts cross two hops of an (outer x inner) mesh keeps the inner hop's
+// flags first and the outer hop's after them, under the one epoch, so a
+// timed-out wait's slot names its hop. Memory
 // order: the writer's data stores, __threadfence(), __syncthreads(), then one
 // thread's st.release.gpu of the flag; the reader's one thread spins on
 // ld.acquire.gpu, __threadfence(), __syncthreads(), then every thread reads
@@ -79,6 +83,30 @@ struct Sync {
   u64 epoch;
   u64 timeout_ns;
 };
+
+// -- where a rank sits in its mesh (triton_dist_tpu_torch/parallel/mesh.py) --
+//
+// Flat rank r is row-major over the mesh's axes. On an (outer x inner) mesh
+// r = o * n_in + i; an op over one axis of size n whose neighbours lie st
+// flat ranks apart (the product of the sizes inside it) runs in every group
+// of ranks that share their other coordinates.
+
+struct Coord2 {
+  int o, i;
+};
+
+// Rank r's (outer, inner) coordinates, and back (JAX's flat_axis_rank).
+__host__ __device__ __forceinline__ Coord2 coords_of(int r, int n_in) {
+  return Coord2{r / n_in, r % n_in};
+}
+__host__ __device__ __forceinline__ int rank_of(int o, int i, int n_in) { return o * n_in + i; }
+
+// Rank r's position along an axis of size n and stride st, and the flat
+// rank at position p of r's group (JAX's logical_device_id).
+__host__ __device__ __forceinline__ int axis_pos(int r, int n, int st) { return (r / st) % n; }
+__host__ __device__ __forceinline__ int axis_peer(int r, int p, int n, int st) {
+  return r + (p - axis_pos(r, n, st)) * st;
+}
 
 // Order this thread's earlier stores before its later ones, device wide.
 __device__ __forceinline__ void fence() { __threadfence(); }

@@ -16,6 +16,12 @@ semaphores and have no counterpart here.
   owner.
 - ``"a2a"`` (all-to-all consumer): chunk ``(rank + step) % world``.
 - ``"identity"``: chunk ``step``.
+
+The hierarchical (outer x inner) fused GEMMs walk the two 2D schedules
+:func:`ag_2d_step` and :func:`rs_2d_step`, the index maps of JAX's
+``_ag_gemm_2d`` (``ops/ag_gemm.py:616-620``, ``:807-814``) and
+``_gemm_rs_2d`` (``ops/gemm_rs.py:462-469``); the CUDA kernels
+(``csrc/ag_gemm.cu``, ``csrc/gemm_rs.cu``) compute the same arithmetic.
 """
 
 from __future__ import annotations
@@ -69,3 +75,24 @@ def ring_chunk(event: int, rank: int, world: int) -> int:
     all-gather ring: 0 is the local chunk, event ``r >= 1`` the chunk that
     left rank ``rank - r``."""
     return (rank - event) % world
+
+
+def ag_2d_step(q: int, o: int, i: int, n_o: int, n_in: int) -> tuple:
+    """Step ``q = s·n_in + t`` of the hierarchical AG+GEMM on rank (o, i):
+    super-step s walks outer column ``col = (o - s) % n_o``, inner ring
+    step t its chunk from inner rank ``src = (i - t) % n_in``. Returns
+    ``(col, src, col·n_in + src)``, the last the global chunk."""
+    s, t = divmod(q, n_in)
+    col, src = (o - s) % n_o, (i - t) % n_in
+    return col, src, col * n_in + src
+
+
+def rs_2d_step(q: int, o: int, i: int, n_o: int, n_in: int) -> tuple:
+    """Step ``q = t·n_in + s`` of the hierarchical GEMM+RS on rank (o, i):
+    super-step t reduces the chunks bound for outer group ``o_dst = (o +
+    n_o - 1 - t) % n_o`` (the rank's own group last), inner ring step s
+    its inner chunk ``(i - s - 1) % n_in``. Returns ``(o_dst,
+    o_dst·n_in + chunk)``, the last the global chunk."""
+    t, s = divmod(q, n_in)
+    o_dst = (o + n_o - 1 - t) % n_o
+    return o_dst, o_dst * n_in + (i - s - 1) % n_in

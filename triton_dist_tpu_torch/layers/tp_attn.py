@@ -19,7 +19,11 @@ projects Q through :func:`~triton_dist_tpu_torch.ops.ag_gemm.ag_gemm`
 :func:`~triton_dist_tpu_torch.ops.gemm_rs.gemm_rs`; ``"fused_ar"`` and
 every decode step's O go through
 :func:`~triton_dist_tpu_torch.ops.gemm_ar.gemm_ar`; ``"xla"`` sums the
-ranks' fp32 partials in plain PyTorch (JAX's XLA collectives). Rank r's
+ranks' fp32 partials in plain PyTorch (JAX's XLA collectives). The
+ranks are those of the contexts' axis: over an ``(outer, inner)`` tuple
+n = n_o·n_in (the head split takes that product, rank r = o·n_in + i
+holding the flat tp = n engine's heads of rank r), and the fused ops take
+their hierarchical forms. Rank r's
 heads are heads ``[r·H/n, (r+1)·H/n)`` of the whole model and its KV heads
 ``[r·KV/n, (r+1)·KV/n)``, so attention over every rank's heads, stacked in
 rank order, is the tp = 1 attention: one flash-attention launch covers

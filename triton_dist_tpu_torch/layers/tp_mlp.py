@@ -12,7 +12,10 @@ replicated one ``(n, T, d)``. ``"fused"`` runs one
 gathered A also feeds the up product, then
 :func:`~triton_dist_tpu_torch.ops.gemm_rs.gemm_rs`; ``"fused_ar"`` ends
 in :func:`~triton_dist_tpu_torch.ops.gemm_ar.gemm_ar`; the ``"xla*"``
-modes sum the ranks' fp32 partials in plain PyTorch.
+modes sum the ranks' fp32 partials in plain PyTorch. The ranks are those
+of the contexts' axis: over an ``(outer, inner)`` tuple n = n_o·n_in, the
+shards are the flat tp = n ones, and the fused ops take their
+hierarchical forms.
 """
 
 from __future__ import annotations

@@ -22,7 +22,11 @@ way (:func:`_experts`). The expert-parallel regime (``Engine(...,
 moe_impl="ep")``) takes the same tree, as JAX's engine does: rank r's
 experts ``[r·E/n, (r+1)·E/n)`` are a view of each expert weight
 (:func:`~triton_dist_tpu_torch.layers.ep_moe.param_specs`); only the views
-differ from the tensor-parallel regime's.
+differ from the tensor-parallel regime's. JAX's hierarchical engine
+(``Engine(..., axis=("dp", "tp"))``) holds the same full arrays, sharded
+outer-major over both axes, so its parameters carry over unchanged to
+the port's ``axis=("dp", "tp")`` engine, whose rank r = o·n_in + i views
+block r of each weight.
 """
 
 from __future__ import annotations

@@ -9,7 +9,10 @@ follow the JAX pytree's keys; the model functions take it as ``params``.
 Without a mesh (or at tp = 1) the three forward modes compute the same
 function (:mod:`~triton_dist_tpu_torch.layers.tp_attn`). With
 ``mesh=make_mesh(tp=n)`` the dense-cache functions run n simulated
-tensor-parallel ranks on the one device: rank r's weight shards are
+tensor-parallel ranks on the one device, and with ``make_mesh(dp=n_o,
+tp=n_in)`` and ``axis=("dp", "tp")`` n = n_o·n_in ranks sharded over both
+axes (JAX's hierarchical forms; rank r = o·n_in + i holds the shard of the
+flat tp = n engine's rank r): rank r's weight shards are
 views of the one full weight, as the JAX ``param_specs`` cut them
 (``lm_head`` by vocabulary rows), and its fused ops take the contexts of
 :func:`make_fwd_contexts`. The prefill's residual is token-sharded in
@@ -122,10 +125,11 @@ class FwdContexts:
     block_m: int = 256
 
 
-def make_fwd_contexts(mesh, axis: str = "tp", block_m: int = 256,
+def make_fwd_contexts(mesh, axis="tp", block_m: int = 256,
                       block_n: int = 256, block_k: int = 512) -> FwdContexts:
-    """The three fused-op contexts of ``mesh`` with JAX's block knobs and
-    JAX's default variants (GEMM+AR ``"ll"``)."""
+    """The three fused-op contexts of ``mesh`` over ``axis`` (one axis or
+    an ``(outer, inner)`` tuple) with JAX's block knobs and JAX's default
+    variants (GEMM+AR ``"ll"``)."""
     return FwdContexts(
         ag=create_ag_gemm_context(mesh, axis, block_m, block_n, block_k),
         rs=create_gemm_rs_context(mesh, axis, block_m, block_n, block_k),
@@ -133,8 +137,8 @@ def make_fwd_contexts(mesh, axis: str = "tp", block_m: int = 256,
         block_m=block_m)
 
 
-def _tp_size(mesh) -> int:
-    return 1 if mesh is None else mesh.tp
+def _tp_size(mesh, axis) -> int:
+    return 1 if mesh is None else mesh.size(axis)
 
 
 def lm_head_logits(x: torch.Tensor, lm_head: torch.Tensor) -> torch.Tensor:
@@ -252,12 +256,13 @@ def _lm_head_tp(params: DenseLM, x: torch.Tensor, n: int) -> torch.Tensor:
 
 def prefill(params: DenseLM, input_ids: torch.Tensor, cfg: ModelConfig, *,
             mode: str = "xla", max_len: Optional[int] = None, ffn_fn=None,
-            mesh=None, ctxs: Optional[FwdContexts] = None):
+            mesh=None, ctxs: Optional[FwdContexts] = None, axis="tp"):
     """Prefill of (B, S) token ids. Returns ``(logits (B, vocab) fp32 of
     the last position, KVCache)``, the cache ``max_len`` (default S)
     positions long with the prompt written and ``length = S``. ``mesh``
-    with tp > 1: n simulated ranks, fused ops from ``ctxs``."""
-    n = _tp_size(mesh)
+    with n > 1 ranks along ``axis`` (one axis or an ``(outer, inner)``
+    tuple): n simulated ranks, fused ops from ``ctxs``."""
+    n = _tp_size(mesh, axis)
     b, s = input_ids.shape
     max_len = max_len or s
     if s > max_len:
@@ -283,10 +288,11 @@ def prefill(params: DenseLM, input_ids: torch.Tensor, cfg: ModelConfig, *,
 
 def forward_tokens(params: DenseLM, input_ids: torch.Tensor,
                    cfg: ModelConfig, *, mode: str = "xla", ffn_fn=None,
-                   mesh=None, ctxs: Optional[FwdContexts] = None):
+                   mesh=None, ctxs: Optional[FwdContexts] = None,
+                   axis="tp"):
     """Logits of every position, (B, S, vocab) fp32 (the training-loss
-    forward); ``mesh``/``ctxs`` as in :func:`prefill`."""
-    n = _tp_size(mesh)
+    forward); ``mesh``/``ctxs``/``axis`` as in :func:`prefill`."""
+    n = _tp_size(mesh, axis)
     b, s = input_ids.shape
     if n > 1:
         tp_attn.check_mode(mode)
@@ -300,7 +306,7 @@ def forward_tokens(params: DenseLM, input_ids: torch.Tensor,
 
 def decode_step(params: DenseLM, token_ids: torch.Tensor, cache: KVCache,
                 cfg: ModelConfig, *, mode: str = "xla", ffn_fn=None,
-                mesh=None, ctxs: Optional[FwdContexts] = None):
+                mesh=None, ctxs: Optional[FwdContexts] = None, axis="tp"):
     """One decode step over a dense :class:`KVCache`. token_ids: (B,).
     Per layer: :func:`tp_attn.decode_project` at position
     ``cache.length``, :meth:`KVCache.append_decode` (in place), plain
@@ -309,9 +315,9 @@ def decode_step(params: DenseLM, token_ids: torch.Tensor, cache: KVCache,
     fp32, cache)`` with ``length`` advanced by one. ``mesh`` with tp > 1:
     n simulated ranks on a replicated residual, the row-parallel products
     through ``gemm_ar`` unless ``mode`` is ``"xla"`` (JAX's decode
-    regime)."""
+    regime); ``axis`` as in :func:`prefill`."""
     tp_attn.check_mode(mode)
-    n = _tp_size(mesh)
+    n = _tp_size(mesh, axis)
     if n > 1:
         return _decode_step_tp(params, token_ids, cache, cfg, mode=mode,
                                n=n, ctxs=ctxs, ffn_fn=ffn_fn)

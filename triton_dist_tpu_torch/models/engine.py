@@ -14,6 +14,12 @@ ranks on the one device (:mod:`~triton_dist_tpu_torch.models.dense`):
 through GEMM+AR; a MoE model's ``"fused"`` prefill runs its experts
 through the AG+grouped GEMM, the grouped GEMM and the fused combine +
 reduce-scatter kernels (:mod:`~triton_dist_tpu_torch.models.qwen_moe`).
+With ``mesh=make_mesh(dp=n_o, tp=n_in)`` and ``axis=("dp", "tp")`` a dense
+model shards over both axes, n_o·n_in ranks (JAX's ``Engine(axis=)``):
+``"fused"`` prefills through the hierarchical AG+GEMM and GEMM+RS kernels,
+and every non-``"xla"`` decode step (and the ``"fused_ar"`` prefill)
+through GEMM+AR on the inner axis followed by an all-reduce on the outer
+one.
 With ``moe_impl="ep"`` a MoE model's experts are sharded by expert over
 the same ranks (JAX's engine builds its ``EPContext`` over the ``tp``
 axis): every prefill layer dispatches and combines through the
@@ -37,6 +43,7 @@ from triton_dist_tpu_torch.layers.tp_attn import _head_split, check_mode
 from triton_dist_tpu_torch.models import dense, qwen_moe
 from triton_dist_tpu_torch.models.config import ModelConfig
 from triton_dist_tpu_torch.models.kv_cache import KVCache
+from triton_dist_tpu_torch.ops import tp_gemm
 from triton_dist_tpu_torch.ops.ep_a2a import create_ep_context
 from triton_dist_tpu_torch.parallel.mesh import make_mesh
 from triton_dist_tpu_torch.shmem import workspace as shmem
@@ -44,7 +51,8 @@ from triton_dist_tpu_torch.utils.device import resolve_device
 
 
 class Engine:
-    """One model on one device, at one rank or at ``mesh``'s tp ranks.
+    """One model on one device, at one rank or at the ranks of ``mesh``'s
+    ``axis``.
 
     ``model``: the model module, :mod:`~triton_dist_tpu_torch.models.dense`
     or :mod:`~triton_dist_tpu_torch.models.qwen_moe` (``None``: qwen_moe
@@ -68,7 +76,12 @@ class Engine:
     fused expert layout (capped per prefill by ``suggested_block_m``).
 
     ``mesh``: a :class:`~triton_dist_tpu_torch.parallel.mesh.MeshContext`
-    (``make_mesh(tp=n)``); ``None`` is one rank. At tp > 1 the engine runs
+    (``make_mesh(tp=n)``); ``None`` is one rank. ``axis``: the mesh axis
+    the model shards over, JAX's knob: ``"tp"``, or an ``(outer, inner)``
+    tuple such as ``("dp", "tp")`` (a dense model only; the hierarchical
+    MoE dispatch is ROADMAP.md queue A item 5); it must span every rank of
+    the mesh (data-parallel replicas are not ported). ``self.tp`` is its
+    size. At tp > 1 the engine runs
     on the mesh's device (``device`` may name it again), and
     ``block_m``/``block_n``/``block_k`` are the JAX contexts' block knobs
     (:func:`~triton_dist_tpu_torch.models.dense.make_fwd_contexts`: the
@@ -78,7 +91,8 @@ class Engine:
     full weight (for Qwen3-30B-A3B, 61.1 GB in bf16, a copy would not
     fit)."""
 
-    def __init__(self, cfg: ModelConfig, *, mesh=None, mode: str = "xla",
+    def __init__(self, cfg: ModelConfig, *, mesh=None, axis="tp",
+                 mode: str = "xla",
                  model=None, device=None, dtype: torch.dtype = torch.bfloat16,
                  max_len: int = 512, params: Optional[dense.DenseLM] = None,
                  seed: int = 0, block_m: int = 256, block_n: int = 256,
@@ -87,7 +101,10 @@ class Engine:
                  ep_transport: Optional[str] = None, ep_axis=None):
         check_mode(mode)
         self.mesh = mesh
-        self.tp = 1 if mesh is None else mesh.tp
+        self.axis = tuple(axis) if isinstance(axis, (tuple, list)) else axis
+        if mesh is not None:
+            tp_gemm.check_axis("Engine", mesh, self.axis)
+        self.tp = 1 if mesh is None else mesh.size(self.axis)
         if mesh is not None:
             if device is not None and resolve_device(device) != mesh.device:
                 raise ValueError(f"device={device!r} is not the mesh's "
@@ -122,6 +139,11 @@ class Engine:
                     raise ValueError(
                         "ep_transport is an EP decode knob; it needs "
                         f"moe_impl='ep' (got {moe_impl!r})")
+            if isinstance(self.axis, tuple):
+                raise ValueError(
+                    f"axis={self.axis}: a MoE model over an (outer, inner) "
+                    "mesh takes the hierarchical EP dispatch (JAX's "
+                    "ep_axis), ROADMAP.md queue A item 5")
             if isinstance(ep_axis, (tuple, list)):
                 raise ValueError(
                     f"ep_axis={tuple(ep_axis)}: the hierarchical EP dispatch "
@@ -151,9 +173,11 @@ class Engine:
         self.moe_impl = moe_impl
         self.device = resolve_device(device)
         if self.tp > 1:
-            ctxs = dense.make_fwd_contexts(mesh, "tp", block_m, block_n,
+            ctxs = dense.make_fwd_contexts(mesh, self.axis, block_m, block_n,
                                            block_k)
             self._prefill_kw = {"mesh": mesh, "ctxs": ctxs}
+            if model is dense:
+                self._prefill_kw["axis"] = self.axis
             self._decode_kw = dict(self._prefill_kw)
         else:
             # The fused expert layout's row tile: only the MoE prefill

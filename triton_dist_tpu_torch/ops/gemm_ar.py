@@ -14,9 +14,15 @@ the JAX variant's order (``"one_shot"``: every push, then every reduce;
 CPU tensor it runs :func:`gemm_ar_ref`. Both add the partials in slot
 order (rank 0's first) in fp32 and round once.
 
-The context keeps JAX's block names and divisibility contract; tuple
-axes (the hierarchical form over ``ops.allreduce``) raise, ROADMAP.md
-queue B.
+The operands carry every rank of the mesh; over one axis of a larger mesh
+the reduction runs in each group of ranks that share their other
+coordinates, every group in the one launch. An ``(outer, inner)`` tuple
+axis is JAX's hierarchical form (:237-247): this op on the inner axis,
+then :func:`~triton_dist_tpu_torch.ops.allreduce.all_reduce` of its
+result on the outer axis (the one-shot kernel at decode sizes, the
+reduce-scatter and all-gather kernels above 1 MiB); at ``n_o == 1`` the
+inner result is returned. The context keeps JAX's block names and
+divisibility contract.
 """
 
 from __future__ import annotations
@@ -28,7 +34,7 @@ from typing import Optional
 import torch
 
 from triton_dist_tpu_torch.ops import tp_gemm
-from triton_dist_tpu_torch.parallel.mesh import MeshContext
+from triton_dist_tpu_torch.parallel.mesh import MeshContext, axis_names
 from triton_dist_tpu_torch.shmem import workspace as shmem
 from triton_dist_tpu_torch.utils.build import CudaKernel
 
@@ -40,14 +46,14 @@ FAULTS = {"drop_partial": 1, "lost_signal": 2}
 VARIANT_LAUNCHES = {v: 0 for v in VARIANTS}
 KERNEL = CudaKernel("gemm_ar.cu", "tdt_gemm_ar_bf16",
                     [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2
-                    + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
+                    + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2
                     + [ctypes.c_uint64] * 2 + [ctypes.c_int])
 
 
 @dataclasses.dataclass(frozen=True)
 class GemmARContext:
     mesh: MeshContext
-    axis: str = "tp"
+    axis: object = "tp"      # one axis, or an (outer, inner) tuple
     block_n: int = 512
     block_k: int = 512
     out_dtype: Optional[torch.dtype] = None
@@ -58,12 +64,10 @@ def _check_ported(ctx: GemmARContext) -> None:
     if ctx.variant not in VARIANTS:
         raise ValueError(f"unknown gemm_ar variant {ctx.variant!r} "
                          "(expected 'll' or 'one_shot')")
-    if not isinstance(ctx.axis, str):
-        raise ValueError("the hierarchical (outer, inner) gemm_ar is not "
-                         "ported yet (ROADMAP.md queue B)")
+    tp_gemm.check_axis("gemm_ar", ctx.mesh, ctx.axis, groups=True)
 
 
-def create_gemm_ar_context(mesh: MeshContext, axis: str = "tp",
+def create_gemm_ar_context(mesh: MeshContext, axis="tp",
                            block_n: int = 512, block_k: int = 512,
                            out_dtype=None,
                            variant: str = "ll") -> GemmARContext:
@@ -86,55 +90,74 @@ def ar_blocks(block_n: int, block_k: int, n_dim: int, k_loc: int):
     return tn, tk
 
 
-def gemm_ar_ref(a: torch.Tensor, b: torch.Tensor, *,
-                out_dtype=None) -> torch.Tensor:
-    """Plain version: each rank's fp32 partial, summed in slot order and
-    rounded once to ``out_dtype``; every rank's copy of the result."""
-    n = a.shape[0]
-    acc = None
-    for r in range(n):
-        p = tp_gemm.mm_f32(a[r], b[r])
-        acc = p if acc is None else acc + p
-    return acc.to(out_dtype or a.dtype).expand(n, *acc.shape)
+def gemm_ar_ref(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None,
+                n: int = None, stride: int = 1) -> torch.Tensor:
+    """Plain version: each rank's fp32 partial, summed in slot order over
+    its group (``n`` ranks ``stride`` apart; default: every rank) and
+    rounded once to ``out_dtype``; every rank's copy of its group's
+    result."""
+    parts = torch.stack([tp_gemm.mm_f32(a[r], b[r])
+                         for r in range(a.shape[0])])
+    v = tp_gemm.group_view(parts, n or a.shape[0], stride)
+    acc = v[:, 0]
+    for p in range(1, v.shape[1]):
+        acc = acc + v[:, p]
+    out = acc.to(out_dtype or a.dtype).unsqueeze(1).expand(v.shape)
+    return out.reshape(parts.shape)
 
 
 def gemm_ar(a: torch.Tensor, b: torch.Tensor, ctx: GemmARContext, *,
             fault: int = 0, timeout_s: float = shmem.TIMEOUT_S,
             check: bool = False) -> torch.Tensor:
-    """Every rank's ``a[r] @ b[r].T`` all-reduced over the ranks: ``(n, M,
-    N)`` in ``ctx.out_dtype`` (or a's). ``fault`` (a value of
-    :data:`FAULTS`), ``timeout_s`` and ``check`` as in
+    """Every rank's ``a[r] @ b[r].T`` all-reduced over ``ctx.axis``: ``(R,
+    M, N)`` in ``ctx.out_dtype`` (or a's), R every rank of the mesh.
+    ``fault`` (a value of :data:`FAULTS`; on a tuple axis it goes to the
+    inner hop), ``timeout_s`` and ``check`` as in
     :func:`~triton_dist_tpu_torch.ops.tp_gemm.launch`."""
     _check_ported(ctx)
-    n = ctx.mesh.size(ctx.axis)
-    if (a.dim() != 3 or b.dim() != 3 or a.shape[0] != n or b.shape[0] != n
-            or a.shape[2] != b.shape[2]):
+    mesh = ctx.mesh
+    if len(axis_names(ctx.axis)) == 2:
+        from triton_dist_tpu_torch.ops.allreduce import all_reduce
+
+        outer, inner = ctx.axis
+        out = gemm_ar(a, b, dataclasses.replace(ctx, axis=inner),
+                      fault=fault, timeout_s=timeout_s, check=check)
+        if mesh.size(outer) == 1:
+            return out
+        return all_reduce(out, ctx=mesh, axis=outer, timeout_s=timeout_s,
+                          check=check)
+    nr, n, st = mesh.n_ranks, mesh.size(ctx.axis), mesh.stride(ctx.axis)
+    if (a.dim() != 3 or b.dim() != 3 or a.shape[0] != nr
+            or b.shape[0] != nr or a.shape[2] != b.shape[2]):
         raise ValueError(f"a {tuple(a.shape)} / b {tuple(b.shape)}: expected "
-                         f"(n={n}, M, K_loc) and (n, N, K_loc)")
+                         f"(R={nr}, M, K_loc) and (R, N, K_loc)")
     _, m, k_loc = a.shape
     n_dim = b.shape[1]
     ar_blocks(ctx.block_n, ctx.block_k, n_dim, k_loc)
     out_dtype = ctx.out_dtype or a.dtype
     if a.device.type == "cpu":
-        return gemm_ar_ref(a, b, out_dtype=out_dtype)
+        return gemm_ar_ref(a, b, out_dtype=out_dtype, n=n, stride=st)
     tp_gemm.check_operands("gemm_ar", a, b, out_dtype)
     dev = a.device
     tm, tn = tp_gemm.tile(KERNEL, m)
     n_rb, n_cb = -(-m // tm), -(-n_dim // tn)
-    ws = shmem.workspace("gemm_ar", (m, n_dim), n=n,
-                         n_flags=n * n * n_rb * n_cb, device=dev,
+    ws = shmem.workspace("gemm_ar", (m, n_dim, n, st), n=nr,
+                         n_flags=nr * n * n_rb * n_cb, device=dev,
                          data_shape=(n, m, n_dim))
-    out = torch.empty((n, m, n_dim), dtype=out_dtype, device=dev)
+    out = torch.empty((nr, m, n_dim), dtype=out_dtype, device=dev)
+
+    where = tp_gemm.hop_name(mesh, ctx.axis)
 
     def describe(rank, step, slot):
         src, t = divmod(slot % (n * n_rb * n_cb), n_rb * n_cb)
-        return (f"gemm_ar ({ctx.variant}): rank {rank} waited for rank "
-                f"{src}'s partial of tile {divmod(t, n_cb)} (gather slot "
-                f"{src}, flag slot {slot}) past {timeout_s} s")
+        return (f"gemm_ar ({ctx.variant}) over {where}: rank {rank} waited "
+                f"for rank {mesh.device_id(ctx.axis, src, rank)}'s partial "
+                f"of tile {divmod(t, n_cb)} (gather slot {src}, flag slot "
+                f"{slot}) past {timeout_s} s")
 
     tp_gemm.launch(KERNEL, ws, describe, a.data_ptr(), b.data_ptr(),
                    out.data_ptr(), ws.data.data_ptr(), b.stride(0),
-                   b.stride(1), n, m, n_dim, k_loc,
+                   b.stride(1), nr, n, st, m, n_dim, k_loc,
                    int(ctx.variant == "ll"), device=dev,
                    timeout_s=timeout_s, fault=fault, check=check)
     VARIANT_LAUNCHES[ctx.variant] += 1

@@ -1,9 +1,13 @@
-"""What the three fused tensor-parallel GEMM ops share
+"""What the tensor-parallel ops share: the fused GEMMs
 (:mod:`~triton_dist_tpu_torch.ops.ag_gemm`,
 :mod:`~triton_dist_tpu_torch.ops.gemm_rs`,
-:mod:`~triton_dist_tpu_torch.ops.gemm_ar`): the fp32 product of their
-plain versions, the weight-shard views, the operand checks and the launch
-through a symmetric workspace.
+:mod:`~triton_dist_tpu_torch.ops.gemm_ar`) and the collectives
+(:mod:`~triton_dist_tpu_torch.ops.allgather`,
+:mod:`~triton_dist_tpu_torch.ops.reduce_scatter`,
+:mod:`~triton_dist_tpu_torch.ops.allreduce`): the fp32 product of the
+plain versions, the weight-shard views, the axis and operand checks, the
+group view of an operand along one axis and the launch through a
+symmetric workspace.
 
 Operands carry the simulated ranks as their leading dimension
 (:mod:`~triton_dist_tpu_torch.parallel.mesh`). Weights are stored
@@ -12,7 +16,10 @@ column-parallel weight ``(out, in)`` is rows ``[r·out/n, (r+1)·out/n)``,
 of a row-parallel one columns ``[r·in/n, (r+1)·in/n)``, as the JAX
 ``param_specs`` shard them. Both are views of the one full weight
 (:func:`column_shards`, :func:`row_shards`): no copy is made, and the
-kernels take the row pitch of the strided row-parallel view.
+kernels take the row pitch of the strided row-parallel view. Over an
+``(outer, inner)`` tuple axis n = n_o·n_in and rank r = o·n_in + i takes
+block r, as ``P(("dp", "tp"))`` cuts a dimension outer-major: the views
+are the flat tp = n ones.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from triton_dist_tpu_torch.parallel.mesh import axis_names
 from triton_dist_tpu_torch.shmem import workspace as shmem
 from triton_dist_tpu_torch.utils.build import CudaKernel, load
 
@@ -49,6 +57,56 @@ def mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.is_cuda and x.dtype != torch.float32:
         return torch.mm(x, w.t(), out_dtype=torch.float32)
     return F.linear(x.float(), w.float())
+
+
+def check_axis(op: str, mesh, axis, *, groups: bool = False) -> None:
+    """``axis`` is one mesh axis or an ``(outer, inner)`` pair of them
+    that spans every rank of ``mesh``. ``groups``: a single axis may span
+    part of the mesh (the op runs in each group along it, as GEMM+AR's
+    inner hop does); otherwise the other ranks would be data-parallel
+    replicas, which are not ported. A pair names two axes in the mesh's
+    order: the ranks are stacked outer-major over that order, so the
+    pair's flat rank o·n_in + i is the operand's leading index."""
+    names = axis_names(axis)
+    if len(names) > 2 or any(a not in mesh.axes for a in names):
+        raise ValueError(f"{op}: axis {axis!r} is not one mesh axis of "
+                         f"{mesh.axes} or an (outer, inner) pair of them")
+    if len(names) == 2 and not (mesh.axes.index(names[0])
+                                < mesh.axes.index(names[1])):
+        raise ValueError(f"{op}: axis {axis!r} must name two different mesh "
+                         f"axes, the outer one first in the mesh's order "
+                         f"{mesh.axes}")
+    if mesh.size(axis) != mesh.n_ranks and not (groups and len(names) == 1):
+        raise ValueError(
+            f"{op} over axis {axis!r} spans {mesh.size(axis)} of the mesh's "
+            f"{mesh.n_ranks} ranks: data-parallel replicas over the other "
+            "axes are not ported (ROADMAP.md queue A item 4); shard over "
+            "every axis, e.g. axis=('dp', 'tp')")
+
+
+def axis_groups(x: torch.Tensor, ctx, axis: str):
+    """``(n, stride)`` of ``axis`` after checking that ``x`` carries every
+    rank of ``ctx`` as its leading dimension."""
+    if not isinstance(axis, str):
+        raise ValueError(f"axis {axis!r}: one mesh axis (the hierarchical "
+                         "forms compose two single-axis calls)")
+    if x.dim() < 2 or x.shape[0] != ctx.n_ranks:
+        raise ValueError(f"x {tuple(x.shape)}: expected (R={ctx.n_ranks}, "
+                         "c, ...), every rank of the mesh")
+    return ctx.size(axis), ctx.stride(axis)
+
+
+def group_view(x: torch.Tensor, n: int, st: int) -> torch.Tensor:
+    """(R, ...) → (R/(n·st), n, st, ...): dimension 1 walks a group's
+    positions along the axis."""
+    return x.view(x.shape[0] // (n * st), n, st, *x.shape[1:])
+
+
+def hop_name(ctx, axis: str) -> str:
+    """How an error names the hop: the axis, outer when a nontrivial axis
+    lies inside it."""
+    return (f"axis {axis!r} ({'outer' if ctx.stride(axis) > 1 else 'inner'}"
+            " hop)")
 
 
 def check_operands(op: str, a: torch.Tensor, b: torch.Tensor,
@@ -101,3 +159,45 @@ def launch(kernel: CudaKernel, ws: shmem.Workspace, describe, *args,
                   int(timeout_s * 1e9), fault, device=device)
     if check:
         shmem.check_errors(device, sync=True, sources=(kernel.source,))
+
+
+# The ``collectives.cu`` entry points: (x, out, slots, chunk_bytes, R, n,
+# stride, flags, abort, epoch, timeout_ns, fault); the all-gather has no
+# slots.
+COLLECTIVE_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong]
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+                       + [ctypes.c_uint64] * 2 + [ctypes.c_int])
+PIECE_BYTES = 8192      # bytes a work item of the kernels moves (kPieceVecs)
+
+
+def launch_collective(kernel: CudaKernel, x, out, *, chunk_bytes: int,
+                      n: int, st: int, flags_per_rank: int, slots: int, ctx,
+                      describe, fault: int, timeout_s: float,
+                      check: bool) -> None:
+    """One launch of a ``collectives.cu`` entry point on CUDA tensors:
+    contiguous 16-byte aligned rows, chunks a multiple of 16 bytes.
+    ``flags_per_rank`` flags a rank per 8 KiB piece of a chunk; ``slots``
+    chunks a rank of persistent receive or gather slots (0: none).
+    ``describe(rank, step, slot, pieces)`` names a flag slot."""
+    dev = x.device
+    if dev.type != "cuda":
+        raise RuntimeError(f"{kernel.symbol} runs on CUDA tensors (got "
+                           f"{dev}); only CPU tensors take the plain version")
+    for t in (x, out):
+        if not t.is_contiguous() or t.data_ptr() % 16 or t.device != dev:
+            raise ValueError(f"{kernel.symbol}: operands must be contiguous "
+                             f"and 16-byte aligned on {dev}")
+    if chunk_bytes % 16 or chunk_bytes == 0:
+        raise ValueError(f"{kernel.symbol}: a chunk of {chunk_bytes} bytes "
+                         "(a multiple of 16 is needed)")
+    n_pc = -(-chunk_bytes // PIECE_BYTES)
+    ws = shmem.workspace(kernel.symbol, (chunk_bytes, n, st), n=ctx.n_ranks,
+                         device=dev, n_flags=ctx.n_ranks * flags_per_rank * n_pc,
+                         data_shape=(slots, chunk_bytes) if slots else None,
+                         data_dtype=torch.uint8)
+    args = [x.data_ptr(), out.data_ptr()]
+    if slots:
+        args.append(ws.data.data_ptr())
+    launch(kernel, ws, lambda r, s, f: describe(r, s, f, n_pc), *args,
+           chunk_bytes, ctx.n_ranks, n, st, device=dev, timeout_s=timeout_s,
+           fault=fault, check=check)

@@ -34,6 +34,13 @@ calls it before every launch (a record left by an earlier launch raises
 there) and, with ``check=True``, after synchronising on its own launch.
 ``Engine.prefill`` and ``Engine.decode`` at tp > 1 call it after each
 step, so a timed-out wait raises from the step it happened in.
+
+A kernel whose puts cross two hops (the hierarchical fused GEMMs over an
+``(outer, inner)`` mesh) keeps one flag range per hop (``hops``: name →
+flag count, in order), all under the call's one epoch, and signals each
+flag once a launch; its error names the hop of the signal that never
+came (:meth:`Workspace.unsignalled`, :meth:`Workspace.hop_of`), which a
+wait downstream of it may have outwaited.
 """
 
 from __future__ import annotations
@@ -73,8 +80,13 @@ class Workspace:
 
     def __init__(self, n_flags: int, device,
                  data: Optional[torch.Tensor] = None,
-                 buffers: Optional[Dict[str, torch.Tensor]] = None):
+                 buffers: Optional[Dict[str, torch.Tensor]] = None,
+                 hops: Optional[Dict[str, int]] = None):
         self.n_flags = n_flags
+        self.hops = dict(hops or {"": n_flags})
+        if sum(self.hops.values()) != n_flags:
+            raise ValueError(f"hop flag ranges {self.hops} do not add up "
+                             f"to {n_flags} flags")
         self.flags = torch.zeros(n_flags + 1, dtype=torch.int64,
                                  device=device)
         self.data = data
@@ -90,26 +102,48 @@ class Workspace:
     def abort_ptr(self) -> int:
         return self.flags.data_ptr() + 8 * self.n_flags
 
+    def unsignalled(self) -> list:
+        """The flag slots that the launch which raised the abort word (the
+        one whose wait timed out) never signalled, read once it has ended:
+        for a kernel that signals every flag once a launch, the signals
+        that never came (a wait downstream of one may time out first)."""
+        f = self.flags.cpu()
+        return (f[:-1] < f[-1]).nonzero().flatten().tolist()
+
+    def hop_of(self, slot: int) -> Tuple[str, int]:
+        """The hop whose range holds flag ``slot``, and the slot's index
+        inside that range."""
+        for name, count in self.hops.items():
+            if slot < count:
+                return name, slot
+            slot -= count
+        raise IndexError(f"flag slot past the {self.n_flags} flags")
+
 
 _CACHE: Dict[Tuple, Workspace] = {}
 
 
-def workspace(op: str, key: Tuple, *, n: int, n_flags: int, device,
+def workspace(op: str, key: Tuple, *, n: int, device,
+              n_flags: Optional[int] = None,
+              hops: Optional[Dict[str, int]] = None,
               data_shape=None, data_dtype=torch.float32,
               buffers: Optional[Dict[str, Tuple]] = None) -> Workspace:
     """The cached :class:`Workspace` of ``op`` at ``key`` (the shapes its
-    flags and data depend on) on ``device``, made on first use. ``data_shape``:
+    flags and data depend on) on ``device``, made on first use: ``n_flags``
+    flags, or one range per hop (``hops``: name → count). ``data_shape``:
     the persistent per-rank data buffer, allocated by :func:`symm_tensor`
     as ``(n, *data_shape)``; ``buffers``: more of them by name, each
     ``name: (shape, dtype)``."""
     ck = (op, key, n, str(device))
     ws = _CACHE.get(ck)
     if ws is None:
+        if n_flags is None:
+            n_flags = sum(hops.values())
         data = (symm_tensor(data_shape, data_dtype, n, device)
                 if data_shape is not None else None)
         named = {name: symm_tensor(shape, dtype, n, device)
                  for name, (shape, dtype) in (buffers or {}).items()}
-        ws = _CACHE[ck] = Workspace(n_flags, device, data, named)
+        ws = _CACHE[ck] = Workspace(n_flags, device, data, named, hops)
     return ws
 
 
