@@ -381,6 +381,39 @@ Phases (any failure exits nonzero; nothing is caught):
    and of the flat "xla" one; a signal never sent on the outer hop
    raising from ``Engine.prefill`` (row 12) and ``Engine.decode`` (row 5).
 
+32. Tensor-parallel paged serving on the layer lane:
+   ``Engine(qwen3_8b, mesh=make_mesh(tp=4), mode=m).serving()`` at full
+   depth on phase 3's weights (shards are views), phase 3's four prompts
+   and 64 greedy tokens each, under buckets (128, 512) in "fused" and
+   under monolithic admission (one ``Engine.prefill`` of 4 copies of the
+   prompt) in "fused_ar". Launch counts exact (a decode tick: the paged
+   decode kernel and GEMM+AR twice a layer, every rank in one launch; a
+   chunk: the Q-block kernel and GEMM+AR twice a layer; a monolithic
+   admission: flash attention once and GEMM+AR twice a layer). Tokens and
+   served logits against phase 3's one-rank lane: agreement printed, the
+   logit gap at step 0 and, where the first token agrees, step 1 within
+   TOL_LOGITS_DEEP; every layer's KV heads of ranks 0 and 1 swapped in the
+   pool once the prompts are resident must break it. ms per tick,
+   launches per tick and the idle share (torch.profiler, five ticks).
+33. The tensor-parallel megakernel (row 27's multi-rank ALLREDUCE task):
+   ``[tp-mk]`` at Qwen3-8B widths cut to 2 layers over 4 ranks, the decode
+   step at MK_LENS and a 128-row chunk from 640 against the plain
+   interpreter within phase 5's limits (written rows exactly the plain
+   run's); a lost ALLREDUCE signal raising CommTimeoutError naming the
+   task within TP_MK_TIMEOUT_S, the next launch right again, and a slab
+   put into the wrong slot outside the limits; the first ALLREDUCE task
+   alone on random slabs, bit for bit against its plain version. ``[tp-mk-serve]``: the
+   36-layer lane, ``ServingEngine(MegaKernelEngine(qwen3_8b,
+   mesh=make_mesh(tp=4), paged=True, ...))`` on seed 0's weights (phase
+   3's, drawn once and packed into each engine's (4, rows, 128) arena):
+   phase 6's prompts one token a tick, then phase 3's through 128-row
+   chunk launches, 64 tokens each, every tick and chunk ONE launch for
+   all ranks and nothing else launched; agreement with phase 6 printed.
+   The decode launch at MK_LENS and the chunk launch against their byte
+   bound and plain interpreter, per-task times, and the ALLREDUCE task's
+   time against its plain version and one ``sum`` over the rank
+   dimension of the stacked slabs.
+
 The last lines of output: one JSON object with every kernel's numbers
 (the megakernel once per row mode, and once per MoE row mode), the
 card's name and power limit as
@@ -630,7 +663,7 @@ def serve_phase():
     prompts = [[int(t) for t in rng.randint(0, cfg.vocab_size, n)]
                for n in lens]
     srv = eng.serving(**serve_kw)
-    first = record_logits(srv, {0})
+    first = record_logits(srv, {0, 1})
     zero_counts()
     t0 = time.perf_counter()
     outs = srv.generate(prompts, max_new_tokens=64)
@@ -651,7 +684,7 @@ def serve_phase():
         fail(f"requests did not finish with 64 tokens: {[len(o) for o in outs]}")
     if not all(0 <= t < cfg.vocab_size for o in outs for t in o):
         fail("token id out of range")
-    if len(first) != 4 or not all(np.isfinite(v).all() and v.shape ==
+    if len(first) != 8 or not all(np.isfinite(v).all() and v.shape ==
                                   (cfg.vocab_size,) for v in first.values()):
         fail("first-token logits missing, misshapen or not finite")
     L = cfg.num_hidden_layers
@@ -667,9 +700,12 @@ def serve_phase():
     dense_engine = engine_phase("dense", cfg, eng.params)
     tp_engine = tp_engine_phase(cfg, eng.params)
     tp2d_engine = tp2d_engine_phase(cfg, eng.params)
+    one_rank = dict(outs=outs, logits=by_prompt(first, sorted(
+        {k[0] for k in first})))
+    tp_serve = tp_serve_phase(cfg, eng.params, prompts, one_rank)
     del eng
     torch.cuda.empty_cache()
-    return launches, st, dense_engine, tp_engine, tp2d_engine
+    return launches, st, dense_engine, tp_engine, tp2d_engine, tp_serve
 
 
 def launch_counters() -> dict:
@@ -1027,8 +1063,10 @@ def mk_step_work(mb, lens):
              "qblock": np.arange(b) // mb.seq,
              "chunk": np.zeros(b, np.int64)}[mb.mode]
     keys = [int(pos[slots == s].max()) + 1 for s in np.unique(slots)]
-    weight_rows = sum(r.rows for r in mb.schema.regions("weight")
-                      if r.name != "embed")
+    # Every rank's weights (a rank holds 1/n of each sharded one; the
+    # norms are replicated and read by every rank).
+    weight_rows = mb.n * sum(r.rows for r in mb.schema.regions("weight")
+                             if r.name != "embed")
     kv_row = cfg.num_hidden_layers * cfg.num_key_value_heads * cfg.head_dim
     # A quantized pool: one byte an element, and the fp32 K and V scales
     # of every attended page.
@@ -1037,7 +1075,7 @@ def mk_step_work(mb, lens):
               * cfg.num_key_value_heads * 4 * 2 if mb.kv_quant else 0)
     nbytes = (weight_rows * mb.w * 2 + b * cfg.hidden_size * 2
               + (sum(keys) + int(writes.sum())) * kv_row * elem * 2 + scales
-              + b * mb.vloc_tiles * mb.w * 2)
+              + mb.n * b * mb.vloc_tiles * mb.w * 2)
     flops = (2 * b * weight_rows * mb.w
              + 4 * int((pos + 1).sum()) * cfg.num_attention_heads
              * cfg.head_dim * cfg.num_hidden_layers)
@@ -1130,7 +1168,7 @@ def mk_serve_phase(layer_st):
     del srv, eng
     torch.cuda.empty_cache()
     return dict(launches=launches, st=st, prof=prof, ms=k_ms, plain_ms=p_ms,
-                bound_ms=b_ms, bound_by=b_by)
+                bound_ms=b_ms, bound_by=b_by, outs=outs)
 
 
 def mk_parity_phase():
@@ -5404,6 +5442,477 @@ def ep_engine_phase(cfg, params):
                 dense=cap_counts["a2a_dense"])
 
 
+# ---- Tensor-parallel paged serving on both lanes (phases 32-33) --------
+
+TP_SERVE_GEN = 64
+
+
+def tp_serve_want(st, layers, mono: bool) -> dict:
+    """Exact launches of a tp = 4 layer-lane serve: a decode tick launches
+    the paged decode kernel and GEMM+AR ("ll") twice a layer, every rank
+    in one launch; a bucketed chunk the Q-block kernel and GEMM+AR twice a
+    layer; a monolithic admission is one ``Engine.prefill`` in
+    "fused_ar" (flash attention once and GEMM+AR twice a layer)."""
+    steps = st["decode_dispatches"] + (st["prefill_calls"] if mono
+                                       else st["prefill_chunks"])
+    want = {"decode": layers * st["decode_dispatches"],
+            "gemm_ar": 2 * layers * steps, "ar_ll": 2 * layers * steps}
+    if mono:
+        want["flash"] = layers * st["prefill_calls"]
+    else:
+        want["qblock"] = layers * st["prefill_chunks"]
+    return want
+
+
+def served_gap(got, want, got_toks, want_toks) -> float:
+    """Largest logit difference of two serves at step 0 (prefill) and,
+    where a request's first token agrees, at step 1 (``logit_gap``)."""
+    first = max(float(np.abs(got[k] - want[k]).max())
+                for k in want if k[1] == 0)
+    step1 = logit_gap(got, want, got_toks, want_toks)
+    return first if math.isnan(step1) else max(first, step1)
+
+
+def by_prompt(seen, srv_ids) -> dict:
+    """``record_logits``' rows keyed by (prompt index, step)."""
+    idx = {r: i for i, r in enumerate(srv_ids)}
+    return {(idx[r], j): v for (r, j), v in seen.items()}
+
+
+def tp_serve_phase(cfg, params, prompts, one_rank):
+    """Phase 32: tensor-parallel paged serving of Qwen3-8B on the layer
+    lane, ``Engine(cfg, mesh=make_mesh(tp=4), mode=m).serving()`` at full
+    depth on phase 3's weights (shards are views), the four prompts of
+    phase 3 and 64 greedy tokens each, under buckets (128, 512) with m =
+    "fused" and under monolithic admission with m = "fused_ar" (a
+    "fused" prefill shards its 4 x 1000 tokens to 1000 rows a rank,
+    which GEMM+RS's 256-row block does not divide: JAX's contract, its
+    ``_rs_blocks``). Counts set to zero around each serve
+    (:func:`tp_serve_want`). Tokens and the served logits (step 0, and
+    step 1 where the first token agrees) against phase 3's one-rank layer
+    lane: agreement printed, logit gap within TOL_LOGITS_DEEP (36 random
+    bf16 layers amplify one-unit roundings, as phase 31 found). Control:
+    the bucketed serve again, every layer's KV heads of ranks 0 and 1
+    swapped in the pool once the prompts are resident, must break that
+    limit at step 1. ms per tick, launches per tick and the idle share
+    from torch.profiler over five decode ticks."""
+    from triton_dist_tpu_torch import Engine, make_mesh
+    from triton_dist_tpu_torch.shmem import workspace as shmem
+
+    mesh = make_mesh(tp=TP)
+    L = cfg.num_hidden_layers
+    runs = {}
+    for label, mode, buckets in (("buckets", "fused", (128, 512)),
+                                 ("monolithic", "fused_ar", None)):
+        serve_kw = dict(num_slots=4, page=32, prefill_buckets=buckets)
+        eng = Engine(cfg, mesh=mesh, mode=mode, params=params, max_len=4096)
+        eng.serving(**serve_kw).generate([[7] * 130], max_new_tokens=2)
+        srv = eng.serving(**serve_kw)
+        seen = record_logits(srv, set(range(5)))
+        zero_counts()
+        t0 = time.perf_counter()
+        handles = [srv.submit(p, max_new_tokens=TP_SERVE_GEN)
+                   for p in prompts]
+        srv.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        st = srv.stats()
+        outs = [h.tokens for h in handles]
+        logits = by_prompt(seen, [h.request.request_id for h in handles])
+        shmem.check_errors(mesh.device, sync=True)
+        tick_ms = 1e3 * st["decode_time_s"] / st["decode_dispatches"]
+        print(f"[tp-serve {label}] Engine(tp={TP}, {mode}).serving(): "
+              f"{st['completed']} requests in {wall:.2f} s; "
+              f"{st['prefill_chunks']} chunks / {st['prefill_calls']} "
+              f"prefills, {st['decode_dispatches']} decode ticks, "
+              f"{tick_ms:.2f} ms per tick, prefill "
+              f"{st['prefill_tokens_per_s']:.1f} tokens/s; launches "
+              f"{ {k: v for k, v in counts.items() if v} }; plan "
+              f"page_bytes_per_rank {st['plan']['page_bytes_per_rank']}")
+        if [len(o) for o in outs] != [TP_SERVE_GEN] * 4 or not all(
+                0 <= t < cfg.vocab_size for o in outs for t in o):
+            fail(f"tp serve {label}: {[len(o) for o in outs]} tokens or ids "
+                 "out of range")
+        expect_launches(f"tp serve {label}", counts,
+                        tp_serve_want(st, L, buckets is None))
+        gap = served_gap(logits, one_rank["logits"], outs, one_rank["outs"])
+        agree = agreement(outs, one_rank["outs"])
+        print(f"[tp-serve {label}] against the one-rank layer lane: greedy "
+              f"agreement {agree:.3f}, served logit gap {gap:.4f} (tol "
+              f"{TOL_LOGITS_DEEP})")
+        if not gap <= TOL_LOGITS_DEEP:
+            fail(f"tp serve {label}: served logits {gap} off the one-rank "
+                 "lane")
+        # Five decode ticks with all four slots running, on a fresh server.
+        srv = eng.serving(**serve_kw)
+        for p in prompts:
+            srv.submit(p, max_new_tokens=TP_SERVE_GEN)
+        while any(h.status != "running" for h in srv.sched.running()) or \
+                srv.sched.queue:
+            srv.step()
+        prof = profile_window(srv.step, 5, f"tp={TP} {label} decode ticks")
+        runs[label] = dict(counts=counts, outs=outs, logits=logits, gap=gap,
+                           agree=agree, tick_ms=tick_ms, prof=prof)
+        del srv
+        if buckets is not None:
+            # Control: the same serve (the same ticks, bit for bit), ranks
+            # 0 and 1 trading KV heads once the prompts are resident: the
+            # next decode tick reads a wrong rank's heads.
+            srv = eng.serving(**serve_kw)
+            seen = record_logits(srv, set(range(5)))
+            handles = [srv.submit(p, max_new_tokens=TP_SERVE_GEN)
+                       for p in prompts]
+            while any(h.status != "running" for h in srv.sched.running()) \
+                    or srv.sched.queue:
+                srv.step()
+            before = set(seen)
+            kv = cfg.num_key_value_heads // TP
+            swap = list(range(kv, 2 * kv)) + list(range(kv)) + list(
+                range(2 * kv, cfg.num_key_value_heads))
+            for pool in (srv.cache.k_pages, srv.cache.v_pages):
+                pool.copy_(pool[:, :, swap])
+            srv.step()
+            bad = by_prompt({k: v for k, v in seen.items()
+                             if k not in before},
+                            [h.request.request_id for h in handles])
+            if not bad:
+                fail("tp serve control: no decode after the swap")
+            err = max(float(np.abs(bad[k] - logits[k]).max()) for k in bad)
+            print(f"[tp-serve control] ranks 0 and 1's KV heads swapped: "
+                  f"logit gap of the next tick {err:.3f} at steps "
+                  f"{sorted(k[1] for k in bad)} (limit {TOL_LOGITS_DEEP}: "
+                  f"{'passes' if err <= TOL_LOGITS_DEEP else 'caught'})")
+            if err <= TOL_LOGITS_DEEP:
+                fail("tp serve: the logit limit does not catch a wrong "
+                     "rank's KV heads")
+            del srv
+        del eng
+        shmem.release_all()
+        torch.cuda.empty_cache()
+    return runs
+
+
+TP_MK_KW = dict(batch=4, max_len=2048, t_tile=128, paged=True, page=128,
+                num_pages=1 + 4 * 16)
+TP_MK_TIMEOUT_S = 0.2
+
+
+def tp_mk_faults(mb, arena, k0, v0, toks, lens, table, want, label):
+    """A lost ALLREDUCE signal must raise CommTimeoutError naming the task
+    within its bound (and the next launch be right again); a slab put
+    into the wrong slot must fall outside the megakernel limits."""
+    from triton_dist_tpu_torch.megakernel import builder as mkb
+    from triton_dist_tpu_torch.shmem import workspace as shmem
+
+    host = mb._host_inputs(k0, toks, lens, table)
+    t0 = time.perf_counter()
+    try:
+        mb.launch(arena.clone(), k0.clone(), v0.clone(), *host,
+                  timeout_s=TP_MK_TIMEOUT_S,
+                  fault=mkb.AR_FAULTS["lost_signal"], fault_rank=2,
+                  fault_ar=3)
+        mb.wait(arena.device)
+        fail(f"tp megakernel {label}: a lost ALLREDUCE signal did not raise")
+    except shmem.CommTimeoutError as e:
+        print(f"[tp-mk control] {label}: a lost ALLREDUCE signal raised in "
+              f"{time.perf_counter() - t0:.3f} s: {e}")
+        if "ALLREDUCE" not in str(e):
+            fail(f"tp megakernel {label}: the error names no task: {e}")
+    bad_arena = arena.clone()
+    mb.launch(bad_arena, k0.clone(), v0.clone(), *host,
+              fault=mkb.AR_FAULTS["wrong_slot"], fault_rank=1,
+              fault_ar=mb.n_allreduce - 1)
+    mb.wait(arena.device)
+    got = mb.logits(bad_arena)
+    diff = (got - want).abs()
+    atol, rtol = TOL_MK_LOGITS
+    logits_ok = bool((diff <= atol + rtol * want.abs()).all())
+    rows_ok = bool((row_rms(got, want) <= TOL_MK_ROW_RMS).all())
+    print(f"[tp-mk control] {label}: a slab in the wrong slot: max |dlogit| "
+          f"{diff.max().item():.3e} ({'passes' if logits_ok and rows_ok else 'caught'})")
+    if logits_ok and rows_ok:
+        fail(f"tp megakernel {label}: the limits do not catch a slab in the "
+             "wrong slot")
+    again = mb.step(arena.clone(), k0.clone(), v0.clone(), toks, lens, table)
+    check_close(f"tp-mk {label} after the faults", again, want,
+                TOL_MK_LOGITS)
+
+
+def tp_mk_kernel_phase():
+    """Phase 33, first half (``[tp-mk]``): the tp = 4 megakernel at
+    Qwen3-8B widths cut to 2 layers against its plain interpreter, in the
+    decode row mode (lengths MK_LENS, a shuffled table) and a 128-row
+    chunk from position 640 with positions below 700 attend-only, within
+    phase 5's limits, every pool row it did not write unchanged; then
+    :func:`tp_mk_faults` on both."""
+    from triton_dist_tpu_torch import ModelConfig, make_mesh
+    from triton_dist_tpu_torch.megakernel import MegaKernelEngine
+
+    cfg = dataclasses.replace(ModelConfig.qwen3_8b(), num_hidden_layers=2)
+    eng = MegaKernelEngine(cfg, mesh=make_mesh(tp=TP), prefill_buckets=(128,),
+                           dtype=torch.bfloat16, seed=2, **TP_MK_KW)
+    dev = eng.device
+    errs = []
+    table = mk_pools(eng, 13)
+    k0, v0 = eng.k_cache.clone(), eng.v_cache.clone()
+    toks = np.random.RandomState(13).randint(0, cfg.vocab_size, 4)
+    chunk_toks, codes, expect = chunk_case(eng, 128, 640, 128, 700,
+                                           table[2], 14)
+    cases = (("decode", eng.builder, toks, np.array(MK_LENS, np.int32),
+              eng.block_table, None),
+             ("chunk-128", eng.chunk_builders[128], chunk_toks, codes,
+              table[2], expect))
+    for label, mb, t, lens, tbl, rows in cases:
+        arena = eng.arena.clone()
+        kc, vc, k2, v2 = k0.clone(), v0.clone(), k0.clone(), v0.clone()
+        got = mb.step(arena, kc, vc, t, lens, tbl)
+        want = mb.plain_step(eng.arena.clone(), k2, v2, t, lens, tbl)
+        torch.cuda.synchronize()
+        err = check_close(f"tp-mk {label} logits", got, want, TOL_MK_LOGITS)
+        rel = row_rms(got, want)
+        print(f"[tp-mk] {label}: {mb.n} ranks x {len(mb.claim_list)} claims "
+              f"in one launch, {mb.n_allreduce} ALLREDUCE tasks a rank; "
+              f"worst row RMS error / RMS {rel.max().item():.2e} (tol "
+              f"{TOL_MK_ROW_RMS})")
+        if not bool((rel <= TOL_MK_ROW_RMS).all()):
+            fail(f"tp megakernel {label}: a row strays from the plain run")
+        written = (k2 != k0) | (v2 != v0)
+        errs += [err] + [check_close(f"tp-mk {label} {n} rows", a[written],
+                                     b[written], TOL_MK_KV)
+                         for n, a, b in (("K", kc, k2), ("V", vc, v2))]
+        if not (torch.equal(kc[~written], k0[~written])
+                and torch.equal(vc[~written], v0[~written])):
+            fail(f"tp megakernel {label} wrote pool rows the plain run did "
+                 "not")
+        if rows is not None and not torch.equal(written.any(-1).any(-1),
+                                                rows):
+            fail(f"tp megakernel {label}: not exactly the chunk's rows written")
+        tp_mk_faults(mb, eng.arena, k0, v0, t, lens, tbl, want, label)
+    ar_err = tp_mk_allreduce_alone(eng, toks)
+    del eng
+    torch.cuda.empty_cache()
+    return dict(err=max(errs), ar_err=ar_err)
+
+
+def tp_mk_allreduce_alone(eng, toks) -> float:
+    """The ``ALLREDUCE`` task alone against ``kernels.allreduce_ranks``:
+    the decode build's first one (ordinal 0, after the GATHER, so it
+    waits on no earlier ALLREDUCE) isolated and run on random bf16 slabs
+    in every rank's arena. Both sum in fp32 in the same order and round
+    once, so they must agree bit for bit."""
+    from triton_dist_tpu_torch.megakernel import kernels as mkk
+    from triton_dist_tpu_torch.megakernel.task import TaskType
+
+    mb, dev = eng.builder, eng.device
+    t_ar = int(np.flatnonzero(mb.type_of == int(TaskType.ALLREDUCE))[0])
+    args = mb.graph.tasks[t_ar].args
+    buf, rows = args[0], mb.ar_max_tiles * mb.batch
+    arena = eng.arena.clone()
+    g = torch.Generator(device=dev).manual_seed(17)
+    arena[:, buf:buf + rows] = torch.randn(TP, rows, mb.w, generator=g,
+                                           device=dev).to(arena.dtype)
+    plain = arena.clone()
+    one = mb.isolate([t_ar])
+    one.launch(arena, eng.k_cache, eng.v_cache,
+               *mb._host_inputs(eng.k_cache, toks, np.array(MK_LENS),
+                                eng.block_table))
+    one.wait(dev)
+    mkk.allreduce_ranks(mb.kernel_config(), args, [
+        mkk.StepState(arena=a, k_cache=None, v_cache=None, tokens=[],
+                      lens=[], table=None, rank=r)
+        for r, a in enumerate(plain)])
+    err = (arena[:, buf:buf + rows].float()
+           - plain[:, buf:buf + rows].float()).abs().max().item()
+    print(f"[tp-mk] the ALLREDUCE task alone ({TP} x ({rows}, {mb.w}) bf16 "
+          f"slabs) against its plain version: max_abs_err {err} (bit for "
+          "bit required)")
+    if err != 0.0:
+        fail("the ALLREDUCE task disagrees with its plain version")
+    return err
+
+
+def tp_mk_serve_phase(mk_outs):
+    """Phase 33, second half (``[tp-mk-serve]``): Qwen3-8B at full depth
+    on the tensor-parallel megakernel lane, ``ServingEngine(
+    MegaKernelEngine(cfg, mesh=make_mesh(tp=4), paged=True, ...))``, the
+    weights drawn once from seed 0 (phase 3's) and packed into each
+    engine's (4, rows, 128) arena: phase 6's prompts (300/200/100/60
+    tokens) streamed one token a tick through the decode launch, then the
+    layer lane's (1000/700/300/60) through 128-row chunk launches, 64
+    greedy tokens each. Every tick and every chunk is ONE launch for all
+    four ranks, and nothing else launches. Then the decode launch at
+    MK_LENS and the 128-row chunk launch, each against its byte bound and
+    its plain interpreter, with per-task times (the ALLREDUCE task's
+    beside the library yardstick of the reduction: one ``sum`` over the
+    rank dimension of the stacked slabs)."""
+    from triton_dist_tpu_torch import ModelConfig, ServingEngine, make_mesh
+    from triton_dist_tpu_torch.megakernel import MegaKernelEngine
+    from triton_dist_tpu_torch.megakernel import kernels as mkk
+    from triton_dist_tpu_torch.models import dense
+
+    cfg = ModelConfig.qwen3_8b()
+    mesh = make_mesh(tp=TP)
+    dev = mesh.device
+    params = dense.init_params(
+        cfg, generator=torch.Generator(device=dev).manual_seed(0),
+        device=dev, dtype=torch.bfloat16)
+    rng = np.random.RandomState(0)
+    lane_prompts = [[int(t) for t in rng.randint(0, cfg.vocab_size, n)]
+                    for n in (300, 200, 100, 60)]
+    rng = np.random.RandomState(0)
+    chunk_prompts = [[int(t) for t in rng.randint(0, cfg.vocab_size, n)]
+                     for n in (1000, 700, 300, 60)]
+    runs, timed = {}, {}
+    for label, buckets, prompts in (("lane", None, lane_prompts),
+                                    ("chunk", (128,), chunk_prompts)):
+        t0 = time.perf_counter()
+        eng = MegaKernelEngine(cfg, mesh=mesh, params=params,
+                               prefill_buckets=buckets,
+                               dtype=torch.bfloat16, **TP_MK_KW)
+        torch.cuda.synchronize()
+        mb = eng.builder
+        print(f"[tp-mk-serve {label}] engine in "
+              f"{time.perf_counter() - t0:.1f} s: {len(mb.graph.tasks)} "
+              f"tasks a rank, arena {tuple(eng.arena.shape)} bf16, "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+        ServingEngine(eng, prefill_buckets=buckets).generate(
+            [[7] * 3], max_new_tokens=2)                  # warm-up
+        srv = ServingEngine(eng, prefill_buckets=buckets)
+        zero_counts()
+        t0 = time.perf_counter()
+        outs = srv.generate(prompts, max_new_tokens=TP_SERVE_GEN)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        st = srv.stats()
+        tick_ms = 1e3 * st["decode_time_s"] / st["decode_dispatches"]
+        print(f"[tp-mk-serve {label}] {st['completed']} requests in "
+              f"{wall:.2f} s; {st['prefill_chunks']} chunk launches, "
+              f"{st['decode_dispatches']} decode launches, {tick_ms:.2f} ms "
+              f"per tick; launches {({k: v for k, v in counts.items() if v})}")
+        if [len(o) for o in outs] != [TP_SERVE_GEN] * 4 or not all(
+                0 <= t < cfg.vocab_size for o in outs for t in o):
+            fail(f"tp megakernel serve {label}: {[len(o) for o in outs]} "
+                 "tokens or ids out of range")
+        want = {"megakernel": st["decode_dispatches"] + st["prefill_chunks"],
+                "mk_decode": st["decode_dispatches"]}
+        if st["prefill_chunks"]:
+            want["mk_chunk"] = st["prefill_chunks"]
+        expect_launches(f"tp megakernel serve {label}", counts, want)
+        if label == "lane" and mk_outs is not None:
+            print(f"[tp-mk-serve lane] greedy agreement with phase 6's "
+                  f"one-rank megakernel lane {agreement(outs, mk_outs):.3f}")
+        srv = ServingEngine(eng, prefill_buckets=buckets)
+        for p in prompts:
+            srv.submit(p, max_new_tokens=TP_SERVE_GEN)
+        while any(h.status != "running" for h in srv.sched.running()) or \
+                srv.sched.queue:
+            srv.step()
+        prof = profile_window(srv.step, 5,
+                              f"tp={TP} megakernel {label} decode ticks")
+        runs[label] = dict(counts=counts, tick_ms=tick_ms, prof=prof)
+        del srv
+        if buckets is None:
+            del eng
+            torch.cuda.empty_cache()
+            continue
+        del params
+        # Times at full depth: the decode launch at MK_LENS and the
+        # 128-row chunk from 512, with per-task times.
+        table = mk_pools(eng, 15)
+        toks = np.random.RandomState(15).randint(0, cfg.vocab_size, 4)
+        ctoks, codes, _ = chunk_case(eng, 128, 512, 128, 0, table[1], 16)
+        for key, mb, t, lens, tbl in (
+                ("decode", eng.builder, toks, np.array(MK_LENS, np.int32),
+                 eng.block_table),
+                ("chunk", eng.chunk_builders[128], ctoks, codes, table[1])):
+            host = mb._host_inputs(eng.k_cache, t, lens, tbl)
+            task_ns = torch.zeros(TP, len(mb.graph.tasks), 2,
+                                  dtype=torch.int64, device=dev)
+            k_ms = time_events(lambda: mb.launch(
+                eng.arena, eng.k_cache, eng.v_cache, *host, task_ns=task_ns),
+                reps=5)
+            per = mb.task_ms(task_ns)
+            p_ms = time_events(lambda: mb.plain_step(
+                eng.arena, eng.k_cache, eng.v_cache, t, lens, tbl),
+                reps=1, warmup=0)
+            b_ms, b_by = mk_step_bound(mb, lens)
+            ar_sum, ar_max = per["ALLREDUCE"]
+            ar_ms = ar_sum / (TP * mb.n_allreduce)
+            print(f"[tp-mk-step] {key}, {mb.batch} rows, "
+                  f"{cfg.num_hidden_layers} layers, {TP} ranks in one "
+                  f"launch: kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} "
+                  f"bound_ms {b_ms:.4f} ({b_by}); ALLREDUCE {ar_ms:.4f} ms a "
+                  f"task on average ({TP} x {mb.n_allreduce} a launch), "
+                  f"longest {ar_max:.4f}")
+            print("[tp-mk-step]   task ms by type (sum over ranks, longest): "
+                  + ", ".join(f"{k} {v[0]:.2f}/{v[1]:.3f}" for k, v in sorted(
+                      per.items(), key=lambda kv: -kv[1][0])))
+            # The reduction alone: its plain version on the same slabs
+            # (ar_ws, then the slab, in a small arena of their own), and
+            # one library call over the stacked slabs.
+            rows = mb.ar_max_tiles * mb.batch
+            slabs = torch.randn(TP, rows, mb.w, device=dev,
+                                dtype=torch.bfloat16)
+            arena = torch.zeros(TP, TP * rows + rows, mb.w, device=dev,
+                                dtype=torch.bfloat16)
+            buf = TP * rows
+            arena[:, buf:] = slabs
+            states = [mkk.StepState(arena=a, k_cache=None, v_cache=None,
+                                    tokens=[], lens=[], table=None, rank=r)
+                      for r, a in enumerate(arena)]
+            cfg_k = dataclasses.replace(mb.kernel_config(), ar_ws_off=0)
+            ar_plain = time_events(lambda: mkk.allreduce_ranks(
+                cfg_k, (buf, mb.ar_max_tiles), states), reps=5)
+            ar_lib = time_events(lambda: slabs.sum(0), reps=20)
+            ar_bound = bound(2 * TP * rows * mb.w * 2, TP * rows * mb.w
+                             * (TP - 1))
+            print(f"[tp-mk-allreduce] {key}: {TP} slabs of ({rows}, {mb.w}) "
+                  f"bf16: task {ar_ms:.4f} ms, plain {ar_plain:.4f} ms, "
+                  f"one sum over ranks {ar_lib:.4f} ms, bound "
+                  f"{ar_bound[0]:.5f} ms ({ar_bound[1]})")
+            timed[key] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                              bound_by=b_by,
+                              ar=dict(ms=ar_ms, plain_ms=ar_plain,
+                                      library_ms=ar_lib,
+                                      bound_ms=ar_bound[0],
+                                      bound_by=ar_bound[1]))
+        del eng
+        torch.cuda.empty_cache()
+    return dict(runs=runs, timed=timed)
+
+
+def tp_serving_phases():
+    """Phases 32-33 alone, with phase 3's one-rank layer-lane serve as
+    phase 32's reference and no phase 6 to hold phase 33's tokens to:
+    ``python3 -c "import chip_smoke as cs; cs.build_kernels();
+    cs.tp_serving_phases()"``."""
+    from triton_dist_tpu_torch import Engine, ModelConfig
+
+    cfg = ModelConfig.qwen3_8b()
+    eng = Engine(cfg, device="cuda", dtype=torch.bfloat16, max_len=4096,
+                 seed=0)
+    serve_kw = dict(num_slots=4, page=32, prefill_buckets=(128, 512))
+    eng.serving(**serve_kw).generate([[7] * 130], max_new_tokens=2)
+    rng = np.random.RandomState(0)
+    prompts = [[int(t) for t in rng.randint(0, cfg.vocab_size, n)]
+               for n in (1000, 700, 300, 60)]
+    srv = eng.serving(**serve_kw)
+    seen = record_logits(srv, {0, 1})
+    handles = [srv.submit(p, max_new_tokens=TP_SERVE_GEN) for p in prompts]
+    srv.run()
+    one_rank = dict(outs=[h.tokens for h in handles],
+                    logits=by_prompt(seen, [h.request.request_id
+                                            for h in handles]))
+    del srv
+    tp_serve_phase(cfg, eng.params, prompts, one_rank)
+    del eng
+    torch.cuda.empty_cache()
+    tp_mk_kernel_phase()
+    tp_mk_serve_phase(None)
+
+
 def grid_blocks() -> int:
     from triton_dist_tpu_torch.megakernel import builder as mkb
 
@@ -5423,34 +5932,51 @@ def main():
           f"{torch.version.cuda}; nvidia-smi: {smi}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+
+    def stamp(phases: str) -> None:
+        """Wall time so far, for the script's time limit."""
+        print(f"[time] through {phases}: "
+              f"{time.perf_counter() - t_start:.1f} s")
 
     build_kernels()
+    stamp("phase 1 (build)")
     numbers = kernel_phase()
     numbers["megakernel"] = mk_kernel_phase()
     numbers["flash"] = flash_kernel_phase()
     numbers["group_gemm"] = group_gemm_kernel_phase()
     numbers.update(quant_kernel_phase())
+    stamp("phases 2, 5, 15, 19")
     numbers["tp"] = tp_kernel_phase()
     numbers["tp_moe"] = tp_moe_kernel_phase()
     numbers["ep"] = ep_kernel_phase()
     numbers["tp2d"] = tp2d_kernel_phase()
     mk_quant_write_phase()
-    launches, layer_st, dense_engine, tp_engine, tp2d_engine = serve_phase()
+    stamp("phases 24, 26, 28, 30, 20")
+    (launches, layer_st, dense_engine, tp_engine, tp2d_engine,
+     tp_serve) = serve_phase()
     parity_phase()
+    stamp("phases 3-4, 16-17, 25, 31, 32")
     mk = mk_serve_phase(layer_st)
     mk_parity_phase()
     prompt = mk_prompt_kernel_phase()
     chunk = mk_chunk_serve_phase(layer_st)
     mk_chunk_parity_phase()
+    stamp("phases 6-10")
+    tp_mk = tp_mk_kernel_phase()
+    tp_mk_serve = tp_mk_serve_phase(mk["outs"])
+    stamp("phase 33")
     moe = moe_kernel_phase()
     moe_serve = moe_mk_serve_phase()
     moe_engine, tp_moe_engine, ep_engine = moe_layer_serve_phase(
         moe_serve["held"])
     moe_parity_phase()
+    stamp("phases 11-14, 27, 29")
     checkpoint_phase()
     q21 = quant_spec_serve_phase()
     q22 = moe_quant_spec_phase()
     q23 = qwen3_32b_phase()
+    stamp("phases 18, 21-23")
 
     rows = []
     for key, name, replaces in (
@@ -5670,6 +6196,31 @@ def main():
             "max_abs_err": t["err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    # The tensor-parallel megakernel (phase 33): every rank in one launch
+    # of the same kernel, decode and 128-row chunk rows; its ALLREDUCE
+    # task (the decode launch's, per task) against the plain reduction
+    # and one sum over the stacked slabs. Launches over phase 33's serves.
+    served = tp_mk_serve["runs"].values()
+    for key, count in (("decode", "mk_decode"), ("chunk", "mk_chunk")):
+        t = tp_mk_serve["timed"][key]
+        rows.append({
+            "name": f"megakernel_kernel[tp4-{key}]", "route": "cuda",
+            "source": "triton_dist_tpu_torch/csrc/megakernel.cu",
+            "replaces": "triton_dist_tpu/megakernel/builder.py:1157",
+            "launches": sum(run["counts"][count] for run in served),
+            "max_abs_err": tp_mk["err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None})
+    t = tp_mk_serve["timed"]["decode"]["ar"]
+    rows.append({
+        "name": "megakernel_kernel[tp4-allreduce]", "route": "cuda",
+        "source": "triton_dist_tpu_torch/csrc/megakernel.cu",
+        "replaces": "triton_dist_tpu/megakernel/kernels.py:719",
+        "launches": sum(run["counts"]["megakernel"] for run in served),
+        "max_abs_err": tp_mk["ar_err"], "ms": t["ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "library_ms": t["library_ms"]})
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

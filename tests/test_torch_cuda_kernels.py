@@ -1872,3 +1872,100 @@ def test_hierarchical_fused_gemms_match_plain(dev):
                     fn(*args, fault=mod.FAULTS_2D[f"lost_signal_{hop}"],
                        timeout_s=0.05, check=True)
                 _assert_close(fn(*args, check=True), w, tol)
+
+
+def test_tp_megakernel_matches_plain(dev):
+    """The multi-rank megakernel (row 27's ALLREDUCE task) at tp = 2 and 4
+    over 2 layers of a 16-head, 4-KV-head config: a paged decode step (3
+    rows, one parked, a shuffled table) and a 16-row chunk, each ONE
+    launch for every rank, within the megakernel limits of its plain
+    interpreter, every pool row it did not write unchanged; then a planted
+    lost ALLREDUCE signal raises CommTimeoutError naming the task (within
+    its bound, the process keeping its CUDA context: the next launch is
+    right again), and a slab put into the wrong slot falls outside the
+    limits; the first ALLREDUCE alone equals its plain version bit for
+    bit."""
+    from triton_dist_tpu_torch import make_mesh
+    from triton_dist_tpu_torch.ops.chunked_prefill import chunk_row_codes
+    from triton_dist_tpu_torch.shmem.workspace import CommTimeoutError
+
+    cfg = ModelConfig(vocab_size=1024, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=16,
+                      num_key_value_heads=4, head_dim=128)
+    max_len, page, b = 256, 32, 3
+    g = torch.Generator(device=dev).manual_seed(27)
+    params = dense.init_params(cfg, generator=g, device=dev,
+                               dtype=torch.bfloat16)
+    rng = np.random.RandomState(27)
+    for n in (2, 4):
+        mesh = make_mesh(tp=n)
+        for rows in (b, 16):
+            kw = dict(mesh=mesh, max_len=max_len, t_tile=page, paged=True,
+                      page=page)
+            if rows == b:
+                mb = mkb.ModelBuilder(cfg, batch=b, **kw)
+                lens = np.array([0, 37, 130], np.int32)      # row 0 parked
+                table = (rng.permutation(b * mb.p_max) + 1).astype(np.int32)
+                table[:mb.p_max] = 0
+                n_pages = 1 + b * mb.p_max
+            else:
+                mb = mkb.ModelBuilder(cfg, batch=rows, seq=rows, chunk=True,
+                                      **kw)
+                lens = chunk_row_codes(CHUNK_START, rows, rows - 1,
+                                       CHUNK_WFROM)
+                table = (rng.permutation(mb.p_max) + 1).astype(np.int32)
+                n_pages = 1 + mb.p_max
+            arena = mb.pack_arena(params, dtype=torch.bfloat16, device=dev)
+            assert tuple(arena.shape[:1]) == (n,)
+            shape = (2, n_pages, page, 4, 128)
+            kc = torch.randn(shape, generator=g, device=dev,
+                             dtype=torch.bfloat16)
+            vc = torch.randn(shape, generator=g, device=dev,
+                             dtype=torch.bfloat16)
+            toks = rng.randint(0, cfg.vocab_size, rows).astype(np.int32)
+            kc0, vc0, a0 = kc.clone(), vc.clone(), arena.clone()
+            a2, k2, v2 = arena.clone(), kc.clone(), vc.clone()
+            before = mkb.KERNEL.launches
+            got = mb.step(arena, kc, vc, toks, lens, table)
+            assert mkb.KERNEL.launches == before + 1
+            want = mb.plain_step(a2, k2, v2, toks, lens, table)
+            print(f"[mk-card] tp={n} rows={rows}:", end=" ")
+            _check_mk(got, want, kc, vc, k2, v2, kc0, vc0)
+            args = (toks, lens, table)
+            with pytest.raises(CommTimeoutError, match="ALLREDUCE #3"):
+                mb.launch(a0.clone(), kc0.clone(), vc0.clone(), *args,
+                          timeout_s=0.2, fault=mkb.AR_FAULTS["lost_signal"],
+                          fault_ar=3)
+                mb.wait(dev)
+            bad_args = dict(fault=mkb.AR_FAULTS["wrong_slot"], fault_rank=1,
+                            fault_ar=1)
+            arena_b = a0.clone()
+            mb.launch(arena_b, kc0.clone(), vc0.clone(), *args, **bad_args)
+            mb.wait(dev)
+            bad = mb.logits(arena_b)
+            err = (bad - want).abs()
+            assert bool((err > MK_LOGITS_TOL[0]
+                         + MK_LOGITS_TOL[1] * want.abs()).any())
+            again = mb.step(a0.clone(), kc0.clone(), vc0.clone(), *args)
+            _assert_close(again, want, MK_LOGITS_TOL)
+        # The first ALLREDUCE alone (ordinal 0: no earlier one to wait
+        # for) on random slabs: the same fp32 order, one rounding, so bit
+        # for bit against the plain reduction.
+        from triton_dist_tpu_torch.megakernel import kernels as mkk
+        from triton_dist_tpu_torch.megakernel.task import TaskType
+
+        t_ar = int(np.flatnonzero(mb.type_of == int(TaskType.ALLREDUCE))[0])
+        task_args = mb.graph.tasks[t_ar].args
+        buf, rows = task_args[0], mb.ar_max_tiles * mb.batch
+        arena = a0.clone()
+        arena[:, buf:buf + rows] = torch.randn(
+            n, rows, 128, generator=g, device=dev).to(arena.dtype)
+        plain = arena.clone()
+        one = mb.isolate([t_ar])
+        one.launch(arena, kc0.clone(), vc0.clone(), *args)
+        one.wait(dev)
+        mkk.allreduce_ranks(mb.kernel_config(), task_args, [
+            mkk.StepState(arena=a, k_cache=None, v_cache=None, tokens=[],
+                          lens=[], table=None, rank=r)
+            for r, a in enumerate(plain)])
+        assert torch.equal(arena[:, buf:buf + rows], plain[:, buf:buf + rows])

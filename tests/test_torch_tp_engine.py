@@ -8,7 +8,7 @@ same weights (``from_jax_params``). Prefill logits and the KV cache (the
 JAX cache's global view) within 1e-4, greedy tokens over 4 steps
 identical; tp = 2 and tp = 4 against the port's tp = 1; and the errors:
 heads that do not split, B·S not divisible by tp, the expert-parallel MoE
-regime and ``serving()`` at tp > 1."""
+regime and what ``serving()`` does not take at tp > 1."""
 
 import jax
 import jax.numpy as jnp
@@ -134,8 +134,18 @@ def test_moe_at_tp_raises():
 
 
 def test_serving_at_tp_raises(jax_run):
+    """Dense paged serving at tp > 1 is ported
+    (``tests/test_torch_tp_serving.py``); what stays for later raises,
+    naming queue A item 8: quantized pools and ``spec_k`` at tp > 1, and a
+    MoE engine's paged lanes."""
+    eng = _engine(jax_run["params"], 4, "fused")
+    for kw in (dict(kv_dtype="int8"), dict(spec_k=2)):
+        with pytest.raises(ValueError, match="queue A item 8"):
+            eng.serving(num_slots=2, page=8, **kw)
+    moe = Engine(ModelConfig.tiny_moe(num_experts=4),
+                 mesh=make_mesh(tp=4, device="cpu"), dtype=torch.float32)
     with pytest.raises(ValueError, match="queue A item 8"):
-        _engine(jax_run["params"], 4, "fused").serving(num_slots=2, page=8)
+        moe.serving(num_slots=2, page=8)
 
 
 def test_device_must_be_the_mesh_device(jax_run):

@@ -93,6 +93,48 @@
 // panel once per 64-row pass (no wgmma, no TMA), and attention is one
 // task per layer run by one block, a serial point 36 times a launch whose
 // work grows with rows x attended keys.
+//
+// Tensor-parallel builds (n_ranks = n > 1; builder.py ModelBuilder with a
+// mesh) run n simulated ranks in ONE cooperative launch: block b belongs to
+// rank b / blocks_per_rank (occupancy x SMs / n blocks a rank, so every
+// rank's blocks are resident together) and runs that rank's copy of the
+// claim list on that rank's arena slice (the arena is n slices of
+// arena_rows rows) with its own claim counter and done flags; its KV heads
+// are heads [r * kv_loc, (r + 1) * kv_loc) of pools that hold all kv_tot =
+// n * kv_loc heads. GATHER reads the rank's vocabulary shard (token - r *
+// vocab_loc). The ALLREDUCE task replaces kernels.py allreduce_body (:719,
+// the TPU kernel's one-shot in-kernel allreduce of an arena slab across the
+// tp axis; ModelBuilder's third arg is its ordinal k among the launch's
+// ALLREDUCE tasks). Rank me's task:
+//
+//   1. waits until every peer has finished reading its ar_ws slots of
+//      ALLREDUCE k - 1 (their done flags of ordinal k - 1): 2L + 1 tasks
+//      share one ar_ws, so without this a fast rank's put could overwrite
+//      a slot that a slow rank still reads (the TPU kernel's opening
+//      barrier_all, kernels.py:742);
+//   2. stores its slab (ar_tiles (batch, 128) tiles at buf_off) with
+//      16-byte stores into slot me of every peer's ar_ws, then releases one
+//      arrival flag per peer;
+//   3. acquire-waits for the n - 1 arrivals into its own ar_ws;
+//   4. sums in fp32 its own slab first, then its peers' me+1, me+2, ...
+//      mod n (the JAX body's order, different on every rank), stores the
+//      sum in bf16 over its slab, and releases its done flag of ordinal k.
+//
+// The flags are 64-bit epoch words of a persistent workspace, never
+// cleared (shmem_device.cuh: per ordinal k, n x n arrival flags
+// [receiver][sender] then n done flags): each launch takes a new epoch.
+// The launch stays deadlock-free: the builder pins ALLREDUCE to core 0,
+// every rank claims its tasks in one topological order, and the ALLREDUCE
+// tasks form a chain on every rank, so the rank whose oldest unfinished
+// task is the lowest ALLREDUCE finds every peer at or past it. A wait past
+// timeout_ns records (rank, task, flag slot, epoch) in host-mapped memory
+// and raises the workspace's abort word: every wait of the launch (the
+// ALLREDUCE waits and, at n > 1, the waits on predecessors) then gives up,
+// the launch ends, and the host raises CommTimeoutError naming the task.
+// What bounds it: bytes. Each rank moves (n - 1) slabs out and reads n in,
+// 32 KB a slab at decode (4 rows x 4096) and 1 MB for a 128-row chunk; one
+// block per rank does it all, so a chunk's ALLREDUCE runs at one SM's copy
+// rate, not the card's.
 
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
@@ -104,6 +146,8 @@
 
 #include <algorithm>
 #include <type_traits>
+
+#include "shmem_device.cuh"
 
 namespace {
 
@@ -171,7 +215,21 @@ struct Params {
   float qmax;          // 127 (int8) or 448 (fp8)
   float eps, theta;
   unsigned long long timeout_ns;
+  // Tensor-parallel ranks: this block's rank, the blocks of one rank, one
+  // rank's arena rows (the arena holds n slices), rank 0's arena, the KV
+  // heads of a pool row, and the ALLREDUCE workspace (ar_tiles tiles a
+  // slot at row ar_ws_off) with its flags (tdt::Sync: flags, abort word,
+  // error record, this launch's epoch, the wait bound).
+  int n_ranks, rank, blocks_per_rank, kv_tot, n_tasks;
+  long long arena_rows;
+  __nv_bfloat16* arena0;
+  int ar_ws_off, ar_tiles;
+  tdt::Sync ar;
+  int fault, fault_rank, fault_ar;   // planted ALLREDUCE faults (builder.py)
 };
+
+// Planted faults of the ALLREDUCE task (builder.py AR_FAULTS).
+enum ArFault : int { kArLostSignal = 1, kArWrongSlot = 2 };
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -246,7 +304,7 @@ __device__ __forceinline__ int page_of(const Params& P, int slot, int pos) {
 // Pool row (layer, page pid, in-page offset off, KV head g), in elements.
 __device__ __forceinline__ size_t pool_row(const Params& P, int layer, int pid, int off,
                                            int g) {
-  return ((((size_t)layer * P.num_pages + pid) * P.page + off) * P.kv_loc + g) * kHD;
+  return ((((size_t)layer * P.num_pages + pid) * P.page + off) * P.kv_tot + g) * kHD;
 }
 
 // Pool row (layer, KV position `pos` of `slot`'s table row, KV head g).
@@ -257,7 +315,7 @@ __device__ __forceinline__ size_t pool_off(const Params& P, int layer, int slot,
 
 // Scale-table index of (layer, page pid, KV head g).
 __device__ __forceinline__ size_t scale_idx(const Params& P, int layer, int pid, int g) {
-  return ((size_t)layer * P.num_pages + pid) * P.kv_loc + g;
+  return ((size_t)layer * P.num_pages + pid) * P.kv_tot + g;
 }
 
 struct Row {
@@ -457,13 +515,13 @@ __device__ void weighted_add(const Params& P, const int* a) {
   }
 }
 
-// GATHER (table_off, out_off, d_tiles, vocab_loc): each row's embedding,
-// zeros for a token outside the table.
+// GATHER (table_off, out_off, d_tiles, vocab_loc): each row's embedding
+// from the rank's vocabulary shard, zeros for a token outside it.
 __device__ void gather(const Params& P, const int* a) {
   const int table_off = a[0], out_off = a[1], dt = a[2], vocab = a[3];
   const int b = P.batch, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int bb = warp; bb < b; bb += kWarps) {
-    const int tok = P.tokens[bb];
+    const int tok = P.tokens[bb] - P.rank * vocab;
     const bool owner = tok >= 0 && tok < vocab;
     for (int j = 0; j < dt; ++j) {
       uint2 v = make_uint2(0, 0);
@@ -931,6 +989,89 @@ __device__ void fail(const Params& P, int task, int pred, int claim) {
   __trap();
 }
 
+// Whether a wait of this launch timed out (n > 1: the ALLREDUCE
+// workspace's abort word holds the epoch).
+__device__ __forceinline__ bool aborted(const Params& P) {
+  return P.n_ranks > 1 && tdt::ld_acquire(P.ar.abort) >= P.ar.epoch;
+}
+
+// One thread: wait for ALLREDUCE flag `slot` of this launch; false when a
+// wait of the launch gave up.
+__device__ __forceinline__ bool ar_wait(const Params& P, long long slot, int t) {
+  return tdt::signal_wait_until(P.ar, slot, P.rank, t);
+}
+
+// ALLREDUCE (buf_off, tiles, k) at n > 1 (see the top of the file); a no-op
+// at one rank. Returns false when the launch aborted.
+__device__ bool allreduce(const Params& P, const int* a, int t) {
+  const int n = P.n_ranks;
+  if (n == 1) return true;
+  const int me = P.rank, k = a[2];
+  const long long rows = (long long)P.ar_tiles * P.batch;
+  const long long per_k = (long long)n * n + n;
+  const long long arrive = k * per_k, done = arrive + (long long)n * n;
+  __shared__ int ok;
+  // 1. Every peer has read its slots of ALLREDUCE k - 1.
+  if (threadIdx.x == 0) {
+    bool all = true;
+    for (int off = 1; off < n && all && k > 0; ++off)
+      all = ar_wait(P, done - per_k + (me + off) % n, t);
+    ok = all;
+  }
+  __syncthreads();
+  if (!ok) return false;
+  // 2. Slot me (or, planted, slot me + 1) of every peer's ar_ws.
+  const bool faulty = P.fault != 0 && me == P.fault_rank && k == P.fault_ar;
+  const int slot = faulty && P.fault == kArWrongSlot ? (me + 1) % n : me;
+  const __nv_bfloat16* src = arow(P, a[0]);
+  const int vecs = (int)(rows * (kW / 8));
+  for (int off = 1; off < n; ++off) {
+    const int peer = (me + off) % n;
+    __nv_bfloat16* dst = P.arena0 + ((size_t)peer * P.arena_rows + P.ar_ws_off +
+                                     (size_t)slot * rows) * kW;
+    for (int i = threadIdx.x; i < vecs; i += kThreads)
+      reinterpret_cast<uint4*>(dst)[i] = __ldcg(reinterpret_cast<const uint4*>(src) + i);
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int off = 1; off < n; ++off) {
+      const int peer = (me + off) % n;
+      if (faulty && P.fault == kArLostSignal && peer == (me + 1) % n) continue;
+      tdt::st_release(P.ar.flags + arrive + (long long)peer * n + me, P.ar.epoch);
+    }
+  }
+  // 3. The n - 1 arrivals into this rank's ar_ws.
+  if (threadIdx.x == 0) {
+    bool all = true;
+    for (int off = 1; off < n && all; ++off)
+      all = ar_wait(P, arrive + (long long)me * n + (me + off) % n, t);
+    __threadfence();
+    ok = all;
+  }
+  __syncthreads();
+  if (!ok) return false;
+  // 4. own + peers me+1, me+2, ... in fp32, stored in bf16 over the slab.
+  __nv_bfloat16* buf = arow(P, a[0]);
+  const __nv_bfloat16* ws = arow(P, P.ar_ws_off);
+  for (int i = threadIdx.x; i < vecs; i += kThreads) {
+    float acc[8], x[8];
+    unpack8(__ldcg(reinterpret_cast<const uint4*>(buf) + i), acc);
+    for (int off = 1; off < n; ++off) {
+      const int peer = (me + off) % n;
+      unpack8(__ldcg(reinterpret_cast<const uint4*>(ws + (size_t)peer * rows * kW) + i), x);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[e] += x[e];
+    }
+    reinterpret_cast<uint4*>(buf)[i] = make_uint4(pack2(acc[0], acc[1]), pack2(acc[2], acc[3]),
+                                                  pack2(acc[4], acc[5]), pack2(acc[6], acc[7]));
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) tdt::st_release(P.ar.flags + done + me, P.ar.epoch);
+  return true;
+}
+
 // A cache task's body for the pools' storage: each kernel instantiation
 // holds the bodies of one storage type (kQ, a KvQuant), so the quantized
 // bodies never share a register allocation with the bf16 ones.
@@ -977,7 +1118,7 @@ __device__ void run_task(const Params& P, int t, float* smem) {
     case kGather: gather(P, a); return;
     case kMoeWeights: moe_weights(P, a); return;
     case kWeightedAdd: weighted_add(P, a); return;
-    case kAllreduce:     // one rank: nothing to reduce
+    case kAllreduce:     // run by the kernel's loop (it may abort)
     case kNoop: return;
     default: break;
   }
@@ -1012,30 +1153,58 @@ __device__ void run_task(const Params& P, int t, float* smem) {
   if (threadIdx.x == 0) fail(P, t, -1, -1);
 }
 
-// Wait (thread 0 only) until every predecessor of task t is done.
-__device__ void wait_preds(const Params& P, int t, int claim) {
+// Wait (thread 0 only) until every predecessor of task t is done; false
+// when the launch aborted (n > 1) while it waited. Past timeout_ns (twice
+// that at n > 1, where an ALLREDUCE's own bounded wait should report first)
+// it traps.
+__device__ bool wait_preds(const Params& P, int t, int claim) {
   const unsigned long long t0 = globaltimer();
+  const unsigned long long bound = P.n_ranks > 1 ? 2 * P.timeout_ns : P.timeout_ns;
   for (int e = P.pred_start[t]; e < P.pred_start[t + 1]; ++e) {
     const int p = P.preds[e];
     while (ld_acquire(P.flags + p) == 0) {
-      if (globaltimer() - t0 > P.timeout_ns) fail(P, t, p, claim);
+      if (aborted(P)) return false;
+      if (globaltimer() - t0 > bound) fail(P, t, p, claim);
       __nanosleep(64);
     }
   }
+  return true;
+}
+
+// Block b runs rank b / blocks_per_rank: its arena slice, its KV heads, its
+// claim counter and done flags (sync holds 2 + n_tasks ints a rank), its
+// task times.
+__device__ __forceinline__ Params rank_params(const Params& P0) {
+  const int n_tasks = P0.n_tasks;
+  Params P = P0;
+  if (P0.n_ranks > 1) {
+    const int r = blockIdx.x / P0.blocks_per_rank;
+    P.rank = r;
+    P.arena = P0.arena0 + (size_t)r * P0.arena_rows * kW;
+    const size_t heads = (size_t)r * P0.kv_loc * kHD;
+    P.kpool = static_cast<__nv_bfloat16*>(P0.kpool) + heads;
+    P.vpool = static_cast<__nv_bfloat16*>(P0.vpool) + heads;
+    P.counter = P0.counter + (size_t)r * (2 + n_tasks);
+    P.gate = P.counter + 1;
+    P.flags = P.counter + 2;
+    if (P0.task_ns != nullptr) P.task_ns = P0.task_ns + (size_t)r * 2 * n_tasks;
+  }
+  return P;
 }
 
 template <bool kMma, int kQ>
-__global__ void __launch_bounds__(kThreads, 2) megakernel_kernel(const Params P) {
+__global__ void __launch_bounds__(kThreads, 2) megakernel_kernel(const Params P0) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   float* smem = reinterpret_cast<float*>(smem_raw);
   __shared__ int s_task;
+  const Params P = rank_params(P0);
   for (;;) {
     if (threadIdx.x == 0) {
       const int c = atomicAdd(P.counter, 1);
       int t = -1;
       if (c < P.n_claims) {
         t = P.claims[c];
-        wait_preds(P, t, c);
+        if (!wait_preds(P, t, c)) t = -1;
       }
       s_task = t;
     }
@@ -1043,8 +1212,13 @@ __global__ void __launch_bounds__(kThreads, 2) megakernel_kernel(const Params P)
     const int t = s_task;
     if (t < 0) return;
     if (P.task_ns != nullptr && threadIdx.x == 0) P.task_ns[2 * t] = (long long)globaltimer();
-    run_task<kMma, kQ>(P, t, smem);
+    bool ok = true;                  // false: an ALLREDUCE wait gave up
+    if (P.types[t] == kAllreduce)
+      ok = allreduce(P, P.args + (size_t)t * 8, t);
+    else
+      run_task<kMma, kQ>(P, t, smem);
     __syncthreads();
+    if (!ok) return;
     if (threadIdx.x == 0) {
       if (P.task_ns != nullptr) P.task_ns[2 * t + 1] = (long long)globaltimer();
       __threadfence();
@@ -1100,9 +1274,15 @@ cudaError_t resident_blocks(int device, bool mma, int kv_quant, int* out) {
 // num_pages, kv) `kscale` / `vscale` tables and `qmax` (127 or 448).
 // `batch` counts rows, `seq` the rows per slot of a batched prefill;
 // `mma` = 1 launches the tensor-core instantiation (required for the
-// prompt row modes and for more than kMaxB rows). Returns a cudaError_t
-// code (0 = launched). The grid is every block that can be resident at
-// once.
+// prompt row modes and for more than kMaxB rows). `n_ranks` > 1 runs that
+// many simulated tensor-parallel ranks (arena: n slices of `arena_rows`
+// rows; pools of `kv_tot` = n * kv_loc heads; `sync`: 2 + n_tasks ints a
+// rank; `task_ns`: n_tasks x 2 a rank) with the ALLREDUCE workspace's
+// flags `ar_flags` (n_allreduce x (n * n + n) u64), abort word `ar_abort`
+// and this launch's `epoch`; `fault` (0, or ArFault) is planted into
+// rank `fault_rank`'s ALLREDUCE of ordinal `fault_ar`. Returns a
+// cudaError_t code (0 = launched). The grid is every block that can be
+// resident at once, rounded down to a multiple of n_ranks.
 extern "C" int tdt_megakernel_bf16(void* arena, void* kpool, void* vpool, const void* tokens,
                                    const void* lens, const void* table, const void* claims,
                                    const void* types, const void* args, const void* pred_start,
@@ -1111,28 +1291,58 @@ extern "C" int tdt_megakernel_bf16(void* arena, void* kpool, void* vpool, const 
                                    int h_loc, int kv_loc, int num_pages, int page, int p_max,
                                    float rms_eps, float rope_theta, long long timeout_ns,
                                    int mma, int moe_topk, int moe_norm, void* kscale,
-                                   void* vscale, int kv_quant, float qmax, int device,
-                                   void* stream) {
+                                   void* vscale, int kv_quant, float qmax, int n_ranks,
+                                   int ar_ws_off, int ar_tiles, int kv_tot, int fault,
+                                   long long arena_rows, void* ar_flags, void* ar_abort,
+                                   unsigned long long epoch, int fault_rank, int fault_ar,
+                                   int n_allreduce, int device, void* stream) {
   if (w != kW || hd != kHD || batch < 1 || seq < 1 || batch % seq || kv_loc < 1 ||
       h_loc % kv_loc || (!mma && batch > kMaxB) ||
       h_loc / kv_loc > kMaxRep || page < 1 || p_max < 1 || num_pages < 1 || n_tasks < 1 ||
       n_claims < 1 || timeout_ns <= 0 || moe_topk < 0 || moe_topk > kW ||
       (moe_topk > 0 && counts == nullptr) || kv_quant < kKvBf16 || kv_quant > kKvFp8 ||
-      (kv_quant != kKvBf16 && (kscale == nullptr || vscale == nullptr || !(qmax > 0.f))))
+      (kv_quant != kKvBf16 && (kscale == nullptr || vscale == nullptr || !(qmax > 0.f))) ||
+      n_ranks < 1 || kv_tot != n_ranks * kv_loc ||
+      (n_ranks > 1 && (kv_quant != kKvBf16 || moe_topk > 0 || ar_flags == nullptr ||
+                       ar_abort == nullptr || epoch == 0 || ar_tiles < 1 || n_allreduce < 1 ||
+                       fault < 0 || fault > kArWrongSlot)))
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   e = ensure_error_record();
   if (e != cudaSuccess) return (int)e;
+  if (n_ranks > 1) {
+    e = tdt::ensure_error_record();
+    if (e != cudaSuccess) return (int)e;
+  }
   int grid = 0;
   e = resident_blocks(device, mma != 0, kv_quant, &grid);
   if (e != cudaSuccess) return (int)e;
-  if (grid < 1) return (int)cudaErrorInvalidConfiguration;
+  // Every rank gets the same share of the blocks that fit at once.
+  const int per_rank = grid / n_ranks;
+  if (per_rank < 1) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  e = cudaMemsetAsync(sync, 0, (size_t)(2 + n_tasks) * sizeof(int), s);
+  e = cudaMemsetAsync(sync, 0, (size_t)n_ranks * (2 + n_tasks) * sizeof(int), s);
   if (e != cudaSuccess) return (int)e;
   g_err_host[0] = 0;
   Params P;
+  P.n_ranks = n_ranks;
+  P.rank = 0;
+  P.blocks_per_rank = per_rank;
+  P.kv_tot = kv_tot;
+  P.n_tasks = n_tasks;
+  P.arena_rows = arena_rows;
+  P.arena0 = static_cast<__nv_bfloat16*>(arena);
+  P.ar_ws_off = ar_ws_off;
+  P.ar_tiles = ar_tiles;
+  P.ar.flags = static_cast<tdt::u64*>(ar_flags);
+  P.ar.abort = static_cast<tdt::u64*>(ar_abort);
+  P.ar.err = tdt::g_err_dev;
+  P.ar.epoch = epoch;
+  P.ar.timeout_ns = (unsigned long long)timeout_ns;
+  P.fault = fault;
+  P.fault_rank = fault_rank;
+  P.fault_ar = fault_ar;
   P.arena = static_cast<__nv_bfloat16*>(arena);
   P.kpool = kpool;
   P.vpool = vpool;
@@ -1168,7 +1378,7 @@ extern "C" int tdt_megakernel_bf16(void* arena, void* kpool, void* vpool, const 
   P.theta = rope_theta;
   P.timeout_ns = (unsigned long long)timeout_ns;
   void* kargs[] = {&P};
-  e = cudaLaunchCooperativeKernel(kernel_for(mma != 0, kv_quant), dim3(grid),
+  e = cudaLaunchCooperativeKernel(kernel_for(mma != 0, kv_quant), dim3(per_rank * n_ranks),
                                   dim3(kThreads), kargs, kSmemBytes, s);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
@@ -1195,7 +1405,3 @@ extern "C" int tdt_megakernel_grid(int device, int mma) {
 }
 
 extern "C" int tdt_megakernel_smem_bytes() { return kSmemBytes; }
-
-extern "C" const char* tdt_cuda_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}

@@ -1,7 +1,8 @@
 // Device half of the symmetric-memory protocol that the multi-rank kernels
 // (the fused GEMMs ag_gemm.cu, gemm_rs.cu, gemm_ar.cu, ag_moe.cu and
 // moe_reduce.cu; the all-to-alls all_to_all.cu and ll_a2a.cu; the ring and
-// one-shot collectives collectives.cu) run between
+// one-shot collectives collectives.cu; the megakernel's multi-rank
+// ALLREDUCE task in megakernel.cu) run between
 // simulated ranks on one Hopper card (sm_90a). Counterpart of the parts of
 // triton_dist_tpu/lang/shmem_device.py those kernels use:
 //

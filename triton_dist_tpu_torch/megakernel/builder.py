@@ -17,7 +17,7 @@ compared exactly. :meth:`ModelBuilder.step` then runs the step:
 - on CPU tensors it runs the plain interpreter: the same claim list in
   order through the PyTorch task bodies of :mod:`.kernels`.
 
-It builds the dense step at one rank in three row modes, chosen by the
+It builds the dense step in four row modes, chosen by the
 cache task pair each layer records:
 
 - decode (``seq=1``: ``WRITE_KV``/``ATTN_DECODE``), paged or dense: row r
@@ -47,6 +47,22 @@ counters), every expert's gate/up ``LINEAR``, ``SILU_MUL`` and down
 same bodies serve all three row modes. Every expert runs for every row,
 as in the JAX design; the counters count what each row routed to.
 
+With ``mesh=make_mesh(tp=n)`` the builder records rank-local graphs as
+the JAX builder does for ``ModelBuilder(cfg, mesh)``: every rank holds
+``H/n`` query heads, ``KV/n`` KV heads, ``ff/n`` MLP columns and a
+``vocab/n`` shard of the embedding and the LM head, so the GATHER of a
+token outside the rank's shard writes zeros, and an ``ALLREDUCE`` task
+after the embedding, after each attention output projection and after
+each MLP down projection sums the ranks' partials through the ``ar_ws``
+workspace. The n ranks are simulated on one device: the arena is (n,
+rows, w), rank r's slice packed from rank r's weight shards, and the
+pools hold every rank's KV heads in rank order, rank r's at heads
+``[r·KV/n, (r+1)·KV/n)``. One launch runs every rank (the CUDA kernel
+gives each rank its own blocks); the plain interpreter runs each task
+for every rank in turn. Quantized pools, the Q-block verify set, the
+batched prefill and MoE graphs are one rank only (ROADMAP.md queue A
+item 8).
+
 Hybrid GDN and profiling are later slices (ROADMAP.md).
 """
 
@@ -67,6 +83,9 @@ from triton_dist_tpu_torch.megakernel.scheduler import (
     prune_deps, schedule_dyn, schedule_mc)
 from triton_dist_tpu_torch.megakernel.task import ARGS_MAX, TaskType
 from triton_dist_tpu_torch.models.config import ModelConfig
+from triton_dist_tpu_torch.ops.tp_gemm import (check_axis, column_shards,
+                                               row_shards)
+from triton_dist_tpu_torch.shmem import workspace as shmem
 from triton_dist_tpu_torch.utils.build import CudaKernel, load
 
 # ``KERNEL.launches`` counts launches of the CUDA megakernel.
@@ -74,7 +93,15 @@ KERNEL = CudaKernel("megakernel.cu", "tdt_megakernel_bf16",
                     [ctypes.c_void_p] * 14 + [ctypes.c_int] * 11
                     + [ctypes.c_float, ctypes.c_float, ctypes.c_longlong]
                     + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
-                    + [ctypes.c_int, ctypes.c_float])
+                    + [ctypes.c_int, ctypes.c_float]
+                    + [ctypes.c_int] * 5 + [ctypes.c_longlong]
+                    + [ctypes.c_void_p] * 2 + [ctypes.c_uint64]
+                    + [ctypes.c_int] * 3)
+# Planted faults of the multi-rank ALLREDUCE task (``launch(fault=)``):
+# rank ``fault_rank``'s ``fault_ar``-th ALLREDUCE of the launch never
+# signals its slab to rank ``fault_rank + 1``, or puts its slab into the
+# slot of rank ``fault_rank + 1`` instead of its own.
+AR_FAULTS = {"lost_signal": 1, "wrong_slot": 2}
 # Launches of the CUDA megakernel by row mode, and by row mode and pool
 # storage for quantized pools ("decode-int8", ...); each also counts in
 # ``KERNEL.launches``.
@@ -117,6 +144,19 @@ class MegakernelTimeoutError(RuntimeError):
 
 def _cdiv(a, b):
     return -(-a // b)
+
+
+def tp_ranks(mesh, axis) -> int:
+    """The ranks of one mesh axis that spans every rank of ``mesh``; the
+    two-axis ``("dp", "tp")`` megakernel is ROADMAP.md queue A item 8."""
+    if isinstance(axis, (tuple, list)):
+        raise NotImplementedError(
+            f"axis={tuple(axis)}: the megakernel and the paged lanes over "
+            "an (outer, inner) mesh are ROADMAP.md queue A item 8")
+    from triton_dist_tpu_torch.ops.tp_gemm import check_axis
+
+    check_axis("the megakernel", mesh, axis)
+    return mesh.size(axis)
 
 
 # In-arena region kinds; the rest are named device buffers (the pools).
@@ -239,7 +279,7 @@ class ModelBuilder:
                  page: Optional[int] = None, seq: int = 1,
                  chunk: bool = False, expert_load=None,
                  counts_rows: Optional[int] = None, qblock: bool = False,
-                 kv_quant: Optional[str] = None):
+                 kv_quant: Optional[str] = None, mesh=None, axis="tp"):
         if schedule not in ("static", "dynamic"):
             raise ValueError(f"schedule must be 'static' or 'dynamic', "
                              f"got {schedule!r}")
@@ -291,7 +331,21 @@ class ModelBuilder:
         # batch // seq block-table rows (dense: cache rows).
         self.n_slots = 1 if self.chunk else batch // seq
         self.cfg = cfg
-        self.n = 1                       # tensor-parallel ranks
+        self.mesh, self.axis = mesh, axis
+        # Tensor-parallel ranks along ``axis`` (one without a mesh).
+        self.n = 1 if mesh is None else tp_ranks(mesh, axis)
+        if self.n > 1:
+            if cfg.is_moe:
+                raise NotImplementedError(
+                    "a MoE megakernel at tp > 1 (JAX's in-kernel-tp expert "
+                    "regime) is not ported: ROADMAP.md queue A item 8")
+            if self.kv_quant is not None or qblock or (seq > 1
+                                                       and not chunk):
+                raise NotImplementedError(
+                    "at tp > 1 the megakernel runs the decode and chunk "
+                    "builds on bf16 pools; quantized pools (kv_dtype), the "
+                    "Q-block verify build (spec_k) and the batched prefill "
+                    "(prefill_seq) are ROADMAP.md queue A item 8")
         self.batch = batch
         self.max_len = max_len
         self.num_cores = num_cores
@@ -330,12 +384,18 @@ class ModelBuilder:
         if cfg.num_attention_heads % cfg.num_key_value_heads:
             raise ValueError("num_attention_heads must be a multiple of "
                              "num_key_value_heads")
-        self.h_loc = cfg.num_attention_heads
-        self.kv_loc = cfg.num_key_value_heads
+        n = self.n
+        for name, size in (("num_attention_heads", cfg.num_attention_heads),
+                           ("num_key_value_heads", cfg.num_key_value_heads),
+                           ("intermediate_size", cfg.intermediate_size)):
+            if size % n:
+                raise ValueError(f"{name}={size} not divisible by tp={n}")
+        self.h_loc = cfg.num_attention_heads // n
+        self.kv_loc = cfg.num_key_value_heads // n
         self.d_tiles = _cdiv(cfg.hidden_size, self.w)
         self.hq_tiles = _cdiv(self.h_loc * hd, self.w)
         self.kv_tiles = _cdiv(self.kv_loc * hd, self.w)
-        self.ff_tiles = _cdiv(cfg.intermediate_size, self.w)
+        self.ff_tiles = _cdiv(cfg.intermediate_size // n, self.w)
         # MoE: every expert's ffn in ffe_tiles tiles; the router logits
         # must fit one tile.
         self.moe = cfg.is_moe
@@ -390,7 +450,11 @@ class ModelBuilder:
         def vecalloc(name, tiles):
             return self._alloc(name, tiles, kind="weight")
 
-        self.vocab_loc = cfg.vocab_size
+        # lm_head and the embedding are vocab-sharded: vocab/n rows a rank.
+        if cfg.vocab_size % self.n:
+            raise ValueError(f"vocab_size={cfg.vocab_size} not divisible "
+                             f"by tp={self.n}")
+        self.vocab_loc = cfg.vocab_size // self.n
         self.vloc_tiles = _cdiv(self.vocab_loc, w)
         L = cfg.num_hidden_layers
         for li in range(L):
@@ -426,10 +490,13 @@ class ModelBuilder:
             self.moe_counts_off = self._alloc(
                 "moe_counts", max(b, self.counts_rows or 0), kind="counter")
 
-        # The allreduce workspace: unused at one rank, kept so the layout
-        # (and every offset after it) is the JAX package's.
-        ar_ws = (self._alloc("ar_ws", self.n * max(d_t, 1) * b,
-                             kind="workspace"), self.n * max(d_t, 1) * b)
+        # The allreduce workspace: n slots of ar_max_tiles tiles, slot r
+        # holding rank r's slab of the ALLREDUCE in flight (unused at one
+        # rank, where the layout keeps it as the JAX package does).
+        self.ar_max_tiles = max(d_t, 1)
+        self.ar_ws_off = self._alloc("ar_ws", self.n * self.ar_max_tiles * b,
+                                     kind="workspace")
+        ar_ws = (self.ar_ws_off, self.n * self.ar_max_tiles * b)
         x_off = self._alloc_act("x", d_t)
         g, o = self.graph, self._offsets
 
@@ -521,6 +588,15 @@ class ModelBuilder:
         self.arena_rows = self.schema.rows
         self.schema.check_disjoint()
 
+        # Every ALLREDUCE moves ar_max_tiles tiles (its slot's size in
+        # ar_ws), as the JAX kernel's body assumes.
+        for t in g.tasks:
+            if (t.task_type == TaskType.ALLREDUCE
+                    and t.args[1] != self.ar_max_tiles):
+                raise ValueError(
+                    f"ALLREDUCE task {t.task_id} moves {t.args[1]} "
+                    f"tiles but the kernel body is specialized to "
+                    f"ar_max_tiles={self.ar_max_tiles}")
         src, dst = g.edges()
         pin = np.array([0 if t.task_type == TaskType.ALLREDUCE else -1
                         for t in g.tasks], np.int32)
@@ -665,6 +741,12 @@ class ModelBuilder:
         n = len(tasks)
         self.type_of = np.array([int(t.task_type) for t in tasks], np.int32)
         self.args_of = np.array([t.encoded_args() for t in tasks], np.int32)
+        # The kernel's ALLREDUCE reads its ordinal among the build's
+        # ALLREDUCE tasks (its flags' slot) from arg 2, which the graph's
+        # task leaves 0.
+        ar = np.flatnonzero(self.type_of == int(TaskType.ALLREDUCE))
+        self.args_of[ar, 2] = np.arange(len(ar))
+        self.n_allreduce = len(ar)
         psrc, pdst = self._pruned_edges
         order = np.argsort(pdst, kind="stable")
         self.preds = np.ascontiguousarray(psrc[order], np.int32)
@@ -706,15 +788,45 @@ class ModelBuilder:
         :class:`~triton_dist_tpu_torch.models.dense.DenseLM` (or a
         :class:`~triton_dist_tpu_torch.models.qwen_moe.MoELM` for a MoE
         build): the weight region in the JAX package's layout and order,
-        the rest zeroed. :meth:`pack_layer` and :meth:`pack_head` fill it
-        piece by piece, for a caller that draws one layer at a time."""
+        the rest zeroed. At tp = n > 1 it is (n, arena_rows, w), rank r's
+        slice packed from rank r's shards of the one model (the JAX
+        ``pack_arena`` of rank r's ``param_specs`` shards).
+        :meth:`pack_layer` and :meth:`pack_head` fill it piece by piece,
+        for a caller that draws one layer at a time."""
         device = params.embed.device if device is None else device
-        arena = torch.zeros(self.arena_rows, self.w, dtype=dtype,
-                            device=device)
+        shape = (self.arena_rows, self.w)
+        if self.n > 1:
+            shape = (self.n, *shape)
+        arena = torch.zeros(shape, dtype=dtype, device=device)
         for li, layer in enumerate(params.layers):
             self.pack_layer(arena, li, layer)
         self.pack_head(arena, params)
         return arena
+
+    def rank_arenas(self, arena: torch.Tensor):
+        """Each rank's (rows, w) arena: ``arena`` itself at one rank, its
+        n slices at tp = n."""
+        want = 2 if self.n == 1 else 3
+        if arena.dim() != want or (self.n > 1 and arena.shape[0] != self.n):
+            raise ValueError(f"arena {tuple(arena.shape)}: expected "
+                             f"{'(rows, w)' if self.n == 1 else '(n, rows, w)'}"
+                             f" for tp={self.n}")
+        return [arena] if self.n == 1 else list(arena)
+
+    def rank_pool(self, pool: torch.Tensor, r: int) -> torch.Tensor:
+        """Rank r's KV heads of a pool that holds every rank's (a view)."""
+        if self.n == 1:
+            return pool
+        return pool[:, :, :, r * self.kv_loc:(r + 1) * self.kv_loc]
+
+    def _shard(self, w: torch.Tensor, r: int, *, rows: bool) -> torch.Tensor:
+        """Rank r's shard of a full port weight (out, in): its output rows
+        (column-parallel; ``rows=True``) or its input columns
+        (row-parallel)."""
+        if self.n == 1:
+            return w
+        return (column_shards(w, self.n) if rows
+                else row_shards(w, self.n))[r]
 
     def _tile(self, arena, name, wt, k_tiles, n_tiles) -> None:
         """Weight block ``(kt, j)`` of region ``name`` holds
@@ -722,6 +834,7 @@ class ModelBuilder:
         shape ``(out, in)``, zero-padded to whole tiles."""
         w = self.w
         n_out, n_in = wt.shape
+        wt = wt.contiguous()                 # a row-parallel shard is strided
         if (n_out, n_in) != (n_tiles * w, k_tiles * w):
             padded = torch.zeros(n_tiles * w, k_tiles * w, dtype=wt.dtype,
                                  device=wt.device)
@@ -738,14 +851,21 @@ class ModelBuilder:
 
     @torch.no_grad()
     def pack_layer(self, arena: torch.Tensor, li: int, layer) -> None:
-        """Layer ``li``'s weights into their regions of ``arena``."""
+        """Layer ``li``'s weights into their regions of ``arena`` (every
+        rank's shards at tp > 1)."""
+        for r, ar in enumerate(self.rank_arenas(arena)):
+            self._pack_layer(ar, li, layer, r)
+
+    def _pack_layer(self, arena: torch.Tensor, li: int, layer, r: int):
         d_t, hq_t, kv_t, ff_t = (self.d_tiles, self.hq_tiles, self.kv_tiles,
                                  self.ff_tiles)
         a = layer.attn
-        self._tile(arena, f"l{li}.wq", a.wq, d_t, hq_t)
-        self._tile(arena, f"l{li}.wk", a.wk, d_t, kv_t)
-        self._tile(arena, f"l{li}.wv", a.wv, d_t, kv_t)
-        self._tile(arena, f"l{li}.wo", a.wo, hq_t, d_t)
+        for name, k_t, n_t, rows in (("wq", d_t, hq_t, True),
+                                     ("wk", d_t, kv_t, True),
+                                     ("wv", d_t, kv_t, True),
+                                     ("wo", hq_t, d_t, False)):
+            self._tile(arena, f"l{li}.{name}",
+                       self._shard(getattr(a, name), r, rows=rows), k_t, n_t)
         if self.moe:
             m, ffe_t = layer.moe, self.ffe_tiles
             self._tile(arena, f"l{li}.router", m.router, d_t, 1)
@@ -757,9 +877,12 @@ class ModelBuilder:
                            d_t)
         else:
             m = layer.mlp
-            self._tile(arena, f"l{li}.w_gate", m.w_gate, d_t, ff_t)
-            self._tile(arena, f"l{li}.w_up", m.w_up, d_t, ff_t)
-            self._tile(arena, f"l{li}.w_down", m.w_down, ff_t, d_t)
+            for name, k_t, n_t, rows in (("w_gate", d_t, ff_t, True),
+                                         ("w_up", d_t, ff_t, True),
+                                         ("w_down", ff_t, d_t, False)):
+                self._tile(arena, f"l{li}.{name}",
+                           self._shard(getattr(m, name), r, rows=rows),
+                           k_t, n_t)
         self._vec(arena, f"l{li}.ln_attn", layer.ln_attn)
         self._vec(arena, f"l{li}.ln_mlp", layer.ln_mlp)
         self._vec(arena, f"l{li}.q_norm", a.q_norm)
@@ -767,14 +890,18 @@ class ModelBuilder:
 
     @torch.no_grad()
     def pack_head(self, arena: torch.Tensor, params) -> None:
-        """The final norm, the embedding rows and the lm_head."""
+        """The final norm, the embedding rows and the lm_head (rank r's
+        vocabulary rows of both at tp > 1)."""
         d_t = self.d_tiles
-        self._vec(arena, "ln_f", params.ln_f)
-        r = self.schema.region("embed")
-        arena[r.offset:r.offset + r.rows].view(
-            self.vocab_loc, d_t * self.w)[:, :self.cfg.hidden_size] = \
-            params.embed
-        self._tile(arena, "lm_head_T", params.lm_head, d_t, self.vloc_tiles)
+        reg = self.schema.region("embed")
+        for r, ar in enumerate(self.rank_arenas(arena)):
+            self._vec(ar, "ln_f", params.ln_f)
+            ar[reg.offset:reg.offset + reg.rows].view(
+                self.vocab_loc, d_t * self.w)[:, :self.cfg.hidden_size] = \
+                self._shard(params.embed, r, rows=True)
+            self._tile(ar, "lm_head_T",
+                       self._shard(params.lm_head, r, rows=True), d_t,
+                       self.vloc_tiles)
 
     # ---------------- the step -----------------------------------------
     def kernel_config(self) -> K.KernelConfig:
@@ -785,14 +912,20 @@ class ModelBuilder:
             p_max=self.p_max, seq=self.seq,
             moe_topk=self.cfg.num_experts_per_tok if self.moe else 0,
             moe_norm=self.cfg.norm_topk_prob, kv_quant=self.kv_quant,
-            qmax=self.kv_qmax)
+            qmax=self.kv_qmax, n_ranks=self.n, ar_ws_off=self.ar_ws_off,
+            ar_max_tiles=self.ar_max_tiles)
 
     def logits(self, arena: torch.Tensor, rows=None) -> torch.Tensor:
         """fp32 logits of the last step, read out of the arena's logits
         region: (batch, vocab) for ``rows=None``, (len(rows), vocab) for a
         sequence of row indices, (vocab,) for one int row. Only the rows
         asked for are converted (a 512-row chunk holds 155 MB of bf16
-        logits at Qwen3's vocab; the server needs one row)."""
+        logits at Qwen3's vocab; the server needs one row). At tp > 1 the
+        ranks' vocabulary shards are concatenated in rank order."""
+        return torch.cat([self._rank_logits(a, rows)
+                          for a in self.rank_arenas(arena)], dim=-1)
+
+    def _rank_logits(self, arena: torch.Tensor, rows) -> torch.Tensor:
         b, w, lt = self.batch, self.w, self.vloc_tiles
         region = arena[self.logits_off:self.logits_off + lt * b].view(lt, b, w)
         if rows is None:
@@ -945,18 +1078,27 @@ class ModelBuilder:
         """The plain version: the claim list in order through the PyTorch
         task bodies (:data:`kernels.BODIES`); ``route_from`` as in
         :meth:`plain_step`."""
-        st = K.StepState(arena=arena, k_cache=k_cache, v_cache=v_cache,
-                         tokens=[int(t) for t in toks],
-                         lens=[int(x) for x in lens],
-                         table=torch.as_tensor(table, dtype=torch.int64,
-                                               device=arena.device),
-                         counts=counts, k_scale=k_scale, v_scale=v_scale)
+        table = torch.as_tensor(table, dtype=torch.int64,
+                                device=arena.device)
+        states = [K.StepState(arena=a, k_cache=self.rank_pool(k_cache, r),
+                              v_cache=self.rank_pool(v_cache, r),
+                              tokens=[int(t) for t in toks],
+                              lens=[int(x) for x in lens], table=table,
+                              counts=counts, k_scale=k_scale,
+                              v_scale=v_scale, rank=r)
+                  for r, a in enumerate(self.rank_arenas(arena))]
         cfg = self.kernel_config()
         tasks = self.graph.tasks
         b = self.batch
         for t in self.claim_list:
             task = tasks[t]
-            K.BODIES[task.task_type](cfg, task.args, st)
+            if task.task_type == TaskType.ALLREDUCE:
+                # Every rank has run every task before this one: their
+                # slabs are all written.
+                K.allreduce_ranks(cfg, task.args, states)
+                continue
+            for st in states:
+                K.BODIES[task.task_type](cfg, task.args, st)
             if route_from is not None and t in self._router_tasks:
                 rl = task.args[2]
                 arena[rl:rl + b] = route_from[rl:rl + b]
@@ -992,10 +1134,12 @@ class ModelBuilder:
         if bad:
             raise NotImplementedError(f"task types {sorted(bad)} have no "
                                       "CUDA body (ROADMAP.md)")
-        if arena.shape[0] < self.arena_rows or arena.shape[1] != self.w:
+        lead = () if self.n == 1 else (self.n,)
+        if (tuple(arena.shape[:-2]) != lead or arena.shape[-2] < self.arena_rows
+                or arena.shape[-1] != self.w):
             raise ValueError(f"arena {tuple(arena.shape)} smaller than "
-                             f"({self.arena_rows}, {self.w})")
-        L, kv, hd = cfg.num_hidden_layers, self.kv_loc, cfg.head_dim
+                             f"{(*lead, self.arena_rows, self.w)}")
+        L, kv, hd = cfg.num_hidden_layers, self.n * self.kv_loc, cfg.head_dim
         want = ((L, k_cache.shape[1], self.page, kv, hd) if self.paged
                 else (L, self.n_slots, self.max_len, kv, hd))
         if tuple(k_cache.shape) != want or k_cache.shape != v_cache.shape:
@@ -1012,7 +1156,9 @@ class ModelBuilder:
                     "args": up(self.args_of),
                     "pred_start": up(self.pred_start),
                     "preds": up(self.preds if len(self.preds) else [0]),
-                    "sync": torch.zeros(2 + len(self.graph.tasks),
+                    # Per rank: the claim counter, the failure gate, the
+                    # done flags.
+                    "sync": torch.zeros(self.n * (2 + len(self.graph.tasks)),
                                         dtype=torch.int32, device=device)}
             self._device_tables[device] = tabs
         return tabs
@@ -1020,13 +1166,24 @@ class ModelBuilder:
     def launch(self, arena, k_cache, v_cache, toks, lens, table, *,
                counts=None, timeout_s: float = DEFAULT_TIMEOUT_S,
                task_ns: Optional[torch.Tensor] = None, k_scale=None,
-               v_scale=None) -> None:
+               v_scale=None, fault: int = 0, fault_rank: int = 0,
+               fault_ar: int = 0) -> None:
         """One launch of the CUDA megakernel on the current stream.
         ``counts``: a MoE build's int32 expert counters on the card;
         ``k_scale``/``v_scale``: a quantized build's scale tables.
         ``task_ns``: an optional int64 (n_tasks, 2) tensor on the card
-        that receives each task's start and end on the card's global
-        timer (ns), for :meth:`task_ms`."""
+        ((n, n_tasks, 2) at tp = n) that receives each task's start and
+        end on the card's global timer (ns), for :meth:`task_ms`.
+
+        At tp = n > 1 one launch runs every rank, each on its own share
+        of the blocks; the ALLREDUCE tasks signal through epoch flags of
+        a persistent workspace (per ALLREDUCE ordinal: one arrival flag
+        per (receiver, sender) and one done flag per rank), and a wait
+        past ``timeout_s`` aborts the launch, which :meth:`wait` turns
+        into :class:`~triton_dist_tpu_torch.shmem.workspace.
+        CommTimeoutError` naming the task. ``fault`` (a value of
+        :data:`AR_FAULTS`) plants a fault into rank ``fault_rank``'s
+        ``fault_ar``-th ALLREDUCE."""
         self.check_kernel_args(arena, k_cache, v_cache)
         self._check_counts(counts, arena.device)
         self._check_scales(k_cache, k_scale, v_scale, arena.device)
@@ -1043,13 +1200,32 @@ class ModelBuilder:
             num_pages, page, p_max = self.n_slots, self.max_len, 1
         rec = 0
         if task_ns is not None:
+            shape = (len(self.graph.tasks), 2)
+            if self.n > 1:
+                shape = (self.n, *shape)
             if (task_ns.device != dev or task_ns.dtype != torch.int64
-                    or tuple(task_ns.shape) != (len(self.graph.tasks), 2)
+                    or tuple(task_ns.shape) != shape
                     or not task_ns.is_contiguous()):
                 raise ValueError("task_ns must be a contiguous int64 "
-                                 f"({len(self.graph.tasks)}, 2) tensor on "
-                                 f"{dev}")
+                                 f"{shape} tensor on {dev}")
             rec = task_ns.data_ptr()
+        n = self.n
+        flags = abort = epoch = 0
+        if n > 1:
+            if not (0 <= fault_rank < n and 0 <= fault_ar < self.n_allreduce):
+                raise ValueError(f"fault_rank={fault_rank} / fault_ar="
+                                 f"{fault_ar} outside {n} ranks x "
+                                 f"{self.n_allreduce} ALLREDUCE tasks")
+            # A record an earlier launch left raises first.
+            shmem.check_errors(dev, sources=(KERNEL.source,))
+            ws = shmem.workspace("megakernel", (self.n_allreduce,), n=n,
+                                 device=dev,
+                                 n_flags=self.n_allreduce * (n * n + n))
+            epoch = ws.next_epoch()
+            shmem.watch(KERNEL.source, epoch, self.describe_wait)
+            flags, abort = ws.flags.data_ptr(), ws.abort_ptr
+        elif fault:
+            raise ValueError("the ALLREDUCE faults need tp > 1")
         cfg = self.cfg
         KERNEL.launch(
             arena.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
@@ -1066,8 +1242,28 @@ class ModelBuilder:
             int(cfg.norm_topk_prob),
             0 if k_scale is None else k_scale.data_ptr(),
             0 if v_scale is None else v_scale.data_ptr(),
-            KV_QUANT_CODES[self.kv_quant], self.kv_qmax, device=dev)
+            KV_QUANT_CODES[self.kv_quant], self.kv_qmax,
+            n, self.ar_ws_off, self.ar_max_tiles, k_cache.shape[3], fault,
+            arena.shape[-2], flags, abort, epoch, fault_rank, fault_ar,
+            self.n_allreduce, device=dev)
         MODE_LAUNCHES[self.launch_key] += 1
+
+    def describe_wait(self, rank: int, task: int, slot: int) -> str:
+        """The ALLREDUCE wait that timed out, from the kernel's record:
+        the waiting rank, the task, and its flag slot (per ALLREDUCE
+        ordinal k: n·n arrival flags [receiver][sender], then n done
+        flags)."""
+        n = self.n
+        k, rem = divmod(slot, n * n + n)
+        if rem < n * n:
+            what = (f"rank {rem % n}'s slab (arrival flag [{rem // n}]"
+                    f"[{rem % n}])")
+        else:
+            what = (f"rank {rem - n * n} to finish reading ALLREDUCE "
+                    f"#{k - 1}")
+        return (f"megakernel ALLREDUCE #{k}: rank {rank}, "
+                f"{self.describe_task(task)}, waited for {what} (flag slot "
+                f"{slot})")
 
     @property
     def launch_key(self) -> str:
@@ -1084,11 +1280,12 @@ class ModelBuilder:
 
     def task_ms(self, task_ns: torch.Tensor) -> Dict[str, Tuple[float, float]]:
         """Per task type, the summed and the longest task time (ms) of a
-        launch recorded into ``task_ns`` (:meth:`launch`)."""
-        ns = task_ns.cpu().numpy()
-        dur = (ns[:, 1] - ns[:, 0]) / 1e6
+        launch recorded into ``task_ns`` (:meth:`launch`; at tp > 1 the
+        sum runs over every rank's tasks)."""
+        ns = task_ns.cpu().numpy().reshape(-1, len(self.graph.tasks), 2)
+        dur = (ns[..., 1] - ns[..., 0]) / 1e6
         out = {}
-        for t, d in zip(self.type_of, dur):
+        for t, d in zip(np.tile(self.type_of, len(ns)), dur.reshape(-1)):
             name = TaskType(int(t)).name
             tot, top = out.get(name, (0.0, 0.0))
             out[name] = (tot + float(d), max(top, float(d)))
@@ -1096,10 +1293,17 @@ class ModelBuilder:
 
     def wait(self, device) -> None:
         """Wait for the launched step; a wait that timed out in the kernel
-        raises :class:`MegakernelTimeoutError` naming the task."""
+        raises :class:`MegakernelTimeoutError` naming the task, and, at
+        tp > 1, an ALLREDUCE wait that timed out (the launch aborted)
+        :class:`~triton_dist_tpu_torch.shmem.workspace.CommTimeoutError`
+        naming it."""
         try:
             torch.cuda.current_stream(device).synchronize()
+            if self.n > 1:
+                shmem.check_errors(device, sources=(KERNEL.source,))
         except RuntimeError as e:
+            if isinstance(e, shmem.CommTimeoutError):
+                raise
             rec = (ctypes.c_int * 4)()
             read = load(KERNEL.source).tdt_megakernel_error
             read.argtypes = [ctypes.POINTER(ctypes.c_int)]
@@ -1120,7 +1324,8 @@ class ModelBuilder:
 def grid_blocks(device, tensor_cores: bool = False) -> int:
     """Blocks in one megakernel launch on ``device`` (of the decode or
     the tensor-core instantiation): resident blocks per SM (the
-    occupancy API) times the SMs."""
+    occupancy API) times the SMs. A launch of n ranks gives each rank
+    ``grid_blocks // n`` of them."""
     fn = load(KERNEL.source).tdt_megakernel_grid
     fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_int
     n = fn(torch.device(device).index or 0, int(tensor_cores))

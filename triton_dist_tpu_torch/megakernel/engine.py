@@ -1,6 +1,9 @@
 """Megakernel inference engine: greedy decode where every step is ONE
 launch of the persistent kernel (counterpart of
-``triton_dist_tpu/megakernel/engine.py``, without a mesh: one card).
+``triton_dist_tpu/megakernel/engine.py``). Without a mesh it runs one
+rank; with ``mesh=make_mesh(tp=n)`` it runs n simulated tensor-parallel
+ranks on the one card, every rank in the same launch (JAX's
+``MegaKernelEngine(cfg, mesh)``).
 
 The whole step runs inside the kernel: the embedding gather, the norms,
 the projections, rope, attention over the KV cache, SwiGLU (or, for a
@@ -12,6 +15,15 @@ per bucketed prompt chunk of one slot) or one batched-prefill build
 build (``spec_k``: one launch scores K drafted tokens of every slot);
 every build shares the one arena. ``kv_dtype="int8"|"fp8"`` stores the
 paged pools quantized with per-(layer, page, kv_head) scale tables.
+
+At tp = n > 1 each rank holds a shard of every weight (heads, KV heads,
+MLP columns, and vocabulary rows of the embedding and the LM head) in its
+slice of an (n, rows, w) arena, the KV pools hold every rank's KV heads
+in rank order, and the logits are the ranks' vocabulary shards
+concatenated. The decode step, :meth:`generate` and the chunk builds
+(``prefill_buckets``) run at tp > 1; ``prefill_seq``, ``spec_k``,
+quantized pools and MoE configs are one rank only (ROADMAP.md queue A
+item 8).
 """
 
 from __future__ import annotations
@@ -22,7 +34,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from triton_dist_tpu_torch.megakernel.builder import ModelBuilder
+from triton_dist_tpu_torch.megakernel.builder import ModelBuilder, tp_ranks
 from triton_dist_tpu_torch.models import dense, qwen_moe
 from triton_dist_tpu_torch.models.config import ModelConfig
 from triton_dist_tpu_torch.models.engine import resolve_device
@@ -64,9 +76,16 @@ class MegaKernelEngine:
     attention read. ``spec_k=K`` (>= 2; 1 means 0) also builds the Q-block
     verify step (:meth:`verify_step`). Both need ``paged=True`` and
     exclude ``prefill_seq``: prompts stream through the one-token lane or
-    the chunk builds."""
+    the chunk builds.
 
-    def __init__(self, cfg: ModelConfig, *, batch: int, max_len: int = 512,
+    ``mesh``: ``None`` (one rank) or a
+    :class:`~triton_dist_tpu_torch.parallel.mesh.MeshContext` whose
+    ``axis`` spans every rank (``make_mesh(tp=n)``); the engine then runs
+    on the mesh's device (``device`` may name it again) and its arena
+    (:attr:`arena`) is (n, rows, w)."""
+
+    def __init__(self, cfg: ModelConfig, *, mesh=None, axis="tp",
+                 batch: int, max_len: int = 512,
                  tile_w: Optional[int] = None, t_tile: Optional[int] = None,
                  paged: bool = False, page: Optional[int] = None,
                  num_pages: Optional[int] = None, schedule: str = "static",
@@ -104,6 +123,13 @@ class MegaKernelEngine:
                     "prompts through the prefill lane (the decode kernel) "
                     "or the chunk steps instead")
         kv_quant = None if qdtype is None else kv_dtype
+        self.mesh, self.axis = mesh, axis
+        self.tp = 1 if mesh is None else tp_ranks(mesh, axis)
+        if mesh is not None:
+            if device is not None and resolve_device(device) != mesh.device:
+                raise ValueError(f"device={device!r} is not the mesh's "
+                                 f"device {mesh.device}")
+            device = mesh.device
         self.cfg = cfg
         self.batch = batch
         self.max_len = max_len
@@ -122,7 +148,7 @@ class MegaKernelEngine:
                            batch * prefill_seq, batch * self.spec_k])
         kw = dict(max_len=max_len, tile_w=tile_w, t_tile=t_tile,
                   schedule=schedule, strategy=strategy, page=page,
-                  counts_rows=counts_rows)
+                  counts_rows=counts_rows, mesh=mesh, axis=axis)
         self.builder = ModelBuilder(cfg, batch=batch, paged=paged,
                                     kv_quant=kv_quant, **kw)
         # One chunk build per bucket: C rows of one slot per launch.

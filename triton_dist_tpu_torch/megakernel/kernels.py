@@ -13,7 +13,7 @@ for CUDA tensors.
 
 The port carries the dense decode set (``RMSNORM``, ``LINEAR``,
 ``ADD``, ``SILU_MUL``, ``WRITE_KV``, ``ATTN_DECODE``, ``GATHER``,
-``ALLREDUCE`` at one rank, ``NOOP``), batched prefill
+``ALLREDUCE``, ``NOOP``), batched prefill
 (``WRITE_KV_PREFILL``/``ATTN_PREFILL``), the prefill chunk
 (``WRITE_KV_CHUNK``/``ATTN_CHUNK``), the speculative verify block
 (``WRITE_KV_QBLOCK``/``ATTN_QBLOCK``) and the MoE pair (``MOE_WEIGHTS``,
@@ -31,6 +31,12 @@ one byte per element with one fp32 scale per (layer, page, kv_head) in
 running max-abs scale (:func:`_quant_store_token`), reads dequantize.
 Only the hybrid GDN type raises ``NotImplementedError`` naming its
 ROADMAP item.
+
+Tensor-parallel builds (``cfg.n_ranks`` = n > 1) run every body once per
+rank on that rank's :class:`StepState` (its arena slice, its KV heads of
+the pools, its rank for the vocab-sharded GATHER); an ``ALLREDUCE`` runs
+once over all of them (:func:`allreduce_ranks`), as the JAX body's puts
+and arrival waits order it.
 """
 
 from __future__ import annotations
@@ -70,6 +76,11 @@ class KernelConfig:
     # the storage's largest code (127 or 448).
     kv_quant: Optional[str] = None
     qmax: float = 0.0
+    # Tensor-parallel ranks, and the allreduce workspace: n slots of
+    # ar_max_tiles (batch, w) tiles at row ar_ws_off of every rank's arena.
+    n_ranks: int = 1
+    ar_ws_off: int = 0
+    ar_max_tiles: int = 0
 
 
 @dataclasses.dataclass
@@ -89,6 +100,7 @@ class StepState:
     # Quantized pools: (layers, num_pages, kv) fp32 dequant scales.
     k_scale: Optional[torch.Tensor] = None
     v_scale: Optional[torch.Tensor] = None
+    rank: int = 0            # this state's tensor-parallel rank
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -281,22 +293,48 @@ def silu_mul_body(cfg: KernelConfig, args, st: StepState) -> None:
 
 
 def gather_body(cfg: KernelConfig, args, st: StepState) -> None:
-    """Embedding rows of each row's token; a token outside the table
-    (this rank's vocab shard, which is all of it at one rank) gives
-    zeros."""
+    """Embedding rows of each row's token over the vocab-sharded table:
+    rank ``me`` holds tokens ``[me·vocab_loc, (me+1)·vocab_loc)``; a token
+    outside the shard (outside the vocabulary too) gives zeros, and the
+    ALLREDUCE after it sums the one real contribution."""
     table_off, out_off, d_tiles, vocab_loc = args[:4]
     b, w = cfg.batch, cfg.w
     out = torch.zeros(d_tiles, b, w, dtype=torch.float32,
                       device=st.arena.device)
     for bb, tok in enumerate(st.tokens):
-        if 0 <= tok < vocab_loc:
-            out[:, bb] = _load(st, table_off + tok * d_tiles, d_tiles)
+        local = tok - st.rank * vocab_loc
+        if 0 <= local < vocab_loc:
+            out[:, bb] = _load(st, table_off + local * d_tiles, d_tiles)
     _store(st, out_off, out.view(-1, w))
 
 
 def allreduce_body(cfg: KernelConfig, args, st: StepState) -> None:
-    """A no-op at one rank, as the JAX body is (``n == 1``); the port
-    builds one-rank graphs only."""
+    """A no-op at one rank, as the JAX body is (``n == 1``); at tp > 1
+    the interpreter runs :func:`allreduce_ranks` over every rank."""
+
+
+def allreduce_ranks(cfg: KernelConfig, args, states: List[StepState]):
+    """The ALLREDUCE of every rank at once: rank ``me`` puts its
+    ``ar_max_tiles`` slab at ``buf_off`` into slot ``me`` of every peer's
+    ``ar_ws``, then each rank sums in fp32 its own slab first and then
+    its peers' ``me+1, me+2, ...`` (mod n), and stores the sum in the
+    arena's dtype over its slab: the JAX body's order, which differs from
+    rank to rank."""
+    n = len(states)
+    if n == 1:
+        return
+    rows = cfg.ar_max_tiles * cfg.batch
+    buf, ws = args[0], cfg.ar_ws_off
+    for me, st in enumerate(states):
+        slab = st.arena[buf:buf + rows]
+        for off in range(1, n):
+            peer = states[(me + off) % n].arena
+            peer[ws + me * rows:ws + (me + 1) * rows] = slab
+    for me, st in enumerate(states):
+        acc = _load(st, buf, rows)
+        for off in range(1, n):
+            acc = acc + _load(st, ws + ((me + off) % n) * rows, rows)
+        _store(st, buf, acc)
 
 
 def _write_kv_rowpos(cfg: KernelConfig, args, st: StepState, slots, pos,

@@ -45,11 +45,14 @@ class ModelConfig:
         return self.num_experts > 0
 
     def kv_cache_plan(self, *, max_len: int, page: int, num_slots: int,
-                      dtype_bytes: int = 2, kv_dtype: str = "bf16") -> dict:
+                      tp: int = 1, dtype_bytes: int = 2,
+                      kv_dtype: str = "bf16") -> dict:
         """Serving pool sizing off the model geometry: pages per
         block-table row, pool pages for full residency (+1 reserved
-        scratch page), and the bytes of the K+V pools on the one card
-        (the JAX plan's ``*_per_rank`` keys at ``tp=1``).
+        scratch page), and the bytes of one rank's K+V pools (its
+        ``num_key_value_heads / tp`` heads of every page, as the JAX plan
+        counts them; the simulated ranks keep every rank's heads in one
+        pool on the card, ``tp`` times these bytes).
 
         ``kv_dtype="int8"|"fp8"`` plans a quantized pool: one byte per
         element plus one fp32 scale per (layer, page, kv_head) per pool;
@@ -61,7 +64,7 @@ class ModelConfig:
         from triton_dist_tpu_torch.serving.blocks import kv_quant_spec
 
         qdtype, _ = kv_quant_spec(kv_dtype)
-        kv_loc = self.num_key_value_heads
+        kv_loc = max(self.num_key_value_heads // tp, 1)
         p_max = max_len // page
         num_pages = 1 + num_slots * p_max
         native_bytes = (self.num_hidden_layers * kv_loc * page

@@ -26,7 +26,12 @@ differ from the tensor-parallel regime's. JAX's hierarchical engine
 (``Engine(..., axis=("dp", "tp"))``) holds the same full arrays, sharded
 outer-major over both axes, so its parameters carry over unchanged to
 the port's ``axis=("dp", "tp")`` engine, whose rank r = o·n_in + i views
-block r of each weight.
+block r of each weight. The tensor-parallel megakernel
+(``MegaKernelEngine(mesh=make_mesh(tp=n))``) takes the same tree too:
+:meth:`~triton_dist_tpu_torch.megakernel.builder.ModelBuilder.pack_arena`
+packs rank r's shards of it (heads, KV heads, MLP columns, vocabulary rows
+of the embedding and the LM head; the norms whole) into slice r of an (n,
+rows, w) arena, JAX's per-rank arena value for value.
 """
 
 from __future__ import annotations

@@ -20,8 +20,15 @@ views of the one full weight, as the JAX ``param_specs`` cut them
 ``"fused_ar"``; decode runs replicated, ``"fused_ar"`` unless the mode is
 ``"xla"``. The KV cache keeps the global ``(layers, B, max_len, KV, hd)``
 layout: rank r owns KV heads ``[r·KV/n, (r+1)·KV/n)``, the JAX cache's
-global view. The paged steps are one rank only (the paged lanes at tp > 1
-are a ROADMAP.md item). The prefill attends through the flash-attention
+global view. The paged decode and chunk steps take the same mesh (one
+axis; JAX's ``decode_step_paged``/``prefill_chunk_paged`` in their
+``shard_map``): the residual is replicated, every rank projects its heads,
+the pools hold every rank's KV heads in rank order (the one pool is each
+rank's shard side by side), so one paged-attention launch covers every
+rank, and the row-parallel products run ``"fused_ar"`` (GEMM+AR) unless
+the mode is ``"xla"``; the logits are the ranks' vocabulary shards,
+concatenated. The speculative verify step is one rank only (ROADMAP.md
+queue A item 8). The prefill attends through the flash-attention
 kernel wrapper, the paged steps through the paged kernel wrappers; each
 launches its CUDA kernel on a CUDA tensor and runs its plain version on a
 CPU tensor.
@@ -157,6 +164,23 @@ def _layer_tail(layer, x, o, cfg, ffn_fn=None):
     if ffn_fn is None:
         return x + tp_mlp.fwd(layer.mlp, h)
     return x + ffn_fn(layer, h)
+
+
+def _layer_tail_tp(layer, x, o, cfg, *, n: int, mode: str, ctxs,
+                   ffn_fn=None):
+    """:func:`_layer_tail` at tp = n on the replicated (n, rows, d)
+    residual, in JAX's decode regime: the row-parallel products through
+    GEMM+AR (``"fused_ar"``) unless ``mode`` is ``"xla"`` (plain sums);
+    ``ffn_fn`` sees the replicated residual."""
+    dec_mode = "xla" if mode == "xla" else "fused_ar"
+    x = x + tp_attn.decode_output_tp(layer.attn, o.reshape(o.shape[0], -1),
+                                     n=n, mode=dec_mode, ar_ctx=ctxs.ar)
+    h = rms_norm(x, layer.ln_mlp, cfg.rms_norm_eps)
+    if ffn_fn is not None:
+        return x + ffn_fn(layer, h)
+    return x + tp_mlp.fwd_tp(layer.mlp, h, ctxs=ctxs,
+                             mode="xla_ar" if dec_mode == "xla"
+                             else "fused_ar")
 
 
 def _embed_tokens(params: DenseLM, input_ids: torch.Tensor) -> torch.Tensor:
@@ -347,7 +371,6 @@ def _decode_step_tp(params: DenseLM, token_ids: torch.Tensor,
     every rank, attention over the stacked heads of the global cache;
     ``ffn_fn(layer, h)`` (the MoE hook) sees that replicated residual."""
     b = token_ids.shape[0]
-    dec_mode = "xla" if mode == "xla" else "fused_ar"
     x = params.embed[token_ids.long()]
     x = x.expand(n, *x.shape).contiguous()
     pos = cache.length
@@ -361,21 +384,42 @@ def _decode_step_tp(params: DenseLM, token_ids: torch.Tensor,
         cache.append_decode(li, k_tok, v_tok)
         o = tp_attn.sdpa(q, cache.k[li, :, :pos + 1],
                          cache.v[li, :, :pos + 1], causal=False)
-        x = x + tp_attn.decode_output_tp(layer.attn, o.reshape(b, -1), n=n,
-                                         mode=dec_mode, ar_ctx=ctxs.ar)
-        h = rms_norm(x, layer.ln_mlp, eps)
-        x = x + (tp_mlp.fwd_tp(layer.mlp, h, ctxs=ctxs,
-                               mode="xla_ar" if dec_mode == "xla"
-                               else "fused_ar")
-                 if ffn_fn is None else ffn_fn(layer, h))
+        x = _layer_tail_tp(layer, x, o, cfg, n=n, mode=mode, ctxs=ctxs,
+                           ffn_fn=ffn_fn)
     x = rms_norm(x, params.ln_f, eps)
     return _lm_head_tp(params, x, n), cache.advance()
+
+
+def _paged_setup(params: DenseLM, token_ids: torch.Tensor, *, mesh, axis,
+                 mode: str, ffn_fn):
+    """The paged steps' tp and first residual: (rows, d), or (n, rows, d)
+    replicated at tp = n > 1 (a dense model over one mesh axis)."""
+    n = _tp_size(mesh, axis)
+    x = params.embed[token_ids.long()]
+    if n > 1:
+        tp_attn.check_mode(mode)
+        if isinstance(axis, (tuple, list)) or ffn_fn is not None:
+            raise NotImplementedError(
+                "the paged steps at tp > 1 run a dense model over one mesh "
+                "axis; MoE and an (outer, inner) axis are ROADMAP.md queue "
+                "A item 8")
+        x = x.expand(n, *x.shape).contiguous()
+    return n, x
+
+
+def _paged_project(layer, x, cfg, positions, n):
+    """QKV of the paged steps: every rank's heads in rank order."""
+    if n == 1:
+        return tp_attn.decode_project(layer.attn, x, cfg, positions)
+    return tp_attn.decode_project_tp(layer.attn, x, cfg, positions)
 
 
 def prefill_chunk_paged(params: DenseLM, chunk_toks: torch.Tensor, cache,
                         table_row: torch.Tensor, cfg: ModelConfig, *,
                         start: int, wfrom: int, valid: int,
-                        ffn_fn=None) -> torch.Tensor:
+                        ffn_fn=None, mode: str = "xla", mesh=None,
+                        ctxs: Optional[FwdContexts] = None,
+                        axis="tp") -> torch.Tensor:
     """One fixed-shape chunk of a bucketed paged prefill.
 
     chunk_toks: (C,) int32, padded past ``valid``; ``table_row``:
@@ -392,33 +436,40 @@ def prefill_chunk_paged(params: DenseLM, chunk_toks: torch.Tensor, cache,
     with the global causal mask. Padding rows clamp to the last valid
     position, so they do not stretch the kernel's key walk.
     ``ffn_fn(layer, h) -> h`` replaces the dense MLP block (the MoE
-    model's hook, as in the JAX trunk).
+    model's hook, as in the JAX trunk). ``mesh`` with tp = n > 1 over one
+    ``axis``: n simulated ranks on a replicated residual (module
+    docstring), the fused ops from ``ctxs``.
 
     Returns the fp32 logits (vocab,) of the LAST VALID token."""
     c = chunk_toks.shape[0]
     dev = chunk_toks.device
-    x = params.embed[chunk_toks.long()]                  # (C, d)
+    n, x = _paged_setup(params, chunk_toks, mesh=mesh, axis=axis, mode=mode,
+                        ffn_fn=ffn_fn)
     positions = start + torch.arange(c, dtype=torch.int32, device=dev)
     last = max(valid - 1, 0)
     qpos = torch.where(torch.arange(c, device=dev) < valid, positions,
                        torch.full_like(positions, start + last))
     for li, layer in enumerate(params.layers):
         h = rms_norm(x, layer.ln_attn, cfg.rms_norm_eps)
-        q, k_tok, v_tok = tp_attn.decode_project(layer.attn, h, cfg,
-                                                 positions)
+        q, k_tok, v_tok = _paged_project(layer, h, cfg, positions, n)
         cache.write_chunk(li, k_tok, v_tok, table_row, positions, valid,
                           wfrom)
         ksc, vsc = cache.layer_scales(li)
         o = paged_flash_qblock(q[:, 0][None], cache.k_pages[li],
                                cache.v_pages[li], table_row[None],
                                qpos[None], k_scale=ksc, v_scale=vsc)[0]
-        x = _layer_tail(layer, x, o, cfg, ffn_fn)
-    x = rms_norm(x[last:last + 1], params.ln_f, cfg.rms_norm_eps)
+        x = (_layer_tail(layer, x, o, cfg, ffn_fn) if n == 1 else
+             _layer_tail_tp(layer, x, o, cfg, n=n, mode=mode, ctxs=ctxs))
+    x = rms_norm(x[..., last:last + 1, :], params.ln_f, cfg.rms_norm_eps)
+    if n > 1:
+        return _lm_head_tp(params, x, n)[0]
     return lm_head_logits(x, params.lm_head)[0]
 
 
 def decode_step_paged(params: DenseLM, token_ids: torch.Tensor, cache,
-                      cfg: ModelConfig, *, ffn_fn=None) -> torch.Tensor:
+                      cfg: ModelConfig, *, ffn_fn=None, mode: str = "xla",
+                      mesh=None, ctxs: Optional[FwdContexts] = None,
+                      axis="tp") -> torch.Tensor:
     """One continuous-batching decode step over a
     :class:`~triton_dist_tpu_torch.serving.blocks.PagedKVCache`.
 
@@ -427,24 +478,27 @@ def decode_step_paged(params: DenseLM, token_ids: torch.Tensor, cache,
     the math, but their appends land in the scratch page, their lengths
     do not advance and their logits are garbage the scheduler ignores.
     The cache is updated IN PLACE (appends and :meth:`advance`).
-    ``ffn_fn`` as in :func:`prefill_chunk_paged`. Returns fp32 logits
-    (S, vocab)."""
-    x = params.embed[token_ids.long()]
+    ``ffn_fn``, ``mode``, ``mesh``, ``ctxs`` and ``axis`` as in
+    :func:`prefill_chunk_paged`. Returns fp32 logits (S, vocab)."""
+    n, x = _paged_setup(params, token_ids, mesh=mesh, axis=axis, mode=mode,
+                        ffn_fn=ffn_fn)
     lens = cache.lens
     # Live slots attend including the token appended this step; parked
     # slots clamp to one position.
     kv_len = torch.clamp(lens + cache.live, min=1)
     for li, layer in enumerate(params.layers):
         h = rms_norm(x, layer.ln_attn, cfg.rms_norm_eps)
-        q, k_tok, v_tok = tp_attn.decode_project(layer.attn, h, cfg, lens)
+        q, k_tok, v_tok = _paged_project(layer, h, cfg, lens, n)
         cache.append_decode(li, k_tok, v_tok)
         ksc, vsc = cache.layer_scales(li)
         o = paged_flash_decode(q[:, 0], cache.k_pages[li],
                                cache.v_pages[li], cache.block_table, kv_len,
                                k_scale=ksc, v_scale=vsc)
-        x = _layer_tail(layer, x, o, cfg, ffn_fn)
+        x = (_layer_tail(layer, x, o, cfg, ffn_fn) if n == 1 else
+             _layer_tail_tp(layer, x, o, cfg, n=n, mode=mode, ctxs=ctxs))
     x = rms_norm(x, params.ln_f, cfg.rms_norm_eps)
-    logits = lm_head_logits(x, params.lm_head)
+    logits = (_lm_head_tp(params, x, n) if n > 1
+              else lm_head_logits(x, params.lm_head))
     cache.advance()
     return logits
 

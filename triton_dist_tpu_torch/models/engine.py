@@ -26,9 +26,13 @@ axis): every prefill layer dispatches and combines through the
 all-to-all kernel (drop-free: its ragged form; ``ep_capacity``: its dense
 form) and runs the experts through the grouped GEMM kernel, and decode
 takes ``ep_transport`` (``"ll"``: the quantizing all-to-all kernel twice a
-layer). The resilience knobs (``fallback``, ``probe``, ``timeout_s``), a
-hierarchical ``ep_axis`` (queue A item 5) and EP on the paged serving
-lanes (queue A item 8) are not ported yet (ROADMAP.md).
+layer). :meth:`Engine.serving` serves a dense model at tp > 1 too: the
+paged steps run the same ranks on a replicated residual, GEMM+AR (or the
+plain sums in ``"xla"``) for the row-parallel products, and the pools
+hold every rank's KV heads. The resilience knobs (``fallback``,
+``probe``, ``timeout_s``), a hierarchical ``ep_axis`` (queue A item 5),
+and MoE, EP and an ``(outer, inner)`` axis on the paged serving lanes at
+tp > 1 (queue A item 8) are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -293,23 +297,31 @@ class Engine:
             out.append(pick(logits, i + 1))
         return torch.stack(out, dim=1)
 
+    @property
+    def paged_kw(self) -> dict:
+        """What the model's paged steps take besides their operands: the
+        mode, mesh, contexts and axis at tp > 1; nothing at one rank."""
+        if self.tp == 1:
+            return {}
+        return dict(self._decode_kw, mode=self.mode)
+
     def serving(self, **kw):
         """Wrap this engine in a continuous-batching
         :class:`~triton_dist_tpu_torch.serving.server.ServingEngine`
         (paged KV pool, request queue, streaming). Keyword args pass
-        through (num_slots, page, prefill_buckets, ...). One rank and the
-        tensor-parallel experts only: the paged lanes at tp > 1 and the
-        expert-parallel regime there are ROADMAP.md queue A item 8."""
-        if self.tp > 1:
-            raise ValueError(
-                "serving() at tp > 1: the paged serving lanes run one rank "
-                "(tensor-parallel paged serving is ROADMAP.md queue A "
-                "item 8)")
+        through (num_slots, page, prefill_buckets, ...). At tp > 1 a dense
+        model over one mesh axis; MoE there, the expert-parallel regime
+        and an ``(outer, inner)`` axis are ROADMAP.md queue A item 8."""
         if self.moe_impl == "ep":
             raise ValueError(
                 "serving() with moe_impl='ep': the paged serving lanes run "
                 "the tensor-parallel experts (the server's EP knobs are "
                 "ROADMAP.md queue A item 8)")
+        if self.tp > 1 and (self.cfg.is_moe or isinstance(self.axis, tuple)):
+            raise ValueError(
+                "serving() at tp > 1 takes a dense model over one mesh axis; "
+                "Qwen3-MoE and an (outer, inner) axis on the paged serving "
+                "lanes are ROADMAP.md queue A item 8")
         from triton_dist_tpu_torch.serving.server import ServingEngine
 
         return ServingEngine(self, **kw)

@@ -15,6 +15,13 @@
 Page id 0 is RESERVED as the scratch page: parked slots keep an all-zero
 table row, so the fixed-shape decode step's writes for them land there.
 
+At tp = n > 1 (simulated ranks) rank r's pools are its ``KV/n`` KV heads,
+``[r·KV/n, (r+1)·KV/n)`` of the one pool of all ``KV`` heads: the
+rank-major stack of the shards is the unsharded head order (JAX's global
+view of its head-sharded pool), so one pool, one block table, one scratch
+page and one allocator serve every rank, and a paged-attention launch over
+the stacked heads is every rank's attention at once.
+
 Quantized pools (``kv_dtype="int8"|"fp8"``) store one byte per element
 and one fp32 scale per (layer, page, kv_head) beside it: symmetric
 max-abs, ``scale = amax / qmax``, ``stored = round/cast(x / scale)``,
@@ -151,11 +158,19 @@ class PagedKVCache:
     @classmethod
     def empty(cls, num_layers: int, num_pages: int, page: int,
               kv_heads: int, head_dim: int, *, num_slots: int, p_max: int,
-              device, dtype=torch.bfloat16,
-              kv_dtype: str = "bf16") -> "PagedKVCache":
+              device, dtype=torch.bfloat16, kv_dtype: str = "bf16",
+              tp: int = 1) -> "PagedKVCache":
+        """Zeroed pools of ``kv_heads`` heads: every rank's at ``tp`` > 1
+        (module docstring), whose quantized form is not ported."""
         shape = (num_layers, num_pages, kv_heads, page, head_dim)
         ints = dict(dtype=torch.int32, device=device)
         qdtype, _ = kv_quant_spec(kv_dtype)
+        if qdtype is not None and tp > 1:
+            raise ValueError(
+                f"quantized pools at tp={tp}: the per-rank scale tables are "
+                "ROADMAP.md queue A item 8")
+        if kv_heads % tp:
+            raise ValueError(f"kv_heads={kv_heads} not divisible by tp={tp}")
         pool_dtype = dtype if qdtype is None else qdtype
         scales = [None, None] if qdtype is None else [
             torch.ones(shape[:3], dtype=torch.float32, device=device)

@@ -59,7 +59,8 @@ class ChunkedPrefill:
         logits = eng.model.prefill_chunk_paged(
             params, torch.as_tensor(toks, device=dev), cache,
             torch.as_tensor(table_row, device=dev), eng.cfg,
-            start=int(start), wfrom=int(wfrom), valid=int(valid))
+            start=int(start), wfrom=int(wfrom), valid=int(valid),
+            **eng.paged_kw)
         self._shapes.add(int(toks.shape[0]))
         if len(self._shapes) > len(self.buckets):
             raise RuntimeError(

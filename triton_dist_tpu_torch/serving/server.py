@@ -26,6 +26,21 @@ Two lanes, chosen by the engine:
   per tick through the decode launch (the prefill lane) while running
   slots decode beside them.
 
+Both lanes serve a dense model at tp > 1 over simulated ranks
+(``Engine(cfg, mesh=make_mesh(tp=n)).serving()``, ``ServingEngine(
+MegaKernelEngine(cfg, mesh=make_mesh(tp=n), paged=True))``): one pool
+holds every rank's KV heads side by side (rank-major, the unsharded head
+order), every rank shares the one block table, scratch page and
+allocator, and the plan counts one rank's heads
+(``page_bytes_per_rank``). On the layer lane each decode tick and chunk is
+one paged step over every rank (GEMM+AR for the row-parallel products,
+``"xla"`` their plain sums), and a monolithic admission runs the
+engine's own prefill on ``tp`` copies of the prompt (the token-sharded
+modes need B·S divisible by tp; row 0 is the answer, as the JAX server
+does it); on the megakernel lane a tick is still one launch, every rank's
+blocks in it. Quantized pools, ``spec_k`` and Qwen3-MoE at tp > 1 are
+ROADMAP.md queue A item 8.
+
 The engine's model may be dense Qwen3 or Qwen3-MoE. On the megakernel
 lane a MoE engine routes inside the kernel and counts every routed
 (row, expert) pair; the server folds each decode tick's counts into
@@ -188,11 +203,17 @@ class ServingEngine:
             if self.max_len % page:
                 raise ValueError(f"page={page} must divide max_len="
                                  f"{self.max_len}")
+        self.tp = engine.tp
+        if self.tp > 1 and self.spec_k and not self.mega:
+            raise ValueError(
+                f"spec_k at tp={self.tp}: the K-token verify step runs one "
+                "rank (ROADMAP.md queue A item 8)")
         self.page = page
         self.p_max = self.max_len // page
         self.plan = cfg.kv_cache_plan(
             max_len=self.max_len, page=page, num_slots=num_slots,
-            dtype_bytes=engine.dtype.itemsize, kv_dtype=self.kv_dtype)
+            tp=self.tp, dtype_bytes=engine.dtype.itemsize,
+            kv_dtype=self.kv_dtype)
         num_pages = num_pages or self.plan["num_pages"]
         self.manager = BlockManager(
             num_pages, page, self.p_max, prefix_reuse=prefix_reuse,
@@ -214,7 +235,7 @@ class ServingEngine:
                 cfg.num_hidden_layers, num_pages, page,
                 cfg.num_key_value_heads, cfg.head_dim, num_slots=num_slots,
                 p_max=self.p_max, device=self.device, dtype=engine.dtype,
-                kv_dtype=self.kv_dtype)
+                kv_dtype=self.kv_dtype, tp=self.tp)
             if prefill_buckets:
                 self.prefill_buckets = prefill_buckets
                 self.chunker = ChunkedPrefill(engine, prefill_buckets)
@@ -442,7 +463,10 @@ class ServingEngine:
         slot = h.slot
         t0 = time.perf_counter()
         try:
-            logits, kv = self.engine.prefill(np.asarray([seq], np.int32))
+            # tp copies of the prompt: the token-sharded modes need B·S
+            # divisible by tp for any prompt length; row 0 is the answer.
+            ids = np.tile(np.asarray([seq], np.int32), (self.tp, 1))
+            logits, kv = self.engine.prefill(ids)
             hits = self.manager.prefix_hits(slot)
             if hits < len(pages):
                 span = slice(hits * self.page, len(pages) * self.page)
@@ -591,7 +615,8 @@ class ServingEngine:
         cache.live.copy_(torch.from_numpy(self._live))
         toks = torch.from_numpy(self._toks).to(self.device)
         logits = self.engine.model.decode_step_paged(
-            self.engine.params, toks, cache, self.cfg)
+            self.engine.params, toks, cache, self.cfg,
+            **self.engine.paged_kw)
         return logits.cpu().numpy()
 
     # -- the speculative tick (spec_k >= 2) ---------------------------
