@@ -183,8 +183,10 @@ def test_collectives_match_jax(meshes):
 
 def test_unported_forms_raise(meshes):
     """Rows 2, 3, 6, 8 and 11 name queue B; a MoE model over a tuple axis
-    names queue A item 5; an engine over the tp axis alone of a dp x tp
-    mesh (data-parallel replicas) names queue A item 4."""
+    with tensor-parallel experts names queue A item 5 (its expert-parallel
+    form is ported: ``tests/test_torch_ep_engine.py``); an engine over the
+    tp axis alone of a dp x tp mesh (data-parallel replicas) names queue A
+    item 4."""
     mesh = meshes[2]
     x = torch.zeros(4, 8, 16)
     for call in (

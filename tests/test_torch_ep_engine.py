@@ -26,8 +26,11 @@ flipped on purpose in the first exchange moves them by 2.3e-3-2.6e-3,
 and rank 0 reading rank 1's chunk one slot off by 0.080. LL_ATOL = 5e-3
 admits a flipped code or two and fails a wrong exchange.
 
-Also: what still raises (a hierarchical ``ep_axis``, ``"ll2d"``, EP on the
-paged lanes) and JAX's knob errors."""
+Also: the 2 x 2 expert-parallel engine (``make_mesh(dp=2, tp=2)``,
+``axis=ep_axis=("dp", "tp")``) against JAX's 2 x 2 ``"xla"`` engine for
+each decode transport (``"ll2d"`` included: its two hops in JAX's ``"xla"``
+wire form, which an interpret-mode 2D mesh takes), what still raises (an
+ep axis of its own, EP on the paged lanes) and JAX's knob errors."""
 
 import dataclasses
 
@@ -36,6 +39,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.sharding import Mesh
 
 from triton_dist_tpu.models import Engine as JaxEngine
 from triton_dist_tpu.models import ModelConfig as JaxConfig
@@ -121,12 +125,60 @@ def test_ep_engine_matches_jax(jax_runs, case, mode):
                                   want["toks"])
 
 
+def _ep2d_engine_against_jax(ids):
+    """The 2 x 2 expert-parallel engine (``make_mesh(dp=2, tp=2)``,
+    ``axis=ep_axis=("dp", "tp")``: the trunk and the experts over both
+    axes, JAX's ``EP2DContext``) against JAX's ``"xla"`` engine on the same
+    weights: prefill logits within 1e-5 and greedy tokens equal, in every
+    mode, for ``ep_transport`` None, ``"ll2d"`` and ``"ar"`` (JAX's None
+    decodes as ``"ar"``: its ``moe_ffn_decode`` takes ``transport or
+    "ar"``, so one JAX run serves both)."""
+    ax = ("dp", "tp")
+    jm = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ax)
+    jeng = JaxEngine(JCFG, jm, axis=ax, mode="xla", dtype=jnp.float32,
+                     max_len=MAX_LEN, seed=6, model=jqwen_moe, moe_impl="ep",
+                     ep_axis=ax, ep_transport="ar")
+    params = from_jax_params(jax.tree.map(np.asarray, jeng.params), CFG,
+                             "cpu", torch.float32)
+    logits = np.asarray(jeng.prefill(ids)[0])
+    want = {"ar": np.asarray(jeng.serve(ids, GEN))}
+    jeng.model_kwargs["transport"] = "ll2d"
+    _, jeng._decode = jeng._build("xla")
+    want["ll2d"] = np.asarray(jeng.serve(ids, GEN))
+    want[None] = want["ar"]
+    mesh = make_mesh(dp=2, tp=2, device="cpu")
+    for transport in (None, "ll2d", "ar"):
+        for mode in ("xla", "fused", "fused_ar"):
+            eng = Engine(CFG, mesh=mesh, axis=ax, mode=mode,
+                         dtype=torch.float32, max_len=MAX_LEN, params=params,
+                         moe_impl="ep", ep_axis=ax, ep_transport=transport)
+            if transport is None:
+                np.testing.assert_allclose(eng.prefill(ids)[0].numpy(),
+                                           logits, **TOL)
+            np.testing.assert_array_equal(
+                eng.serve(ids, gen_len=GEN).numpy(), want[transport])
+    return params, mesh
+
+
 def test_ep_engine_knobs_and_what_still_raises(jax_runs):
+    """JAX's knob checks, the views, and what still raises. A hierarchical
+    ``ep_axis`` is ported: the 2 x 2 engine is held to JAX's here
+    (:func:`_ep2d_engine_against_jax`), and a pair that is not the engine's
+    own axis, ``ep_capacity`` with it, tensor-parallel experts over it and
+    an ep axis of its own raise."""
     params = jax_runs["params"]
-    with pytest.raises(ValueError, match="queue A item 5"):
+    p2d, mesh2d = _ep2d_engine_against_jax(jax_runs["ids"])
+    with pytest.raises(ValueError, match="over the engine's own"):
         _engine(params, "xla", ep_axis=("dcn", "ici"))
     with pytest.raises(ValueError, match="queue A item 5"):
         _engine(params, "xla", ep_axis="ep")
+    kw2d = dict(mesh=mesh2d, axis=("dp", "tp"), dtype=torch.float32,
+                params=p2d)
+    with pytest.raises(ValueError, match="drop-free"):
+        Engine(CFG, moe_impl="ep", ep_axis=("dp", "tp"), ep_capacity=3,
+               **kw2d)
+    with pytest.raises(ValueError, match="queue A item 5"):
+        Engine(CFG, **kw2d)
     with pytest.raises(ValueError, match=r"ep_transport='bogus' not in"):
         _engine(params, "xla", ep_transport="bogus")
     with pytest.raises(ValueError, match="ep_transport is an EP decode knob"):
@@ -134,7 +186,7 @@ def test_ep_engine_knobs_and_what_still_raises(jax_runs):
                params=params, ep_transport="ll")
     eng = _engine(params, "xla", ep_transport="ll2d")
     logits, cache = eng.prefill(jax_runs["ids"])
-    with pytest.raises(ValueError, match="queue A item 5"):
+    with pytest.raises(ValueError, match="needs a hierarchical EP2DContext"):
         eng.decode(torch.argmax(logits, -1), cache)
     assert _engine(params, "xla", ep_transport="auto").ep_transport == "auto"
     # Each rank's experts are views of the one weight: no copy.

@@ -24,9 +24,20 @@ numpy inputs.
   within 1e-5 (sums in other orders).
 - Row 17's per-rank tile maps and used-tile counts against the per-rank
   product; the wrappers' CPU-only plain versions; what still raises.
+- The tile-fused EP of ``ops/ep_fused.py`` (rows 25-26's plain versions:
+  ``ep_route`` exactly, ``ep_moe_fused`` and ``fwd_fused`` within 1e-5
+  with equal drops, an overflow mix included) against JAX's interpret-mode
+  kernels on 4 ranks, and the hierarchical half on a 2 x 2 mesh
+  (``ep_dispatch_2d``/``ep_combine_2d`` rows and states exactly,
+  ``fwd_2d`` and the ``"ll2d"`` decode within 1e-5, ``ll_a2a_2d`` bit for
+  bit). ``test_unported_ep_forms_raise`` is this slice's JAX parity
+  test: it runs these checks first, then what still raises. Its name is
+  kept from when it held these forms to raising.
 
-Only the first two JAX kernels above run in interpret mode."""
+Only rows 18, 23, 25 and 26 of the JAX kernels above run in interpret
+mode."""
 
+import importlib
 from types import SimpleNamespace
 
 import jax
@@ -34,6 +45,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.sharding import Mesh
 from jax.sharding import PartitionSpec as P
 
 from triton_dist_tpu.layers import ep_moe as jep_moe
@@ -49,7 +61,12 @@ from triton_dist_tpu.utils.testing import spmd
 from triton_dist_tpu_torch import make_mesh
 from triton_dist_tpu_torch.layers import ep_moe
 from triton_dist_tpu_torch.ops import all_to_all as a2a
-from triton_dist_tpu_torch.ops import ep_a2a, group_gemm, low_latency
+from triton_dist_tpu_torch.ops import ep_a2a, ep_fused, group_gemm, low_latency
+
+# The JAX op modules (``triton_dist_tpu.ops`` re-exports functions of
+# the same names).
+jep_fused = importlib.import_module("triton_dist_tpu.ops.ep_fused")
+jll2d = importlib.import_module("triton_dist_tpu.ops.ll_a2a_2d")
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 N = 4
@@ -407,29 +424,203 @@ def test_wrappers_take_the_plain_version_only_on_cpu(call, mod):
     assert mod.KERNEL.launches == before
 
 
+def _fused_against_jax():
+    """Tile-fused EP (rows 25-26's plain versions) against JAX's, on 4
+    ranks at ``tests/test_ep_fused.py``'s widths (its interpret-mode
+    kernels stall on larger CPU workspaces): ``ep_route`` exactly, with a
+    capacity that overflows (experts drawn from a pool of 3) and one that
+    does not; ``ep_moe_fused`` on the overflow mix and ``fwd_fused`` on
+    the ample capacity within 1e-5, with equal ``num_dropped``."""
+    jm, jctx = _jmesh()
+    mesh = make_mesh(tp=N, device="cpu")
+    t, f = 4, 8
+    jw, tw = _weights(21, f=f)
+    rng = np.random.RandomState(22)
+    x = rng.randn(N, t, D).astype(np.float32)
+    ids = np.stack([[rng.choice(3, K, replace=False) for _ in range(t)]
+                    for _ in range(N)]).astype(np.int32)
+    wts = rng.rand(N, t, K).astype(np.float32)
+    jx, jids = jnp.asarray(x.reshape(-1, D)), jnp.asarray(ids.reshape(-1, K))
+    ctxs = {}
+    for cap in (2, t * K):
+        kw = dict(num_experts=E, topk=K, capacity_per_expert=cap, axis="tp")
+        jc = jep_fused.create_ep_fused_context(jctx, block_f=2 * f,
+                                               block_d=D, **kw)
+        tc = ctxs[cap] = ep_fused.create_ep_fused_context(mesh, **kw)
+
+        def jroute(tk, i, jc=jc):
+            send, st = jep_fused.ep_route(tk, i, jc)
+            return (send, st.slot_rank, st.slot_expert, st.slot_index,
+                    st.valid, st.num_dropped[None])
+
+        want = [np.asarray(o) for o in spmd(
+            jm, jroute, (P("tp", None), P("tp", None)),
+            (P("tp"),) + (P("tp", None),) * 4 + (P("tp"),))(jx, jids)]
+        send, st = ep_fused.ep_route(_t(x), _t(ids), tc)
+        for got, w in zip((send, st.slot_rank, st.slot_expert,
+                           st.slot_index, st.valid, st.num_dropped), want):
+            np.testing.assert_array_equal(_n(got), w.reshape(got.shape))
+        assert (int(st.num_dropped.sum()) > 0) == (cap == 2)
+    jc = jep_fused.create_ep_fused_context(
+        jctx, num_experts=E, topk=K, capacity_per_expert=2, axis="tp",
+        block_f=2 * f, block_d=D)
+    sh = P("tp", None, None)
+
+    def jfused(wg, wu, wd, tk, i, ww):
+        out, dropped = jep_fused.ep_moe_fused(tk, i, ww, wg, wu, wd, jc)
+        return out, dropped[None]
+
+    jo, jd = spmd(jm, jfused, (sh, sh, sh) + (P("tp", None),) * 3,
+                  (P("tp", None), P("tp")))(
+        jw["w_gate"], jw["w_up"], jw["w_down"], jx, jids,
+        jnp.asarray(wts.reshape(-1, K)))
+    spec = ep_moe.param_specs(tw, N)
+    to, td = ep_fused.ep_moe_fused(_t(x), _t(ids), _t(wts), spec["w_gate"],
+                                   spec["w_up"], spec["w_down"], ctxs[2])
+    np.testing.assert_allclose(_n(to), np.asarray(jo).reshape(N, t, D), **TOL)
+    np.testing.assert_array_equal(_n(td), np.asarray(jd))
+    jc = jep_fused.create_ep_fused_context(
+        jctx, num_experts=E, topk=K, capacity_per_expert=t * K, axis="tp",
+        block_f=2 * f, block_d=D)
+
+    def jfwd(p, tk):
+        out, dropped = jep_moe.fwd_fused(p, tk, jc, topk=K)
+        return out, dropped[None]
+
+    jo, jd = spmd(jm, jfwd, (jep_moe.param_specs("tp"), P("tp", None)),
+                  (P("tp", None), P("tp")))(jw, jx)
+    to, td = ep_moe.fwd_fused(tw, _t(x), ctxs[t * K], topk=K)
+    np.testing.assert_allclose(_n(to), np.asarray(jo).reshape(N, t, D), **TOL)
+    np.testing.assert_array_equal(_n(td), np.asarray(jd))
+
+
+def _hierarchical_against_jax():
+    """The hierarchical half against JAX's on a 2 x 2 mesh (dp outer, tp
+    inner): ``ep_dispatch_2d`` / ``ep_combine_2d`` (received rows and
+    experts, every hop's sort permutation and sent rows, each group's
+    block of the counts matrices, exactly; the combine within 1e-5),
+    ``fwd_2d`` and the ``"ar"``/``"ll2d"`` decode within 1e-5,
+    ``ll_a2a_2d`` bit for bit on the int8 and fp8 wires in both hop
+    ``impl``s (JAX's outside ``jit``, whose constant-divisor rewrite
+    moves a scale by an ulp), its put ledger and ``hop_put_counts``
+    equal."""
+    ax = ("dp", "tp")
+    jm = Mesh(np.array(jax.devices()[:N]).reshape(2, 2), ax)
+    jctx = JaxMeshContext.from_mesh(jm)
+    mesh = make_mesh(dp=2, tp=2, device="cpu")
+    kw = dict(num_experts=E, topk=K, outer_axis="dp", inner_axis="tp")
+    jc = jep_a2a.create_ep2d_context(jctx, **kw)
+    tc = ep_a2a.create_ep2d_context(mesh, **kw)
+    jw, tw = _weights(23)
+    t = 6
+    x, ids = _routing(24, N, t)
+    w = np.random.RandomState(25).rand(N, t, K).astype(np.float32)
+
+    def jfn(tok, tid, tw_):
+        rt, re, st = jep_a2a.ep_dispatch_2d(tok, tid, jc)
+        y = jep_a2a.ep_combine_2d(rt * 3.0, st, tw_, jc)
+        return (rt, re, y) + tuple(
+            a[None] for hop in (st.inner, st.outer) for a in (
+                hop.perm, hop.counts_mat, hop.orig_counts_mat,
+                hop.sent_sorted))
+
+    hop_specs = (P(ax, None), P(ax, None, None), P(ax, None, None),
+                 P(ax, None))
+    out = [np.asarray(o) for o in spmd(
+        jm, jfn, (P(ax, None),) * 3,
+        (P(ax, None), P(ax), P(ax, None)) + hop_specs * 2)(
+        jnp.asarray(x.reshape(-1, D)), jnp.asarray(ids.reshape(-1, K)),
+        jnp.asarray(w.reshape(-1, K)))]
+    rt, re, st = ep_a2a.ep_dispatch_2d(_t(x), _t(ids), tc)
+    np.testing.assert_array_equal(_n(rt), out[0].reshape(rt.shape))
+    np.testing.assert_array_equal(_n(re), out[1].reshape(re.shape))
+    np.testing.assert_allclose(
+        _n(ep_a2a.ep_combine_2d(rt * 3.0, st, _t(w), tc)),
+        out[2].reshape(N, t, D), **TOL)
+    for hop, axis, i in ((st.inner, "tp", 3), (st.outer, "dp", 7)):
+        np.testing.assert_array_equal(_n(hop.perm), out[i].reshape(N, -1))
+        np.testing.assert_array_equal(_n(hop.sent_sorted),
+                                      out[i + 3].reshape(N, -1))
+        for r in range(N):
+            grp = np.ix_(*[[mesh.device_id(axis, p, r) for p in range(2)]] * 2)
+            np.testing.assert_array_equal(_n(hop.counts_mat)[grp],
+                                          out[i + 1][r])
+            np.testing.assert_array_equal(_n(hop.orig_counts_mat)[grp],
+                                          out[i + 2][r])
+    want = spmd(jm, lambda p, v: jep_moe.fwd_2d(p, v, jc, topk=K),
+                (jep_moe.param_specs(ax), P(ax, None)), P(ax, None))(
+        jw, jnp.asarray(x.reshape(-1, D)))
+    np.testing.assert_allclose(_n(ep_moe.fwd_2d(tw, _t(x), tc, topk=K)),
+                               np.asarray(want).reshape(N, t, D), **TOL)
+    b = 3
+    xd = np.random.RandomState(26).randn(b, D).astype(np.float32)
+    for transport in ("ar", "ll2d"):
+        want = np.asarray(spmd(
+            jm, lambda p, v: jep_moe.fwd_decode(
+                p, v, topk=K, axis=ax, transport=transport, ep_ctx=jc),
+            (jep_moe.param_specs(ax), P(None, None)), P(None, None))(
+            jw, jnp.asarray(xd)))
+        got = ep_moe.fwd_decode(tw, _t(xd).expand(N, b, D), topk=K, axis=ax,
+                                transport=transport, ep_ctx=tc)
+        for r in range(N):
+            np.testing.assert_allclose(_n(got[r]), want, **TOL)
+    xs = np.random.RandomState(27).randn(N, N, 3, 32).astype(np.float32)
+    for jdt, tdt in ((jnp.int8, torch.int8),
+                     (jnp.float8_e4m3fn, torch.float8_e4m3fn)):
+        with jll2d.record_dispatch_puts() as jled:
+            want = spmd(jm, lambda v: jll2d.ll_a2a_2d(
+                v, ctx=jctx, outer_axis="dp", inner_axis="tp", step=1,
+                wire_dtype=jdt), P(ax, None, None), P(ax, None, None),
+                jit=False)(jnp.asarray(xs.reshape(N * N, 3, 32)))
+        for impl in ("kernel", "xla"):
+            with low_latency.record_dispatch_puts() as led:
+                got = low_latency.ll_a2a_2d(
+                    _t(xs), ctx=mesh, outer_axis="dp", inner_axis="tp",
+                    step=1, wire_dtype=tdt, impl=impl)
+            np.testing.assert_array_equal(_n(got),
+                                          np.asarray(want).reshape(xs.shape))
+            assert led == jled
+    assert low_latency.hop_put_counts(
+        mesh, outer_axis="dp", inner_axis="tp") == jll2d.hop_put_counts(
+        jctx, outer_axis="dp", inner_axis="tp")
+    return tc
+
+
 def test_unported_ep_forms_raise():
-    """What stays for later slices raises, naming its ROADMAP.md item."""
+    """The forms this file held to raising are ported: the tile-fused EP
+    (:func:`_fused_against_jax`) and the hierarchical half
+    (:func:`_hierarchical_against_jax`) are held to JAX here. What stays
+    for later slices raises, naming its ROADMAP.md item, and JAX's knob
+    errors hold."""
+    _fused_against_jax()
+    ctx2d = _hierarchical_against_jax()
     _, tw = _weights(15)
     x = torch.zeros(N, 2, D)
-    with pytest.raises(ValueError, match="queue A item 5"):
+    with pytest.raises(ValueError, match="needs a hierarchical EP2DContext"):
         ep_moe.fwd_decode(tw, x, topk=K, transport="ll2d", ep_ctx=_ctx())
+    with pytest.raises(ValueError, match="does not consult replicas"):
+        ep_moe.fwd_decode(tw, x, topk=K, transport="ll2d", ep_ctx=ctx2d,
+                          replicas={"slot_expert": torch.zeros(1)})
     with pytest.raises(ValueError, match="queue A item 8"):
         ep_moe.fwd_decode(tw, x, topk=K, transport="ll", ep_ctx=_ctx(),
                           replicas={"slot_expert": torch.zeros(1)})
-    with pytest.raises(ValueError, match="queue A item 5"):
-        ep_moe.fwd_decode(tw, x, topk=K, axis=("dcn", "ici"))
     with pytest.raises(ValueError, match="transport must be one of"):
         ep_moe.fwd_decode(tw, x, topk=K, transport="bogus", ep_ctx=_ctx())
     with pytest.raises(ValueError, match="needs a flat EPContext"):
         ep_moe.fwd_decode(tw, x, topk=K, transport="ragged")
-    for fn in (ep_a2a.EP2DContext, ep_a2a.ep_dispatch_2d):
-        with pytest.raises(NotImplementedError, match="queue A item 5"):
-            fn()
+    with pytest.raises(ValueError, match="needs a flat EPContext"):
+        ep_moe.fwd_decode(tw, x, topk=K, transport="ll", ep_ctx=ctx2d)
     assert ep_moe.resolve_transport("auto", ctx=_ctx(), batch=2, hidden=D,
                                     dtype=torch.float32, topk=K) == "ll"
+    assert ep_moe.resolve_transport("auto", ctx=ctx2d, batch=2, hidden=D,
+                                    dtype=torch.float32, topk=K) == "ll2d"
     assert ep_moe.resolve_transport("auto", ctx=None, batch=2, hidden=D,
                                     dtype=torch.float32, topk=K) == "ar"
     assert ep_moe.DECODE_TRANSPORTS == jep_moe.DECODE_TRANSPORTS
     with pytest.raises(ValueError, match="not divisible by ep=3"):
         ep_a2a.create_ep_context(make_mesh(tp=3, device="cpu"),
                                  num_experts=E, topk=K, axis="tp")
+    with pytest.raises(ValueError, match="not divisible by dpxtp=4"):
+        ep_a2a.create_ep2d_context(make_mesh(dp=2, tp=2, device="cpu"),
+                                   num_experts=6, topk=K, outer_axis="dp",
+                                   inner_axis="tp")

@@ -167,12 +167,12 @@ def test_tp_slice_modules_are_checked_and_need_cuda():
 
 
 def test_ep_slice_modules_are_checked():
-    """The expert-parallel slice's modules are among the sources checked
+    """The expert-parallel slices' modules are among the sources checked
     above, and an EP engine, like every engine, needs the card unless
     given ``device="cpu"``."""
     names = {str(p.relative_to(ROOT)) for p in _sources()}
     for mod in ("ops/all_to_all.py", "ops/low_latency.py", "ops/ep_a2a.py",
-                "layers/ep_moe.py"):
+                "ops/ep_fused.py", "layers/ep_moe.py"):
         assert f"triton_dist_tpu_torch/{mod}" in names
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid")

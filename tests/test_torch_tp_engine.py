@@ -125,9 +125,9 @@ def test_fused_ar_takes_any_token_count(jax_run):
 def test_moe_at_tp_raises():
     """A MoE model at tp > 1 runs its experts tensor-parallel
     (``tests/test_torch_tp_moe.py``) or expert-parallel over the tp ranks
-    (``tests/test_torch_ep_engine.py``); a hierarchical ``ep_axis`` raises
-    (a two-axis simulated mesh is queue A item 5)."""
-    with pytest.raises(ValueError, match="queue A item 5"):
+    (``tests/test_torch_ep_engine.py``); a hierarchical ``ep_axis`` must be
+    the engine's own (outer, inner) axis, so over one tp axis it raises."""
+    with pytest.raises(ValueError, match="over the engine's own"):
         Engine(ModelConfig.tiny_moe(num_experts=4),
                mesh=make_mesh(tp=4, device="cpu"), dtype=torch.float32,
                moe_impl="ep", ep_axis=("dcn", "tp"))

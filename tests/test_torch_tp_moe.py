@@ -300,10 +300,10 @@ def test_tp_moe_engine_matches_one_rank(jax_run, n):
 
 
 def test_moe_impl_errors(jax_run):
-    """``"ep"`` over a hierarchical ``ep_axis`` is not ported (queue A item
-    5); a dense model takes no ``moe_impl`` (JAX's message); the ffn
-    dimension must split over the ranks."""
-    with pytest.raises(ValueError, match="queue A item 5"):
+    """``"ep"`` over a hierarchical ``ep_axis`` that is not the engine's
+    own (outer, inner) axis raises; a dense model takes no ``moe_impl``
+    (JAX's message); the ffn dimension must split over the ranks."""
+    with pytest.raises(ValueError, match="over the engine's own"):
         _engine(jax_run["params"], 4, "fused", moe_impl="ep",
                 ep_axis=("dcn", "tp"))
     with pytest.raises(ValueError, match="unknown moe_impl"):

@@ -29,11 +29,18 @@
 // is what keeps step 2 * layer apart from step 2 * layer + 2, which share a
 // parity.
 //
+// Over one axis of a two-axis mesh (the hops of ll_a2a_2d, JAX's
+// ops/ll_a2a_2d.py _hop :109) every group of ranks along the axis exchanges
+// in the same launch: R ranks, groups of n whose members lie st flat ranks
+// apart, chunks and inbound slots indexed by the position along the axis.
+// The flat call is R = n, st = 1. An optional counter adds one for every
+// chunk put to another rank (the per-hop put count of ll_a2a_2d).
+//
 // Work items, in the order every block walks them (each waits only on a
 // lower-numbered item, see shmem_device.cuh): the quantize-and-put items
 // (sender, peer offset, row block), then the dequantize items (receiver,
-// sender, row block). A warp handles one row: a shuffle reduction for the
-// absmax, then 8 elements (16 bytes of bf16) a lane per step.
+// sender position, row block). A warp handles one row: a shuffle reduction
+// for the absmax, then 8 elements (16 bytes of bf16) a lane per step.
 //
 // What bounds it on the H100: launch latency and bytes. At the Qwen3-30B-A3B
 // decode (4 ranks x 4 peers x 32 rows x 2048) it reads 1 MB of bf16, writes
@@ -55,16 +62,18 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kRows = kWarps;          // rows an item: one warp each
 
 struct Params {
-  const bf16* x;        // (n, n, C, d): [sender][receiver]
-  bf16* out;            // (n, n, C, d): [receiver][sender]
-  unsigned char* q;     // inbound codes (n, 2, n, C, d): [receiver][parity][sender]
-  float* scale;         // inbound scales (n, 2, n, C)
-  int n, C, d, parity, fp8, n_rb, fault;
+  const bf16* x;        // (R, n, C, d): [sender][receiver position]
+  bf16* out;            // (R, n, C, d): [receiver][sender position]
+  unsigned char* q;     // inbound codes (R, 2, n, C, d): [receiver][parity][sender position]
+  float* scale;         // inbound scales (R, 2, n, C)
+  unsigned long long* puts;   // chunks put to another rank, or null
+  int R, n, st, C, d, parity, fp8, n_rb, fault;
   Sync sync;
 };
 
+// Inbound slot (receiver rank d, parity, sender position s).
 __device__ __forceinline__ long long slot(const Params& P, int d, int par, int s) {
-  return ((long long)d * 2 + par) * P.n + s;   // inbound (receiver, parity, sender)
+  return ((long long)d * 2 + par) * P.n + s;
 }
 
 __device__ __forceinline__ long long flag(const Params& P, int d, int s, int rb) {
@@ -85,13 +94,15 @@ __device__ __forceinline__ float decode(unsigned char c, int fp8) {
   return (float)(signed char)c;
 }
 
-// Rows of row block rb of sender s's chunk for receiver d: quantize into the
-// receiver's inbound slot, then signal it.
-__device__ void put_item(const Params& P, int s, int d, int rb) {
+// Rows of row block rb of sender s's chunk for the rank at position pd of
+// its group: quantize into that receiver's inbound slot, then signal it.
+__device__ void put_item(const Params& P, int s, int pd, int rb) {
   const int lane = threadIdx.x % 32, i = rb * kRows + threadIdx.x / 32;
-  const bool faulted = s == 0 && d == 1 % P.n;
+  const int ps = axis_pos(s, P.n, P.st), d = axis_peer(s, pd, P.n, P.st);
+  const bool faulted = s == 0 && pd == 1 % P.n;
+  if (rb == 0 && threadIdx.x == 0 && P.puts != nullptr && d != s) atomicAdd(P.puts, 1ULL);
   if (i < P.C) {
-    const bf16* row = P.x + (((long long)s * P.n + d) * P.C + i) * P.d;
+    const bf16* row = P.x + (((long long)s * P.n + pd) * P.C + i) * P.d;
     float amax = 0.f;
     for (int c = lane * 8; c < P.d; c += 256) {
       const uint4 raw = *reinterpret_cast<const uint4*>(row + c);
@@ -104,7 +115,7 @@ __device__ void put_item(const Params& P, int s, int d, int rb) {
     const float sc = fmaxf(__fdiv_rn(amax, P.fp8 ? 448.f : 127.f), 1e-12f);
     // A planted fault writes rank 0's codes for rank 1 into the other parity.
     const int par = (P.fault == kWrongParity && faulted) ? 1 - P.parity : P.parity;
-    unsigned char* qrow = P.q + (slot(P, d, par, s) * P.C + i) * P.d;
+    unsigned char* qrow = P.q + (slot(P, d, par, ps) * P.C + i) * P.d;
     for (int c = lane * 8; c < P.d; c += 256) {
       const uint4 raw = *reinterpret_cast<const uint4*>(row + c);
       const bf16* b = reinterpret_cast<const bf16*>(&raw);
@@ -116,13 +127,14 @@ __device__ void put_item(const Params& P, int s, int d, int rb) {
     }
     // A planted fault stores each scale at the row next to its own.
     const int si = (P.fault == kWrongScaleRow && faulted && (i ^ 1) < P.C) ? (i ^ 1) : i;
-    if (lane == 0) P.scale[slot(P, d, P.parity, s) * P.C + si] = sc;
+    if (lane == 0) P.scale[slot(P, d, P.parity, ps) * P.C + si] = sc;
   }
   if (P.fault == kLostSignal && faulted && rb == 0) return;
-  signal_block(P.sync, flag(P, d, s, rb));
+  signal_block(P.sync, flag(P, d, ps, rb));
 }
 
-// Receiver d: wait for sender s's row block rb, then dequantize it.
+// Receiver d: wait for row block rb of the sender at position s of its
+// group, then dequantize it.
 __device__ void dequant_item(const Params& P, int d, int s, int rb) {
   wait_arrivals(P.sync, flag(P, d, s, rb), 0, 1, d, s);
   const int lane = threadIdx.x % 32, i = rb * kRows + threadIdx.x / 32;
@@ -143,39 +155,42 @@ __device__ void dequant_item(const Params& P, int d, int s, int rb) {
 }
 
 __global__ void __launch_bounds__(kThreads) ll_a2a_kernel(Params P) {
-  const long long puts = (long long)P.n * P.n * P.n_rb;
+  const long long puts = (long long)P.R * P.n * P.n_rb;
   for (long long item = blockIdx.x; item < 2 * puts; item += gridDim.x) {
     const bool put = item < puts;
     const long long rem = put ? item : item - puts;
     const int rb = (int)(rem % P.n_rb);
     const long long pair = rem / P.n_rb;
     const int a = (int)(pair / P.n), b = (int)(pair % P.n);
-    if (put)
-      put_item(P, a, (a + b) % P.n, rb);     // sender a, peer offset b
-    else
-      dequant_item(P, a, b, rb);             // receiver a, sender b
+    if (put)   // sender a, peer offset b
+      put_item(P, a, (axis_pos(a, P.n, P.st) + b) % P.n, rb);
+    else       // receiver a, sender position b
+      dequant_item(P, a, b, rb);
     __syncthreads();
   }
 }
 
 }  // namespace
 
-// Plain C interface for ctypes. x: (n, n, C, d) bf16 contiguous, [sender]
-// [receiver]; out: (n, n, C, d) bf16, [receiver][sender]; q: the inbound
-// codes (n, 2, n, C, d) uint8 and scale: the inbound scales (n, 2, n, C)
-// fp32 of the workspace, [receiver][parity][sender]; parity = step % 2;
-// fp8: 0 for int8 codes, 1 for e4m3; d a multiple of 8. flags: the
-// workspace's n * 2 * n * ceil(C / 8) words then its abort word. epoch:
-// this call's (>= 1); timeout_ns bounds every wait; fault: 0, or a planted
-// fault in rank 0's chunk for rank 1 (1: its codes go to the other parity's
-// slot; 2: its first signal is never sent; 3: each scale is stored at the
-// row next to its own). Returns a cudaError_t code (0 = launched).
-extern "C" int tdt_ll_a2a(const void* x, void* out, void* q, void* scale, int n, int C, int d,
-                          int parity, int fp8, void* flags, void* abort_word,
-                          unsigned long long epoch, unsigned long long timeout_ns, int fault,
-                          int device, void* stream) {
-  if (n < 1 || C < 1 || d < 8 || d % 8 || (parity != 0 && parity != 1) || (fp8 != 0 && fp8 != 1) ||
-      epoch == 0 || timeout_ns == 0 ||
+// Plain C interface for ctypes. R ranks in groups of n along the axis
+// (members st flat ranks apart; R = n, st = 1 for a flat mesh). x: (R, n,
+// C, d) bf16 contiguous, [sender][receiver position]; out: (R, n, C, d)
+// bf16, [receiver][sender position]; q: the inbound codes (R, 2, n, C, d)
+// uint8 and scale: the inbound scales (R, 2, n, C) fp32 of the workspace,
+// [receiver][parity][sender position]; parity = step % 2; fp8: 0 for int8
+// codes, 1 for e4m3; d a multiple of 8; puts: a uint64 counter of the
+// chunks put to another rank, or null. flags: the workspace's
+// R * 2 * n * ceil(C / 8) words then its abort word. epoch: this call's
+// (>= 1); timeout_ns bounds every wait; fault: 0, or a planted fault in
+// rank 0's chunk for position 1 of its group (1: its codes go to the other
+// parity's slot; 2: its first signal is never sent; 3: each scale is stored
+// at the row next to its own). Returns a cudaError_t code (0 = launched).
+extern "C" int tdt_ll_a2a(const void* x, void* out, void* q, void* scale, int R, int n, int st,
+                          int C, int d, int parity, int fp8, void* puts, void* flags,
+                          void* abort_word, unsigned long long epoch,
+                          unsigned long long timeout_ns, int fault, int device, void* stream) {
+  if (n < 1 || st < 1 || R < n * st || R % (n * st) || C < 1 || d < 8 || d % 8 ||
+      (parity != 0 && parity != 1) || (fp8 != 0 && fp8 != 1) || epoch == 0 || timeout_ns == 0 ||
       (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out) |
        reinterpret_cast<uintptr_t>(q)) % 16)
     return (int)cudaErrorInvalidValue;
@@ -184,7 +199,10 @@ extern "C" int tdt_ll_a2a(const void* x, void* out, void* q, void* scale, int n,
   P.out = static_cast<bf16*>(out);
   P.q = static_cast<unsigned char*>(q);
   P.scale = static_cast<float*>(scale);
+  P.puts = static_cast<unsigned long long*>(puts);
+  P.R = R;
   P.n = n;
+  P.st = st;
   P.C = C;
   P.d = d;
   P.parity = parity;
@@ -200,7 +218,7 @@ extern "C" int tdt_ll_a2a(const void* x, void* out, void* q, void* scale, int n,
   if (e != cudaSuccess) return (int)e;
   P.sync.err = g_err_dev;
   void* args[] = {&P};
-  const long long items = 2LL * n * n * P.n_rb;
+  const long long items = 2LL * R * n * P.n_rb;
   return (int)cooperative_launch(reinterpret_cast<const void*>(ll_a2a_kernel), kThreads, 0, items,
                                  args, device, static_cast<cudaStream_t>(stream));
 }

@@ -1,24 +1,33 @@
 """Expert-parallel MoE layer (counterpart of
 ``triton_dist_tpu/layers/ep_moe.py``: ``init``, ``param_specs``,
-``route``, ``fwd``, ``fwd_decode`` with its transports,
-``resolve_transport`` and ``DECODE_TRANSPORTS``), and the MoE weights and
-router the tensor-parallel regime (:mod:`~triton_dist_tpu_torch.layers.
-tp_moe`) shares.
+``route``, ``fwd``, ``fwd_2d``, ``fwd_fused``, ``fwd_decode`` with its
+transports, ``resolve_transport`` and ``DECODE_TRANSPORTS``), and the MoE
+weights and router the tensor-parallel regime (:mod:`~triton_dist_tpu_
+torch.layers.tp_moe`) shares.
 
 Over n simulated ranks (:mod:`~triton_dist_tpu_torch.parallel.mesh`; the
 activations carry the rank as their leading dimension) rank r owns
 experts ``[r·E/n, (r+1)·E/n)``: its shards are contiguous views of the one
 weight at a rank stride of ``E/n`` experts (:func:`param_specs`), never a
-copy. :func:`fwd` (prefill) routes each rank's own rows, dispatches them
-to the experts' owners (:func:`~triton_dist_tpu_torch.ops.ep_a2a.
-ep_dispatch`), runs every rank's grouped SwiGLU over what it received
-(:func:`expert_swiglu`) and combines back at the source
-(:func:`~triton_dist_tpu_torch.ops.ep_a2a.ep_combine`). :func:`fwd_decode`
-takes the replicated decode batch and one of JAX's transports: ``"ar"``
-(every rank's local experts over the whole batch, then a sum over ranks),
-``"ragged"`` (the exact-splits round trip), ``"ll"`` (the count-free
-fixed-slot exchange through the quantizing all-to-all, row 23, at step
-parities ``2·layer`` and ``2·layer + 1``) or ``"auto"``.
+copy; over an ``(outer, inner)`` mesh the ranks are outer-major, r =
+o·n_in + i, as JAX's ``EP2DContext`` orders them. :func:`fwd` (prefill)
+routes each rank's own rows, dispatches them to the experts' owners
+(:func:`~triton_dist_tpu_torch.ops.ep_a2a.ep_dispatch`), runs every rank's
+grouped SwiGLU over what it received (:func:`expert_swiglu`) and combines
+back at the source (:func:`~triton_dist_tpu_torch.ops.ep_a2a.ep_combine`);
+:func:`fwd_2d` does the same through the two-hop hierarchical dispatch
+(:func:`~triton_dist_tpu_torch.ops.ep_a2a.ep_dispatch_2d`), and
+:func:`fwd_fused` through the tile-fused kernels of
+:mod:`~triton_dist_tpu_torch.ops.ep_fused` (rows 25 and 26: capacity per
+(source, destination, expert), overflow dropped and counted).
+:func:`fwd_decode` takes the replicated decode batch and one of JAX's
+transports: ``"ar"`` (every rank's local experts over the whole batch,
+then a sum over ranks), ``"ragged"`` (the exact-splits round trip),
+``"ll"`` (the count-free fixed-slot exchange through the quantizing
+all-to-all, row 23, at step parities ``2·layer`` and ``2·layer + 1``),
+``"ll2d"`` (the same slots through the two-hop
+:func:`~triton_dist_tpu_torch.ops.low_latency.ll_a2a_2d` over an
+``EP2DContext``) or ``"auto"``.
 
 JAX runs the experts' grouped SwiGLU as ``ragged_dot``; the port runs it
 as row 17 (:func:`~triton_dist_tpu_torch.ops.group_gemm.
@@ -26,10 +35,8 @@ grouped_gemm_tiles`) in the row-tile layout of :func:`~triton_dist_tpu_
 torch.ops.ag_moe.prepare_expert_rows`: one launch over every rank for
 gate/up, one for down, each rank with its own tile map and count of used
 tiles, no host read. Not ported yet: hot-expert replicas (the server sets
-them, ROADMAP.md queue A item 8), ``"ll2d"`` and the hierarchical
-``fwd_2d`` (a two-axis simulated mesh, queue A item 5), ``fwd_fused``
-(rows 25-26, queue A item 5), ``tune_transport`` (the tune cache, queue A
-item 4) and the shared expert.
+them, ROADMAP.md queue A item 8), ``tune_transport`` (the tune cache,
+queue A item 4) and the shared expert (queue A item 6).
 
 The JAX package stores ``router`` as ``(d, E)``, ``w_gate``/``w_up`` as
 ``(E, d, f)`` and ``w_down`` as ``(E, f, d)`` and multiplies ``x @ w``.
@@ -41,7 +48,7 @@ The port stores each as ``(out_features, in_features)``, the layout
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict
 
 import torch
 import torch.nn.functional as F
@@ -50,9 +57,12 @@ from torch import nn
 from triton_dist_tpu_torch.layers.tp_attn import empty_param
 from triton_dist_tpu_torch.ops.ag_moe import (
     prepare_expert_rows, suggested_block_m, tiles_used)
-from triton_dist_tpu_torch.ops.ep_a2a import EPContext, ep_combine, ep_dispatch
+from triton_dist_tpu_torch.ops.ep_a2a import (
+    EP2DContext, EPContext, ep_combine, ep_combine_2d, ep_dispatch,
+    ep_dispatch_2d)
+from triton_dist_tpu_torch.ops.ep_fused import EPFusedContext, ep_moe_fused
 from triton_dist_tpu_torch.ops.group_gemm import grouped_gemm_tiles
-from triton_dist_tpu_torch.ops.low_latency import ll_a2a
+from triton_dist_tpu_torch.ops.low_latency import ll_a2a, ll_a2a_2d
 
 DECODE_TRANSPORTS = ("ar", "ragged", "ll", "ll2d", "auto")
 # The largest row tile of the decode transports' expert layout (a decode
@@ -147,40 +157,88 @@ def expert_swiglu(shards: Dict[str, torch.Tensor], rows: torch.Tensor,
         0, dst, y.reshape(-1, d))[:-1].view(n, r_rows, d)
 
 
-def _ranks(x: torch.Tensor, ctx: Optional[EPContext]):
+def _ranks(x: torch.Tensor, ctx):
     """(t, d) at one rank → (1, t, d); checks the rank count against the
-    context's axis."""
+    context's axis (both axes of an ``EP2DContext``)."""
     x = x[None] if x.dim() == 2 else x
-    if ctx is not None and ctx.mesh.size(ctx.axis) != x.shape[0]:
-        raise ValueError(f"x {tuple(x.shape)}: the EP context's {ctx.axis!r} "
-                         f"axis has {ctx.mesh.size(ctx.axis)} ranks")
+    if ctx is None:
+        return x
+    axis = ((ctx.outer_axis, ctx.inner_axis) if isinstance(ctx, EP2DContext)
+            else ctx.axis)
+    if ctx.mesh.size(axis) != x.shape[0]:
+        raise ValueError(f"x {tuple(x.shape)}: the EP context's {axis!r} "
+                         f"axis has {ctx.mesh.size(axis)} ranks")
     return x
+
+
+def _fwd_dispatched(params: MoE, x: torch.Tensor, ctx, dispatch, combine,
+                    *, topk: int, norm_topk_prob: bool,
+                    block_m: int) -> torch.Tensor:
+    """Route every rank's own rows, ``dispatch`` them to the experts'
+    owners, run every rank's :func:`expert_swiglu` over what it received
+    (row tile ``block_m``, capped by ``suggested_block_m`` for the t·K rows
+    a rank sends) and ``combine`` back at the source with the top-k
+    weights in fp32."""
+    xr = _ranks(x, ctx)
+    n, t, d = xr.shape
+    ids, w = route(params.router, xr.reshape(n * t, d), topk,
+                   norm_topk_prob=norm_topk_prob)
+    ids, w = ids.view(n, t, topk), w.view(n, t, topk)
+    recv_tok, recv_exp, state = dispatch(xr, ids, ctx)
+    y = expert_swiglu(param_specs(params, n), recv_tok, recv_exp,
+                      block_m=suggested_block_m(t * topk, 1,
+                                                ctx.experts_per_rank,
+                                                block_m))
+    out = combine(y, state, w, ctx)
+    return out[0] if x.dim() == 2 else out
 
 
 def fwd(params: MoE, x: torch.Tensor, ep_ctx: EPContext, *, topk: int,
         norm_topk_prob: bool = True, block_m: int = 256) -> torch.Tensor:
     """Prefill-path EP MoE: x (n, t, d), every rank's own rows (at one rank
-    (t, d)) → the same shape. Route, :func:`ep_dispatch`, every rank's
-    :func:`expert_swiglu` over its received rows (row tile ``block_m``,
-    capped by ``suggested_block_m`` for the t·K rows a rank sends),
-    :func:`ep_combine` with the top-k weights in fp32."""
-    xr = _ranks(x, ep_ctx)
+    (t, d)) → the same shape, through :func:`ep_dispatch` and
+    :func:`ep_combine`."""
+    return _fwd_dispatched(params, x, ep_ctx, ep_dispatch, ep_combine,
+                           topk=topk, norm_topk_prob=norm_topk_prob,
+                           block_m=block_m)
+
+
+def fwd_2d(params: MoE, x: torch.Tensor, ep2d_ctx: EP2DContext, *,
+           topk: int, norm_topk_prob: bool = True,
+           block_m: int = 256) -> torch.Tensor:
+    """Hierarchical EP forward: :func:`fwd` with the dispatch and combine
+    riding the two-hop schedule (:func:`~triton_dist_tpu_torch.ops.ep_a2a.
+    ep_dispatch_2d`: inner hop first, one aggregated outer exchange). x
+    (R, t, d), every rank's own rows → the same shape."""
+    return _fwd_dispatched(params, x, ep2d_ctx, ep_dispatch_2d,
+                           ep_combine_2d, topk=topk,
+                           norm_topk_prob=norm_topk_prob, block_m=block_m)
+
+
+def fwd_fused(params: MoE, x: torch.Tensor, ep_ctx: EPFusedContext, *,
+              topk: int, norm_topk_prob: bool = True):
+    """Mega-EP forward: the dispatch fused into the up-projection grouped
+    GEMM and the down projection fused into the combine
+    (:func:`~triton_dist_tpu_torch.ops.ep_fused.ep_moe_fused`, rows 25 and
+    26 on a CUDA tensor). x (n, t, d), every rank's own rows (at one rank
+    (t, d)). Returns ``(out of x's shape, num_dropped (n,) int32)``, the
+    assignments past the context's capacity per rank."""
+    xr = x[None] if x.dim() == 2 else x
     n, t, d = xr.shape
     ids, w = route(params.router, xr.reshape(n * t, d), topk,
                    norm_topk_prob=norm_topk_prob)
-    ids, w = ids.view(n, t, topk), w.view(n, t, topk)
-    recv_tok, recv_exp, state = ep_dispatch(xr, ids, ep_ctx)
-    e_loc = ep_ctx.experts_per_rank
-    y = expert_swiglu(param_specs(params, n), recv_tok, recv_exp,
-                      block_m=suggested_block_m(t * topk, 1, e_loc, block_m))
-    out = ep_combine(y, state, w, ep_ctx)
-    return out[0] if x.dim() == 2 else out
+    sh = param_specs(params, n)
+    out, dropped = ep_moe_fused(xr, ids.view(n, t, topk), w.view(n, t, topk),
+                                sh["w_gate"], sh["w_up"], sh["w_down"],
+                                ep_ctx)
+    return (out[0], dropped[0]) if x.dim() == 2 else (out, dropped)
 
 
 def resolve_transport(transport: str, *, ctx, batch: int, hidden: int,
                       dtype, topk: int) -> str:
     """JAX's host-side resolution of the decode ``transport`` knob:
-    explicit values pass through; ``"auto"`` is ``"ll"`` on a flat
+    explicit values pass through; ``"auto"`` is ``"ll2d"`` on a
+    hierarchical :class:`EP2DContext`, ``"ll"`` on a flat
     :class:`EPContext` and ``"ar"`` without one. JAX first looks up a
     tuned winner for (mesh, batch, hidden, dtype); the port has no tune
     cache yet (``tune.py``, ROADMAP.md queue A item 4), so ``"auto"`` takes
@@ -188,6 +246,8 @@ def resolve_transport(transport: str, *, ctx, batch: int, hidden: int,
     del batch, hidden, dtype, topk          # the tune cache's key
     if transport != "auto":
         return transport
+    if isinstance(ctx, EP2DContext):
+        return "ll2d"
     if ctx is None or not isinstance(ctx, EPContext):
         return "ar"
     return "ll"
@@ -195,20 +255,17 @@ def resolve_transport(transport: str, *, ctx, batch: int, hidden: int,
 
 def fwd_decode(params: MoE, x: torch.Tensor, *, topk: int, axis="ep",
                norm_topk_prob: bool = True, transport: str = "ar",
-               ep_ctx: Optional[EPContext] = None, replicas=None,
-               layer: int = 0) -> torch.Tensor:
+               ep_ctx=None, replicas=None, layer: int = 0) -> torch.Tensor:
     """Replicated-token EP decode: x (n, B, d), the same batch on every
     rank (at one rank (B, d)) → the same on every rank. ``transport`` is
     JAX's knob (module docstring); ``"ragged"`` and ``"ll"`` need a flat
-    ``ep_ctx``; ``layer`` keys the ``"ll"`` step parities (``2·layer``,
-    ``2·layer + 1``). ``axis`` names the ranks' axis; a hierarchical
-    (tuple) axis, ``"ll2d"`` and ``replicas`` raise (ROADMAP.md queue A
-    items 5 and 8). JAX's ``counts`` (per-expert load telemetry for the
-    server) waits with ``with_expert_counts`` (queue A item 5)."""
-    if isinstance(axis, (tuple, list)):
-        raise ValueError(f"axis={tuple(axis)}: hierarchical expert sharding "
-                         "needs a two-axis simulated mesh (ROADMAP.md queue A "
-                         "item 5)")
+    ``ep_ctx``, ``"ll2d"`` an :class:`EP2DContext`; ``layer`` keys the
+    step parities (``2·layer``, ``2·layer + 1``). ``axis`` names the
+    ranks' axis, one or an ``(outer, inner)`` pair (outer-major ranks).
+    ``replicas`` raise (ROADMAP.md queue A item 8). JAX's ``counts``
+    (per-expert load telemetry for the server) waits with
+    ``with_expert_counts`` (queue A item 5)."""
+    del axis              # the ranks are x's leading dimension
     xr = _ranks(x, ep_ctx)
     n, b, d = xr.shape
     # Every rank routes the same rows: route rank 0's copy once.
@@ -220,11 +277,17 @@ def fwd_decode(params: MoE, x: torch.Tensor, *, topk: int, axis="ep",
         raise ValueError(f"transport must be one of {DECODE_TRANSPORTS}, "
                          f"got {transport!r}")
     if transport == "ll2d":
-        raise ValueError(
-            "transport='ll2d' needs a hierarchical EP2DContext "
-            "(create_ep2d_context) — flat meshes ride 'll'; the port has no "
-            "two-axis simulated mesh yet (ROADMAP.md queue A item 5)")
-    if transport == "ar":
+        if not isinstance(ep_ctx, EP2DContext):
+            raise ValueError(
+                "transport='ll2d' needs a hierarchical EP2DContext "
+                "(create_ep2d_context) — flat meshes ride 'll'")
+        if replicas is not None:
+            raise ValueError(
+                "hot-expert replication rides the flat 'll' transport; "
+                "transport='ll2d' does not consult replicas")
+        out = _fwd_decode_slots(params, xr, ids, w, _ll2d_exchange(ep_ctx),
+                                layer=layer)
+    elif transport == "ar":
         out = _fwd_decode_ar(params, xr, ids, w)
     else:
         if ep_ctx is None or not isinstance(ep_ctx, EPContext):
@@ -234,8 +297,13 @@ def fwd_decode(params: MoE, x: torch.Tensor, *, topk: int, axis="ep",
         if transport == "ragged":
             out = _fwd_decode_ragged(params, xr, ids, w, ctx=ep_ctx)
         else:
-            out = _fwd_decode_ll(params, xr, ids, w, ctx=ep_ctx,
-                                 replicas=replicas, layer=layer)
+            if replicas is not None:
+                raise ValueError(
+                    "hot-expert replicas on the 'll' transport are not "
+                    "ported yet: the server sets them (ROADMAP.md queue A "
+                    "item 8)")
+            out = _fwd_decode_slots(params, xr, ids, w, _ll_exchange(ep_ctx),
+                                    layer=layer)
     return out[0] if x.dim() == 2 else out
 
 
@@ -278,44 +346,54 @@ def _fwd_decode_ragged(params: MoE, x: torch.Tensor, ids: torch.Tensor,
     return ep_combine(y, state, w.expand(n, b, k), ctx)
 
 
-def _fwd_decode_ll(params: MoE, x: torch.Tensor, ids: torch.Tensor,
-                   w: torch.Tensor, *, ctx: EPContext, replicas=None,
-                   layer: int = 0) -> torch.Tensor:
-    """``"ll"``: the count-free fixed-slot exchange. Assignment ``j = t·K +
-    k`` owns slot j of a (n, B·K, d) wire buffer: its owner's chunk holds
-    the token there, every other chunk a zero row. The exchange is
-    :func:`~triton_dist_tpu_torch.ops.low_latency.ll_a2a` (row 23, int8
-    codes unless the context's ``wire_dtype`` picks fp8) at step
-    ``2·layer``; each rank takes the chunk addressed through itself (every
-    sender staged the same slots), runs its grouped SwiGLU on its own
-    slots, and broadcasts its rows back through the same exchange at step
-    ``2·layer + 1``; each assignment's output is read from its owner's
-    chunk and combined in fp32."""
-    if replicas is not None:
-        raise ValueError(
-            "hot-expert replicas on the 'll' transport are not ported yet: "
-            "the server sets them (ROADMAP.md queue A item 8)")
-    mesh, axis = ctx.mesh, ctx.axis
+def _ll_exchange(ctx: EPContext):
+    """The flat ``"ll"`` exchange: (n, n, B·K, d) slots → received, row 23
+    (int8 codes unless the context's ``wire_dtype`` picks fp8)."""
+    wire = ctx.wire_dtype if ctx.wire_dtype is not None else torch.int8
+    return lambda send, step: ll_a2a(send, ctx=ctx.mesh, axis=ctx.axis,
+                                     step=step, wire_dtype=wire)
+
+
+def _ll2d_exchange(ctx: EP2DContext):
+    """The ``"ll2d"`` exchange: the same slots over the two hops of
+    :func:`~triton_dist_tpu_torch.ops.low_latency.ll_a2a_2d`, quantized
+    once per hop."""
+    wire = ctx.wire_dtype if ctx.wire_dtype is not None else torch.int8
+    return lambda send, step: ll_a2a_2d(
+        send, ctx=ctx.mesh, outer_axis=ctx.outer_axis,
+        inner_axis=ctx.inner_axis, step=step, wire_dtype=wire, impl=ctx.impl)
+
+
+def _fwd_decode_slots(params: MoE, x: torch.Tensor, ids: torch.Tensor,
+                      w: torch.Tensor, exchange, *,
+                      layer: int = 0) -> torch.Tensor:
+    """``"ll"`` / ``"ll2d"``: the count-free fixed-slot exchange. Assignment
+    ``j = t·K + k`` owns slot j of a (n, B·K, d) wire buffer: its owner's
+    chunk holds the token there, every other chunk a zero row. The
+    ``exchange`` runs at step ``2·layer``; each rank takes the chunk
+    addressed through itself (every sender staged the same slots), runs its
+    grouped SwiGLU on its own slots, and broadcasts its rows back through
+    the same exchange at step ``2·layer + 1``; each assignment's output is
+    read from its owner's chunk and combined in fp32."""
     n, b, d = x.shape
     k = ids.shape[1]
-    e_loc = ctx.experts_per_rank
-    wire = ctx.wire_dtype if ctx.wire_dtype is not None else torch.int8
+    sh = param_specs(params, n)
+    e_loc = sh["w_gate"].shape[1]
     flat_e = ids.reshape(-1).long()                           # (BK,)
     dest = flat_e // e_loc
     slots = torch.arange(b * k, device=x.device)
     send = x.new_zeros((n, n, b * k, d))
     send[:, dest, slots] = x.repeat_interleave(k, dim=1)
-    recv = ll_a2a(send, ctx=mesh, axis=axis, step=2 * layer,
-                  wire_dtype=wire)                            # (n, n, BK, d)
+    recv = exchange(send, 2 * layer)                          # (n, n, BK, d)
     ranks = torch.arange(n, device=x.device)
     tok = recv[ranks, ranks]                                  # (n, BK, d)
     mine = dest[None] == ranks[:, None]
     loc = torch.where(mine, (flat_e % e_loc)[None], -1).to(torch.int32)
-    y = expert_swiglu(param_specs(params, n), tok, loc,
+    y = expert_swiglu(sh, tok, loc,
                       block_m=suggested_block_m(b * k, 1, e_loc,
                                                 DECODE_BLOCK_M))
-    back = ll_a2a(y[:, None].expand(n, n, b * k, d).contiguous(), ctx=mesh,
-                  axis=axis, step=2 * layer + 1, wire_dtype=wire)
+    back = exchange(y[:, None].expand(n, n, b * k, d).contiguous(),
+                    2 * layer + 1)
     gathered = back[ranks[:, None], dest[None], slots[None]]  # (n, BK, d)
     return torch.einsum("nbkd,bk->nbd", gathered.view(n, b, k, d).float(),
                         w.float()).to(x.dtype)

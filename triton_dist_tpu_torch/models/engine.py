@@ -26,11 +26,16 @@ axis): every prefill layer dispatches and combines through the
 all-to-all kernel (drop-free: its ragged form; ``ep_capacity``: its dense
 form) and runs the experts through the grouped GEMM kernel, and decode
 takes ``ep_transport`` (``"ll"``: the quantizing all-to-all kernel twice a
-layer). :meth:`Engine.serving` serves a dense model at tp > 1 too: the
+layer). Over ``axis=("dp", "tp")`` with ``ep_axis=("dp", "tp")`` the
+experts shard over both axes (JAX's ``EP2DContext``): the prefill's
+dispatch and combine take two ragged hops each, inner then outer, and
+``ep_transport="ll2d"`` decodes through the two-hop quantizing exchange.
+:meth:`Engine.serving` serves a dense model at tp > 1 too: the
 paged steps run the same ranks on a replicated residual, GEMM+AR (or the
 plain sums in ``"xla"``) for the row-parallel products, and the pools
 hold every rank's KV heads. The resilience knobs (``fallback``,
-``probe``, ``timeout_s``), a hierarchical ``ep_axis`` (queue A item 5),
+``probe``, ``timeout_s``), tensor-parallel experts or a flat EP over an
+``(outer, inner)`` axis and an ``ep`` axis of its own (queue A item 5),
 and MoE, EP and an ``(outer, inner)`` axis on the paged serving lanes at
 tp > 1 (queue A item 8) are not ported yet (ROADMAP.md).
 """
@@ -48,7 +53,8 @@ from triton_dist_tpu_torch.models import dense, qwen_moe
 from triton_dist_tpu_torch.models.config import ModelConfig
 from triton_dist_tpu_torch.models.kv_cache import KVCache
 from triton_dist_tpu_torch.ops import tp_gemm
-from triton_dist_tpu_torch.ops.ep_a2a import create_ep_context
+from triton_dist_tpu_torch.ops.ep_a2a import (create_ep2d_context,
+                                              create_ep_context)
 from triton_dist_tpu_torch.parallel.mesh import make_mesh
 from triton_dist_tpu_torch.shmem import workspace as shmem
 from triton_dist_tpu_torch.utils.device import resolve_device
@@ -68,8 +74,9 @@ class Engine:
     (None: the drop-free dispatch; C: C rows per (source, destination)
     pair, overflow dropped and counted), ``ep_transport`` (the decode
     transport, one of ``DECODE_TRANSPORTS``, ``self.ep_transport``; None is
-    ``"ar"``), ``ep_axis`` (None or ``"tp"``; a hierarchical tuple raises,
-    ROADMAP.md queue A item 5). ``params``: the model's weights
+    ``"ar"``), ``ep_axis`` (None or ``"tp"``; over an ``(outer, inner)``
+    ``axis`` the same pair, which builds JAX's ``EP2DContext``: drop-free,
+    so ``ep_capacity`` stays None). ``params``: the model's weights
     (:class:`~triton_dist_tpu_torch.models.dense.DenseLM` or
     :class:`~triton_dist_tpu_torch.models.qwen_moe.MoELM`) on ``device``
     in ``dtype`` (for example from
@@ -82,9 +89,9 @@ class Engine:
     ``mesh``: a :class:`~triton_dist_tpu_torch.parallel.mesh.MeshContext`
     (``make_mesh(tp=n)``); ``None`` is one rank. ``axis``: the mesh axis
     the model shards over, JAX's knob: ``"tp"``, or an ``(outer, inner)``
-    tuple such as ``("dp", "tp")`` (a dense model only; the hierarchical
-    MoE dispatch is ROADMAP.md queue A item 5); it must span every rank of
-    the mesh (data-parallel replicas are not ported). ``self.tp`` is its
+    tuple such as ``("dp", "tp")`` (a MoE model over it runs expert
+    parallel over the same pair); it must span every rank of the mesh
+    (data-parallel replicas are not ported). ``self.tp`` is its
     size. At tp > 1 the engine runs
     on the mesh's device (``device`` may name it again), and
     ``block_m``/``block_n``/``block_k`` are the JAX contexts' block knobs
@@ -143,21 +150,29 @@ class Engine:
                     raise ValueError(
                         "ep_transport is an EP decode knob; it needs "
                         f"moe_impl='ep' (got {moe_impl!r})")
-            if isinstance(self.axis, tuple):
-                raise ValueError(
-                    f"axis={self.axis}: a MoE model over an (outer, inner) "
-                    "mesh takes the hierarchical EP dispatch (JAX's "
-                    "ep_axis), ROADMAP.md queue A item 5")
             if isinstance(ep_axis, (tuple, list)):
-                raise ValueError(
-                    f"ep_axis={tuple(ep_axis)}: the hierarchical EP dispatch "
-                    "needs a two-axis simulated mesh (ROADMAP.md queue A "
-                    "item 5)")
-            if ep_axis not in (None, "tp"):
+                ep_axis = tuple(ep_axis)
+                if ep_axis != self.axis:
+                    raise ValueError(
+                        f"ep_axis={ep_axis}: the hierarchical EP dispatch "
+                        "shards the experts over the engine's own (outer, "
+                        f"inner) axis (axis={self.axis!r})")
+                if ep_capacity is not None:
+                    raise ValueError(
+                        "ep_capacity caps the flat EP dispatch; the "
+                        "hierarchical one (a tuple ep_axis) is drop-free")
+            elif ep_axis not in (None, "tp"):
                 raise ValueError(
                     f"ep_axis={ep_axis!r}: the port's experts shard over "
                     "the mesh's tp ranks (None or 'tp'); a mesh with an ep "
                     "axis of its own is ROADMAP.md queue A item 5")
+            if isinstance(self.axis, tuple) and not (
+                    moe_impl == "ep" and ep_axis == self.axis):
+                raise ValueError(
+                    f"axis={self.axis}: a MoE model over an (outer, inner) "
+                    f"mesh runs moe_impl='ep' with ep_axis={self.axis}; "
+                    "tensor-parallel experts or a flat EP over the pair are "
+                    "ROADMAP.md queue A item 5")
         elif moe_impl is not None:
             raise ValueError(
                 f"moe_impl={moe_impl!r} given, but model "
@@ -179,9 +194,8 @@ class Engine:
         if self.tp > 1:
             ctxs = dense.make_fwd_contexts(mesh, self.axis, block_m, block_n,
                                            block_k)
-            self._prefill_kw = {"mesh": mesh, "ctxs": ctxs}
-            if model is dense:
-                self._prefill_kw["axis"] = self.axis
+            self._prefill_kw = {"mesh": mesh, "ctxs": ctxs,
+                                "axis": self.axis}
             self._decode_kw = dict(self._prefill_kw)
         else:
             # The fused expert layout's row tile: only the MoE prefill
@@ -190,14 +204,23 @@ class Engine:
                 {"ctxs": dense.FwdContexts(block_m=block_m)}
                 if model is qwen_moe else {})
             self._decode_kw = {}
-        # JAX's EPContext over the tp axis (one rank without a mesh).
+        # JAX's EPContext over the tp axis (one rank without a mesh), or
+        # its EP2DContext over the (outer, inner) pair.
         self.ep_ctx = None
         self.ep_transport = ep_transport if moe_impl == "ep" else None
         if moe_impl == "ep":
-            self.ep_ctx = create_ep_context(
-                mesh if mesh is not None else make_mesh(device=self.device),
-                num_experts=cfg.num_experts, topk=cfg.num_experts_per_tok,
-                capacity=ep_capacity, axis="tp")
+            if isinstance(self.axis, tuple):
+                self.ep_ctx = create_ep2d_context(
+                    mesh, num_experts=cfg.num_experts,
+                    topk=cfg.num_experts_per_tok, outer_axis=self.axis[0],
+                    inner_axis=self.axis[1])
+            else:
+                self.ep_ctx = create_ep_context(
+                    mesh if mesh is not None
+                    else make_mesh(device=self.device),
+                    num_experts=cfg.num_experts,
+                    topk=cfg.num_experts_per_tok, capacity=ep_capacity,
+                    axis="tp")
             ep_kw = {"moe_impl": "ep", "ep_ctx": self.ep_ctx}
             self._prefill_kw.update(ep_kw)
             self._decode_kw.update(ep_kw, transport=ep_transport)

@@ -20,14 +20,17 @@ models. Two regimes, JAX's ``moe_impl``:
   ``fwd`` gathers n copies of it and computes each: the port computes one,
   through ``fwd_ar``, the same values.
 - ``"ep"``: the experts sharded by expert over the same ranks (an
-  ``ep_ctx`` over the ``tp`` axis, as JAX's engine builds it), the
-  dense-cache functions only: the prefill's FFN through
-  :func:`~triton_dist_tpu_torch.layers.ep_moe.fwd` on the rows each rank
-  holds (token-sharded (n, t/n, d) in ``"xla"``/``"fused"``, replicated
-  (n, t, d) in ``"fused_ar"``, where every owner receives n copies, as in
-  JAX), decode through :func:`~triton_dist_tpu_torch.layers.ep_moe.
-  fwd_decode` with the ``transport`` knob (the ``"ll"`` parities keyed by
-  the layer index).
+  ``ep_ctx`` over the ``tp`` axis, as JAX's engine builds it, or an
+  ``EP2DContext`` over an ``(outer, inner)`` axis pair, the trunk sharded
+  over the same pair with ``axis=``), the dense-cache functions only: the
+  prefill's FFN through :func:`~triton_dist_tpu_torch.layers.ep_moe.fwd`
+  (:func:`~triton_dist_tpu_torch.layers.ep_moe.fwd_2d` for the pair) on
+  the rows each rank holds (token-sharded (n, t/n, d) in
+  ``"xla"``/``"fused"``, replicated (n, t, d) in ``"fused_ar"``, where
+  every owner receives n copies, as in JAX), decode through
+  :func:`~triton_dist_tpu_torch.layers.ep_moe.fwd_decode` with the
+  ``transport`` knob (the ``"ll"``/``"ll2d"`` parities keyed by the layer
+  index).
 
 Not ported yet: the shared expert and the per-step expert counts of the
 layer path (``with_expert_counts``, ROADMAP.md queue A item 5), and the
@@ -46,6 +49,7 @@ from triton_dist_tpu_torch.layers import ep_moe, tp_attn, tp_moe
 from triton_dist_tpu_torch.layers.tp_attn import empty_param
 from triton_dist_tpu_torch.models import dense
 from triton_dist_tpu_torch.models.config import ModelConfig
+from triton_dist_tpu_torch.ops.ep_a2a import EP2DContext
 
 
 class MoEDecoderLayer(nn.Module):
@@ -123,8 +127,10 @@ def param_specs(params: MoELM, n: int, *, moe_impl: str = "tp"):
     """Every layer's expert shards over n ranks in the ``moe_impl`` regime,
     as views of the one weight (JAX's ``param_specs`` cuts, no copy):
     :func:`tp_moe.param_specs` (ffn rows/columns) or
-    :func:`ep_moe.param_specs` (experts). Attention's shards are the dense
-    model's (:mod:`~triton_dist_tpu_torch.ops.tp_gemm`)."""
+    :func:`ep_moe.param_specs` (experts; over an ``(outer, inner)`` pair,
+    JAX's ``ep_axis=(outer, inner)``, n = n_o·n_in outer-major ranks: the
+    same views). Attention's shards are the dense model's
+    (:mod:`~triton_dist_tpu_torch.ops.tp_gemm`)."""
     specs = tp_moe.param_specs if moe_impl == "tp" else ep_moe.param_specs
     return [specs(layer.moe, n) for layer in params.layers]
 
@@ -134,7 +140,8 @@ def moe_ffn(moe: ep_moe.MoE, h: torch.Tensor, cfg: ModelConfig, *,
             ep_ctx=None) -> torch.Tensor:
     """One prefill MoE FFN block in JAX's dispatch. ``moe_impl="ep"``: the
     expert-parallel layer over ``ep_ctx`` on the rows each rank holds, in
-    every mode (row tile ``ctxs.block_m``). ``"tp"``: ``mode="fused"``
+    every mode (row tile ``ctxs.block_m``; the two-hop :func:`ep_moe.fwd_2d`
+    for an ``EP2DContext``). ``"tp"``: ``mode="fused"``
     runs the fused pipeline (:func:`tp_moe.fwd_fused`; at tp > 1 over
     ``ctxs.ag``'s mesh), the other modes :func:`tp_moe.fwd`. The row tile
     is the fused context's (``ctxs.ag.block_m`` at tp > 1, as JAX's engine
@@ -143,9 +150,9 @@ def moe_ffn(moe: ep_moe.MoE, h: torch.Tensor, cfg: ModelConfig, *,
     replicated (n, t, d) in ``"fused_ar"``, where :func:`tp_moe.fwd_ar`
     gives the values of JAX's ``fwd`` on its n gathered copies."""
     if moe_impl == "ep":
-        return ep_moe.fwd(moe, h, ep_ctx, topk=cfg.num_experts_per_tok,
-                          norm_topk_prob=cfg.norm_topk_prob,
-                          block_m=ctxs.block_m)
+        fwd = ep_moe.fwd_2d if isinstance(ep_ctx, EP2DContext) else ep_moe.fwd
+        return fwd(moe, h, ep_ctx, topk=cfg.num_experts_per_tok,
+                   norm_topk_prob=cfg.norm_topk_prob, block_m=ctxs.block_m)
     kw = dict(topk=cfg.num_experts_per_tok, num_experts=cfg.num_experts,
               norm_topk_prob=cfg.norm_topk_prob)
     ranks = h.dim() == 3
@@ -170,45 +177,48 @@ def _moe_block(layer: MoEDecoderLayer, h: torch.Tensor, cfg: ModelConfig, *,
 
 def prefill(params: MoELM, input_ids: torch.Tensor, cfg: ModelConfig, *,
             mode: str = "xla", ctxs: dense.FwdContexts = dense.FwdContexts(),
-            max_len: Optional[int] = None, mesh=None, moe_impl: str = "tp",
-            ep_ctx=None):
+            max_len: Optional[int] = None, mesh=None, axis="tp",
+            moe_impl: str = "tp", ep_ctx=None):
     """:func:`~triton_dist_tpu_torch.models.dense.prefill` with the MoE
     block: ``(last-position logits (B, vocab), KVCache)``; ``mesh`` with
-    tp > 1: n simulated ranks, fused ops from ``ctxs``; ``moe_impl`` /
-    ``ep_ctx``: the experts' regime (:func:`moe_ffn`)."""
+    tp > 1 along ``axis`` (one axis or an ``(outer, inner)`` pair): n
+    simulated ranks, fused ops from ``ctxs``; ``moe_impl`` / ``ep_ctx``:
+    the experts' regime (:func:`moe_ffn`)."""
     ffn = functools.partial(_moe_block, cfg=cfg, mode=mode, ctxs=ctxs,
                             moe_impl=moe_impl, ep_ctx=ep_ctx)
     return dense.prefill(params, input_ids, cfg, mode=mode,
-                         max_len=max_len, ffn_fn=ffn, mesh=mesh, ctxs=ctxs)
+                         max_len=max_len, ffn_fn=ffn, mesh=mesh, ctxs=ctxs,
+                         axis=axis)
 
 
 def forward_tokens(params: MoELM, input_ids: torch.Tensor, cfg: ModelConfig,
                    *, mode: str = "xla",
                    ctxs: dense.FwdContexts = dense.FwdContexts(),
-                   mesh=None, moe_impl: str = "tp",
+                   mesh=None, axis="tp", moe_impl: str = "tp",
                    ep_ctx=None) -> torch.Tensor:
     """Logits of every position (B, S, vocab), the MoE block in the
-    trunk; ``mesh``/``ctxs``/``moe_impl``/``ep_ctx`` as in
+    trunk; ``mesh``/``ctxs``/``axis``/``moe_impl``/``ep_ctx`` as in
     :func:`prefill`."""
     ffn = functools.partial(_moe_block, cfg=cfg, mode=mode, ctxs=ctxs,
                             moe_impl=moe_impl, ep_ctx=ep_ctx)
     return dense.forward_tokens(params, input_ids, cfg, mode=mode,
-                                ffn_fn=ffn, mesh=mesh, ctxs=ctxs)
+                                ffn_fn=ffn, mesh=mesh, ctxs=ctxs, axis=axis)
 
 
 def decode_step(params: MoELM, token_ids: torch.Tensor, cache,
                 cfg: ModelConfig, *, mode: str = "xla", mesh=None,
-                ctxs: Optional[dense.FwdContexts] = None,
+                ctxs: Optional[dense.FwdContexts] = None, axis="tp",
                 moe_impl: str = "tp", ep_ctx=None,
                 transport: Optional[str] = None):
     """:func:`~triton_dist_tpu_torch.models.dense.decode_step` with the
     small-batch MoE FFN (:func:`moe_ffn_decode`, on the replicated residual
-    at tp > 1; the layer index keys the ``"ll"`` parities)."""
+    at tp > 1; the layer index keys the ``"ll"``/``"ll2d"`` parities);
+    ``axis`` as in :func:`prefill`."""
     ffn = functools.partial(_moe_ffn_decode, cfg=cfg, moe_impl=moe_impl,
                             ep_ctx=ep_ctx, transport=transport,
                             _layer_cursor=[0])
     return dense.decode_step(params, token_ids, cache, cfg, mode=mode,
-                             ffn_fn=ffn, mesh=mesh, ctxs=ctxs)
+                             ffn_fn=ffn, mesh=mesh, ctxs=ctxs, axis=axis)
 
 
 def moe_ffn_decode(moe: ep_moe.MoE, h: torch.Tensor, cfg: ModelConfig, *,
@@ -222,7 +232,6 @@ def moe_ffn_decode(moe: ep_moe.MoE, h: torch.Tensor, cfg: ModelConfig, *,
     ``"ar"``, as in JAX) at layer ``layer``."""
     if moe_impl == "ep":
         return ep_moe.fwd_decode(moe, h, topk=cfg.num_experts_per_tok,
-                                 axis=ep_ctx.axis if ep_ctx else "tp",
                                  norm_topk_prob=cfg.norm_topk_prob,
                                  transport=transport or "ar", ep_ctx=ep_ctx,
                                  layer=layer)

@@ -1,8 +1,10 @@
 """Expert-parallel dispatch/combine over simulated ranks (counterpart of
-the flat half of ``triton_dist_tpu/ops/ep_a2a.py``: ``EPContext``,
-``create_ep_context``, ``DispatchState``, ``RaggedDispatchState``,
-``ExchangeState``, ``ragged_exchange``, ``ragged_return``,
-``ep_dispatch``, ``ep_combine`` and ``ep_moe_ref``).
+``triton_dist_tpu/ops/ep_a2a.py``: ``EPContext``, ``create_ep_context``,
+``DispatchState``, ``RaggedDispatchState``, ``ExchangeState``,
+``ragged_exchange``, ``ragged_return``, ``ep_dispatch``, ``ep_combine``,
+``ep_moe_ref`` and the hierarchical ``EP2DContext``,
+``create_ep2d_context``, ``Dispatch2DState``, ``ep_dispatch_2d`` and
+``ep_combine_2d``).
 
 The ranks are the leading dimension of every operand
 (:mod:`~triton_dist_tpu_torch.parallel.mesh`): ``tokens`` (n, T, d) and
@@ -31,9 +33,16 @@ Two modes, as in JAX:
 ``impl="xla"`` keeps JAX's meaning, the transport's plain composition
 (``all_to_all_ref`` / the ragged emulation) even on a CUDA tensor; the
 default ``"pallas"`` launches the kernels there. On a CPU tensor both are
-the plain versions. The hierarchical ``EP2DContext`` / ``ep_dispatch_2d``
-raise: a two-axis simulated mesh does not exist yet (ROADMAP.md queue A
-item 5).
+the plain versions.
+
+The hierarchical half (``EP2DContext``, ``create_ep2d_context``,
+``Dispatch2DState``, ``ep_dispatch_2d``, ``ep_combine_2d``) runs over an
+``(outer, inner)`` mesh such as ``make_mesh(dp=2, tp=2)``, rank r = o·n_in
++ i owning experts ``[r·E/n, (r+1)·E/n)``: the dispatch is two drop-free
+hops, the inner one landing each assignment on the member of its group
+whose inner index matches the owner's, then one outer hop per group. Each
+hop is one ragged row 18 launch over every rank (a group's chunks to
+another group are empty), each group's rows in JAX's order.
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from triton_dist_tpu_torch.ops import tp_gemm
 from triton_dist_tpu_torch.ops.all_to_all import (
     all_to_all, all_to_all_ref, ragged_all_to_all, ragged_all_to_all_ref)
 from triton_dist_tpu_torch.ops.low_latency import (
@@ -390,17 +400,103 @@ def ep_moe_ref(tokens: torch.Tensor, topk_ids: torch.Tensor,
                         topk_weights.float()).to(tokens.dtype)
 
 
-_NO_2D = ("the hierarchical (outer, inner) EP dispatch needs a two-axis "
-          "simulated mesh, which the port does not have yet (ROADMAP.md "
-          "queue A item 5)")
-
-
+@dataclasses.dataclass(frozen=True)
 class EP2DContext:
-    """JAX's hierarchical EP geometry: not ported (raises)."""
+    """JAX's hierarchical EP geometry over an ``(outer, inner)`` mesh:
+    expert e lives on rank ``e // experts_per_rank``, rank = o·n_in + i.
+    ``wire_dtype`` (None: int8) and ``impl`` feed the ``"ll2d"`` decode
+    transport (:func:`~triton_dist_tpu_torch.ops.low_latency.ll_a2a_2d`:
+    ``"kernel"``, row 23, or ``"xla"``, the same wire payload through the
+    plain transport). The prefill's ragged hops always take row 18."""
+    mesh: MeshContext
+    outer_axis: str = "dcn"
+    inner_axis: str = "ici"
+    num_experts: int = 8
+    topk: int = 2
+    wire_dtype: Optional[torch.dtype] = None
+    impl: str = "kernel"
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_NO_2D)
+    @property
+    def experts_per_rank(self) -> int:
+        return self.num_experts // self.mesh.size((self.outer_axis,
+                                                   self.inner_axis))
 
 
-def ep_dispatch_2d(*args, **kwargs):
-    raise NotImplementedError(_NO_2D)
+def create_ep2d_context(mesh: MeshContext, *, num_experts: int, topk: int,
+                        outer_axis: str = "dcn", inner_axis: str = "ici",
+                        wire_dtype=None, impl: str = "kernel") -> EP2DContext:
+    """Build the hierarchical EP context (JAX's checks; the pair must be two
+    axes of ``mesh`` in its order spanning all its ranks)."""
+    tp_gemm.check_axis("create_ep2d_context", mesh, (outer_axis, inner_axis))
+    n = mesh.size((outer_axis, inner_axis))
+    if num_experts % n:
+        raise ValueError(f"num_experts={num_experts} not divisible by "
+                         f"{outer_axis}x{inner_axis}={n}")
+    return EP2DContext(mesh=mesh, outer_axis=outer_axis,
+                       inner_axis=inner_axis, num_experts=num_experts,
+                       topk=topk, wire_dtype=wire_dtype, impl=impl)
+
+
+@dataclasses.dataclass
+class Dispatch2DState:
+    """Reverse-route metadata: one :class:`ExchangeState` per hop (every
+    rank's, (R, R) counts whose group blocks are JAX's (n, n) ones) and the
+    rows each hop started from."""
+    inner: ExchangeState
+    outer: ExchangeState
+    inner_rows: int
+    outer_rows: int
+
+
+def _axis_peers(mesh: MeshContext, axis: str, pos: torch.Tensor):
+    """(R, N) positions along ``axis`` → the flat ranks there, each row's
+    rank r keeping its other coordinates (-1 stays -1)."""
+    n, st = mesh.size(axis), mesh.stride(axis)
+    r = torch.arange(pos.shape[0], device=pos.device)[:, None]
+    return torch.where(pos < 0, -1, r + (pos - r // st % n) * st).to(
+        torch.int32)
+
+
+def _hops_kw(ctx: EP2DContext) -> dict:
+    return dict(ctx=ctx.mesh, axis=(ctx.outer_axis, ctx.inner_axis))
+
+
+def ep_dispatch_2d(tokens: torch.Tensor, topk_ids: torch.Tensor,
+                   ctx: EP2DContext):
+    """Two-hop drop-free dispatch: (o, i) → (o, i') over the inner axis,
+    then (o, i') → (o', i') over the outer one. tokens (R, T, d), topk_ids
+    (R, T, K) global expert ids. Returns ``(recv_tokens (R, R·T·K, d),
+    recv_expert (R, R·T·K) local expert or -1, state)``."""
+    mesh = ctx.mesh
+    r_all, t, _ = tokens.shape
+    k = topk_ids.shape[-1]
+    n_in = mesh.size(ctx.inner_axis)
+    owner = (topk_ids // ctx.experts_per_rank).reshape(r_all, t * k)
+    local = (topk_ids % ctx.experts_per_rank).reshape(r_all, t * k).to(
+        torch.int32)
+    kw = _hops_kw(ctx)
+    (tok1, dcn1, exp1), st_inner = ragged_exchange(
+        (tokens.repeat_interleave(k, dim=1), (owner // n_in).to(torch.int32),
+         local), _axis_peers(mesh, ctx.inner_axis, owner % n_in),
+        (0, -1, -1), recv_rows=n_in * t * k, **kw)
+    (tok2, exp2), st_outer = ragged_exchange(
+        (tok1, exp1), _axis_peers(mesh, ctx.outer_axis, dcn1), (0, -1),
+        recv_rows=mesh.size(ctx.outer_axis) * tok1.shape[1], **kw)
+    return tok2, exp2, Dispatch2DState(inner=st_inner, outer=st_outer,
+                                       inner_rows=t * k,
+                                       outer_rows=tok1.shape[1])
+
+
+def ep_combine_2d(expert_out: torch.Tensor, state: Dispatch2DState,
+                  topk_weights: torch.Tensor,
+                  ctx: EP2DContext) -> torch.Tensor:
+    """Reverse both hops and reduce with the top-k weights (R, T, K) at the
+    source in fp32. expert_out (R, R·T·K, d): rows aligned with
+    :func:`ep_dispatch_2d`'s received tokens. Returns (R, T, d)."""
+    n, t, k = topk_weights.shape
+    kw = _hops_kw(ctx)
+    back1 = ragged_return(expert_out, state.outer,
+                          out_rows=state.outer_rows, **kw)
+    back0 = ragged_return(back1, state.inner, out_rows=state.inner_rows,
+                          **kw)
+    return _weighted(back0.view(n, t, k, -1), topk_weights, expert_out.dtype)

@@ -21,9 +21,9 @@ coordinates (:meth:`MeshContext.device_id`); an op over an ``(outer,
 inner)`` tuple spans both (the hierarchical forms). Only ``dp`` and ``tp``
 may exceed 1. The expert-parallel regime runs over the ``tp`` ranks
 (``Engine(..., moe_impl="ep")``, as JAX's engine builds its ``EPContext``
-over its ``tp`` axis); an ``ep`` axis of its own is ROADMAP.md queue A
-item 5, sequence parallelism item 6, and pipeline parallelism has no port
-yet.
+over its ``tp`` axis) or over the ``("dp", "tp")`` pair (JAX's
+``EP2DContext``); an ``ep`` axis of its own is ROADMAP.md queue A item 5,
+sequence parallelism item 6, and pipeline parallelism has no port yet.
 """
 
 from __future__ import annotations
@@ -37,9 +37,9 @@ from triton_dist_tpu_torch.utils.device import resolve_device
 
 AXIS_ORDER = ("dp", "pp", "ep", "sp", "tp")
 _NOT_PORTED = {"pp": "pipeline parallelism is not ported",
-               "ep": "the expert-parallel regime runs over the tp axis, "
-                     "Engine(moe_impl='ep'); an ep axis of its own is "
-                     "ROADMAP.md queue A item 5",
+               "ep": "the expert-parallel regime runs over the tp axis "
+                     "or the ('dp', 'tp') pair, Engine(moe_impl='ep'); an "
+                     "ep axis of its own is ROADMAP.md queue A item 5",
                "sp": "sequence parallelism is ROADMAP.md queue A item 6"}
 
 
