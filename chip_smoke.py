@@ -120,14 +120,15 @@ Phases (any failure exits nonzero; nothing is caught):
    Two planted faults in the decode step must fail those limits: layer
    1's two most-routed experts' w_down regions swapped, and every
    WEIGHTED_ADD reading the combine tile one column over.
-12. Serve on the MoE megakernel lane: full-width, full-depth (48 layers)
-   Qwen3-30B-A3B, random weights from seed 0 drawn and packed one layer
-   at a time, 4 slots, page 128, bucket 128 (the arena of a 512-row
+12. Serve on the MoE megakernel lane: full-width Qwen3-30B-A3B cut to
+   MOE_MK_LAYERS (24) of its 48 layers (the run's time limit), random
+   weights from seed 0 drawn and packed one layer at a time, 4 slots,
+   page 128, bucket 128 (the arena of a 512-row
    chunk build would not fit beside the weights; PERF.md); the prompts
    1000/700/300/60 tokens, 64 greedy tokens each. Megakernel launches
    must be the 18 chunk launches plus the decode ticks, the paged
    kernels must not launch, and the expert counters must grow by exactly
-   (4 x decode ticks + 128 x chunk launches) x 48 x 8. Then the decode
+   (4 x decode ticks + 128 x chunk launches) x 24 x 8. Then the decode
    step at 0/1025/700/130 and the 128-row chunk from 0, each against its
    bound and its plain interpreter (in place: activations are scratch),
    with per-task times by type.
@@ -452,6 +453,39 @@ Phases (any failure exits nonzero; nothing is caught):
    the layer's ``fwd_decode`` "ll2d" against "ar" within TOL_LL2D_LAYER,
    and a signal lost on the outer hop raising CommTimeoutError from
    ``Engine.decode`` naming the outer hop.
+36. The sequence-parallel kernels over ``make_mesh(sp=4)`` at Qwen3-8B
+   width (bf16, d 4096, 32 / 8 heads of 128): row 28 (``a2a_gemm_kernel``,
+   x 4 x (4, 2048, 4096) through a (4096, 4096) weight, both swizzles, the
+   received rows bit for bit), row 29 (``ulysses_qkv_a2a_kernel``, x 4 x
+   (8192, 4096), the owner-grouped QKV weight (4, 1536, 4096)), row 30
+   (``ulysses_o_a2a_kernel``, o 4 x (32768, 1024), W_o's owner columns (4,
+   4096, 1024), both swizzles) within one bf16 unit (TOL_SP) of their
+   plain versions, and row 31 (``sp_ag_attention_kernel``, S = 32768 split
+   4 ways: causal, non-causal, varlen on boundaries crossing the rank
+   chunks) within TOL_SP_ATTN (the flash-attention limit: the probability
+   roundings of JAX's kernel and oracle differ); TP_REPEATS launches of
+   each on TP_SETS seeded input sets in turn (row 31 at S = 8192, its
+   three forms in turn), misses counted on the card; a planted fault of
+   each caught (a wrong chunk sent, key rows one position down); a signal
+   never sent raising CommTimeoutError in about SP_TIMEOUT_S naming the
+   waiting rank and the source, the next launch sound. Times (L2 flushed)
+   against the bound, the plain version and one library call
+   (``torch.matmul`` / ``torch.einsum`` on the exchanged rows; for row 31
+   causal GQA ``scaled_dot_product_attention`` over the whole sequence, a
+   yardstick only).
+37. ``layers.ulysses_sp.fwd`` over ``make_mesh(sp=4)`` at full Qwen3-8B
+   width, S = 32768, through the attention weights of all 36 layers (random
+   bf16 from seed 0), the residual stream x + attn(rms_norm(x)) fed layer
+   to layer, in ``impl="fused"`` (rows 29 and 30 and one flash-attention
+   launch over every rank a layer), ``"pallas"`` (row 18 four times and the
+   flash launch) and ``"xla"`` (the flash launch), then the same stream with
+   row 31's KV-allgather attention in the layer's place, and row 28 through
+   its op entry point on every layer's residual chunks and wq; counts set
+   to zero just before each run and read just after, exact; ms a layer and,
+   over two layers, the device idle share. At SP_LAYER_PARITY layers each
+   form against one rank's plain forward over the whole sequence within
+   TOL_SP_LAYER, and the fused form with row 30's wrong chunk planted
+   outside it.
 
 The last lines of output: one JSON object with every kernel's numbers
 (the megakernel once per row mode, and once per MoE row mode), the
@@ -464,6 +498,7 @@ import copy
 import ctypes
 import dataclasses
 import functools
+import importlib
 import json
 import math
 import subprocess
@@ -493,12 +528,13 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def time_ms(fn, reps: int = 30) -> float:
+def time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
     """Per-launch device time from CUDA events around ``reps`` launches,
     each after a 64 MB write that evicts the 50 MB L2 (36 layers of KV
-    pools would), less the same run of writes alone."""
+    pools would), less the same run of writes alone; ``warmup`` calls
+    first."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
 
     def run(with_fn):
@@ -546,7 +582,8 @@ def build_kernels():
     cuda = ("paged_attention.cu", "megakernel.cu", "flash_attention.cu",
             "group_gemm.cu", "ag_gemm.cu", "gemm_rs.cu", "gemm_ar.cu",
             "ag_moe.cu", "moe_reduce.cu", "all_to_all.cu", "ll_a2a.cu",
-            "collectives.cu", "ep_fused.cu")
+            "collectives.cu", "ep_fused.cu", "a2a_gemm.cu",
+            "ulysses_fused.cu", "sp_ag_attention.cu")
     logs = build.build_all([*cuda, "megakernel_scheduler.cc"])
     print(f"[build] nvcc x{len(cuda)} + g++ in parallel "
           f"{time.perf_counter() - t0:.1f} s -> {build.BUILD_DIR}")
@@ -760,7 +797,9 @@ def launch_counters() -> dict:
     from triton_dist_tpu_torch.ops import low_latency as ll
     from triton_dist_tpu_torch.ops import paged_flash_decode as pfd
     from triton_dist_tpu_torch.ops import paged_flash_qblock as pfq
+    from triton_dist_tpu_torch.ops import ulysses_fused as uf
 
+    ag, spa = sp_modules()
     return {"decode": pfd.KERNEL, "qblock": pfq.KERNEL,
             "all_to_all": a2a.KERNEL, "ll_a2a": ll.KERNEL,
             "ag_gemm": ag_gemm.KERNEL, "gemm_rs": gemm_rs.KERNEL,
@@ -776,7 +815,9 @@ def launch_counters() -> dict:
             "reduce_scatter": reduce_scatter.KERNEL,
             "all_reduce": allreduce.KERNEL,
             "ep_dispatch_gemm": ep_fused.DISPATCH_KERNEL,
-            "ep_gemm_combine": ep_fused.COMBINE_KERNEL}
+            "ep_gemm_combine": ep_fused.COMBINE_KERNEL,
+            "a2a_gemm": ag.KERNEL, "ulysses_qkv": uf.QKV_KERNEL,
+            "ulysses_o": uf.O_KERNEL, "sp_ag_attention": spa.KERNEL}
 
 
 def zero_counts() -> None:
@@ -841,8 +882,8 @@ def profile_window(step, ticks: int, label: str) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     fam = {"megakernel": 0.0, "attention": 0.0, "group_gemm": 0.0,
-           "moe_tp": 0.0, "ep_a2a": 0.0, "ep_fused": 0.0, "gemm": 0.0,
-           "other": 0.0}
+           "moe_tp": 0.0, "ep_a2a": 0.0, "ep_fused": 0.0, "sp": 0.0,
+           "gemm": 0.0, "other": 0.0}
     kernels = [ev for ev in prof.key_averages()
                if ev.device_type == DeviceType.CUDA]
     for ev in kernels:
@@ -860,6 +901,8 @@ def profile_window(step, ticks: int, label: str) -> dict:
             fam["ep_a2a"] += t
         elif "ep_dispatch_gemm" in name or "ep_gemm_combine" in name:
             fam["ep_fused"] += t
+        elif any(k in name for k in ("a2a_gemm", "ulysses_", "sp_ag_attention")):
+            fam["sp"] += t
         elif any(k in name for k in ("gemm", "gemv", "xmma", "nvjet",
                                      "cutlass", "splitk")):
             fam["gemm"] += t
@@ -1594,6 +1637,10 @@ MOE_BUCKET = 128
 # dense-cache engine (phases 13 and 16): their decode steps are host-bound
 # (0.3-0.45 s each), so 32 tokens keep the whole run inside its limit.
 MOE_GEN = 32
+# Layers of the MoE megakernel lane (phase 12): half the model's 48 keeps
+# the whole run well inside its limit (at 48 its host builds took 33 s and
+# its plain interpreter 73 s of a 1004 s run on an H100 80GB HBM3, PR 13).
+MOE_MK_LAYERS = 24
 
 
 def judge_flips(label, rows, k, pairs, shown=None) -> int:
@@ -1915,13 +1962,13 @@ def moe_step_bound(mb, lens, routed):
 
 
 def moe_mk_serve_phase():
-    """Phase 12: Qwen3-30B-A3B at full width and depth on the MoE
-    megakernel lane with bucket 128."""
+    """Phase 12: Qwen3-30B-A3B at full width, MOE_MK_LAYERS deep, on the
+    MoE megakernel lane with bucket 128."""
     from triton_dist_tpu_torch import ServingEngine
     from triton_dist_tpu_torch.megakernel import MegaKernelEngine
     from triton_dist_tpu_torch.ops.chunked_prefill import chunk_row_codes
 
-    cfg = moe_cfg()
+    cfg = moe_cfg(MOE_MK_LAYERS)
     buckets = (MOE_BUCKET,)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2010,7 +2057,8 @@ def moe_mk_serve_phase():
                                              eng.v_cache, toks, lens, tbl,
                                              counts=eng.counts),
                        reps=1, warmup=0)
-    print(f"[moe-mk-step] full-depth decode step at lengths {list(MK_LENS)}:"
+    print(f"[moe-mk-step] {cfg.num_hidden_layers}-layer decode step at "
+          f"lengths {list(MK_LENS)}:"
           f" kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} bound_ms {b_ms:.4f} "
           f"({b_by}, the {n_routed} (layer, expert) pairs routed to); "
           f"{a_ms:.4f} ms over every expert, as the JAX design reads them")
@@ -6479,6 +6527,464 @@ def tp_serving_phases():
     tp_mk_serve_phase(None)
 
 
+def sp_modules():
+    """The modules ``ops/a2a_gemm.py`` and ``ops/sp_ag_attention.py``:
+    ``triton_dist_tpu_torch.ops`` exports functions of the same names, as
+    JAX's package does, so the modules are looked up by path."""
+    return (importlib.import_module("triton_dist_tpu_torch.ops.a2a_gemm"),
+            importlib.import_module(
+                "triton_dist_tpu_torch.ops.sp_ag_attention"))
+
+
+SP = 4                   # phases 36-37: make_mesh(sp=SP)
+SP_S = 32768             # the sequence, split SP ways (S_loc 8192)
+SP_REPEAT_S = 8192       # row 31's repeats, planted faults and lost signals
+SP_A2A_ROWS = 2048       # row 28's chunk rows (x 4 x (4, 2048, 4096))
+SP_TIMEOUT_S = 0.1
+# Varlen boundaries crossing the rank chunks (rank 0's sequence reaches
+# rank 1, the second spans ranks 1 and 2, the third ranks 2 and 3).
+SP_CU = (0, 5000, 13000, SP_S)
+# Rows 28-30 against their plain versions: one bf16 unit (TOL_GG): both
+# sum in fp32, in other orders, and round once.
+TOL_SP = TOL_GG
+# Row 31: phase 15's flash-attention limit, two bf16 units. Both keep fp32
+# scores and softmax; the kernel rounds its unnormalised probabilities to
+# bf16 for P·V (as JAX's kernel does), the plain version normalised ones
+# (as JAX's oracle does). A query that reads few keys averages few V rows,
+# so its output reaches [1, 4), and there the two roundings put it two
+# units apart (1.56e-2 on an H100 80GB HBM3 at 700 W, S = 32768, causal).
+TOL_SP_ATTN = TOL_FLASH
+# Phase 37: each impl of the layer (and the KV-allgather attention in its
+# place) against a one-rank plain forward over the whole sequence, after 2
+# layers of the residual stream x + attn(rms_norm(x)): Q-block's two units
+# (the flash kernel and row 31 round probabilities as above; every
+# projection rounds to bf16 once in both).
+TOL_SP_LAYER = TOL_QBLOCK
+SP_LAYER_PARITY = 2
+
+
+def sp_kernel_cases(mesh, g):
+    """Phase 36's operands at Qwen3-8B width over ``make_mesh(sp=4)``
+    (bf16): for rows 28, 29 and 30, TP_SETS seeded input sets and, as
+    functions of one set, the kernel call (``fault``, ``timeout_s``,
+    ``check`` passed on), its plain version and one library call, with
+    the bytes and operations of the bound."""
+    from triton_dist_tpu_torch import ModelConfig
+    from triton_dist_tpu_torch.layers.norm import rms_norm
+    ag, _ = sp_modules()
+    from triton_dist_tpu_torch.ops import ulysses_fused as uf
+
+    cfg = ModelConfig.qwen3_8b()
+    n, d, hd = SP, cfg.hidden_size, cfg.head_dim
+    h, kvh = cfg.num_attention_heads, cfg.num_key_value_heads
+    s_loc, c = SP_S // n, SP_A2A_ROWS
+    dev = mesh.device
+    bf = dict(device=dev, dtype=torch.bfloat16)
+
+    def acts(*shape):
+        return rms_norm(torch.randn(*shape, generator=g, **bf),
+                        torch.ones(shape[-1], **bf))
+
+    def weight(out_f, in_f):
+        return torch.randn(out_f, in_f, generator=g, **bf) * in_f ** -0.5
+
+    a2a_ctx = ag.create_a2a_gemm_context(mesh, "sp")
+    u_ctx = uf.create_ulysses_fused_context(mesh, "sp")
+    wq = weight(h * hd, d)
+    w_qkv = uf.group_qkv_columns(
+        torch.cat([wq, weight(kvh * hd, d), weight(kvh * hd, d)]), n=n,
+        num_heads=h, num_kv_heads=kvh, head_dim=hd)
+    w_o = uf.group_o_rows(weight(d, h * hd), n=n, num_heads=h, head_dim=hd)
+    cols, rows = w_qkv.shape[1], w_o.shape[2]
+    return [
+        dict(row=28, key="a2a_gemm", mod=ag, fault="wrong_chunk",
+             label=f"row 28 a2a_gemm {n} x ({n}, {c}, {d}) . ({d}, {d})",
+             sets=[acts(n, n, c, d) for _ in range(TP_SETS)],
+             call=lambda x, **kw: ag.a2a_gemm_fused(x, wq, a2a_ctx, **kw),
+             plain=lambda x: ag.a2a_gemm_ref(x, wq),
+             prep=lambda x: x.transpose(0, 1).reshape(n, n * c, d),
+             library=lambda r: torch.matmul(r, wq.t()),
+             lib_name="torch.matmul on the exchanged rows",
+             nbytes=2 * (n * n * c * d + d * d + n * n * c * d),
+             flops=2 * n * n * c * d * d,
+             identity=lambda x: ag.a2a_gemm_fused(
+                 x, wq, ag.create_a2a_gemm_context(
+                     mesh, "sp", swizzle_mode="identity"), check=True),
+             names=("rank 1", "rank 0's chunk")),
+        dict(row=29, key="ulysses_qkv", mod=uf, fault="wrong_chunk",
+             label=f"row 29 qkv_gemm_a2a {n} x ({s_loc}, {d}) . "
+                   f"({n}, {d}, {cols})",
+             sets=[acts(n, s_loc, d) for _ in range(TP_SETS)],
+             call=lambda x, **kw: uf.qkv_gemm_a2a(x, w_qkv, u_ctx, **kw),
+             plain=lambda x: uf.qkv_gemm_a2a_ref(x, w_qkv),
+             prep=lambda x: x,
+             library=lambda x: torch.einsum("rsd,ocd->orsc", x, w_qkv),
+             lib_name="torch.einsum", identity=None,
+             nbytes=2 * (n * s_loc * d + n * cols * d + n * n * s_loc * cols),
+             flops=2 * n * s_loc * d * n * cols,
+             names=("rank 1", "rank 0's projection")),
+        dict(row=30, key="ulysses_o", mod=uf, fault="wrong_chunk",
+             label=f"row 30 o_a2a_gemm {n} x ({SP_S}, {rows}) . "
+                   f"({n}, {rows}, {d})",
+             sets=[acts(n, SP_S, rows) for _ in range(TP_SETS)],
+             call=lambda o, **kw: uf.o_a2a_gemm(o, w_o, u_ctx, **kw),
+             plain=lambda o: uf.o_a2a_gemm_ref(o, w_o),
+             prep=lambda o: o.view(n, n, s_loc, rows).transpose(
+                 0, 1).contiguous(),
+             library=lambda r: torch.einsum("ansr,ndr->asd", r, w_o),
+             lib_name="torch.einsum on the exchanged rows",
+             identity=lambda o: uf.o_a2a_gemm(
+                 o, w_o, uf.create_ulysses_fused_context(
+                     mesh, "sp", swizzle_mode="identity"), check=True),
+             nbytes=2 * (n * SP_S * rows + n * rows * d + n * s_loc * d),
+             flops=2 * n * s_loc * n * rows * d,
+             names=("rank 1", "rank 0's attention rows")),
+    ]
+
+
+def sp_attn_flops(s: int, h: int, hd: int, causal: bool, cu=None) -> float:
+    """Operations of the attention rows 31 computes: 4·hd·H per visible
+    (query, key) pair (QKᵀ and PV), the pairs this run's mask keeps."""
+    if cu is not None:
+        pairs = sum((e - b) * (e - b + 1) // 2 for b, e in zip(cu, cu[1:]))
+    else:
+        pairs = s * (s + 1) // 2 if causal else s * s
+    return 4.0 * hd * h * pairs
+
+
+def sp_kernel_phase():
+    """Phase 36: rows 28-31 over ``make_mesh(sp=4)`` at Qwen3-8B width,
+    each against its plain version within TOL_SP (row 31: TOL_SP_ATTN), then TP_REPEATS launches
+    on TP_SETS input sets in turn (misses counted on the card), a planted
+    fault caught, a signal never sent raising CommTimeoutError within
+    about SP_TIMEOUT_S, and the next launch sound; times (L2 flushed)
+    against the bound, the plain version and one library call. Returns the
+    numbers by kernel key."""
+    import torch.nn.functional as F
+
+    from triton_dist_tpu_torch import ModelConfig, make_mesh
+    from triton_dist_tpu_torch.layers.norm import rms_norm
+    _, spa = sp_modules()
+    from triton_dist_tpu_torch.shmem import workspace as shmem
+
+    t_phase = time.perf_counter()
+    mesh = make_mesh(sp=SP)
+    dev = mesh.device
+    g = torch.Generator(device=dev).manual_seed(83)
+    out = {}
+
+    def misses(got, want, tol=TOL_SP):
+        diff = (got.float() - want.float()).abs()
+        return (diff > tol[0] + tol[1] * want.float().abs()).any().int()
+
+    def lost_signal(label, call, names, ref, tol=TOL_SP):
+        t0 = time.perf_counter()
+        try:
+            call(fault=2, timeout_s=SP_TIMEOUT_S, check=True)
+            fail(f"{label}: a signal never sent did not raise")
+        except shmem.CommTimeoutError as exc:
+            took = time.perf_counter() - t0
+            print(f"[{label}] lost signal raised in {took:.3f} s (bound "
+                  f"{SP_TIMEOUT_S} s a wait): {exc}")
+            if not all(s in str(exc) for s in names) or took > 5.0:
+                fail(f"{label}: the timeout does not name {names} or took "
+                     f"{took:.3f} s")
+        if misses(call(check=True), ref, tol):
+            fail(f"{label}: the launch after the timeout disagrees")
+
+    for c in sp_kernel_cases(mesh, g):
+        label, sets = c["label"], c["sets"]
+        wants = [c["plain"](x) for x in sets]
+        x0, want = sets[0], wants[0]
+        if c["row"] == 28:
+            got, recv = c["call"](x0, return_recv=True, check=True)
+            if not torch.equal(recv, x0.transpose(0, 1).reshape(recv.shape)):
+                fail(f"{label}: the received rows differ from the sent ones")
+        else:
+            got = c["call"](x0, check=True)
+        err = check_close(label, got, want, TOL_SP)
+        if c["identity"] is not None:
+            check_close(f"{label} swizzle identity", c["identity"](x0), want,
+                        TOL_SP)
+        bad = torch.zeros((), dtype=torch.int32, device=dev)
+        for i in range(TP_REPEATS):
+            j = (i + 1) % TP_SETS
+            bad += misses(c["call"](sets[j]), wants[j])
+        shmem.check_errors(dev, sync=True)
+        print(f"[{label}] {TP_REPEATS} launches in a row on {TP_SETS} input "
+              f"sets in turn: {int(bad)} outside the limit")
+        if int(bad):
+            fail(f"{label}: {int(bad)} repeated launches disagree")
+        fault_control(f"{label} {c['fault']}",
+                      c["call"](x0, fault=c["mod"].FAULTS[c["fault"]],
+                                check=True), want, TOL_SP)
+        lost_signal(label, functools.partial(c["call"], x0), c["names"], want)
+        k_ms = time_ms(functools.partial(c["call"], x0), reps=10)
+        p_ms = time_ms(functools.partial(c["plain"], x0), reps=3)
+        y_ms = time_ms(functools.partial(c["library"], c["prep"](x0)),
+                       reps=10)
+        b_ms, b_by = bound(c["nbytes"], c["flops"])
+        print(f"[sp-kernel] {label}: kernel_ms {k_ms:.4f} plain_ms "
+              f"{p_ms:.4f} bound_ms {b_ms:.4f} ({b_by}; "
+              f"{c['nbytes'] / 1e6:.1f} MB, {c['flops'] / 1e9:.1f} GFLOP) "
+              f"library_ms ({c['lib_name']}) {y_ms:.4f}; "
+              f"{c['flops'] / k_ms / 1e9:.1f} TFLOP/s")
+        out[c["key"]] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                             bound_by=b_by, library_ms=y_ms, err=err)
+        del sets, wants, x0, want, got
+        torch.cuda.empty_cache()
+
+    # Row 31: causal, non-causal and varlen at S = SP_S, then the repeats,
+    # the planted fault and the lost signal at S = SP_REPEAT_S.
+    cfg = ModelConfig.qwen3_8b()
+    h, kvh, hd = cfg.num_attention_heads, cfg.num_key_value_heads, \
+        cfg.head_dim
+    bf = dict(device=dev, dtype=torch.bfloat16)
+
+    def qkv(s):
+        s_loc = s // SP
+        q = rms_norm(torch.randn(SP, s_loc, h, hd, generator=g, **bf),
+                     torch.ones(hd, **bf))
+        k = rms_norm(torch.randn(SP, s_loc, kvh, hd, generator=g, **bf),
+                     torch.ones(hd, **bf))
+        return q, k, torch.randn(SP, s_loc, kvh, hd, generator=g, **bf)
+
+    def call(t, causal=True, cu=None, **kw):
+        return spa.sp_ag_attention_fused(*t, ctx=mesh, axis="sp",
+                                         causal=causal, cu_seqlens=cu, **kw)
+
+    def plain(t, causal=True, cu=None):
+        return spa.sp_ag_attention_ref(*t, causal=causal, cu_seqlens=cu)
+
+    full = qkv(SP_S)
+    nbytes = sum(2 * t.numel() for t in full) + 2 * full[0].numel()
+    errs = {}
+    for name, causal, cu in (("causal", True, None),
+                             ("non-causal", False, None),
+                             ("varlen", True, SP_CU)):
+        label = (f"row 31 sp_ag_attention_fused S {SP_S} over {SP} ranks, "
+                 f"{h}/{kvh} heads of {hd}, {name}")
+        cu_t = (None if cu is None
+                else torch.tensor(cu, dtype=torch.int32, device=dev))
+        want = plain(full, causal, cu_t)
+        errs[name] = check_close(label, call(full, causal, cu_t, check=True),
+                                 want, TOL_SP_ATTN)
+        k_ms = time_ms(lambda: call(full, causal, cu_t), reps=3, warmup=1)
+        fl = sp_attn_flops(SP_S, h, hd, causal, cu)
+        b_ms, b_by = bound(nbytes, fl)
+        line = (f"[sp-kernel] {label}: kernel_ms {k_ms:.4f} bound_ms "
+                f"{b_ms:.4f} ({b_by}; {nbytes / 1e6:.1f} MB, "
+                f"{fl / 1e9:.1f} GFLOP); {fl / k_ms / 1e9:.1f} TFLOP/s")
+        if name == "causal":
+            p_ms = time_ms(lambda: plain(full), reps=1, warmup=1)
+            qf = full[0].reshape(1, SP_S, h, hd).transpose(1, 2)
+            kf, vf = (t.reshape(1, SP_S, kvh, hd).transpose(1, 2)
+                      for t in full[1:])
+            y_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                qf, kf, vf, is_causal=True, enable_gqa=True), reps=10)
+            line += (f" plain_ms {p_ms:.4f} library_ms (causal GQA "
+                     f"scaled_dot_product_attention over the {SP_S} "
+                     f"positions) {y_ms:.4f}")
+            out["sp_ag_attention"] = dict(ms=k_ms, plain_ms=p_ms,
+                                          bound_ms=b_ms, bound_by=b_by,
+                                          library_ms=y_ms)
+        else:
+            out[f"sp_ag_attention[{name}]"] = dict(ms=k_ms, bound_ms=b_ms)
+        print(line)
+        del want
+    out["sp_ag_attention"]["err"] = max(errs.values())
+    del full
+    torch.cuda.empty_cache()
+    cu_r = torch.tensor([x * SP_REPEAT_S // SP_S for x in SP_CU],
+                        dtype=torch.int32, device=dev)
+    variants = ((True, None), (False, None), (True, cu_r))
+    sets = [qkv(SP_REPEAT_S) for _ in range(TP_SETS)]
+    wants = [plain(t, *variants[j % 3]) for j, t in enumerate(sets)]
+    label = f"row 31 at S {SP_REPEAT_S}"
+    bad = torch.zeros((), dtype=torch.int32, device=dev)
+    for i in range(TP_REPEATS):
+        j = (i + 1) % TP_SETS
+        bad += misses(call(sets[j], *variants[j % 3]), wants[j], TOL_SP_ATTN)
+    shmem.check_errors(dev, sync=True)
+    print(f"[{label}] {TP_REPEATS} launches in a row on {TP_SETS} input sets "
+          f"in turn (causal, non-causal, varlen {cu_r.tolist()}): {int(bad)} "
+          "outside the limit")
+    if int(bad):
+        fail(f"{label}: {int(bad)} repeated launches disagree")
+    fault_control(f"{label} slot_off_by_one",
+                  call(sets[0], fault=spa.FAULTS["slot_off_by_one"],
+                       check=True), wants[0], TOL_SP_ATTN)
+    lost_signal(label, functools.partial(call, sets[0]),
+                ("rank 1", "rank 0's KV chunk"), wants[0], TOL_SP_ATTN)
+    del sets, wants
+    shmem.release_all()
+    torch.cuda.empty_cache()
+    print(f"[sp-kernel] phase 36 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def sp_plain_layer(p, x, cfg):
+    """One rank's plain attention over the whole sequence: x (S, d), the
+    layer's projections, q/k norm and rope at positions 0..S-1, dense causal
+    attention (``sp_ag_attention``'s plain ``_masked_attn``, in query
+    blocks), the O projection."""
+    import torch.nn.functional as F
+
+    from triton_dist_tpu_torch.layers import tp_attn
+    from triton_dist_tpu_torch.ops.sp_ag_attention import _masked_attn
+
+    s, hd = x.shape[0], cfg.head_dim
+    q = F.linear(x, p.wq).view(1, s, -1, hd)
+    k = F.linear(x, p.wk).view(1, s, -1, hd)
+    v = F.linear(x, p.wv).view(s, -1, hd)
+    q, k = tp_attn._norm_rope(q, k, p, cfg,
+                              torch.arange(s, device=x.device)[None])
+    o = _masked_attn(q[0], k[0], v, 0)
+    return F.linear(o.reshape(s, -1), p.wo)
+
+
+def sp_ring_layer(p, x, cfg, mesh):
+    """The KV-allgather form of the same attention (``tutorials/
+    10_ring_attention.py``'s op in the layer's place): each rank projects
+    its slice, q/k norm and rope at global positions, row 31 over the ranks,
+    the O projection. x (n, S_loc, d)."""
+    import torch.nn.functional as F
+
+    from triton_dist_tpu_torch.layers import tp_attn
+    _, spa = sp_modules()
+
+    n, s_loc = x.shape[:2]
+    hd = cfg.head_dim
+    q = F.linear(x, p.wq).view(n, s_loc, -1, hd)
+    k = F.linear(x, p.wk).view(n, s_loc, -1, hd)
+    v = F.linear(x, p.wv).view(n, s_loc, -1, hd)
+    pos = (torch.arange(n, device=x.device)[:, None] * s_loc
+           + torch.arange(s_loc, device=x.device))
+    q, k = tp_attn._norm_rope(q, k, p, cfg, pos)
+    o = spa.sp_ag_attention_fused(q, k, v.contiguous(), ctx=mesh, axis="sp")
+    return F.linear(o.reshape(n, s_loc, -1), p.wo)
+
+
+def sp_layer_phase():
+    """Phase 37: ``ulysses_sp.fwd`` over ``make_mesh(sp=4)`` at full
+    Qwen3-8B width, S = SP_S split 4 ways, through the attention weights of
+    all 36 layers in turn (random bf16 from seed 0), the residual stream x
+    + attn(rms_norm(x)) fed layer to layer, in ``impl="fused"``, ``"pallas"``
+    and ``"xla"``; then row 31's KV-allgather attention in the layer's place
+    (``sp_ring_layer``) and row 28 through its op entry point on every
+    layer's residual chunks and wq. Counts set to zero just before each run
+    and read just after: exact launches (a fused layer: rows 29 and 30 and
+    one flash-attention launch over every rank; pallas: row 18 four times
+    and the flash launch; xla: the flash launch; ring: row 31 once; row 28
+    once a layer); ms per layer and, over two layers, the device idle share.
+    At SP_LAYER_PARITY layers each form against the one-rank plain forward
+    (``sp_plain_layer``) within TOL_SP_LAYER, and the fused form with row
+    30's wrong chunk planted outside it."""
+    from triton_dist_tpu_torch import ModelConfig, make_mesh
+    from triton_dist_tpu_torch.layers import ulysses_sp
+    from triton_dist_tpu_torch.layers.norm import rms_norm
+    ag, _ = sp_modules()
+    from triton_dist_tpu_torch.ops import ulysses_fused as uf
+    from triton_dist_tpu_torch.shmem import workspace as shmem
+
+    t_phase = time.perf_counter()
+    cfg = ModelConfig.qwen3_8b()
+    L, d = cfg.num_hidden_layers, cfg.hidden_size
+    mesh = make_mesh(sp=SP)
+    dev = mesh.device
+    g = torch.Generator(device=dev).manual_seed(0)
+    layers = [ulysses_sp.init(cfg, generator=g, device=dev)
+              for _ in range(L)]
+    ones = torch.ones(d, device=dev, dtype=torch.bfloat16)
+    x0 = torch.randn(SP, SP_S // SP, d, generator=g, device=dev,
+                     dtype=torch.bfloat16)
+    forms = {impl: functools.partial(ulysses_sp.fwd, cfg=cfg, axis="sp",
+                                     ctx=mesh, impl=impl)
+             for impl in ("fused", "pallas", "xla")}
+    forms["ring"] = lambda p, x: sp_ring_layer(p, x, cfg, mesh)
+    per_layer = {"fused": {"ulysses_qkv": 1, "ulysses_o": 1, "flash": 1},
+                 "pallas": {"all_to_all": 4, "a2a_dense": 4, "flash": 1},
+                 "xla": {"flash": 1}, "ring": {"sp_ag_attention": 1}}
+
+    def stream(fwd, x, ps):
+        for p in ps:
+            x = x + fwd(p, rms_norm(x, ones))
+        return x
+
+    out = {"runs": {}}
+    for name, fwd in forms.items():
+        # Build and group once, outside the timed run.
+        stream(fwd, x0, layers[:1])
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        y = stream(fwd, x0, layers)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        expect_launches(f"sp-layer {name} over {L} layers", counts,
+                        {k: v * L for k, v in per_layer[name].items()})
+        if not bool(torch.isfinite(y).all()):
+            fail(f"sp-layer {name}: non-finite output after {L} layers")
+        prof = profile_window(lambda: stream(fwd, x0, layers[:2]), 1,
+                              f"sp-layer {name}: 2 layers")
+        print(f"[sp-layer] ulysses_sp {name} over {L} layers, S {SP_S} over "
+              f"{SP} ranks: {wall * 1e3:.1f} ms ({wall * 1e3 / L:.2f} ms a "
+              f"layer); launches { {k: v for k, v in counts.items() if v} }; "
+              f"idle share {prof['idle_share']:.3f}")
+        out["runs"][name] = dict(counts=counts, ms_per_layer=wall * 1e3 / L,
+                                 idle_share=prof["idle_share"])
+        del y
+    # Row 28 through its op entry point: every layer's residual chunks,
+    # rank s's rows for rank r resharded and projected through wq.
+    chunks = x0.view(SP, SP, SP_S // SP // SP, d)
+    ag.a2a_gemm(chunks, layers[0].wq, ctx=mesh, axis="sp")
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    for p in layers:
+        ag.a2a_gemm(chunks, p.wq, ctx=mesh, axis="sp")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    expect_launches(f"sp a2a_gemm over {L} layers", counts, {"a2a_gemm": L})
+    print(f"[sp-layer] a2a_gemm(impl='fused') over {L} layers' wq: "
+          f"{wall * 1e3 / L:.2f} ms a layer")
+    out["runs"]["a2a_gemm"] = dict(counts=counts, ms_per_layer=wall * 1e3 / L)
+
+    # The 2-layer parity against one rank's plain forward.
+    ps = layers[:SP_LAYER_PARITY]
+    x_full = x0.reshape(SP_S, d)
+    want = x_full
+    for p in ps:
+        want = want + sp_plain_layer(p, rms_norm(want, ones), cfg)
+    errs = {}
+    for name, fwd in forms.items():
+        got = stream(fwd, x0, ps).reshape(SP_S, d)
+        errs[name] = check_close(f"sp-layer {name} at {SP_LAYER_PARITY} "
+                                 "layers against one rank's plain forward",
+                                 got, want, TOL_SP_LAYER)
+    orig = uf.o_a2a_gemm
+    uf.o_a2a_gemm = functools.partial(orig, fault=uf.FAULTS["wrong_chunk"])
+    try:
+        bad = stream(forms["fused"], x0, ps).reshape(SP_S, d)
+    finally:
+        uf.o_a2a_gemm = orig
+    fault_control("sp-layer fused with row 30's wrong chunk", bad, want,
+                  TOL_SP_LAYER)
+    out["errs"] = errs
+    del layers, want, bad
+    shmem.release_all()
+    torch.cuda.empty_cache()
+    print(f"[sp-layer] phase 37 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def sp_phases():
+    """Phases 36-37."""
+    return sp_kernel_phase(), sp_layer_phase()
+
+
 def grid_blocks() -> int:
     from triton_dist_tpu_torch.megakernel import builder as mkb
 
@@ -6519,6 +7025,8 @@ def main():
     numbers["tp2d"] = tp2d_kernel_phase()
     mk_quant_write_phase()
     stamp("phases 24, 26, 28, 30, 20")
+    sp, sp_layer = sp_phases()
+    stamp("phases 36-37")
     (launches, layer_st, dense_engine, tp_engine, tp2d_engine,
      tp_serve) = serve_phase()
     parity_phase()
@@ -6803,6 +7311,30 @@ def main():
         "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": t["library_ms"]})
+    # The sequence-parallel kernels (rows 28-31): phase 36's times (row 31
+    # causal at S = SP_S; its non-causal and varlen times are printed),
+    # launches over phase 37's runs: rows 29 and 30 under ulysses_sp.fwd's
+    # "fused" impl, row 31 in the KV-allgather form of the layer, row 28
+    # through its op entry point.
+    for key, name, source, replaces, run in (
+            ("a2a_gemm", "a2a_gemm_kernel", "a2a_gemm.cu",
+             "triton_dist_tpu/ops/a2a_gemm.py:90", "a2a_gemm"),
+            ("ulysses_qkv", "ulysses_qkv_a2a_kernel", "ulysses_fused.cu",
+             "triton_dist_tpu/ops/ulysses_fused.py:87", "fused"),
+            ("ulysses_o", "ulysses_o_a2a_kernel", "ulysses_fused.cu",
+             "triton_dist_tpu/ops/ulysses_fused.py:263", "fused"),
+            ("sp_ag_attention", "sp_ag_attention_kernel",
+             "sp_ag_attention.cu",
+             "triton_dist_tpu/ops/sp_ag_attention.py:174", "ring")):
+        t = sp[key]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"triton_dist_tpu_torch/csrc/{source}",
+            "replaces": replaces,
+            "launches": sp_layer["runs"][run]["counts"][key],
+            "max_abs_err": t["err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

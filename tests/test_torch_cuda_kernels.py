@@ -79,6 +79,7 @@ import pathlib
 import subprocess
 import sys
 import textwrap
+import time
 from types import SimpleNamespace
 
 import numpy as np
@@ -1969,3 +1970,119 @@ def test_tp_megakernel_matches_plain(dev):
                           lens=[], table=None, rank=r)
             for r, a in enumerate(plain)])
         assert torch.equal(arena[:, buf:buf + rows], plain[:, buf:buf + rows])
+
+
+# ---- sequence parallelism (rows 28-31) -------------------------------------
+
+SP_GEMM_TOL = (1e-3, 2.0 ** -7)   # one bf16 unit: both sum in fp32, round once
+# Row 31: the flash-attention limit (two units): the kernel rounds
+# unnormalised probabilities to bf16 for P·V, its plain version normalised
+# ones (JAX's kernel and oracle, each).
+SP_ATTN_TOL = QBLOCK_TOL
+
+
+def _sp_cases(dev):
+    """Rows 28-31 at odd shapes (row blocks and tiles cut short, n = 3):
+    for each row a list of (label, kernel call taking ``fault``/
+    ``timeout_s``/``check``, plain version, tolerance)."""
+    import importlib
+
+    from triton_dist_tpu_torch import make_mesh
+    from triton_dist_tpu_torch.ops import ulysses_fused as uf
+
+    ag = importlib.import_module("triton_dist_tpu_torch.ops.a2a_gemm")
+    spa = importlib.import_module("triton_dist_tpu_torch.ops.sp_ag_attention")
+    g = torch.Generator(device=dev).manual_seed(31)
+    bf = dict(device=dev, dtype=torch.bfloat16)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, **bf) * scale
+
+    cases = {28: [], 29: [], 30: [], 31: []}
+    for n in (2, 3):
+        mesh = make_mesh(sp=n)
+        x = rnd(n, n, 130, 136)
+        w = rnd(200, 136, scale=136 ** -0.5)
+        w_ranks = rnd(n, 200, 136, scale=136 ** -0.5)
+        for mode in ("a2a", "identity"):
+            ctx = ag.create_a2a_gemm_context(mesh, "sp", swizzle_mode=mode)
+            cases[28].append((
+                f"n={n} {mode}",
+                lambda ctx=ctx, x=x, w=w, **kw: ag.a2a_gemm_fused(
+                    x, w, ctx, **kw),
+                lambda x=x, w=w: ag.a2a_gemm_ref(x, w), SP_GEMM_TOL))
+        cases[28].append((
+            f"n={n} per-rank weights",
+            lambda ctx=ag.create_a2a_gemm_context(mesh, "sp"), x=x,
+            w=w_ranks, **kw: ag.a2a_gemm_fused(x, w, ctx, **kw),
+            lambda x=x, w=w_ranks: ag.a2a_gemm_ref(x, w), SP_GEMM_TOL))
+        uctx = uf.create_ulysses_fused_context(mesh, "sp")
+        xs = rnd(n, 131, 136)
+        wq = rnd(n, 72, 136, scale=136 ** -0.5)
+        cases[29].append((f"n={n}", lambda xs=xs, wq=wq, uctx=uctx, **kw:
+                          uf.qkv_gemm_a2a(xs, wq, uctx, **kw),
+                          lambda xs=xs, wq=wq: uf.qkv_gemm_a2a_ref(xs, wq),
+                          SP_GEMM_TOL))
+        o = rnd(n, n * 131, 40)
+        wo = uf.group_o_rows(rnd(200, n * 40, scale=(n * 40) ** -0.5), n=n,
+                             num_heads=n, head_dim=40)
+        for mode in ("a2a", "identity"):
+            c = uf.create_ulysses_fused_context(mesh, "sp", swizzle_mode=mode)
+            cases[30].append((f"n={n} {mode}", lambda o=o, wo=wo, c=c, **kw:
+                              uf.o_a2a_gemm(o, wo, c, **kw),
+                              lambda o=o, wo=wo: uf.o_a2a_gemm_ref(o, wo),
+                              SP_GEMM_TOL))
+    for n, hd in ((2, 64), (4, 8), (4, 128)):
+        mesh = make_mesh(sp=n)
+        s_loc = 100
+        q = rnd(n, s_loc, 8, hd)
+        k, v = rnd(n, s_loc, 2, hd), rnd(n, s_loc, 2, hd)
+        cu = torch.tensor([0, 37, 37 + s_loc, n * s_loc - 3, n * s_loc],
+                          dtype=torch.int32, device=dev)
+        for name, causal, c in (("causal", True, None),
+                                ("non-causal", False, None),
+                                ("varlen", True, cu)):
+            cases[31].append((
+                f"n={n} hd={hd} {name}",
+                lambda q=q, k=k, v=v, mesh=mesh, causal=causal, c=c, **kw:
+                spa.sp_ag_attention_fused(q, k, v, ctx=mesh, causal=causal,
+                                          cu_seqlens=c, **kw),
+                lambda q=q, k=k, v=v, causal=causal, c=c:
+                spa.sp_ag_attention_ref(q, k, v, causal=causal,
+                                        cu_seqlens=c), SP_ATTN_TOL))
+    return cases
+
+
+@pytest.mark.parametrize("row", [28, 29, 30, 31])
+def test_sp_kernel_matches_plain_repeats_faults_and_never_syncs(dev, row):
+    """Each case within its limit of the plain version, then 20 launches
+    cycling through every case of the row (no launch has the inputs of the
+    one before it) with the host never synchronised; the first case with
+    its planted fault (a wrong chunk, key rows one position down) outside
+    the limit and a signal never sent raising CommTimeoutError within 5 s,
+    the next launch sound."""
+    from triton_dist_tpu_torch.shmem.workspace import CommTimeoutError
+
+    cases = _sp_cases(dev)[row]
+    wants = [plain() for _, _, plain, _ in cases]
+    for (label, call, _, tol), want in zip(cases, wants):
+        print(f"[sp-card] row {row} {label}")
+        _assert_close(call(check=True), want, tol)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gots = [(i % len(cases), cases[i % len(cases)][1]())
+                for i in range(20)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for i, got in gots:
+        _assert_close(got, wants[i], cases[i][3])
+    _, call, _, tol = cases[0]
+    bad = call(fault=1, check=True)
+    diff = (bad.float() - wants[0].float()).abs()
+    assert bool((diff > tol[0] + tol[1] * wants[0].float().abs()).any())
+    t0 = time.perf_counter()
+    with pytest.raises(CommTimeoutError, match="rank 1 waited"):
+        call(fault=2, timeout_s=0.1, check=True)
+    assert time.perf_counter() - t0 < 5.0
+    _assert_close(call(check=True), wants[0], tol)

@@ -30,9 +30,8 @@ numpy inputs.
   kernels on 4 ranks, and the hierarchical half on a 2 x 2 mesh
   (``ep_dispatch_2d``/``ep_combine_2d`` rows and states exactly,
   ``fwd_2d`` and the ``"ll2d"`` decode within 1e-5, ``ll_a2a_2d`` bit for
-  bit). ``test_unported_ep_forms_raise`` is this slice's JAX parity
-  test: it runs these checks first, then what still raises. Its name is
-  kept from when it held these forms to raising.
+  bit): ``test_ep_forms_against_jax[fused|hierarchical]``, then what
+  still raises (``test_unported_ep_forms_raise``).
 
 Only rows 18, 23, 25 and 26 of the JAX kernels above run in interpret
 mode."""
@@ -586,14 +585,23 @@ def _hierarchical_against_jax():
     return tc
 
 
+@pytest.mark.parametrize("form", ["fused", "hierarchical"])
+def test_ep_forms_against_jax(form):
+    """The tile-fused EP (:func:`_fused_against_jax`) and the hierarchical
+    half (:func:`_hierarchical_against_jax`) held to JAX."""
+    if form == "fused":
+        _fused_against_jax()
+    else:
+        _hierarchical_against_jax()
+
+
 def test_unported_ep_forms_raise():
-    """The forms this file held to raising are ported: the tile-fused EP
-    (:func:`_fused_against_jax`) and the hierarchical half
-    (:func:`_hierarchical_against_jax`) are held to JAX here. What stays
-    for later slices raises, naming its ROADMAP.md item, and JAX's knob
-    errors hold."""
-    _fused_against_jax()
-    ctx2d = _hierarchical_against_jax()
+    """What stays for later slices raises, naming its ROADMAP.md item, and
+    JAX's knob errors hold (the forms this test once held to raising are
+    ported and held to JAX by :func:`test_ep_forms_against_jax`)."""
+    ctx2d = ep_a2a.create_ep2d_context(
+        make_mesh(dp=2, tp=2, device="cpu"), num_experts=E, topk=K,
+        outer_axis="dp", inner_axis="tp")
     _, tw = _weights(15)
     x = torch.zeros(N, 2, D)
     with pytest.raises(ValueError, match="needs a hierarchical EP2DContext"):

@@ -2,7 +2,8 @@
 
 - No module of ``triton_dist_tpu_torch`` and not ``chip_smoke.py``
   imports ``jax``, ``jaxlib`` or the JAX package (checked on the source
-  with ``ast``, so a lazy import inside a function counts too).
+  with ``ast``, so a lazy import inside a function counts too; one case
+  per subpackage, naming the offending files).
 - Entry points run on the card by default: without CUDA, ``Engine``
   called without ``device="cpu"`` raises.
 - The kernel wrappers take their plain version for a CPU tensor and for
@@ -24,9 +25,22 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "triton_dist_tpu")
 
 
-def _sources():
+def _groups():
+    """The sources by the port's subpackage (``lang``, ``layers``, ...),
+    then the package's ``__init__.py`` and ``chip_smoke.py``: one test case
+    each, so a new module joins its subpackage's case instead of adding
+    one."""
     pkg = pathlib.Path(triton_dist_tpu_torch.__file__).parent
-    files = sorted(pkg.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    groups = {sub.name: sorted(sub.rglob("*.py"))
+              for sub in sorted(pkg.iterdir())
+              if sub.is_dir() and (sub / "__init__.py").exists()}
+    groups["__init__.py"] = [pkg / "__init__.py"]
+    groups["chip_smoke.py"] = [ROOT / "chip_smoke.py"]
+    return groups
+
+
+def _sources():
+    files = [f for group in _groups().values() for f in group]
     assert len(files) > 10 and files[-1].exists()
     return files
 
@@ -47,13 +61,19 @@ def _imported(tree):
             yield node.args[0].value
 
 
-@pytest.mark.parametrize("path", _sources(),
-                         ids=lambda p: str(p.relative_to(ROOT)))
-def test_no_jax_imports(path):
-    tree = ast.parse(path.read_text(), filename=str(path))
-    bad = [m for m in _imported(tree)
-           if m.split(".")[0] in FORBIDDEN]
-    assert not bad, f"{path} imports {bad}"
+@pytest.mark.parametrize("group", list(_groups()))
+def test_no_jax_imports(group):
+    """Every file of ``group`` is parsed; the message names each file that
+    imports a forbidden module."""
+    files = _groups()[group]
+    assert files and all(f.exists() for f in files)
+    bad = {}
+    for path in files:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        found = [m for m in _imported(tree) if m.split(".")[0] in FORBIDDEN]
+        if found:
+            bad[str(path.relative_to(ROOT))] = found
+    assert not bad, f"{group}: {bad}"
 
 
 def test_engine_without_device_needs_cuda():

@@ -2,7 +2,9 @@
 // (the fused GEMMs ag_gemm.cu, gemm_rs.cu, gemm_ar.cu, ag_moe.cu and
 // moe_reduce.cu; the all-to-alls all_to_all.cu and ll_a2a.cu; the ring and
 // one-shot collectives collectives.cu; the megakernel's multi-rank
-// ALLREDUCE task in megakernel.cu) run between
+// ALLREDUCE task in megakernel.cu; the tile-fused EP pair ep_fused.cu; the
+// sequence-parallel kernels a2a_gemm.cu, ulysses_fused.cu and
+// sp_ag_attention.cu) run between
 // simulated ranks on one Hopper card (sm_90a). Counterpart of the parts of
 // triton_dist_tpu/lang/shmem_device.py those kernels use:
 //
@@ -180,6 +182,26 @@ __device__ inline bool wait_arrivals(const Sync& S, long long slot, long long st
   return r;
 }
 
+// Block-wide: wait until the `count` consecutive flags from `slot` reach the
+// epoch, every thread polling its share of them at once (a wait on many
+// flags: a whole chunk's row blocks, every tile bound for one rank). False
+// after a timeout, as wait_arrivals.
+__device__ inline bool wait_flags(const Sync& S, long long slot, int count, int rank, int step) {
+  __shared__ int bad;
+  if (threadIdx.x == 0) bad = 0;
+  __syncthreads();
+  for (int i = threadIdx.x; i < count; i += blockDim.x)
+    if (!signal_wait_until(S, slot + i, rank, step)) {
+      bad = 1;
+      break;
+    }
+  fence();
+  __syncthreads();
+  const bool ok = bad == 0;
+  __syncthreads();
+  return ok;
+}
+
 // Block-wide copy of rows x cols bf16 (cols a multiple of 8, rows 16-byte
 // aligned) from src (row pitch ld_src) to a peer's dst (row pitch ld_dst),
 // 16 bytes a thread per step, loads past L1.
@@ -209,26 +231,42 @@ static cudaError_t ensure_error_record() {
 }
 
 // Blocks of `kernel` that can be resident at once on `device` (occupancy x
-// SMs), asked once per (kernel, device) and kept: a decode step launches
-// these kernels 72 times.
+// SMs), asked once per (kernel, device, threads, dynamic shared memory) and
+// kept: a decode step launches these kernels 72 times, and a kernel whose
+// shared memory follows its operands (sp_ag_attention.cu's head_dim) gets
+// one entry per size. The kernel's dynamic shared-memory limit is only ever
+// raised, to the largest size launched so far, so every kept entry stays
+// launchable.
 static cudaError_t resident_blocks(const void* kernel, int threads, int smem, int device,
                                    long long* out) {
   struct Entry {
     const void* kernel;
-    int device;
+    int device, threads, smem;
     long long blocks;
   };
-  static Entry cache[32];
-  static int used = 0;
+  struct Limit {
+    const void* kernel;
+    int smem;
+  };
+  static Entry cache[64];
+  static Limit limits[32];
+  static int used = 0, n_limits = 0;
   for (int i = 0; i < used; ++i)
-    if (cache[i].kernel == kernel && cache[i].device == device) {
+    if (cache[i].kernel == kernel && cache[i].device == device &&
+        cache[i].threads == threads && cache[i].smem == smem) {
       *out = cache[i].blocks;
       return cudaSuccess;
     }
   cudaError_t e = cudaSuccess;
   if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
+    int li = 0;
+    while (li < n_limits && limits[li].kernel != kernel) ++li;
+    if (li == n_limits || limits[li].smem < smem) {
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return e;
+      if (li < n_limits) limits[li].smem = smem;
+      else if (n_limits < 32) limits[n_limits++] = Limit{kernel, smem};
+    }
   }
   int sms = 0, per_sm = 0;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
@@ -236,7 +274,7 @@ static cudaError_t resident_blocks(const void* kernel, int threads, int smem, in
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
   if (e != cudaSuccess) return e;
   *out = (long long)sms * per_sm;
-  if (used < 32) cache[used++] = Entry{kernel, device, *out};
+  if (used < 64) cache[used++] = Entry{kernel, device, threads, smem, *out};
   return cudaSuccess;
 }
 

@@ -1,5 +1,6 @@
 // One output tile of a bf16 GEMM with fp32 sums, shared by the fused GEMM
-// kernels (ag_gemm.cu, gemm_rs.cu, gemm_ar.cu, ag_moe.cu) on Hopper (sm_90a).
+// kernels (ag_gemm.cu, gemm_rs.cu, gemm_ar.cu, ag_moe.cu, ep_fused.cu,
+// a2a_gemm.cu, ulysses_fused.cu) on Hopper (sm_90a).
 //
 //   C (BM x BN, fp32, in shared memory) = A (BM x K) . B (BN x K)^T
 //
@@ -125,6 +126,94 @@ __device__ float* tile_mma_rows(const bf16* A, long long lda, int a_rows, BRows 
     if (kt + T::kStages - 1 < n_k) load((kt + T::kStages - 1) % T::kStages, kt + T::kStages - 1);
     cp_async_commit();
     const bf16* As = stages + (kt % T::kStages) * T::kStageElems;
+    const bf16* Bs = As + T::BM * kLd;
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af[T::FM];
+#pragma unroll
+      for (int i = 0; i < T::FM; ++i)
+        wmma::load_matrix_sync(af[i], As + (wm * T::WM + i * 16) * kLd + kk, kLd);
+#pragma unroll
+      for (int j = 0; j < T::FN; ++j) {
+        // Bs[n][k] holds B[n][k0 + k]: the K x N operand, column-major.
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bfr;
+        wmma::load_matrix_sync(bfr, Bs + (wn * T::WN + j * 16) * kLd + kk, kLd);
+#pragma unroll
+        for (int i = 0; i < T::FM; ++i) wmma::mma_sync(acc[i][j], af[i], bfr, acc[i][j]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();                     // the stages are dead: C reuses them
+  float* C = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int i = 0; i < T::FM; ++i)
+#pragma unroll
+    for (int j = 0; j < T::FN; ++j)
+      wmma::store_matrix_sync(C + (wm * T::WM + i * 16) * T::kCLd + wn * T::WN + j * 16,
+                              acc[i][j], T::kCLd, wmma::mem_row_major);
+  __syncthreads();
+  return C;
+}
+
+// C = sum over segments s < n_seg of A_s (a_rows x K) . B_s (b_rows x K)^T:
+// one contraction whose K runs through n_seg operand pairs in turn, summed in
+// the same fp32 fragments (the Ulysses O projection: one partial product per
+// source rank). `seg` gives segment s's A (seg.a(s), row pitch seg.lda(s)),
+// row r of its B (seg.b(s, r)), and seg.ready(s), which every thread of the
+// block calls once before the first load of segment s (a block-wide arrival
+// wait: the pipeline prefetches kStages - 1 K stages ahead, so it waits
+// that far ahead of segment s's first product). Rows past a_rows / b_rows
+// read as zeros; K a multiple of 8, rows 16-byte aligned. Returns C (row
+// pitch T::kCLd), readable by every thread of the block; the caller must
+// __syncthreads() before the next tile overwrites it. It repeats
+// tile_mma_rows' pipeline rather than serving as its body: as the body it
+// moved the other kernels' register allocation (GEMM+AR's 128 x 128 tile
+// from 128 to 172 registers, 1.6x slower at 2048 rows on an H100, PERF.md).
+template <class T, class Seg>
+__device__ float* tile_mma_segments(const Seg& seg, int n_seg, int a_rows, int b_rows, int K,
+                                    unsigned char* smem) {
+  using namespace nvcuda;
+  bf16* stages = reinterpret_cast<bf16*>(smem);
+  const int tid = threadIdx.x, warp = tid / 32;
+  const int wm = warp / T::kWarpsN, wn = warp % T::kWarpsN;
+  const int n_k = (K + kBK - 1) / kBK, n_g = n_seg * n_k;
+
+  // Stage `stage` <- global K block g: K block g % n_k of segment g / n_k.
+  auto load = [&](int stage, int g) {
+    const int s = g / n_k, k0 = (g % n_k) * kBK;
+    if (k0 == 0) seg.ready(s);
+    const bf16* A = seg.a(s);
+    const long long lda = seg.lda(s);
+    bf16* dst = stages + stage * T::kStageElems;
+    for (int i = tid; i < (T::BM + T::BN) * (kBK / 8); i += T::kThreads) {
+      const int row = i / (kBK / 8), c = (i % (kBK / 8)) * 8;
+      const bool is_a = row < T::BM;
+      const int r = is_a ? row : row - T::BM;
+      const bool ok = (is_a ? r < a_rows : r < b_rows) && k0 + c < K;
+      const bf16* src = A;
+      if (ok) src = (is_a ? A + r * lda : seg.b(s, r)) + k0 + c;
+      cp_async16(dst + row * kLd + c, src, ok);
+    }
+  };
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[T::FM][T::FN];
+#pragma unroll
+  for (int i = 0; i < T::FM; ++i)
+#pragma unroll
+    for (int j = 0; j < T::FN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+
+#pragma unroll
+  for (int s = 0; s < T::kStages - 1; ++s) {
+    if (s < n_g) load(s, s);
+    cp_async_commit();
+  }
+  for (int g = 0; g < n_g; ++g) {
+    cp_async_wait<T::kStages - 2>();   // K block g has landed
+    __syncthreads();                   // and block g - 1's buffer is free
+    if (g + T::kStages - 1 < n_g) load((g + T::kStages - 1) % T::kStages, g + T::kStages - 1);
+    cp_async_commit();
+    const bf16* As = stages + (g % T::kStages) * T::kStageElems;
     const bf16* Bs = As + T::BM * kLd;
 #pragma unroll
     for (int kk = 0; kk < kBK; kk += 16) {

@@ -114,6 +114,13 @@ class Engine:
         self.mesh = mesh
         self.axis = tuple(axis) if isinstance(axis, (tuple, list)) else axis
         if mesh is not None:
+            if mesh.size("sp") > 1:
+                # As in JAX, no Engine path shards the sequence.
+                raise ValueError(
+                    "an Engine does not run over a mesh with sp > 1: "
+                    "sequence parallelism is the layer layers.ulysses_sp "
+                    "and the op ops.sp_ag_attention; its decode form "
+                    "(layers.sp_flash_decode) is ROADMAP.md queue A item 6")
             tp_gemm.check_axis("Engine", mesh, self.axis)
         self.tp = 1 if mesh is None else mesh.size(self.axis)
         if mesh is not None:

@@ -189,21 +189,6 @@ def dispatch_gemm_ref(send: torch.Tensor, w: Weights):
     return _expert_products(recv, _gate_up(w)), recv
 
 
-def _check_cuda(op: str, *tensors) -> None:
-    dev = tensors[0].device
-    if dev.type != "cuda":
-        raise RuntimeError(f"{op} runs on CUDA tensors (got {dev}); only "
-                           "CPU tensors take the plain version")
-    for t in tensors:
-        if t.device != dev or t.dtype != torch.bfloat16:
-            raise TypeError(f"{op}: expected bf16 tensors on {dev}, got "
-                            f"{t.dtype} on {t.device}")
-        if t.data_ptr() % 16 or t.stride(-1) != 1 or any(
-                s % 8 for s in t.stride()[:-1]):
-            raise ValueError(f"{op}: operands need unit stride along the "
-                             "last dim, 16-byte aligned rows and strides")
-
-
 def dispatch_gemm(send: torch.Tensor, counts: torch.Tensor, w: Weights,
                   ctx: EPFusedContext, *, fault: int = 0,
                   timeout_s: float = shmem.TIMEOUT_S, check: bool = False):
@@ -222,7 +207,7 @@ def dispatch_gemm(send: torch.Tensor, counts: torch.Tensor, w: Weights,
         h, recv = dispatch_gemm_ref(send, ws_)
         return h, recv, counts.transpose(0, 1).contiguous()
     _, _, e_loc, cap, d = send.shape
-    _check_cuda("ep_dispatch_gemm", send, *ws_)
+    tp_gemm.check_cuda("ep_dispatch_gemm", send, *ws_)
     if not send.is_contiguous() or ws_[0].shape[:2] != (n, e_loc):
         raise ValueError("ep_dispatch_gemm: send must be contiguous and the "
                          f"weights (n={n}, E_loc={e_loc}, F, d)")
@@ -277,7 +262,7 @@ def gemm_combine(y: torch.Tensor, recv_counts: torch.Tensor,
         return gemm_combine_ref(y, w)
     _, _, e_loc, cap, f = y.shape
     d = w.shape[2]
-    _check_cuda("ep_gemm_combine", y, w)
+    tp_gemm.check_cuda("ep_gemm_combine", y, w)
     if (not y.is_contiguous() or tuple(w.shape) != (n, e_loc, d, f)
             or tuple(recv_counts.shape) != (n, n, e_loc)
             or recv_counts.dtype != torch.int32

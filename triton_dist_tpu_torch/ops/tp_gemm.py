@@ -132,6 +132,24 @@ def check_operands(op: str, a: torch.Tensor, b: torch.Tensor,
                          "aligned rows and K a multiple of 8")
 
 
+def check_cuda(op: str, *tensors) -> None:
+    """The bf16 operands of a kernel on one CUDA device, unit stride along
+    the last dim, 16-byte aligned rows and strides; a tensor elsewhere
+    raises (only CPU tensors take the plain version)."""
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise RuntimeError(f"{op} runs on CUDA tensors (got {dev}); only "
+                           "CPU tensors take the plain version")
+    for t in tensors:
+        if t.device != dev or t.dtype != torch.bfloat16:
+            raise TypeError(f"{op}: expected bf16 tensors on {dev}, got "
+                            f"{t.dtype} on {t.device}")
+        if t.data_ptr() % 16 or t.stride(-1) != 1 or any(
+                s % 8 for s in t.stride()[:-1]):
+            raise ValueError(f"{op}: operands need unit stride along the "
+                             "last dim, 16-byte aligned rows and strides")
+
+
 def tile(kernel: CudaKernel, rows: int) -> tuple:
     """The output tile (rows, columns) ``kernel`` runs for ``rows`` rows
     per rank (``csrc/tile_gemm.cuh``: the decode tile up to 16 rows)."""
