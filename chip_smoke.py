@@ -487,6 +487,37 @@ Phases (any failure exits nonzero; nothing is caught):
    TOL_SP_LAYER, and the fused form with row 30's wrong chunk planted
    outside it.
 
+38. The pipeline slice's kernels over ``make_mesh(pp=4)``, each first at
+   the shape phase 39 gives it: row 32 (``p2p_kernel``, gpipe's shift on
+   the carry 4 x (1, 512, 4096)), row 33 (``p2p_kernel`` with an edge
+   from the last stage to every stage, 4 x (8, 1, 512, 4096), then 4 x
+   (4096,) and 4 x (1024, 4096)), row 2 (``full_mesh_kernel``, the vocabulary shards 4 x (37984,
+   8) fp32, then 4 x (1024, 4096), beside row 1's ring on the same tensor,
+   bit for bit equal) and row 6 (``rhd_kernel``, 4 x (8, 1, 512, 4096),
+   then 4 x (4, 4096) and 4 x (2048, 4096), beside row 5 and the two-shot
+   form on the same tensors), each bit for bit against its plain version (row
+   6's sums in the kernel's tree order, rounded each step as JAX's are),
+   one launch a call; TP_REPEATS launches on TP_SETS input sets in turn;
+   a planted fault of each caught (a wrong source or chunk, a dropped
+   partial); a signal never sent raising CommTimeoutError in about
+   PP_TIMEOUT_S naming the waiting rank and its source, the next call
+   sound. Times (L2 flushed, the median of PP_ROUNDS in turns) against the
+   byte bound, the plain version and one library call (``torch.roll``,
+   ``expand().contiguous()``, ``sum``).
+39. ``layers.pp_comm.gpipe_forward`` over ``make_mesh(pp=4)`` at full
+   Qwen3-8B width and depth (36 layers, random bf16 from seed 0; stage r
+   runs layers 9r .. 9r + 8 through the prefill layer forward), M = 8
+   microbatches of one 512-token sequence, the embedding before and the
+   final norm and ``lm_head`` after: ``impl="pallas"`` (row 32 at each of
+   the M + S - 1 = 11 ticks) against ``impl="xla"`` bit for bit, and
+   against the sequential forward of each microbatch within
+   TOL_LOGITS_DEEP, with a planted fault (stage 1's output sent to rank 3)
+   outside it; launches exact (no row 2, 6 or 33 in the pipeline); ms a
+   forward of each form (the median of PP_ROUNDS in turns) and the idle
+   share of a "pallas" forward. Then
+   rows 33, 6 and 2 through their op entry points on the pipeline's
+   outputs, exact launches, each bit for bit its plain counterpart.
+
 The last lines of output: one JSON object with every kernel's numbers
 (the megakernel once per row mode, and once per MoE row mode), the
 card's name and power limit as
@@ -583,7 +614,7 @@ def build_kernels():
             "group_gemm.cu", "ag_gemm.cu", "gemm_rs.cu", "gemm_ar.cu",
             "ag_moe.cu", "moe_reduce.cu", "all_to_all.cu", "ll_a2a.cu",
             "collectives.cu", "ep_fused.cu", "a2a_gemm.cu",
-            "ulysses_fused.cu", "sp_ag_attention.cu")
+            "ulysses_fused.cu", "sp_ag_attention.cu", "p2p.cu")
     logs = build.build_all([*cuda, "megakernel_scheduler.cc"])
     print(f"[build] nvcc x{len(cuda)} + g++ in parallel "
           f"{time.perf_counter() - t0:.1f} s -> {build.BUILD_DIR}")
@@ -800,6 +831,7 @@ def launch_counters() -> dict:
     from triton_dist_tpu_torch.ops import ulysses_fused as uf
 
     ag, spa = sp_modules()
+    p2p, bc, _, _ = pp_modules()
     return {"decode": pfd.KERNEL, "qblock": pfq.KERNEL,
             "all_to_all": a2a.KERNEL, "ll_a2a": ll.KERNEL,
             "ag_gemm": ag_gemm.KERNEL, "gemm_rs": gemm_rs.KERNEL,
@@ -817,7 +849,10 @@ def launch_counters() -> dict:
             "ep_dispatch_gemm": ep_fused.DISPATCH_KERNEL,
             "ep_gemm_combine": ep_fused.COMBINE_KERNEL,
             "a2a_gemm": ag.KERNEL, "ulysses_qkv": uf.QKV_KERNEL,
-            "ulysses_o": uf.O_KERNEL, "sp_ag_attention": spa.KERNEL}
+            "ulysses_o": uf.O_KERNEL, "sp_ag_attention": spa.KERNEL,
+            "p2p": p2p.KERNEL, "broadcast": bc.KERNEL,
+            "all_gather_full_mesh": allgather.KERNEL_FULL_MESH,
+            "all_reduce_rhd": allreduce.KERNEL_RHD}
 
 
 def zero_counts() -> None:
@@ -883,6 +918,7 @@ def profile_window(step, ticks: int, label: str) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     fam = {"megakernel": 0.0, "attention": 0.0, "group_gemm": 0.0,
            "moe_tp": 0.0, "ep_a2a": 0.0, "ep_fused": 0.0, "sp": 0.0,
+           "pp": 0.0,
            "gemm": 0.0, "other": 0.0}
     kernels = [ev for ev in prof.key_averages()
                if ev.device_type == DeviceType.CUDA]
@@ -903,6 +939,9 @@ def profile_window(step, ticks: int, label: str) -> dict:
             fam["ep_fused"] += t
         elif any(k in name for k in ("a2a_gemm", "ulysses_", "sp_ag_attention")):
             fam["sp"] += t
+        elif any(k in name for k in ("p2p_kernel", "full_mesh_kernel",
+                                     "rhd_kernel")):
+            fam["pp"] += t
         elif any(k in name for k in ("gemm", "gemv", "xmma", "nvjet",
                                      "cutlass", "splitk")):
             fam["gemm"] += t
@@ -6985,6 +7024,381 @@ def sp_phases():
     return sp_kernel_phase(), sp_layer_phase()
 
 
+PP = 4                   # phases 38-39: make_mesh(pp=PP)
+PP_M = 8                 # microbatches of one PP_SEQ-token sequence
+PP_SEQ = 512
+PP_TIMEOUT_S = 0.05
+PP_ROUNDS = 4            # timings of each form, in turns (phases 38, 39)
+
+
+def pp_modules():
+    """The op modules of rows 32, 33, 2 and 6 (``ops`` exports a function
+    named ``broadcast``: take the module by path)."""
+    from triton_dist_tpu_torch.ops import allgather, allreduce, p2p
+
+    return (p2p, importlib.import_module("triton_dist_tpu_torch.ops.broadcast"),
+            allgather, allreduce)
+
+
+def pp_kernel_cases(mesh):
+    """Phase 38's operands over ``make_mesh(pp=4)`` (seed 38), each row's
+    first case at the shape phase 39's main path gives it: row 32 at the
+    pipeline's carry (4, 1, 512, 4096) bf16 under gpipe's shift; rows 33
+    and 6 at its stacked outputs 4 x (8, 1, 512, 4096) bf16, row 2 at its
+    vocabulary shards 4 x (37984, 8) fp32; then row 33 at 4 x (4096,) and
+    4 x (1024, 4096), row 2 at phase 30's 4 x (1024, 4096), row 6 at 4 x
+    (4, 4096) and 4 x (2048, 4096). Row 2 is set beside row 1 on the same
+    tensor, row 6 beside row 5 and the two-shot form (rows 4 + 1). Each
+    case: ``TP_SETS`` input sets,
+    the kernel call, its plain version, one library call, the kernels it
+    is set beside, its launch counter, and the bytes of its bound (each
+    input read once, each output written once)."""
+    from triton_dist_tpu_torch.models import ModelConfig
+
+    p2p, bc, agm, arm = pp_modules()
+    n, dev = PP, mesh.device
+    d = ModelConfig.qwen3_8b().hidden_size
+    g = torch.Generator(device=dev).manual_seed(38)
+
+    def acts(*shape, dtype=torch.bfloat16):
+        return [torch.randn(*shape, generator=g, device=dev, dtype=dtype)
+                for _ in range(TP_SETS)]
+
+    outs = (PP_M, 1, PP_SEQ, d)                      # phase 39's outputs
+    vocab_shard = ModelConfig.qwen3_8b().vocab_size // n
+
+    shift = [(i, (i + 1) % n) for i in range(n)]
+    cases = []
+    xs = acts(n, 1, PP_SEQ, d)
+    chunk = xs[0][0].numel() * 2
+    cases.append(dict(
+        key="p2p", counter="p2p", row=32, sets=xs,
+        label=f"p2p_put (row 32) gpipe shift, {n} x (1, {PP_SEQ}, {d})",
+        call=lambda x, **kw: p2p.p2p_put(x, shift, ctx=mesh, axis="pp", **kw),
+        plain=lambda x: p2p.ppermute_ref(x, shift, ctx=mesh, axis="pp"),
+        library=lambda x: torch.roll(x, 1, 0), beside={},
+        nbytes=2 * n * chunk))
+    for shape in (outs, (d,), (1024, d)):
+        xs = acts(n, *shape)
+        chunk = xs[0][0].numel() * 2
+        cases.append(dict(
+            key="broadcast", counter="broadcast", row=33, sets=xs,
+            label=f"broadcast (row 33) from the last stage, {n} x {shape}",
+            call=lambda x, **kw: bc.broadcast(x, n - 1, ctx=mesh, axis="pp",
+                                              **kw),
+            plain=lambda x: bc.broadcast_ref(x, n - 1, ctx=mesh, axis="pp"),
+            library=lambda x: x[n - 1].expand(x.shape).contiguous(),
+            beside={}, nbytes=(1 + n) * chunk))
+    for shape, dtype in (((vocab_shard, PP_M), torch.float32),
+                         ((1024, d), torch.bfloat16)):
+        xs = acts(n, *shape, dtype=dtype)
+        chunk = xs[0][0].numel() * xs[0].element_size()
+        cases.append(dict(
+            key="all_gather_full_mesh", counter="all_gather_full_mesh", row=2,
+            sets=xs, label=f"all_gather full_mesh (row 2), {n} x {shape} "
+                           f"{str(dtype)[6:]}",
+            call=lambda x, **kw: agm.all_gather(x, ctx=mesh, axis="pp",
+                                                mode="full_mesh", **kw),
+            plain=lambda x: agm.all_gather_ref(x, ctx=mesh, axis="pp"),
+            library=lambda x: x.reshape(1, -1, x.shape[-1]).expand(
+                n, -1, x.shape[-1]).contiguous(),
+            beside={"ring (row 1)": lambda x: agm.all_gather(x, ctx=mesh,
+                                                             axis="pp")},
+            nbytes=(n + n * n) * chunk))
+    for shape in (outs, (4, d), (2048, d)):
+        xs = acts(n, *shape)
+        chunk = xs[0][0].numel() * 2
+        cases.append(dict(
+            key="all_reduce_rhd", counter="all_reduce_rhd", row=6, sets=xs,
+            label=f"all_reduce recursive (row 6), {n} x {shape}",
+            call=lambda x, **kw: arm.all_reduce(x, ctx=mesh, axis="pp",
+                                                method="recursive", **kw),
+            plain=lambda x: arm.all_reduce_rhd_ref(x, ctx=mesh, axis="pp"),
+            library=lambda x: x.sum(0),
+            beside={m: functools.partial(arm.all_reduce, ctx=mesh, axis="pp",
+                                         method=m)
+                    for m in ("one_shot", "two_shot")},
+            nbytes=2 * n * chunk))
+    return cases
+
+
+def pp_kernel_phase():
+    """Phase 38: rows 32, 33, 2 and 6 against their plain versions over
+    ``make_mesh(pp=4)`` (:func:`pp_kernel_cases`), bit for bit (copies;
+    row 6's plain version sums in the kernel's tree order and rounds each
+    step, as JAX's ``acc_v``/``tmp_v`` do), one launch a call; TP_REPEATS
+    launches on the TP_SETS sets in turn, each held to its own set's plain
+    version; a planted fault (a wrong source / chunk, a dropped partial)
+    shows; a signal never sent raises CommTimeoutError naming the waiting
+    rank and its source within 5 s, the next call sound. Times (L2
+    flushed; the median of PP_ROUNDS in turns) against the bound, the
+    plain version, one library call and the kernels it is set beside. Returns, by key, the first case's
+    numbers."""
+    from triton_dist_tpu_torch import make_mesh
+    from triton_dist_tpu_torch.shmem import workspace as shmem
+
+    t_phase = time.perf_counter()
+    mesh = make_mesh(pp=PP)
+    counters = launch_counters()
+    out, errs = {}, {}
+    for c in pp_kernel_cases(mesh):
+        label, key, sets = c["label"], c["key"], c["sets"]
+        x0 = sets[0]
+        wants = [c["plain"](x) for x in sets]
+        kernel = counters[c["counter"]]
+        before = kernel.launches
+        got = c["call"](x0, check=True)
+        if kernel.launches != before + 1:
+            fail(f"{label}: {kernel.launches - before} launches, not 1")
+        errs[key] = max(errs.get(key, 0.0),
+                        check_close(label, got, wants[0], TOL_EXACT))
+        if c["row"] == 2:
+            check_close(f"{label}: the ring (row 1) on the same tensor",
+                        c["beside"]["ring (row 1)"](x0), wants[0], TOL_EXACT)
+        misses = torch.zeros((), dtype=torch.int32, device=mesh.device)
+        for k in range(TP_REPEATS):
+            j = (k + 1) % TP_SETS
+            misses += (~torch.eq(c["call"](sets[j]), wants[j])).any().int()
+        shmem.check_errors(mesh.device, sync=True)
+        print(f"[{label}] {TP_REPEATS} launches in a row on {TP_SETS} input "
+              f"sets in turn: {int(misses)} not bit for bit")
+        if int(misses):
+            fail(f"{label}: {int(misses)} of {TP_REPEATS} repeated launches "
+                 "disagree")
+        fault_control(f"{label} planted fault", c["call"](x0, fault=1,
+                                                          check=True),
+                      wants[0], TOL_EXACT)
+        t0 = time.perf_counter()
+        try:
+            c["call"](x0, fault=2, timeout_s=PP_TIMEOUT_S, check=True)
+            fail(f"{label}: a signal never sent did not raise")
+        except shmem.CommTimeoutError as e:
+            print(f"[{label}] lost signal raised in "
+                  f"{time.perf_counter() - t0:.3f} s: {e}")
+            if "waited" not in str(e) or str(e).count("rank") < 2:
+                fail(f"{label}: the timeout does not name the rank and its "
+                     "source")
+        if time.perf_counter() - t0 > 5.0:
+            fail(f"{label}: the lost signal took too long to raise")
+        check_close(f"{label} after the timeout", c["call"](x0, check=True),
+                    wants[0], TOL_EXACT)
+        del wants
+        # Copies this small are near a launch's latency, where one timing
+        # swings with the card's state: every form is timed PP_ROUNDS
+        # times in turns, both orders, and the median kept.
+        fns = {"kernel": (c["call"], 30), "plain": (c["plain"], 5),
+               "library": (c["library"], 30),
+               **{name: (fn, 30) for name, fn in c["beside"].items()}}
+        spans = {name: [] for name in fns}
+        for rnd in range(PP_ROUNDS):
+            for name in (list(fns) if rnd % 2 == 0 else list(fns)[::-1]):
+                fn, reps = fns[name]
+                spans[name].append(time_ms(functools.partial(fn, x0),
+                                           reps=reps))
+        k_ms, p_ms, y_ms = (float(np.median(spans[k]))
+                            for k in ("kernel", "plain", "library"))
+        side = {name: float(np.median(spans[name])) for name in c["beside"]}
+        b_ms, b_by = bound(c["nbytes"], 0)
+        print(f"[pp-kernel] {label}: kernel_ms {k_ms:.4f} plain_ms "
+              f"{p_ms:.4f} bound_ms {b_ms:.4f} ({b_by}; "
+              f"{c['nbytes'] / 1e6:.2f} MB) library_ms {y_ms:.4f}"
+              + "".join(f" {name}_ms {t:.4f}" for name, t in side.items()))
+        if key not in out:
+            out[key] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                            bound_by=b_by, library_ms=y_ms)
+    for key in out:
+        out[key]["err"] = errs[key]
+    shmem.release_all()
+    torch.cuda.empty_cache()
+    print(f"[pp-kernel] phase 38 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def pp_stages(params, cfg, n):
+    """The stage closure of ``gpipe_forward`` over a dense model cut into
+    ``n`` stages: rank r runs layers [r·L/n, (r+1)·L/n) (the port's prefill
+    layer forward, ``mode="xla"``: flash attention on the card, its plain
+    version on the CPU) on its slice of the stacked carry (n, mb, S, d).
+    ``tests/test_torch_pp.py`` holds it to JAX's dense forward."""
+    from triton_dist_tpu_torch.models import dense
+
+    per = len(params.layers) // n
+
+    def stage(h):
+        outs = []
+        for r in range(n):
+            mb, s, d = h.shape[1:]
+            x = h[r].reshape(mb * s, d)
+            for layer in params.layers[r * per:(r + 1) * per]:
+                x, _ = dense._layer_fwd_prefill(layer, x, cfg, batch=mb,
+                                                mode="xla")
+            outs.append(x.view(mb, s, d))
+        return torch.stack(outs)
+
+    return stage
+
+
+def pp_layer_phase():
+    """Phase 39: ``layers.pp_comm.gpipe_forward`` over ``make_mesh(pp=4)``
+    at full Qwen3-8B width and depth (36 layers, random bf16 from seed 0;
+    stage r runs layers 9r .. 9r + 8), M = PP_M microbatches of one
+    PP_SEQ-token sequence, the embedding before the pipeline and the final
+    norm and ``lm_head`` (last position of each sequence) after it. Counts
+    set to zero just before each run and read just after, exact:
+    ``impl="pallas"`` launches row 32 M + S - 1 = 11 times and flash
+    attention once a layer a tick (11 x 36), and no row 2, 6 or 33;
+    ``"xla"`` and the sequential forward (each microbatch through the 36
+    layers in turn) flash only. ``"pallas"`` against ``"xla"``: logits
+    bit for bit; against the sequential forward within TOL_LOGITS_DEEP,
+    and a planted fault (stage 1's output sent to rank 3, rank 2 left
+    empty) outside it. ms per forward of each and the device idle share
+    of a ``"pallas"`` forward. Then rows 33, 6 and 2 through their op
+    entry points on the pipeline's outputs (counts again exact): the
+    last stage's outputs broadcast to every stage (row 33) and summed
+    over the stages masked to the last (row 6, ``RECURSIVE``), each bit
+    for bit ``collect="broadcast"``'s plain psum; a vocabulary-sharded
+    ``lm_head`` whose shards are gathered over the stages (row 2), bit for
+    bit the shards concatenated."""
+    from triton_dist_tpu_torch import ModelConfig, make_mesh
+    from triton_dist_tpu_torch.layers import pp_comm
+    from triton_dist_tpu_torch.layers.norm import rms_norm
+    from triton_dist_tpu_torch.models import dense
+    from triton_dist_tpu_torch.ops.tp_gemm import column_shards
+    from triton_dist_tpu_torch.shmem import workspace as shmem
+
+    _, bc, agm, arm = pp_modules()
+    t_phase = time.perf_counter()
+    cfg = ModelConfig.qwen3_8b()
+    L, d = cfg.num_hidden_layers, cfg.hidden_size
+    mesh = make_mesh(pp=PP)
+    dev = mesh.device
+    params = dense.init_params(cfg, generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev)
+    ids = torch.randint(0, cfg.vocab_size, (PP_M, PP_SEQ), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(39))
+    x_mb = params.embed[ids][:, None]                 # (M, 1, S, d)
+    stage = pp_stages(params, cfg, PP)
+    ticks = PP_M + PP - 1
+
+    def head(h):                                     # (M, S, d) -> (M, V)
+        return dense.lm_head_logits(
+            rms_norm(h[:, -1], params.ln_f, cfg.rms_norm_eps), params.lm_head)
+
+    def sequential():
+        outs = []
+        for i in range(PP_M):
+            x = x_mb[i, 0]
+            for layer in params.layers:
+                x, _ = dense._layer_fwd_prefill(layer, x, cfg, batch=1,
+                                                mode="xla")
+            outs.append(x)
+        return torch.stack(outs)
+
+    forms = {impl: functools.partial(pp_comm.gpipe_forward, stage, x_mb,
+                                     ctx=mesh, impl=impl, collect="last")
+             for impl in ("pallas", "xla")}
+    forms["sequential"] = sequential
+    want = {"pallas": {"p2p": ticks, "flash": ticks * L},
+            "xla": {"flash": ticks * L}, "sequential": {"flash": PP_M * L}}
+    out = {"runs": {}}
+    logits = {}
+    with torch.no_grad():
+        for name, fn in forms.items():
+            fn()                                      # warm up
+            torch.cuda.synchronize()
+            zero_counts()
+            t0 = time.perf_counter()
+            y = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+            expect_launches(f"pp-layer {name}", counts, want[name])
+            h = y[PP - 1, :, 0] if name != "sequential" else y
+            logits[name] = head(h)
+            if not bool(torch.isfinite(logits[name]).all()):
+                fail(f"pp-layer {name}: non-finite logits")
+            print(f"[pp-layer] gpipe {name} over {L} layers, M {PP_M} x "
+                  f"{PP_SEQ} tokens, {PP} stages: {wall * 1e3:.1f} ms wall; "
+                  f"launches { {k: v for k, v in counts.items() if v} }")
+            out["runs"][name] = dict(counts=counts)
+            if name == "pallas":
+                outs = y
+        # The host sets the pace (tens of thousands of launches a forward),
+        # so the forms are timed in turns, in both orders, and the median
+        # kept.
+        spans = {name: [] for name in forms}
+        for rnd in range(PP_ROUNDS):
+            for name in (list(forms) if rnd % 2 == 0 else list(forms)[::-1]):
+                spans[name].append(time_events(forms[name], reps=1, warmup=0))
+        for name, ts in spans.items():
+            out["runs"][name]["ms"] = float(np.median(ts))
+            print(f"[pp-layer] gpipe {name}: "
+                  f"{out['runs'][name]['ms']:.2f} ms a forward (median of "
+                  f"{PP_ROUNDS} in turns; each {', '.join(f'{t:.2f}' for t in ts)})")
+        prof = profile_window(forms["pallas"], 1, "pp-layer pallas forward")
+        out["runs"]["pallas"]["idle_share"] = prof["idle_share"]
+        check_close("pp-layer pallas against xla: logits", logits["pallas"],
+                    logits["xla"], TOL_EXACT)
+        out["err"] = check_close(
+            "pp-layer pallas against the sequential forward: logits",
+            logits["pallas"], logits["sequential"], (TOL_LOGITS_DEEP, 0.0))
+        orig = pp_comm.p2p_put
+        wrong = [(0, 1), (1, 3), (3, 0)]
+        pp_comm.p2p_put = lambda x, perm, **kw: orig(x, wrong, **kw)
+        try:
+            bad = forms["pallas"]()
+        finally:
+            pp_comm.p2p_put = orig
+        fault_control("pp-layer pallas with stage 1's output sent to rank 3",
+                      head(bad[PP - 1, :, 0]), logits["sequential"],
+                      (TOL_LOGITS_DEEP, 0.0))
+        del bad
+        # Rows 33, 6 and 2 through their op entry points.
+        last = pp_comm.gpipe_forward(stage, x_mb, ctx=mesh, impl="pallas")
+        masked = torch.where(
+            (torch.arange(PP, device=dev) == PP - 1).view(-1, 1, 1, 1, 1),
+            outs, torch.zeros((), dtype=outs.dtype, device=dev))
+        heads = column_shards(params.lm_head, PP)
+        final = rms_norm(outs[PP - 1, :, 0, -1], params.ln_f,
+                         cfg.rms_norm_eps)                  # (M, d)
+        shards = torch.stack([dense.lm_head_logits(final, heads[r]).t()
+                              for r in range(PP)]).contiguous()
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        got_b = bc.broadcast(outs, PP - 1, ctx=mesh, axis="pp")
+        got_r = arm.all_reduce(masked, ctx=mesh, axis="pp",
+                               method="recursive")
+        got_g = agm.all_gather(shards, ctx=mesh, axis="pp", mode="full_mesh")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        expect_launches("pp-layer op entry points", counts,
+                        {"broadcast": 1, "all_reduce_rhd": 1,
+                         "all_gather_full_mesh": 1})
+        print(f"[pp-layer] rows 33, 6, 2 on the pipeline's outputs: "
+              f"{wall * 1e3:.2f} ms")
+        check_close("pp-layer row 33: the last stage's outputs to every "
+                    "stage, against collect='broadcast'", got_b, last,
+                    TOL_EXACT)
+        check_close("pp-layer row 6: the masked sum over the stages, "
+                    "against collect='broadcast'", got_r, last, TOL_EXACT)
+        check_close("pp-layer row 2: the vocabulary-sharded head gathered "
+                    "over the stages", got_g[0],
+                    torch.cat(list(shards)), TOL_EXACT)
+        out["ops"] = counts
+    del params, outs, last, masked, got_b, got_r, got_g
+    shmem.release_all()
+    torch.cuda.empty_cache()
+    print(f"[pp-layer] phase 39 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def pp_phases():
+    """Phases 38-39."""
+    return pp_kernel_phase(), pp_layer_phase()
+
+
 def grid_blocks() -> int:
     from triton_dist_tpu_torch.megakernel import builder as mkb
 
@@ -7027,6 +7441,8 @@ def main():
     stamp("phases 24, 26, 28, 30, 20")
     sp, sp_layer = sp_phases()
     stamp("phases 36-37")
+    pp, pp_layer = pp_phases()
+    stamp("phases 38-39")
     (launches, layer_st, dense_engine, tp_engine, tp2d_engine,
      tp_serve) = serve_phase()
     parity_phase()
@@ -7332,6 +7748,30 @@ def main():
             "source": f"triton_dist_tpu_torch/csrc/{source}",
             "replaces": replaces,
             "launches": sp_layer["runs"][run]["counts"][key],
+            "max_abs_err": t["err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    # The pipeline slice (rows 32, 33, 2, 6): phase 38's times at the
+    # shapes phase 39 gives each (the other shapes are printed),
+    # launches over phase 39: row 32 in the "pallas" forward, rows 33, 6
+    # and 2 through their op entry points on its outputs.
+    for key, name, source, replaces, launches_ in (
+            ("p2p", "p2p_kernel", "p2p.cu", "triton_dist_tpu/ops/p2p.py:29",
+             pp_layer["runs"]["pallas"]["counts"]["p2p"]),
+            ("broadcast", "p2p_kernel[broadcast]", "p2p.cu",
+             "triton_dist_tpu/ops/broadcast.py:29",
+             pp_layer["ops"]["broadcast"]),
+            ("all_gather_full_mesh", "full_mesh_kernel", "collectives.cu",
+             "triton_dist_tpu/ops/allgather.py:77",
+             pp_layer["ops"]["all_gather_full_mesh"]),
+            ("all_reduce_rhd", "rhd_kernel", "collectives.cu",
+             "triton_dist_tpu/ops/allreduce.py:79",
+             pp_layer["ops"]["all_reduce_rhd"])):
+        t = pp[key]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"triton_dist_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches_,
             "max_abs_err": t["err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})

@@ -15,7 +15,8 @@ versions (CPU tensors, every rank stacked on the leading dimension)
 against JAX's ops run as ``tests/test_collectives.py`` runs them (Pallas in
 interpret mode) on a 2 x 2 CPU mesh, over each axis, in fp32 within 1e-5.
 
-(c) The unported forms raise, naming their ROADMAP.md item."""
+(c) The unported forms raise, naming their ROADMAP.md item (rows 2 and 6
+are ported and held to JAX in ``tests/test_torch_pp.py``)."""
 
 import importlib
 
@@ -182,7 +183,7 @@ def test_collectives_match_jax(meshes):
 
 
 def test_unported_forms_raise(meshes):
-    """Rows 2, 3, 6, 8 and 11 name queue B; a MoE model over a tuple axis
+    """Rows 3, 8 and 11 name queue B; a MoE model over a tuple axis
     with tensor-parallel experts names queue A item 5 (its expert-parallel
     form is ported: ``tests/test_torch_ep_engine.py``); an engine over the
     tp axis alone of a dp x tp mesh (data-parallel replicas) names queue A
@@ -190,11 +191,7 @@ def test_unported_forms_raise(meshes):
     mesh = meshes[2]
     x = torch.zeros(4, 8, 16)
     for call in (
-            lambda: allgather.all_gather(x, ctx=mesh, axis="dp",
-                                         mode="full_mesh"),
             lambda: allgather.all_gather_2d(x, ctx=mesh),
-            lambda: allreduce.all_reduce(x, ctx=mesh, axis="dp",
-                                         method="recursive"),
             lambda: ag_gemm.create_ag_gemm_context(mesh, AX,
                                                    variant="pipelined"),
             lambda: gemm_rs.create_gemm_rs_context(mesh, AX,

@@ -73,8 +73,16 @@ off by one, a wrong parity, scales from the wrong row) and lost signals;
 row 17 with per-rank tile maps and used-tile counts within one bf16
 unit; a 2-layer tp = 4 EP engine's exact launches per transport, its
 logits within 0.1 of the same engine on CPU copies; and the EP layer and
-its "ll" decode never syncing the host."""
+its "ll" decode never syncing the host.
 
+The pipeline slice (at the end): rows 32, 33, 2 and 6 at n = 2, 3, 4 and
+8 ranks (row 6 at 2, 4, 8) and over the pp axis of a 2 x 4 mesh, odd byte
+counts for the copies, each bit for bit against its plain version,
+repeated, with planted faults and lost signals; ``gpipe_forward`` with
+row 32 at every tick bit for bit against its plain boundary, the host
+never synchronised."""
+
+import importlib
 import pathlib
 import subprocess
 import sys
@@ -1530,17 +1538,19 @@ def _a2a_rows(dev, n, c, tail, dtype, seed):
     ((24,), torch.bfloat16), ((1,), torch.int32), ((40,), torch.float32),
     ((2048,), torch.bfloat16),
     ((3,), torch.bfloat16)])                 # 6-byte rows: byte copies
-@pytest.mark.parametrize("c", [1, 7, 33])
-@pytest.mark.parametrize("n", [2, 3, 4])
-def test_all_to_all_kernel_matches_plain(dev, n, c, tail, dtype):
-    """Row 18, dense form: bit for bit the transpose over the ranks."""
+def test_all_to_all_kernel_matches_plain(dev, tail, dtype):
+    """Row 18, dense form: bit for bit the transpose over the ranks, at n
+    = 2, 3, 4 ranks and c = 1, 7, 33 rows a chunk (a failure names the
+    pair)."""
     from triton_dist_tpu_torch.ops import all_to_all as a2a
 
-    x = _a2a_rows(dev, n, c, tail, dtype, n * c)
-    before = a2a.KERNEL.launches
-    got = a2a.all_to_all(x, ctx=_a2a_mesh(n), axis="tp", check=True)
-    assert a2a.KERNEL.launches == before + 1
-    assert torch.equal(got, a2a.all_to_all_ref(x))
+    for n in (2, 3, 4):
+        for c in (1, 7, 33):
+            x = _a2a_rows(dev, n, c, tail, dtype, n * c)
+            before = a2a.KERNEL.launches
+            got = a2a.all_to_all(x, ctx=_a2a_mesh(n), axis="tp", check=True)
+            assert a2a.KERNEL.launches == before + 1, (n, c)
+            assert torch.equal(got, a2a.all_to_all_ref(x)), (n, c)
 
 
 @pytest.mark.parametrize("n,t,k,d,recv_rows,skew", [
@@ -2086,3 +2096,165 @@ def test_sp_kernel_matches_plain_repeats_faults_and_never_syncs(dev, row):
         call(fault=2, timeout_s=0.1, check=True)
     assert time.perf_counter() - t0 < 5.0
     _assert_close(call(check=True), wants[0], tol)
+
+
+# ---- the pipeline slice: rows 32, 33, 2, 6 and layers.pp_comm ---------------
+
+def _pp_cases(dev, row):
+    """(label, mesh, axis, call(**kw), plain(), ring) for each case of
+    ``row`` (ring: row 1 on the same input, for row 2 where it runs):
+    n = 2, 3, 4 and 8 ranks (row 6 at 2, 4 and 8), the pp axis of a 2 x 4
+    mesh, byte counts that are and are not multiples of 16 (odd ones for
+    the copies), pieces past the first 8 KiB."""
+    from triton_dist_tpu_torch import make_mesh
+    from triton_dist_tpu_torch.ops import allgather as agm
+    from triton_dist_tpu_torch.ops import allreduce as arm
+    from triton_dist_tpu_torch.ops import p2p
+
+    bc = importlib.import_module("triton_dist_tpu_torch.ops.broadcast")
+    g = torch.Generator(device=dev).manual_seed(row)
+
+    def rows(r, *shape, dtype=torch.bfloat16):
+        if dtype == torch.uint8:
+            return torch.randint(0, 256, (r, *shape), generator=g,
+                                 device=dev, dtype=dtype)
+        return torch.randn(r, *shape, generator=g, device=dev).to(dtype)
+
+    meshes = [(make_mesh(pp=n), "pp") for n in (2, 3, 4, 8)]
+    meshes.append((make_mesh(dp=2, pp=4), "pp"))
+    cases = []
+    for mesh, axis in meshes:
+        n, r = mesh.size(axis), mesh.n_ranks
+        shapes = [((5, 3), torch.uint8), ((7, 1001), torch.bfloat16),
+                  ((3, 4096), torch.bfloat16)]
+        for shape, dtype in shapes:
+            x = rows(r, *shape, dtype=dtype)
+            lab = f"n={n} R={r} {tuple(shape)} {dtype}"
+            if row == 32:
+                for perm in ([(i, (i + 1) % n) for i in range(n)],
+                             [(0, n - 1)], [(0, 1), (0, n - 1)]):
+                    if len({d for _, d in perm}) < len(perm):
+                        continue
+                    cases.append((f"{lab} perm {perm}", mesh, axis,
+                                  lambda x=x, p=perm, m=mesh, **kw:
+                                  p2p.p2p_put(x, p, ctx=m, axis="pp", **kw),
+                                  lambda x=x, p=perm, m=mesh:
+                                  p2p.ppermute_ref(x, p, ctx=m, axis="pp"),
+                                  None))
+            elif row == 33:
+                for root in (0, n - 1):
+                    cases.append((f"{lab} root {root}", mesh, axis,
+                                  lambda x=x, o=root, m=mesh, **kw:
+                                  bc.broadcast(x, o, ctx=m, axis="pp", **kw),
+                                  lambda x=x, o=root, m=mesh:
+                                  bc.broadcast_ref(x, o, ctx=m, axis="pp"),
+                                  None))
+            elif row == 2:
+                cases.append((lab, mesh, axis,
+                              lambda x=x, m=mesh, **kw: agm.all_gather(
+                                  x, ctx=m, axis="pp", mode="full_mesh",
+                                  **kw),
+                              lambda x=x, m=mesh: agm.all_gather_ref(
+                                  x, ctx=m, axis="pp"),
+                              (lambda x=x, m=mesh: agm.all_gather(
+                                  x, ctx=m, axis="pp"))
+                              if x[0].numel() * x.element_size() % 16 == 0
+                              else None))
+        if row == 6 and n in (2, 4, 8):
+            for shape, dtype in (((4 * n, 1096), torch.bfloat16),
+                                 ((2 * n, 3), torch.float32),
+                                 ((n, 4104), torch.float32),
+                                 ((8 * n, 4096), torch.bfloat16)):
+                x = rows(r, *shape, dtype=dtype)
+                cases.append((f"n={n} R={r} {shape} {dtype}", mesh, axis,
+                              lambda x=x, m=mesh, **kw: arm.all_reduce(
+                                  x, ctx=m, axis="pp", method="recursive",
+                                  **kw),
+                              lambda x=x, m=mesh: arm.all_reduce_rhd_ref(
+                                  x, ctx=m, axis="pp"), None))
+    return cases
+
+
+@pytest.mark.parametrize("row", [32, 33, 2, 6])
+def test_pp_kernel_matches_plain_repeats_faults_and_lost_signal(dev, row):
+    """Each case bit for bit against its plain version (row 6's plain
+    version sums in the kernel's tree order, rounding each step), one
+    launch a call; then 20 calls cycling through the cases with each
+    output dropped before the next call (the caching allocator hands a
+    call the block the last one wrote: row 32's ranks that receive
+    nothing must read zeros all the same); every case's planted fault
+    (a wrong source, a dropped partial) shows; a signal never sent raises
+    CommTimeoutError within 5 s naming the waiting rank and its source,
+    and the next call is sound. Row 2 equals row 1's ring where both
+    run."""
+    from triton_dist_tpu_torch.ops import allgather as agm
+    from triton_dist_tpu_torch.ops import allreduce as arm
+    from triton_dist_tpu_torch.ops import p2p
+    from triton_dist_tpu_torch.shmem.workspace import CommTimeoutError
+
+    bc = importlib.import_module("triton_dist_tpu_torch.ops.broadcast")
+    kernel = {32: p2p.KERNEL, 33: bc.KERNEL, 2: agm.KERNEL_FULL_MESH,
+              6: arm.KERNEL_RHD}[row]
+    cases = _pp_cases(dev, row)
+    wants = [case[4]() for case in cases]
+    for (label, mesh, axis, call, _, ring), want in zip(cases, wants):
+        before = kernel.launches
+        got = call(check=True)
+        assert kernel.launches == before + 1, label
+        assert torch.equal(got, want), label
+        if ring is not None:
+            assert torch.equal(ring(), want), label
+        bad = call(fault=1, check=True)
+        assert not torch.equal(bad, want), label
+        t0 = time.perf_counter()
+        with pytest.raises(CommTimeoutError, match=r"rank \d+ waited.*rank"):
+            call(fault=2, timeout_s=0.05, check=True)
+        assert time.perf_counter() - t0 < 5.0, label
+        assert torch.equal(call(check=True), want), label
+    for i in range(20):
+        k = (7 * i) % len(cases)
+        assert torch.equal(cases[k][3](), wants[k]), (i, cases[k][0])
+    torch.cuda.synchronize()
+
+
+def test_gpipe_pallas_matches_xla_and_never_syncs(dev):
+    """``gpipe_forward`` over ``make_mesh(pp=4)`` with a ``tanh(h @ w)``
+    stage: ``impl="pallas"`` (row 32 at every tick, M + S - 1 launches,
+    the host never synchronised) bit for bit against ``impl="xla"``, both
+    collects; the same on the pp axis of a 2 x 4 mesh; ``send_next``
+    without a mesh launches row 32 over the leading dimension."""
+    from triton_dist_tpu_torch import make_mesh
+    from triton_dist_tpu_torch.layers import pp_comm
+    from triton_dist_tpu_torch.ops import p2p
+
+    g = torch.Generator(device=dev).manual_seed(33)
+    for dp, m in ((1, 8), (2, 3)):
+        mesh = make_mesh(dp=dp, pp=4) if dp > 1 else make_mesh(pp=4)
+        r = mesh.n_ranks
+        w = torch.randn(r, 64, 64, generator=g, device=dev,
+                        dtype=torch.bfloat16) * 0.125
+        x_mb = torch.randn(m, 5, 64, generator=g, device=dev,
+                           dtype=torch.bfloat16)
+
+        def stage(h, w=w):
+            return torch.tanh(torch.bmm(h, w))
+
+        for collect in ("broadcast", "last"):
+            want = pp_comm.gpipe_forward(stage, x_mb, ctx=mesh, impl="xla",
+                                         collect=collect)
+            torch.cuda.synchronize()
+            before = p2p.KERNEL.launches
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = pp_comm.gpipe_forward(stage, x_mb, ctx=mesh,
+                                            impl="pallas", collect=collect)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            assert p2p.KERNEL.launches - before == m + 4 - 1
+            assert torch.equal(got, want), (dp, collect)
+    # Without a mesh, "pallas" still launches row 32, over the leading
+    # dimension as one axis: no quiet fall back to the plain roll.
+    before = p2p.KERNEL.launches
+    got = pp_comm.send_next(x_mb, impl="pallas")
+    assert p2p.KERNEL.launches == before + 1
+    assert torch.equal(got, x_mb.roll(1, 0))

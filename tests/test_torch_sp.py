@@ -389,7 +389,8 @@ def test_unported_sp_forms_raise(form):
 def test_sp_mesh_and_entry_points():
     """``make_mesh(sp=4)`` builds and indexes its axis as ``tp``'s; an SP op
     over one axis of a two-axis mesh, an Engine over an sp axis, and the
-    pp/ep axes raise; without CUDA the mesh needs ``device="cpu"``."""
+    ep axis raise (the pp axis is ported: ``tests/test_torch_pp.py``);
+    without CUDA the mesh needs ``device="cpu"``."""
     mesh = make_mesh(sp=4, device="cpu")
     tp = make_mesh(tp=4, device="cpu")
     assert mesh.size("sp") == mesh.n_ranks == 4
@@ -402,9 +403,8 @@ def test_sp_mesh_and_entry_points():
         ulysses.pre_attn_a2a(torch.zeros(4, 2, 4, HD), ctx=grid)
     with pytest.raises(ValueError, match="queue A item 6"):
         Engine(ModelConfig.tiny(), mesh=grid, dtype=torch.float32)
-    for axis in ("pp", "ep"):
-        with pytest.raises(ValueError, match="dp x sp x tp ranks only"):
-            make_mesh(device="cpu", **{axis: 2})
+    with pytest.raises(ValueError, match="dp x pp x sp x tp ranks only"):
+        make_mesh(device="cpu", ep=2)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make_mesh(sp=4)

@@ -159,7 +159,8 @@ def test_device_must_be_the_mesh_device(jax_run):
 def test_unported_mesh_axes_raise(axis, item):
     """A dp axis makes a two-axis mesh (``tests/test_torch_tp2d.py``); an
     engine sharding over its tp axis alone would hold data-parallel
-    replicas, which are not ported."""
+    replicas, which are not ported. A pp axis makes a mesh that no Engine
+    runs over (the pipeline is the layer ``layers.pp_comm``, as in JAX)."""
     with pytest.raises(ValueError, match=item):
         mesh = make_mesh(tp=2, device="cpu", **{axis: 2})
         Engine(ModelConfig.tiny(**KW), mesh=mesh, dtype=torch.float32)

@@ -4,7 +4,7 @@
 // one-shot collectives collectives.cu; the megakernel's multi-rank
 // ALLREDUCE task in megakernel.cu; the tile-fused EP pair ep_fused.cu; the
 // sequence-parallel kernels a2a_gemm.cu, ulysses_fused.cu and
-// sp_ag_attention.cu) run between
+// sp_ag_attention.cu; the one-sided puts p2p.cu) run between
 // simulated ranks on one Hopper card (sm_90a). Counterpart of the parts of
 // triton_dist_tpu/lang/shmem_device.py those kernels use:
 //
@@ -111,6 +111,12 @@ __host__ __device__ __forceinline__ int axis_peer(int r, int p, int n, int st) {
   return r + (p - axis_pos(r, n, st)) * st;
 }
 
+// The flat rank at position p of group g, the groups of an axis numbered
+// g = 0 .. R / n - 1 in the order of their lowest flat rank.
+__host__ __device__ __forceinline__ int group_rank(long long g, int p, int n, int st) {
+  return (int)((g / st) * n * st + (long long)p * st + g % st);
+}
+
 // Order this thread's earlier stores before its later ones, device wide.
 __device__ __forceinline__ void fence() { __threadfence(); }
 
@@ -212,6 +218,63 @@ __device__ inline void remote_put(bf16* dst, long long ld_dst, const bf16* src, 
     const int r = i / vec, c = (i % vec) * 8;
     const uint4 v = __ldcg(reinterpret_cast<const uint4*>(src + r * ld_src + c));
     *reinterpret_cast<uint4*>(dst + r * ld_dst + c) = v;
+  }
+}
+
+// The byte-moving kernels (p2p.cu, the full-mesh all-gather and the
+// recursive all-reduce of collectives.cu) move a chunk in pieces of
+// kPieceBytes, each with its own flag.
+constexpr long long kPieceBytes = 8192;
+
+// Byte range of piece p of a chunk of c_bytes: its first byte, its count.
+__device__ __forceinline__ void piece_bytes(long long c_bytes, long long p, long long* b0,
+                                            long long* nb) {
+  *b0 = p * kPieceBytes;
+  *nb = min(kPieceBytes, c_bytes - *b0);
+}
+
+// Block-wide copy (or zero-fill) of nb bytes at any alignment, for the
+// kernels that move rows of any type as bytes (p2p.cu, the full-mesh
+// all-gather): 16 bytes a thread per step where both addresses and nb
+// allow it, else the widest unit they share; loads past L1, as a peer's
+// puts land in L2.
+template <typename V>
+__device__ __forceinline__ void copy_units(char* dst, const char* src, long long nb) {
+  V* d = reinterpret_cast<V*>(dst);
+  const V* s = reinterpret_cast<const V*>(src);
+  const long long n = nb / (long long)sizeof(V);
+  for (long long i = threadIdx.x; i < n; i += blockDim.x) d[i] = __ldcg(s + i);
+}
+
+template <typename V>
+__device__ __forceinline__ void zero_units(char* dst, long long nb) {
+  V* d = reinterpret_cast<V*>(dst);
+  const long long n = nb / (long long)sizeof(V);
+  for (long long i = threadIdx.x; i < n; i += blockDim.x) d[i] = V{};
+}
+
+__device__ __forceinline__ unsigned widest_unit(unsigned long long a) {
+  return a % 16 == 0 ? 16 : a % 8 == 0 ? 8 : a % 4 == 0 ? 4 : a % 2 == 0 ? 2 : 1;
+}
+
+__device__ inline void copy_bytes(char* dst, const char* src, long long nb) {
+  switch (widest_unit(reinterpret_cast<unsigned long long>(dst) |
+                      reinterpret_cast<unsigned long long>(src) | (unsigned long long)nb)) {
+    case 16: copy_units<uint4>(dst, src, nb); break;
+    case 8: copy_units<uint2>(dst, src, nb); break;
+    case 4: copy_units<unsigned int>(dst, src, nb); break;
+    case 2: copy_units<unsigned short>(dst, src, nb); break;
+    default: copy_units<unsigned char>(dst, src, nb);
+  }
+}
+
+__device__ inline void zero_bytes(char* dst, long long nb) {
+  switch (widest_unit(reinterpret_cast<unsigned long long>(dst) | (unsigned long long)nb)) {
+    case 16: zero_units<uint4>(dst, nb); break;
+    case 8: zero_units<uint2>(dst, nb); break;
+    case 4: zero_units<unsigned int>(dst, nb); break;
+    case 2: zero_units<unsigned short>(dst, nb); break;
+    default: zero_units<unsigned char>(dst, nb);
   }
 }
 

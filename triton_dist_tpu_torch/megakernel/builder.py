@@ -155,6 +155,10 @@ def tp_ranks(mesh, axis) -> int:
             "an (outer, inner) mesh are ROADMAP.md queue A item 8")
     from triton_dist_tpu_torch.ops.tp_gemm import check_axis
 
+    if mesh.size("pp") > 1:
+        raise ValueError("the megakernel does not run over a mesh with pp > "
+                         "1: pipeline parallelism is the layer "
+                         "layers.pp_comm, as in JAX")
     check_axis("the megakernel", mesh, axis)
     return mesh.size(axis)
 

@@ -114,6 +114,13 @@ class Engine:
         self.mesh = mesh
         self.axis = tuple(axis) if isinstance(axis, (tuple, list)) else axis
         if mesh is not None:
+            if mesh.size("pp") > 1:
+                # As in JAX, no Engine path runs a pipeline.
+                raise ValueError(
+                    "an Engine does not run over a mesh with pp > 1: "
+                    "pipeline parallelism is the layer layers.pp_comm "
+                    "(gpipe_forward, pipeline_forward) over a stage "
+                    "function of the caller's")
             if mesh.size("sp") > 1:
                 # As in JAX, no Engine path shards the sequence.
                 raise ValueError(

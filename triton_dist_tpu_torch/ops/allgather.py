@@ -10,13 +10,16 @@ over one mesh axis does: rank r ends with its group's chunks in position
 order, (R, n·c, ...). At one rank along the axis it returns ``x``, as
 JAX does. On a CUDA tensor ``mode="ring"`` (row 1) is one cooperative
 launch of ``all_gather_kernel`` (``csrc/collectives.cu``), every rank's
-thread blocks running the JAX ring's puts, signals and arrival waits; on
-a CPU tensor :func:`all_gather_ref`. The rows may be of any element type:
-the kernel moves bytes.
+thread blocks running the JAX ring's puts, signals and arrival waits, and
+``mode="full_mesh"`` (row 2) one launch of ``full_mesh_kernel``: each
+rank copies its chunk into its own slot, puts it into its slot of each of
+its n - 1 peers and waits for n - 1 arrivals, the ring's output bit for
+bit. On a CPU tensor both take :func:`all_gather_ref`. The rows may be of
+any element type: the kernels move bytes (the full mesh any byte count).
 
-``mode="full_mesh"`` (row 2) and ``all_gather_2d`` (row 3) raise: no
-engine path reaches them, and they are ROADMAP.md queue B. JAX's
-``force_kernel`` (its one-chip lowering check) has no counterpart.
+``all_gather_2d`` (row 3) raises: no engine path reaches it, and it is
+ROADMAP.md queue B. JAX's ``force_kernel`` (its one-chip lowering check)
+has no counterpart.
 """
 
 from __future__ import annotations
@@ -31,10 +34,12 @@ from triton_dist_tpu_torch.utils.build import CudaKernel
 MODES = ("ring", "full_mesh")
 FAULTS = {"wrong_chunk": 1, "lost_signal": 2}
 
-# ``KERNEL.launches`` counts launches of the CUDA kernel.
-KERNEL = CudaKernel("collectives.cu", "tdt_all_gather_ring",
-                    tp_gemm.COLLECTIVE_ARGTYPES[:2]
-                    + tp_gemm.COLLECTIVE_ARGTYPES[3:])
+# ``KERNEL.launches`` counts launches of the ring kernel,
+# ``KERNEL_FULL_MESH.launches`` those of the full-mesh one.
+_ARGTYPES = tp_gemm.COLLECTIVE_ARGTYPES[:2] + tp_gemm.COLLECTIVE_ARGTYPES[3:]
+KERNEL = CudaKernel("collectives.cu", "tdt_all_gather_ring", _ARGTYPES)
+KERNEL_FULL_MESH = CudaKernel("collectives.cu", "tdt_all_gather_full_mesh",
+                              _ARGTYPES)
 
 
 def all_gather_ref(x: torch.Tensor, *, ctx: MeshContext,
@@ -58,9 +63,6 @@ def all_gather(x: torch.Tensor, *, ctx: MeshContext, axis: str = "tp",
     ``check`` as in :func:`~triton_dist_tpu_torch.ops.tp_gemm.launch`."""
     if mode not in MODES:
         raise ValueError(f"unknown all_gather mode {mode!r}")
-    if mode == "full_mesh":
-        raise ValueError("all_gather mode 'full_mesh' (_full_mesh_kernel) "
-                         "is not ported yet (ROADMAP.md queue B)")
     n, st = tp_gemm.axis_groups(x, ctx, axis)
     if n == 1:
         return x
@@ -71,6 +73,21 @@ def all_gather(x: torch.Tensor, *, ctx: MeshContext, axis: str = "tp",
         (x.shape[0], n * x.shape[1], *x.shape[2:]), dtype=x.dtype,
         device=x.device)
     where = tp_gemm.hop_name(ctx, axis)
+
+    if mode == "full_mesh":
+        def describe(rank, step, slot, n_pc):
+            src = ctx.device_id(axis, slot // n_pc % n, rank)
+            return (f"all_gather full_mesh over {where}: rank {rank} waited "
+                    f"for piece {slot % n_pc} of the chunk from rank {src} "
+                    f"(flag slot {slot}) past {timeout_s} s")
+
+        tp_gemm.launch_collective(KERNEL_FULL_MESH, x, out,
+                                  chunk_bytes=c_bytes, n=n, st=st,
+                                  flags_per_rank=n, slots=0, ctx=ctx,
+                                  describe=describe, fault=fault,
+                                  timeout_s=timeout_s, check=check,
+                                  any_bytes=True)
+        return out
 
     def describe(rank, step, slot, n_pc):
         return (f"all_gather ring over {where}: rank {rank} waited at ring "

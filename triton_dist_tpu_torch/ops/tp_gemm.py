@@ -163,18 +163,19 @@ def tile(kernel: CudaKernel, rows: int) -> tuple:
 
 def launch(kernel: CudaKernel, ws: shmem.Workspace, describe, *args,
            device: torch.device, timeout_s: float, fault: int,
-           check: bool) -> None:
+           check: bool, tail: tuple = ()) -> None:
     """One launch of a fused op's kernel on ``ws`` with a new epoch: an
     earlier launch's timed-out wait raises first; ``check`` waits for this
     one and raises if one of its waits timed out. ``describe(rank, step,
-    slot)`` names a flag slot of this launch."""
+    slot)`` names a flag slot of this launch; ``tail``: the launcher's
+    arguments after ``fault``."""
     if timeout_s <= 0:
         raise ValueError(f"timeout_s={timeout_s} must be positive")
     shmem.check_errors(device, sources=(kernel.source,))
     epoch = ws.next_epoch()
     shmem.watch(kernel.source, epoch, describe)
     kernel.launch(*args, ws.flags.data_ptr(), ws.abort_ptr, epoch,
-                  int(timeout_s * 1e9), fault, device=device)
+                  int(timeout_s * 1e9), fault, *tail, device=device)
     if check:
         shmem.check_errors(device, sync=True, sources=(kernel.source,))
 
@@ -191,21 +192,25 @@ PIECE_BYTES = 8192      # bytes a work item of the kernels moves (kPieceVecs)
 def launch_collective(kernel: CudaKernel, x, out, *, chunk_bytes: int,
                       n: int, st: int, flags_per_rank: int, slots: int, ctx,
                       describe, fault: int, timeout_s: float,
-                      check: bool) -> None:
+                      check: bool, any_bytes: bool = False,
+                      tail: tuple = ()) -> None:
     """One launch of a ``collectives.cu`` entry point on CUDA tensors:
-    contiguous 16-byte aligned rows, chunks a multiple of 16 bytes.
+    contiguous 16-byte aligned rows, chunks a multiple of 16 bytes (with
+    ``any_bytes``, the byte-granular kernels: contiguous, any chunk size).
     ``flags_per_rank`` flags a rank per 8 KiB piece of a chunk; ``slots``
     chunks a rank of persistent receive or gather slots (0: none).
-    ``describe(rank, step, slot, pieces)`` names a flag slot."""
+    ``describe(rank, step, slot, pieces)`` names a flag slot; ``tail``:
+    the launcher's arguments after ``fault``."""
     dev = x.device
     if dev.type != "cuda":
         raise RuntimeError(f"{kernel.symbol} runs on CUDA tensors (got "
                            f"{dev}); only CPU tensors take the plain version")
     for t in (x, out):
-        if not t.is_contiguous() or t.data_ptr() % 16 or t.device != dev:
+        if (not t.is_contiguous() or t.device != dev
+                or (t.data_ptr() % 16 and not any_bytes)):
             raise ValueError(f"{kernel.symbol}: operands must be contiguous "
                              f"and 16-byte aligned on {dev}")
-    if chunk_bytes % 16 or chunk_bytes == 0:
+    if chunk_bytes == 0 or (chunk_bytes % 16 and not any_bytes):
         raise ValueError(f"{kernel.symbol}: a chunk of {chunk_bytes} bytes "
                          "(a multiple of 16 is needed)")
     n_pc = -(-chunk_bytes // PIECE_BYTES)
@@ -218,4 +223,4 @@ def launch_collective(kernel: CudaKernel, x, out, *, chunk_bytes: int,
         args.append(ws.data.data_ptr())
     launch(kernel, ws, lambda r, s, f: describe(r, s, f, n_pc), *args,
            chunk_bytes, ctx.n_ranks, n, st, device=dev, timeout_s=timeout_s,
-           fault=fault, check=check)
+           fault=fault, check=check, tail=tail)

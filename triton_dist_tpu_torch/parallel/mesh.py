@@ -22,13 +22,15 @@ inner)`` tuple spans both (the hierarchical forms). ``dp``, ``sp`` and
 ``tp`` may exceed 1. The expert-parallel regime runs over the ``tp`` ranks
 (``Engine(..., moe_impl="ep")``, as JAX's engine builds its ``EPContext``
 over its ``tp`` axis) or over the ``("dp", "tp")`` pair (JAX's
-``EP2DContext``); an ``ep`` axis of its own is ROADMAP.md queue A item 5,
-and pipeline parallelism has no port yet. The sequence-parallel ops and
-layer (:mod:`~triton_dist_tpu_torch.ops.ulysses`,
-:mod:`~triton_dist_tpu_torch.ops.sp_ag_attention`,
+``EP2DContext``); an ``ep`` axis of its own is ROADMAP.md queue A item 5.
+The sequence-parallel ops and layer (:mod:`~triton_dist_tpu_torch.ops.
+ulysses`, :mod:`~triton_dist_tpu_torch.ops.sp_ag_attention`,
 :mod:`~triton_dist_tpu_torch.layers.ulysses_sp`) run over the ``sp`` axis
 of ``make_mesh(sp=n)`` (or, as JAX's tests run them, the ``tp`` axis of
-``make_mesh(tp=n)``): each rank holds one slice of the sequence.
+``make_mesh(tp=n)``): each rank holds one slice of the sequence. The
+pipeline layer (:mod:`~triton_dist_tpu_torch.layers.pp_comm`) and its
+one-sided puts (:mod:`~triton_dist_tpu_torch.ops.p2p`) run over the ``pp``
+axis of ``make_mesh(pp=n)``: rank r is stage r.
 """
 
 from __future__ import annotations
@@ -41,8 +43,7 @@ import torch
 from triton_dist_tpu_torch.utils.device import resolve_device
 
 AXIS_ORDER = ("dp", "pp", "ep", "sp", "tp")
-_NOT_PORTED = {"pp": "pipeline parallelism is not ported",
-               "ep": "the expert-parallel regime runs over the tp axis "
+_NOT_PORTED = {"ep": "the expert-parallel regime runs over the tp axis "
                      "or the ('dp', 'tp') pair, Engine(moe_impl='ep'); an "
                      "ep axis of its own is ROADMAP.md queue A item 5"}
 
@@ -100,17 +101,17 @@ class MeshContext:
 
 def make_mesh(*, dp: int = 1, pp: int = 1, ep: int = 1, sp: int = 1,
               tp: int = 1, device=None) -> MeshContext:
-    """``dp x sp x tp`` simulated ranks on ``device`` (``None``: the card,
-    as :func:`~triton_dist_tpu_torch.utils.device.resolve_device` has it;
-    ``"cpu"`` runs every op's plain version). ``pp`` and ``ep`` must be
-    1."""
+    """``dp x pp x sp x tp`` simulated ranks on ``device`` (``None``: the
+    card, as :func:`~triton_dist_tpu_torch.utils.device.resolve_device` has
+    it; ``"cpu"`` runs every op's plain version). ``ep`` must be 1."""
     sizes = {"dp": dp, "pp": pp, "ep": ep, "sp": sp, "tp": tp}
     for axis, size in sizes.items():
         if size < 1:
             raise ValueError(f"mesh axis {axis}={size} must be >= 1")
         if axis in _NOT_PORTED and size > 1:
             raise ValueError(f"mesh axis {axis}={size}: the port simulates "
-                             f"dp x sp x tp ranks only ({_NOT_PORTED[axis]})")
+                             f"dp x pp x sp x tp ranks only "
+                             f"({_NOT_PORTED[axis]})")
     return MeshContext(axes=AXIS_ORDER,
                        sizes=tuple(sizes[a] for a in AXIS_ORDER),
                        device=resolve_device(device))
